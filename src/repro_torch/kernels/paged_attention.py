@@ -1,0 +1,176 @@
+"""The Hopper paged-attention kernel: its build, its ctypes binding and its
+launch counter.
+
+Replaces ``repro/kernels/paged_attention.py`` ``paged_attention_pallas``.
+The source is ``csrc/paged_attention.cu`` (its head says what bounds the
+kernel and what the design does about it).  It is compiled with ``nvcc``
+for ``sm_90a`` into a shared library with a plain C entry point, at first
+use, into ``build/repro_torch_kernels/`` at the repository root; the
+library's name carries a hash of the source, so an edited source is
+rebuilt.  Nothing is compiled or loaded when this module is imported.
+
+:func:`paged_attention_cuda` takes CUDA tensors only; the CPU path of
+``kernels.ops.paged_attention`` never reaches this module's build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+#: kernel launches made through :func:`paged_attention_cuda`
+launches = 0
+
+#: seconds the last build took (None until built in this process)
+build_seconds: Optional[float] = None
+
+#: what nvcc printed for the last build (ptxas register / smem report)
+build_log = ""
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+MAX_GROUP = 8        # kMaxG in the source
+MAX_HEAD_DIM = 128   # kMaxHd in the source
+WARPS = 8            # kWarps in the source: one partial softmax per warp
+SMEM_LIMIT = 48 * 1024  # dynamic shared memory without an opt-in
+
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the paged-attention kernel is built "
+                       "from source with the CUDA toolkit")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha1(SOURCE.read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"libpaged_attention_{digest}.so"
+
+
+def build() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    path = library_path()
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    fn = lib.repro_paged_attention
+    fn.restype = ctypes.c_int
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [ci, ci, vp, vp, vp, ll, ll, ll, ll, ll, ll, ll, ll,
+                   vp, ll, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                   ctypes.c_float, vp]
+    _lib = lib
+    return lib
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"paged_attention_cuda: {msg}")
+
+
+def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                         v_pool: torch.Tensor, page_table: torch.Tensor,
+                         lengths: torch.Tensor,
+                         k_scale: Optional[torch.Tensor] = None,
+                         v_scale: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Launch the kernel on the current stream; same contract as
+    ``kernels.ref.paged_attention_ref``.
+
+      q          : (B, H, hd) float32 or bfloat16, contiguous
+      k/v_pool   : (P, page_size, KV, hd) float32, bfloat16 or int8, any
+                   strides (a per-layer view ``pool[l]`` is read in place)
+      page_table : (B, max_pages) int32, unit stride along pages
+      lengths    : (B,) int32, contiguous, each >= 1; table entries below
+                   ``ceil(length / page_size)`` must be valid page ids
+      k/v_scale  : (P,) float32, contiguous; both for int8 pools, else
+                   neither
+
+    Returns a new contiguous (B, H, hd) tensor in q's dtype.
+    """
+    global launches
+    _check((k_scale is None) == (v_scale is None),
+           "pass both k_scale and v_scale, or neither")
+    tensors = [q, k_pool, v_pool, page_table, lengths]
+    if k_scale is not None:
+        tensors += [k_scale, v_scale]
+    _check(all(t.is_cuda and t.device == q.device for t in tensors),
+           "every tensor must be on one CUDA device")
+    _check(q.dim() == 3 and q.is_contiguous(), "q must be contiguous (B, H, hd)")
+    _check(q.dtype in _Q_CODES, f"q dtype {q.dtype} not in {list(_Q_CODES)}")
+    B, H, hd = q.shape
+    _check(k_pool.dim() == 4 and k_pool.shape == v_pool.shape,
+           "k_pool and v_pool must share one (P, page_size, KV, hd) shape")
+    _check(k_pool.dtype == v_pool.dtype and k_pool.dtype in _KV_CODES,
+           f"pool dtype {k_pool.dtype} not in {list(_KV_CODES)}")
+    P, page_size, KV, hd_p = k_pool.shape
+    _check(hd_p == hd, f"pool head dim {hd_p} != q head dim {hd}")
+    _check(KV > 0 and H % KV == 0, f"H={H} is not a multiple of KV={KV}")
+    g = H // KV
+    _check(g <= MAX_GROUP, f"group size {g} > {MAX_GROUP}")
+    _check(hd <= MAX_HEAD_DIM, f"head dim {hd} > {MAX_HEAD_DIM}")
+    smem = 4 * WARPS * g * hd  # the warps' partial accumulators
+    _check(smem <= SMEM_LIMIT, f"{smem} B of shared memory > {SMEM_LIMIT}")
+    _check(page_table.dtype == torch.int32 and page_table.dim() == 2
+           and page_table.shape[0] == B and page_table.stride(1) == 1,
+           "page_table must be int32 (B, max_pages) with unit stride")
+    _check(lengths.dtype == torch.int32 and lengths.shape == (B,)
+           and lengths.is_contiguous(), "lengths must be contiguous int32 (B,)")
+    quantized = k_scale is not None
+    _check(quantized == (k_pool.dtype == torch.int8),
+           "int8 pools need k_scale/v_scale, other pools take none")
+    if quantized:
+        for s in (k_scale, v_scale):
+            _check(s.dtype == torch.float32 and s.shape == (P,)
+                   and s.is_contiguous(), "scales must be contiguous f32 (P,)")
+
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lib = build()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.repro_paged_attention(
+            _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype], q.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr(), *k_pool.stride(),
+            *v_pool.stride(), page_table.data_ptr(), page_table.stride(0),
+            lengths.data_ptr(), k_scale.data_ptr() if quantized else None,
+            v_scale.data_ptr() if quantized else None, out.data_ptr(),
+            B, H, KV, hd, page_size, page_table.shape[1], hd ** -0.5, stream)
+    if rc != 0:
+        raise RuntimeError(f"paged attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches += 1
+    return out

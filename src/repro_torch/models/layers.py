@@ -1,0 +1,368 @@
+"""Shared layers for the paged-KV serving path: norms, rope, SwiGLU, GQA.
+
+Port of the parts of ``repro/models/layers.py`` that continuous-batching
+serving runs.  Plain functions over explicit parameter dicts, in the
+reference's layout (linear weights ``(d_in, d_out)`` used as ``x @ w``).
+Compute-sensitive reductions run in float32.
+
+Where the reference returns new pools (JAX donates them), the paged
+stores here write into the preallocated pool tensors **in place** and
+return the same objects; a per-layer view ``pool[l]`` is written through
+to the stacked ``(L, P, ...)`` pool.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
+               scale: Optional[float] = None, lead: Tuple[int, ...] = ()):
+    """Normal init scaled by fan_in**-0.5 (``shape[0]``), drawn in float32
+    on the generator's device.  ``lead`` prepends stacked axes (layers)
+    that do not count toward the fan-in."""
+    fan_in = shape[0] if len(shape) >= 1 else 1
+    s = scale if scale is not None else fan_in ** -0.5
+    x = torch.randn(tuple(lead) + tuple(shape), generator=gen,
+                    device=gen.device, dtype=torch.float32)
+    return (x * s).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms, rope, MLP
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(p, x, eps: float = 1e-5):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * p["scale"].float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., T, H, hd); positions: (T,) or (..., T) absolute positions.
+    Split-half layout: the first and second halves of hd rotate as pairs."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    pos = positions.float()
+    ang = pos[..., :, None] * inv[None, :]  # (..., T, hd/2)
+    cos = torch.cos(ang)[..., :, None, :]  # (..., T, 1, hd/2)
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu_init(gen, d_model, d_ff, dtype, lead=()):
+    return {
+        "w1": dense_init(gen, (d_model, d_ff), dtype, lead=lead),
+        "w3": dense_init(gen, (d_model, d_ff), dtype, lead=lead),
+        "w2": dense_init(gen, (d_ff, d_model), dtype, lead=lead),
+    }
+
+
+def swiglu(p, x):
+    h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+    return h @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+
+def gqa_init(gen, cfg: ModelConfig, lead=()):
+    dtype = param_dtype(cfg)
+    hd = cfg.resolved_head_dim
+    D, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    p = {
+        "wq": dense_init(gen, (D, H * hd), dtype, lead=lead),
+        "wk": dense_init(gen, (D, KV * hd), dtype, lead=lead),
+        "wv": dense_init(gen, (D, KV * hd), dtype, lead=lead),
+        "wo": dense_init(gen, (H * hd, D), dtype, lead=lead),
+    }
+    zeros = lambda n: torch.zeros(tuple(lead) + (n,), dtype=dtype,  # noqa: E731
+                                  device=gen.device)
+    ones = lambda n: torch.ones(tuple(lead) + (n,), dtype=dtype,  # noqa: E731
+                                device=gen.device)
+    if cfg.qkv_bias:
+        p["bq"], p["bk"], p["bv"] = zeros(H * hd), zeros(KV * hd), zeros(KV * hd)
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": ones(hd)}
+        p["k_norm"] = {"scale": ones(hd)}
+    return p
+
+
+def _qkv(p, cfg: ModelConfig, x, positions):
+    B, T, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, T, cfg.num_heads, hd)
+    k = k.reshape(B, T, cfg.num_kv_heads, hd)
+    v = v.reshape(B, T, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if cfg.pos_kind == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def sdpa(q, k, v, mask, num_kv_heads: int):
+    """q: (B,Tq,H,hd) k/v: (B,Tk,KV,hd); mask: (Tq,Tk) or (B,Tq,Tk) bool.
+    Scores are divided by sqrt(hd) in float32; masked scores are NEG_INF."""
+    B, Tq, H, hd = q.shape
+    kv = num_kv_heads
+    g = H // kv
+    qf = q.reshape(B, Tq, kv, g, hd).float()
+    scores = torch.einsum("btkgh,bskh->bkgts", qf, k.float()) / (hd ** 0.5)
+    if mask.dim() == 2:
+        mask = mask[None]
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.tensor(NEG_INF, dtype=scores.dtype,
+                                      device=scores.device))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", w, v.float())
+    return out.reshape(B, Tq, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache (continuous-batching serving)
+# ---------------------------------------------------------------------------
+
+#: supported storage dtypes for the paged pools: None = the model's param
+#: dtype (the bitwise-exact path); "int8" = per-page symmetric quantization
+#: with a float32 scale per (layer, page)
+KV_DTYPES = (None, "int8")
+
+#: adaptive page scales start here and only ever grow (monotone)
+KV_SCALE_FLOOR = 1e-8
+
+#: page 0 (the runtime's scratch page) keeps this scale forever: masked
+#: garbage writes from inactive slots must never adapt quantization state
+KV_SCRATCH_SCALE = 1.0
+
+Pool = object  # a tensor, or {"q": int8 tensor, "scale": f32 tensor}
+
+
+def paged_pools_init(cfg: ModelConfig, num_pages: int, page_size: int,
+                     num_layers: int, kv_dtype: Optional[str] = None,
+                     device="cpu") -> Dict[str, Pool]:
+    """Block-pool KV cache ``(num_layers, num_pages, page_size, KV, hd)``.
+
+    ``kv_dtype=None`` stores pages in the model's param dtype.
+    ``kv_dtype="int8"`` stores each pool as
+    ``{"q": int8 (L, P, page_size, KV, hd), "scale": f32 (L, P)}`` with page
+    0's scale pinned to :data:`KV_SCRATCH_SCALE`.  Page 0 is the runtime's
+    scratch page for inactive slots."""
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype={kv_dtype!r}; expected one of {KV_DTYPES}")
+    hd = cfg.resolved_head_dim
+    shape = (num_layers, num_pages, page_size, cfg.num_kv_heads, hd)
+    if kv_dtype is None:
+        dtype = param_dtype(cfg)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def pool():
+        scale = torch.full((num_layers, num_pages), KV_SCALE_FLOOR,
+                           dtype=torch.float32, device=device)
+        scale[:, 0] = KV_SCRATCH_SCALE
+        return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "scale": scale}
+
+    return {"k": pool(), "v": pool()}
+
+
+def kv_quantize(x, scale):
+    """Symmetric int8 quantization of ``x`` under per-page ``scale``.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+
+def kv_dequantize(q, scale):
+    return q.float() * scale
+
+
+def kv_page_scale(x, floor: Optional[float] = None):
+    """The smallest symmetric-int8 scale covering ``x`` (amax / 127)."""
+    floor = KV_SCALE_FLOOR if floor is None else floor
+    return torch.clamp(torch.max(torch.abs(x)) / 127.0, min=floor)
+
+
+def _round_clip_int8(x):
+    return torch.clamp(torch.round(x), -127, 127).to(torch.int8)
+
+
+def paged_store_rows(pool, page_idx, offset, rows):
+    """Write one (KV, hd) row per batch entry at ``(page_idx[b], offset[b])``
+    — the decode-step scatter — in place.
+
+    int8 pools: the written pages' scales grow to cover the new rows
+    (``max(old, amax(row)/127)``, merged over duplicate pages by a
+    scatter-max), the touched pages' existing bits are rescaled by
+    ``old/new`` (exactly 1.0 where the scale did not change), and page 0
+    keeps :data:`KV_SCRATCH_SCALE`.  Duplicate pages gather the same old
+    bits and rescale them identically, so any winner of the duplicate
+    write is correct."""
+    page_idx = page_idx.long()
+    offset = offset.long()
+    if not isinstance(pool, dict):
+        pool[page_idx, offset] = rows.to(pool.dtype)
+        return pool
+    q, scale = pool["q"], pool["scale"]
+    rows = rows.float()                                    # (B, KV, hd)
+    row_amax = torch.amax(torch.abs(rows), dim=(1, 2))     # (B,)
+    s_new = scale.clone().scatter_reduce_(0, page_idx, row_amax / 127.0,
+                                          "amax", include_self=True)
+    s_new[0] = KV_SCRATCH_SCALE
+    ratio = (scale / s_new)[page_idx]                      # (B,)
+    pages = _round_clip_int8(q[page_idx].float() * ratio[:, None, None, None])
+    qrows = _round_clip_int8(rows / s_new[page_idx][:, None, None])
+    q[page_idx] = pages
+    q[page_idx, offset] = qrows
+    scale.copy_(s_new)
+    return pool
+
+
+def paged_store_chunk(pool, page_table, positions, rows):
+    """Write a contiguous chunk of rows for ONE slot — the prefill scatter —
+    in place.  ``positions`` are absolute; their pages are
+    ``page_table[pos // page_size]``.
+
+    int8 pools follow :func:`paged_store_rows`' discipline over a page
+    window of ``T // page_size + 2`` logical pages starting at the chunk's
+    first page; window entries past the chunk's last page are redirected
+    to the scratch page 0 (whose bits they rewrite unchanged)."""
+    pos = positions.long()
+    table = page_table.long()
+    if not isinstance(pool, dict):
+        page_size = pool.shape[1]
+        pool[table[pos // page_size], pos % page_size] = rows.to(pool.dtype)
+        return pool
+    q, scale = pool["q"], pool["scale"]
+    page_size = q.shape[1]
+    max_pages = table.shape[0]
+    rows = rows.float()                                    # (T, KV, hd)
+    T = rows.shape[0]
+    n_w = T // page_size + 2                               # page-window bound
+    first = pos[0] // page_size
+    window = first + torch.arange(n_w, device=pos.device)  # logical pages
+    touched = window <= pos[T - 1] // page_size
+    pids = torch.where(touched,
+                       table[torch.clamp(window, max=max_pages - 1)],
+                       torch.zeros_like(window))
+    local = pos // page_size - first                       # (T,) in-window
+    offs = pos % page_size
+    row_amax = torch.amax(torch.abs(rows), dim=(1, 2))     # (T,)
+    page_amax = torch.zeros((n_w,), dtype=torch.float32,
+                            device=rows.device).scatter_reduce_(
+        0, local, row_amax, "amax", include_self=True)
+    s_old = scale[pids]
+    s_new = torch.maximum(s_old, page_amax / 127.0)
+    s_new = torch.where(pids == 0, torch.full_like(s_new, KV_SCRATCH_SCALE),
+                        s_new)
+    pages = q[pids].float()                                # (n_w, ps, KV, hd)
+    pages = torch.round(pages * (s_old / s_new)[:, None, None, None])
+    pages[local, offs] = torch.round(rows / s_new[local][:, None, None])
+    q[pids] = torch.clamp(pages, -127, 127).to(torch.int8)
+    scale[pids] = s_new
+    return pool
+
+
+def gqa_decode_paged(p, cfg: ModelConfig, x, k_pool_l, v_pool_l, page_table,
+                     positions):
+    """One-token decode for a batch of slots against the paged pool.
+
+      x          : (B, 1, D) — one new token per slot
+      k/v_pool_l : (P, page_size, KV, hd) — this layer's page pool (a view
+                   into the stacked pool; written in place)
+      page_table : (B, max_pages) int32
+      positions  : (B,) int32 — absolute write position of each new token
+
+    The attend goes through ``kernels.ops.paged_attention``: the Hopper
+    kernel for CUDA tensors, the plain version for CPU tensors.
+    Returns ``(out (B,1,D), k_pool_l, v_pool_l)``."""
+    B, T, _ = x.shape
+    assert T == 1
+    q, k, v = _qkv(p, cfg, x, positions[:, None])
+    quantized = isinstance(k_pool_l, dict)
+    page_size = (k_pool_l["q"] if quantized else k_pool_l).shape[1]
+    pos = positions.long()
+    page_idx = page_table.long()[torch.arange(B, device=pos.device),
+                                 pos // page_size]          # (B,)
+    offset = pos % page_size
+    paged_store_rows(k_pool_l, page_idx, offset, k[:, 0])
+    paged_store_rows(v_pool_l, page_idx, offset, v[:, 0])
+    lengths = (pos + 1).to(torch.int32)  # context incl. this token
+    table = page_table.to(torch.int32)
+    qd = q[:, 0].contiguous()
+    if quantized:
+        out = ops.paged_attention(qd, k_pool_l["q"], v_pool_l["q"], table,
+                                  lengths, k_scale=k_pool_l["scale"],
+                                  v_scale=v_pool_l["scale"])
+    else:
+        out = ops.paged_attention(qd, k_pool_l, v_pool_l, table, lengths)
+    return out.reshape(B, 1, -1) @ p["wo"], k_pool_l, v_pool_l
+
+
+def gqa_prefill_paged(p, cfg: ModelConfig, x, k_pool_l, v_pool_l, page_table,
+                      positions):
+    """Chunk/suffix prefill for ONE slot against the paged pool.
+
+      x          : (1, T, D) — hidden states of a contiguous prompt chunk
+      page_table : (max_pages,) int32 — the slot's pages, prompt order
+      positions  : (T,) int32 — absolute positions pos0 .. pos0+T-1
+
+    Writes the chunk's K/V into the slot's pages, then attends over the
+    table-gathered context under the causal mask ``j <= position``."""
+    B, T, _ = x.shape
+    assert B == 1
+    q, k, v = _qkv(p, cfg, x, positions)
+    pos = positions.long()
+    table = page_table.long()
+    paged_store_chunk(k_pool_l, page_table, pos, k[0])
+    paged_store_chunk(v_pool_l, page_table, pos, v[0])
+    KV, hd = cfg.num_kv_heads, k.shape[-1]
+    if isinstance(k_pool_l, dict):
+        kc = kv_dequantize(k_pool_l["q"][table],
+                           k_pool_l["scale"][table][:, None, None, None])
+        vc = kv_dequantize(v_pool_l["q"][table],
+                           v_pool_l["scale"][table][:, None, None, None])
+        kc = kc.reshape(1, -1, KV, hd)
+        vc = vc.reshape(1, -1, KV, hd)
+    else:
+        kc = k_pool_l[table].reshape(1, -1, KV, hd)
+        vc = v_pool_l[table].reshape(1, -1, KV, hd)
+    ctx = kc.shape[1]
+    mask = (torch.arange(ctx, device=pos.device)[None, :]
+            <= pos[:, None])  # (T, ctx)
+    out = sdpa(q, kc, vc, mask, cfg.num_kv_heads)
+    return out.reshape(B, T, -1) @ p["wo"], k_pool_l, v_pool_l

@@ -1,0 +1,97 @@
+"""The port stands alone: ``repro_torch`` imports neither JAX nor any
+module of the JAX package, its entry points run on the card unless the
+caller asks for the CPU, and the CPU route of ``ops.paged_attention``
+never reaches the CUDA kernel's build."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.launch import serve
+from repro_torch.models import transformer as TM
+from repro_torch.serving import batching as TB
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = ModelConfig(num_layers=2, d_model=32, num_heads=4, num_kv_heads=2,
+                  d_ff=64, vocab_size=50, dtype="float32")
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    mods = _modules()
+    assert "repro_torch.serving.batching" in mods and len(mods) >= 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TM.init_params(CFG)
+    params = TM.init_params(CFG, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TB.ContinuousServer(params, CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "llama3.2-3b", "--reduced", "--continuous",
+                    "--population", "1", "--requests", "1"])
+
+
+def test_server_refuses_params_on_another_device():
+    params = TM.param_shapes(CFG)  # meta tensors: not on the CPU
+    with pytest.raises(ValueError, match="params must live on cpu"):
+        TB.ContinuousServer(params, CFG, device="cpu")
+
+
+def test_cpu_tensors_never_reach_the_kernel_build(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU route reached the CUDA kernel")
+
+    monkeypatch.setattr(pa, "build", refuse)
+    monkeypatch.setattr(pa, "paged_attention_cuda", refuse)
+    launches = pa.launches
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 8)).astype(np.float32))
+    pool = torch.from_numpy(rng.standard_normal((5, 4, 2, 8))
+                            .astype(np.float32))
+    out = ops.paged_attention(q, pool, pool,
+                              torch.tensor([[1, 2], [3, 4]], dtype=torch.int32),
+                              torch.tensor([5, 2], dtype=torch.int32))
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert pa.launches == launches and pa._lib is None
+
+
+def test_cuda_wrapper_refuses_cpu_tensors_before_building(monkeypatch):
+    monkeypatch.setattr(pa, "build", lambda: pytest.fail("built"))
+    x = torch.zeros(1, 2, 8)
+    pool = torch.zeros(2, 4, 1, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        pa.paged_attention_cuda(x, pool, pool,
+                                torch.zeros(1, 1, dtype=torch.int32),
+                                torch.ones(1, dtype=torch.int32))
