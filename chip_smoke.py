@@ -21,21 +21,48 @@ then, failing on the first phase that fails:
      ensemble stream, a short int8-KV stream, and one teacher-forced decode
      step on the kernel path against the plain path;
   3. serves a stream at the reduced float32 config on the kernel path and
-     on the plain path: greedy tokens must be identical.
+     on the plain path: greedy tokens must be identical;
+  4. holds the two WASH-shuffle kernels (dense and bucketed) bitwise
+     against their plain versions for float32 and bfloat16 at N in
+     {2, 3, 4, 8} on a leaf width that is a multiple of no block, and at
+     the real stacked leaf ``blocks.mlp.w1`` with N = 4 (2.82e9 elements,
+     past 2**31) and N = 2, then times each kernel, its plain version and
+     a yardstick of library calls at the shapes its path gives it (device
+     time: the calls captured in a CUDA graph and replayed);
+  5. trains full-width llama3.2-3b (28 layers, bf16, N = 2, SGD, bucketed
+     WASH at p = 0.01, batch 2 x 256 tokens per member, 4 steps) through
+     the train CLI's ``main``: every shuffle through the bucketed kernel
+     (launches == 10 leaves x 4 steps) and each held bitwise against the
+     plain version on the same inputs, the plans it applied sending
+     exactly 9,016,867.0 scalars per member a step, one leaf's coordinate
+     multisets unchanged by the shuffle, finite losses; then serves 4
+     requests from the trained soup through ``ContinuousServer``, trains
+     the same 4 steps again without the checks for the step's time split,
+     tokens/s and peak memory, and profiles one more full-width training
+     step (device time by operator, the device's busy share);
+  6. trains llama3.2-3b at full width and 4 layers in float32 with dense
+     WASH (the dense kernel) and with WASH+Opt under AdamW (the bucketed
+     kernel on params, ``mu`` and ``nu``), once on the kernels and once
+     on the plain versions: every shuffle bitwise equal, the final params
+     within 1e-5; then the train CLI's ``--ckpt-population`` into the
+     serve CLI's ``--ckpt`` at the reduced size.
 
-It prints one JSON line ``{"kernels": [...]}``, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.  Without a CUDA device,
-or outside a checkout of the repository, it exits non-zero and prints no
-result.
+Kernels are built from the sources in the checkout, each ``nvcc`` started
+at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``.  Without a
+CUDA device, or outside a checkout of the repository, it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +73,11 @@ ROOT = Path(__file__).resolve().parent
 # both accumulate in f32; bf16 outputs differ by the final rounding
 # (one bf16 ulp is 2**-8 relative), f32 and int8 outputs by summation order
 KERNEL_TOL = {"bf16": 2e-2, "int8": 2e-2, "f32": 2e-5}
+
+# phase 6: params after 3 float32 steps on the kernels against the plain
+# versions; the shuffles are bitwise, but the embedding's backward adds
+# with atomics, in an order that changes from run to run
+PARAM_TOL = 1e-5
 
 # full-width bf16 logits, kernel path against plain path after one decode
 # step through 28 layers: bf16 rounding of each layer's attention output
@@ -453,6 +485,568 @@ def reduced_f32(torch, device, kernels):
         fail("reduced f32 greedy tokens differ between kernel and plain path")
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the shuffle kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+ODD_D = 1_000_003                       # a multiple of no block size
+W1_LAYERS, W1_REST = 28, 3072 * 8192    # blocks.mlp.w1 of llama3.2-3b
+W1_D = W1_LAYERS * W1_REST              # its scalars per member
+
+
+def _bits(torch, x):
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def _same(torch, a, b) -> bool:
+    """The shuffle kernels only move data: held bit for bit (tolerance:
+    none, max |diff| == 0)."""
+    return a.shape == b.shape and torch.equal(_bits(torch, a), _bits(torch, b))
+
+
+def _cyclic_perm(torch, n, d, device, seed):
+    """(n, d) int32 columns that are permutations (random cyclic shifts),
+    drawn without the (n, d) argsort a dense plan would take."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    shift = torch.randint(0, n, (d,), generator=gen, device=device,
+                          dtype=torch.int32)
+    return (torch.arange(n, dtype=torch.int32, device=device)[:, None]
+            + shift) % n
+
+
+def _randn(torch, n, d, dtype, device, seed):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randn(n, d, generator=gen, device=device).to(dtype)
+
+
+def _w1_plan(shf, sch, n, device):
+    """The bucketed plan the training path draws for blocks.mlp.w1."""
+    p_vec = sch.layer_probability_array(0.01, np.arange(1, W1_LAYERS + 1),
+                                        W1_LAYERS + 2, "decreasing")
+    return shf.bucketed_plan_layered(0, W1_LAYERS, W1_REST, n, p_vec,
+                                     device=device)
+
+
+def shuffle_bytes_dense(n, d, elt, mask_count):
+    """x read and out written once, the mask once, perm only where the
+    mask is set (the function needs no other perm entry)."""
+    return 2 * n * d * elt + d + 4 * n * mask_count
+
+
+def shuffle_bytes_bucketed(n, k_per, elt):
+    """Each selected column of buckets 1..N-1 read and written once (N
+    values each), plus its plan entry."""
+    return 2 * n * (n - 1) * k_per * elt + 4 * (n - 1) * k_per
+
+
+def check_shuffle_kernels(torch, device):
+    """Phase 4.  Returns the two kernels' entries of the JSON line (their
+    launches filled in later from the training runs), each with the worst
+    |kernel - plain| of its checks.  Times are device times per call
+    (``device_ms``: CUDA-graph replay, no host launch overhead)."""
+    from repro_torch.core import schedules as sch
+    from repro_torch.core import shuffle as shf
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wash_shuffle as ws
+
+    err = {"dense": 0.0, "bucketed": 0.0}
+
+    def hold(kind, got, want, what):
+        """Bitwise, or the phase fails; the float |diff| is also taken
+        where a float copy is cheap (below 2**28 elements)."""
+        if got.numel() < 2 ** 28:
+            err[kind] = max(err[kind],
+                            float((got.float() - want.float()).abs().max()))
+        if not _same(torch, got, want):
+            fail(f"{kind} shuffle kernel differs from its plain version "
+                 f"({what})")
+
+    d = ODD_D
+    for n in (2, 3, 4, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = _randn(torch, n, d, dtype, device, seed=n)
+            perm, mask = shf.dense_plan(n, (d,), n, 0.3, device)  # seed n
+            hold("dense", ws.wash_shuffle_cuda(x, perm, mask),
+                 ref.wash_shuffle_ref(x, perm, mask), f"N={n} {dtype} D={d}")
+            idx = shf.bucketed_plan(n, d, n, 0.3, device=device)
+            hold("bucketed", ws.bucketed_shuffle_cuda_(x.clone(), idx),
+                 ref.bucketed_shuffle_ref(x, idx), f"N={n} {dtype} D={d}")
+    torch.cuda.synchronize()
+    log(f"shuffle kernels: bitwise equal to their plain versions for "
+        f"float32 and bfloat16 at N in (2, 3, 4, 8), D = {d}")
+
+    w1_d = W1_D
+    # the real stacked leaf, N = 4: 2.82e9 bf16 elements
+    n = 4
+    x = _randn(torch, n, w1_d, torch.bfloat16, device, seed=40)
+    idx = _w1_plan(shf, sch, n, device)
+    want = x.clone()
+    ref.bucketed_shuffle_ref_(want, idx)
+    ws.bucketed_shuffle_cuda_(x, idx)
+    torch.cuda.synchronize()
+    hold("bucketed", x, want, f"blocks.mlp.w1 N={n}")
+    del want
+    perm = _cyclic_perm(torch, n, w1_d, device, seed=41)
+    mask = torch.rand(w1_d, device=device) < 0.01
+    got = ws.wash_shuffle_cuda(x, perm, mask)
+    want = ref.wash_shuffle_ref(x, perm, mask)
+    torch.cuda.synchronize()
+    hold("dense", got, want, f"blocks.mlp.w1 N={n}")
+    del want, got
+    torch.cuda.empty_cache()
+    t_b = device_ms(torch, lambda _: ws.bucketed_shuffle_cuda_(x, idx), 1, 10)
+    t_d = device_ms(torch, lambda _: ws.wash_shuffle_cuda(x, perm, mask), 1, 5)
+    log(f"blocks.mlp.w1 at N={n} ({n * w1_d} bf16 elements, past 2**31): "
+        f"both kernels bitwise equal to their plain versions; device time "
+        f"bucketed {t_b:.4f} ms (plan ({n}, {idx.shape[1]})), dense "
+        f"{t_d:.4f} ms (mask 1%)")
+    del x, idx, perm, mask
+    torch.cuda.empty_cache()
+
+    # timing at the shapes the main paths give each kernel
+    entries = {}
+    x = _randn(torch, 2, w1_d, torch.bfloat16, device, seed=50)
+    idx = _w1_plan(shf, sch, 2, device)
+    k_per = idx.shape[1]
+    want = ref.bucketed_shuffle_ref(x, idx)  # the path's N = 2, held once
+    hold("bucketed", ws.bucketed_shuffle_cuda_(x, idx), want,
+         f"blocks.mlp.w1 N=2 plan (2, {k_per})")
+    del want
+    cols = idx[1:].reshape(-1).long()
+    buckets = torch.arange(1, 2, device=device).repeat_interleave(k_per)
+    src = (torch.arange(2, device=device)[:, None] + buckets) % 2
+    # (member n of bucket s's columns takes member n+s's value)
+    n0 = ws.bucketed_launches
+
+    def yard_b():
+        x.index_copy_(1, cols, x.index_select(1, cols).gather(0, src))
+
+    ms = device_ms(torch, lambda _: ws.bucketed_shuffle_cuda_(x, idx), 1)
+    plain_ms = device_ms(torch, lambda _: ref.bucketed_shuffle_ref_(x, idx), 1)
+    yard_ms = device_ms(torch, lambda _: yard_b(), 1)
+    ms2 = device_ms(torch, lambda _: ws.bucketed_shuffle_cuda_(x, idx), 1)
+    call_ms = wall_ms(torch, lambda: ws.bucketed_shuffle_cuda_(x, idx), 20, 2)
+    ws.bucketed_launches = n0  # comparison launches do not count
+    nbytes = shuffle_bytes_bucketed(2, k_per, 2)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"bucketed shuffle, blocks.mlp.w1 N=2 bf16, plan (2, {k_per}), "
+        f"device time: kernel {ms:.4f} ms (again {ms2:.4f}; {call_ms:.4f} ms "
+        f"a call through the Python wrapper), plain {plain_ms:.4f} ms, "
+        f"yardstick index_select+gather+index_copy_ {yard_ms:.4f} ms "
+        f"(no single PyTorch call computes the function), bound "
+        f"{bound:.4f} ms by bytes ({nbytes} B); achieved "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of the bytes it needs")
+    entries["bucketed"] = {
+        "name": "bucketed_shuffle[bf16,N=2,blocks.mlp.w1]", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wash_shuffle.cu",
+        "replaces": "src/repro/kernels/wash_shuffle.py:75",
+        "launches": 0, "max_abs_err": err["bucketed"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+        "library_ms": None, "yardstick_ms": yard_ms}
+    del x, idx, cols, src
+    torch.cuda.empty_cache()
+
+    # the dense path: phase 6's blocks.mlp.w1, float32, N = 2
+    layers = REDUCED_LAYERS
+    x = _randn(torch, 2, layers * W1_REST, torch.float32, device, seed=60)
+    p_vec = sch.layer_probability_array(0.01, np.arange(1, layers + 1),
+                                        layers + 2, "decreasing")
+    perm, mask = shf.dense_plan_layered(61, (layers, W1_REST), 2, p_vec,
+                                        device)
+    perm, mask = perm.reshape(2, -1), mask.reshape(-1)
+    perm64 = perm.long()
+    n0 = ws.wash_launches
+    ms = device_ms(torch, lambda _: ws.wash_shuffle_cuda(x, perm, mask), 1)
+    plain_ms = device_ms(torch, lambda _: ref.wash_shuffle_ref(x, perm, mask),
+                         1)
+    yard_ms = device_ms(torch, lambda _: torch.where(
+        mask, torch.gather(x, 0, perm64), x), 1)
+    ms2 = device_ms(torch, lambda _: ws.wash_shuffle_cuda(x, perm, mask), 1)
+    call_ms = wall_ms(torch, lambda: ws.wash_shuffle_cuda(x, perm, mask), 20, 2)
+    ws.wash_launches = n0
+    nnz = int(mask.sum())
+    nbytes = shuffle_bytes_dense(2, x.shape[1], 4, nnz)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"dense shuffle, blocks.mlp.w1 at {layers} layers N=2 f32 ({nnz} of "
+        f"{x.shape[1]} columns masked), device time: kernel {ms:.4f} ms "
+        f"(again {ms2:.4f}; {call_ms:.4f} ms a call through the Python "
+        f"wrapper), plain {plain_ms:.4f} ms, yardstick gather+where on an "
+        f"int64 perm {yard_ms:.4f} ms (no single PyTorch call computes the "
+        f"function), "
+        f"bound {bound:.4f} ms by bytes ({nbytes} B); achieved "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+    entries["dense"] = {
+        "name": "wash_shuffle[f32,N=2,blocks.mlp.w1 at 4 layers]",
+        "route": "cuda", "source": "src/repro_torch/kernels/csrc/wash_shuffle.cu",
+        "replaces": "src/repro/kernels/wash_shuffle.py:40",
+        "launches": 0, "max_abs_err": err["dense"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+        "library_ms": None, "yardstick_ms": yard_ms}
+    del x, perm, mask, perm64
+    torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 5: full-width training, then the trained soup served
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_SEQ = 4, 256    # phase 5: steps, tokens per sequence
+PLANNED_LEAVES = 10                # leaves of llama3.2-3b that get a plan
+STEP_COMM = 9016867.0              # scalars sent per member a mixing step
+
+
+@contextlib.contextmanager
+def checked_shuffles(ops, ref, torch, counts):
+    """Every shuffle on the kernel route is also run through the plain
+    version on the same inputs and must be bitwise equal; ``counts``
+    tallies the comparisons (the kernels' launch counters move as they
+    would without the check)."""
+    dense, bucketed = ops.wash_shuffle, ops.bucketed_shuffle_
+
+    def dense_checked(x, perm, mask):
+        out = dense(x, perm, mask)
+        if not _same(torch, out, ref.wash_shuffle_ref(x, perm, mask)):
+            fail("training: a dense shuffle differs from its plain version")
+        counts["dense"] += 1
+        return out
+
+    def bucketed_checked(x, idx):
+        want = ref.bucketed_shuffle_ref(x, idx)
+        bucketed(x, idx)
+        if not _same(torch, x, want):
+            fail("training: a bucketed shuffle differs from its plain version")
+        counts["bucketed"] += 1
+        return x
+
+    ops.wash_shuffle, ops.bucketed_shuffle_ = dense_checked, bucketed_checked
+    try:
+        yield
+    finally:
+        ops.wash_shuffle, ops.bucketed_shuffle_ = dense, bucketed
+
+
+@contextlib.contextmanager
+def watch_bucketed_shuffles(ops, width, seen):
+    """Record the shape of every plan the bucketed route applies, and keep
+    a copy of the first stacked leaf of ``width`` columns it shuffles,
+    before and after (observation only: the shuffle runs as it would)."""
+    route = ops.bucketed_shuffle_
+
+    def watched(x, idx):
+        seen["plans"].append(tuple(idx.shape))
+        if "before" in seen or x.shape[1] != width:
+            return route(x, idx)
+        seen["before"] = x.clone()
+        out = route(x, idx)
+        seen["after"] = x.clone()
+        return out
+
+    ops.bucketed_shuffle_ = watched
+    try:
+        yield
+    finally:
+        ops.bucketed_shuffle_ = route
+
+
+def train_full_width(torch, device, kernels):
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import wash_shuffle as ws
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.serve import mixed_stream
+    from repro_torch.serving import batching as B
+    from repro_torch.serving.engine import averaged_params
+
+    cfg = get_arch("llama3.2-3b")
+    steps, seq, n = TRAIN_STEPS, TRAIN_SEQ, 2
+    argv = ["--arch", "llama3.2-3b", "--population", str(n), "--mixing",
+            "wash", "--mode", "bucketed", "--base-p", "0.01", "--optimizer",
+            "sgd", "--steps", str(steps), "--batch-size", "2", "--seq-len",
+            str(seq), "--record-every", "1", "--lr", "0.01", "--device",
+            str(device)]
+    wk = cfg.num_layers * cfg.d_model * cfg.num_kv_heads * cfg.resolved_head_dim
+    seen, counts = {"plans": []}, {"dense": 0, "bucketed": 0}
+    torch.cuda.synchronize()
+    ws.bucketed_launches = ws.wash_launches = pa.launches = 0
+    t0 = time.perf_counter()
+    with checked_shuffles(ops, ref, torch, counts), \
+            watch_bucketed_shuffles(ops, wk, seen):
+        res = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ws.bucketed_launches
+    log(f"training ({cfg.name}, {cfg.num_layers} layers, {cfg.dtype}, "
+        f"N={n}, SGD, bucketed WASH p=0.01, 2 x {seq} tokens per member, "
+        f"{steps} steps) through launch.train.main, every shuffle held "
+        f"against its plain version: {wall:.2f} s; bucketed shuffle "
+        f"launches {launches} (expected {PLANNED_LEAVES} x {steps}), "
+        f"{counts['bucketed']} of them bitwise equal to the plain version "
+        f"on the same inputs, dense {ws.wash_launches}; losses "
+        f"{res.history['loss']}; comm {res.history['comm']}")
+    if (launches != PLANNED_LEAVES * steps or ws.wash_launches
+            or counts["bucketed"] != launches):
+        fail(f"training: {launches} bucketed launches ({counts['bucketed']} "
+             f"checked) for {steps} steps of {PLANNED_LEAVES} planned leaves "
+             f"({ws.wash_launches} dense)")
+    # the comm of the plans that ran: idx.numel() (N - 1) / N per launch,
+    # PLANNED_LEAVES consecutive launches a step
+    sent = [k_n * k_per * (n - 1) / n for k_n, k_per in seen["plans"]]
+    applied = [sum(sent[i:i + PLANNED_LEAVES])
+               for i in range(0, len(sent), PLANNED_LEAVES)]
+    recorded = np.diff([0.0] + res.history["comm"]).tolist()
+    log(f"comm per step of the plans applied {applied}, recorded {recorded} "
+        f"(expected {STEP_COMM})")
+    if applied != [STEP_COMM] * steps or recorded != applied:
+        fail(f"training: comm per step {applied} applied, {recorded} "
+             f"recorded, expected {STEP_COMM}")
+    if not np.isfinite(res.history["loss"]).all():
+        fail(f"training: losses {res.history['loss']} are not finite")
+    before, after = seen.get("before"), seen.get("after")
+    if before is None:
+        fail("training: no bucketed shuffle of blocks.attn.wk was seen")
+    moved = int((before != after).any(dim=0).sum())
+    same = torch.equal(torch.sort(before, dim=0).values,
+                       torch.sort(after, dim=0).values)
+    log(f"blocks.attn.wk across one shuffle: {moved} of {before.shape[1]} "
+        f"columns changed; each column's multiset of member values "
+        f"unchanged: {same}")
+    if not same or moved == 0:
+        fail("training: the shuffle did not preserve each coordinate's "
+             "multiset, or moved nothing")
+    del before, after, seen
+    kernels["bucketed"]["launches"] = launches
+
+    soup = averaged_params(res)
+    del res
+    torch.cuda.empty_cache()
+    server = B.ContinuousServer(soup, cfg, mode="soup", page_size=16,
+                                max_slots=4, num_pages=128,
+                                max_pages_per_slot=-(-(seq + 16) // 16),
+                                device=device)
+    serve_stream(torch, pa, server, mixed_stream(cfg, 4, seq, 16, seed=12),
+                 "trained soup stream (full width)", cfg.num_layers)
+    pa.launches = 0
+    del soup, server
+    torch.cuda.empty_cache()
+
+    # the same run without the checks: the step's split, tokens/s, memory
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = steps * n * 2 * seq
+    ph = {p: res.phase_ms[p] for p in ("fwd_bwd", "opt", "mix")}
+    log(f"training step split, the same run without checks (CUDA events, "
+        f"ms per step, both members): forward+backward {ph['fwd_bwd']}, "
+        f"optimizer {ph['opt']}, mixing {ph['mix']}; trained {tokens} tokens "
+        f"in {wall:.2f} s = {tokens / wall:.1f} tokens/s (population built "
+        f"and first step included); steps 2.. mean "
+        f"{sum(sum(ph[p][1:]) for p in ph) / max(steps - 1, 1):.1f} ms in "
+        f"the three phases; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del res
+    torch.cuda.empty_cache()
+    profile_training_step(torch, device, cfg)
+    torch.cuda.empty_cache()
+
+
+def profile_training_step(torch, device, cfg):
+    """One full-width training step (the third of three) under
+    ``torch.profiler``: device time by operator and the device's busy
+    share of the step's wall time (the step ends in a synchronizing
+    read of the loss; the profiler's own host cost is in the wall time,
+    so the idle share is an upper bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.core.mixing import MixingConfig
+
+    marks = []
+    mcfg = MixingConfig(kind="wash", base_p=0.01, mode="bucketed")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+        def record(step, population):
+            marks.append(time.perf_counter())
+            prof.step()
+            return {}
+
+        _train(cfg, mcfg, "sgd", 3, device, seq=TRAIN_SEQ, record_fn=record)
+    wall_ms = (marks[2] - marks[1]) * 1e3
+    # the union of the device's activity intervals (the launch queue's
+    # "Command Buffer Full" markers are the host waiting, not device work)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and e.name != "Command Buffer Full")
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy_ms = busy_us / 1e3
+    full = sum(e.name == "Command Buffer Full" for e in prof.events())
+    ops = sorted((a for a in prof.key_averages()
+                  if a.device_type == DeviceType.CPU
+                  and a.key != "Command Buffer Full"
+                  and a.self_device_time_total > 0),
+                 key=lambda a: -a.self_device_time_total)
+    top = "; ".join(f"{a.key} {a.self_device_time_total / 1e3:.1f} ms "
+                    f"x{a.count}" for a in ops[:10])
+    log(f"profiled training step (full width, N=2, 2 x {TRAIN_SEQ} tokens a "
+        f"member, under torch.profiler): wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%, the union of "
+        f"{len(spans)} device activities), idle "
+        f"{100 * (1 - busy_ms / wall_ms):.1f}%; the host found the launch "
+        f"queue full {full} times; device time by operator: {top}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: reduced paths, kernels against plain versions in training
+# ---------------------------------------------------------------------------
+
+REDUCED_LAYERS, REDUCED_STEPS = 4, 3   # phase 6: depth, steps
+
+
+@contextlib.contextmanager
+def plain_shuffles(ops, ref):
+    """Route every shuffle through the plain versions for the block."""
+    dense, bucketed = ops.wash_shuffle, ops.bucketed_shuffle_
+    ops.wash_shuffle, ops.bucketed_shuffle_ = (ref.wash_shuffle_ref,
+                                               ref.bucketed_shuffle_ref_)
+    try:
+        yield
+    finally:
+        ops.wash_shuffle, ops.bucketed_shuffle_ = dense, bucketed
+
+
+def _train(cfg, mcfg, optimizer, steps, device, seq=64, record_fn=None):
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.prng import fold_in
+    from repro_torch.data import make_lm_task, sample_tokens
+    from repro_torch.models import transformer as M
+    from repro_torch.train.loop import train_population
+
+    task = make_lm_task(fold_in(0, 1), vocab=min(cfg.vocab_size, 512),
+                        device=device)
+
+    def data_fn(m, step, s):
+        return {"tokens": sample_tokens(task, s, 2, seq)}
+
+    tcfg = TrainConfig(population=2, optimizer=optimizer, total_steps=steps,
+                       lr=3e-4 if optimizer == "adamw" else 0.05, seed=0)
+    return train_population(
+        0, lambda s: M.init_params(cfg, seed=s, device=device),
+        lambda p, b: M.loss_fn(p, cfg, b)[0], data_fn, tcfg, mcfg,
+        cfg.num_layers, record_every=1 if record_fn else steps,
+        record_fn=record_fn, device=device)
+
+
+def reduced_paths(torch, device, kernels):
+    """Phase 6: llama3.2-3b at full width cut to REDUCED_LAYERS layers,
+    float32."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import population as pop
+    from repro_torch.core.mixing import MixingConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import wash_shuffle as ws
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as M
+    from repro_torch.train import checkpoint
+
+    base = get_arch("llama3.2-3b")
+    steps = REDUCED_STEPS
+    cfg = dataclasses.replace(base, num_layers=REDUCED_LAYERS, dtype="float32",
+                              name=f"{base.name}-{REDUCED_LAYERS}layers-f32")
+    runs = [("dense WASH, SGD", MixingConfig(kind="wash", base_p=0.01,
+                                             mode="dense"), "sgd", "dense"),
+            ("WASH+Opt, AdamW", MixingConfig(kind="wash_opt", base_p=0.01,
+                                             mode="bucketed"), "adamw",
+             "bucketed")]
+    for what, mcfg, optimizer, kernel in runs:
+        counts = {"dense": 0, "bucketed": 0}
+        torch.cuda.synchronize()
+        ws.wash_launches = ws.bucketed_launches = 0
+        t0 = time.perf_counter()
+        with checked_shuffles(ops, ref, torch, counts):
+            res = _train(cfg, mcfg, optimizer, steps, device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {"dense": ws.wash_launches, "bucketed": ws.bucketed_launches}
+        moments = 2 if optimizer == "adamw" else 1
+        per_step = PLANNED_LEAVES * (1 + moments if mcfg.kind == "wash_opt"
+                                     else 1)
+        expected = {"dense": 0, "bucketed": 0}
+        expected[kernel] = per_step * steps
+        kept = pop.tree_map(torch.clone, res.population)
+        losses = res.history["loss"]
+        del res
+        with plain_shuffles(ops, ref):
+            plain = _train(cfg, mcfg, optimizer, steps, device)
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            pop.tree_leaves(kept), pop.tree_leaves(plain.population)))
+        log(f"{cfg.name}, {what}, {steps} steps: {dt:.2f} s; kernel launches "
+            f"{launches} (expected {expected}); {counts[kernel]} shuffles "
+            f"bitwise equal to their plain versions on the training inputs; "
+            f"max |param kernel run - plain run| = {diff:.3e} (tolerance "
+            f"{PARAM_TOL:g}); losses {losses} vs {plain.history['loss']}")
+        if launches != expected or counts[kernel] != expected[kernel]:
+            fail(f"{what}: launches {launches}, checks {counts}, expected "
+                 f"{expected}")
+        if diff > PARAM_TOL or not np.isfinite(losses).all():
+            fail(f"{what}: kernel and plain runs differ by {diff}")
+        if kernel == "dense":  # the dense kernel's path is this run
+            kernels["dense"]["launches"] = launches["dense"]
+        del kept, plain
+        torch.cuda.empty_cache()
+
+    # train CLI -> population file -> serve CLI, on the card
+    out_dir = ROOT / "build" / "chip_smoke"
+    ckpt = str(out_dir / "population.npz")
+    res = train_cli.main(["--arch", "llama3.2-3b", "--reduced", "--population",
+                          "2", "--mode", "bucketed", "--steps", "3",
+                          "--batch-size", "2", "--seq-len", "32",
+                          "--ckpt-population", ckpt, "--device", str(device)])
+    like = pop.tree_map(lambda x: x.unsqueeze(0).expand((2,) + x.shape),
+                        M.param_shapes(base.reduced()))
+    back = checkpoint.restore(ckpt, like, device=device)
+    if not all(torch.equal(a, b) for a, b in zip(
+            pop.tree_leaves(back), pop.tree_leaves(res.population))):
+        fail("population file does not restore bitwise")
+    pa.launches = 0
+    serve_cli.main(["--arch", "llama3.2-3b", "--reduced", "--continuous",
+                    "--population", "2", "--ckpt", ckpt, "--requests", "4",
+                    "--max-new", "8", "--seq-len", "32", "--device",
+                    str(device)])
+    torch.cuda.synchronize()
+    log(f"train CLI --ckpt-population -> serve CLI --ckpt: restored bitwise, "
+        f"served 4 requests with {pa.launches} paged-attention launches")
+    if pa.launches == 0:
+        fail("the served stream made no paged-attention launch")
+    pa.launches = 0
+
+
+
+
+def build_kernels(pa, ws):
+    """Both libraries, each nvcc started at once."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for fut in [pool.submit(pa.build), pool.submit(ws.build)]:
+            fut.result()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s in parallel (nvcc "
+        f"paged_attention {pa.build_seconds or 0:.2f} s, wash_shuffle "
+        f"{ws.build_seconds or 0:.2f} s)")
+    for mod in (pa, ws):
+        for line in sorted({ln.strip() for ln in mod.build_log.splitlines()
+                            if "registers" in ln or "spill" in ln}):
+            log(f"  ptxas: {line}")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -472,21 +1066,20 @@ def main() -> int:
 
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
+    from repro_torch.kernels import wash_shuffle as ws
 
     device = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t0 = time.perf_counter()
-    pa.build()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {pa.build_seconds if pa.build_seconds is not None else 0:.2f} s)")
-    for line in sorted({ln.strip() for ln in pa.build_log.splitlines()
-                        if "registers" in ln or "spill" in ln}):
-        log(f"  ptxas: {line}")
+    build_kernels(pa, ws)
 
     kernels = check_kernel(torch, pa, ref, F, device)
     full_width(torch, device, kernels)
     reduced_f32(torch, device, kernels)
+    shuffles = check_shuffle_kernels(torch, device)
+    train_full_width(torch, device, shuffles)
+    reduced_paths(torch, device, shuffles)
+    kernels.update(shuffles)
     for entry in kernels.values():
         if entry["launches"] == 0:
             fail(f"kernel {entry['name']} was never launched on its path")

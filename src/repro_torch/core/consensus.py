@@ -1,0 +1,67 @@
+"""Consensus (averaged-model) distance metrics — paper Fig. 2 / Eq. 2 / Eq. 5.
+
+Port of ``repro/core/consensus.py``.  Reductions run in float32 over
+column chunks of each stacked leaf, so a full-width bf16 population never
+has a float32 copy of a whole leaf at once; the sums are taken in another
+order than XLA's (tests hold them within a tolerance).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterator
+
+import torch
+
+from repro_torch.core.population import tree_leaves, tree_map
+
+Tree = Any
+
+#: columns of a stacked (N, D) leaf reduced at a time
+CHUNK = 1 << 24
+
+
+def _chunks(x: torch.Tensor) -> Iterator[torch.Tensor]:
+    """Float32 column blocks of the stacked leaf ``x`` viewed as (N, D)."""
+    flat = x.reshape(x.shape[0], -1)
+    for a in range(0, flat.shape[1], CHUNK):
+        yield flat[:, a:a + CHUNK].float()
+
+
+def consensus(population: Tree) -> Tree:
+    """θ̄ = mean over the ens axis."""
+    return tree_map(lambda x: torch.mean(x, dim=0), population)
+
+
+def sq_distance_to_consensus(population: Tree) -> torch.Tensor:
+    """Σ_n ‖θ_n − θ̄‖² — the exact quantity preserved by Eq. (5)."""
+    leaves = tree_leaves(population)
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for x in leaves:
+        for xc in _chunks(x):
+            total = total + torch.sum((xc - xc.mean(dim=0, keepdim=True)) ** 2)
+    return total
+
+
+def avg_distance_to_consensus(population: Tree) -> torch.Tensor:
+    """(1/N) Σ_n ‖θ_n − θ̄‖ — the Fig. 2 trace."""
+    leaves = tree_leaves(population)
+    n = leaves[0].shape[0]
+    per_member = torch.zeros((n,), dtype=torch.float32, device=leaves[0].device)
+    for x in leaves:
+        for xc in _chunks(x):
+            per_member = per_member + torch.sum(
+                (xc - xc.mean(dim=0, keepdim=True)) ** 2, dim=1)
+    return torch.mean(torch.sqrt(per_member))
+
+
+def pairwise_distance(population: Tree) -> torch.Tensor:
+    """Mean pairwise L2 distance between members (diversity diagnostic)."""
+    leaves = tree_leaves(population)
+    n = leaves[0].shape[0]
+    sq = torch.zeros((n, n), dtype=torch.float32, device=leaves[0].device)
+    for x in leaves:
+        for xc in _chunks(x):
+            sq = sq + torch.sum((xc[:, None] - xc[None]) ** 2, dim=-1)
+    dist = torch.sqrt(sq)
+    mask = 1.0 - torch.eye(n, device=sq.device)
+    return torch.sum(dist * mask) / torch.clamp(torch.sum(mask), min=1.0)

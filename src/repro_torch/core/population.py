@@ -9,39 +9,52 @@ order agree with the reference package.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core.prng import fold_in
+
 Tree = Any
+IsLeaf = Optional[Callable[[Any], bool]]
 
 
-def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """Apply ``fn`` leafwise over trees of one structure."""
+def tree_map(fn: Callable, tree: Tree, *rest: Tree,
+             is_leaf: IsLeaf = None) -> Tree:
+    """Apply ``fn`` leafwise over trees of one structure.  ``is_leaf``
+    (tested on ``tree``'s nodes) stops the descent, as in JAX: a dense
+    shuffle plan's ``(perm, mask)`` pair is one leaf that way."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
+                            is_leaf=is_leaf)
                 for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, x, *(r[i] for r in rest))
+        return type(tree)(tree_map(fn, x, *(r[i] for r in rest),
+                                   is_leaf=is_leaf)
                           for i, x in enumerate(tree))
     return fn(tree, *rest)
 
 
-def tree_paths(tree: Tree, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
+def tree_paths(tree: Tree, prefix: Tuple = (),
+               is_leaf: IsLeaf = None) -> Iterator[Tuple[Tuple, Any]]:
     """``(path, leaf)`` pairs in JAX's flattening order (dict keys sorted,
     sequence entries by index)."""
-    if isinstance(tree, dict):
+    if is_leaf is not None and is_leaf(tree):
+        yield prefix, tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from tree_paths(tree[k], prefix + (k,))
+            yield from tree_paths(tree[k], prefix + (k,), is_leaf)
     elif isinstance(tree, (list, tuple)):
         for i, x in enumerate(tree):
-            yield from tree_paths(x, prefix + (i,))
+            yield from tree_paths(x, prefix + (i,), is_leaf)
     else:
         yield prefix, tree
 
 
-def tree_leaves(tree: Tree) -> List[Any]:
-    return [leaf for _, leaf in tree_paths(tree)]
+def tree_leaves(tree: Tree, is_leaf: IsLeaf = None) -> List[Any]:
+    return [leaf for _, leaf in tree_paths(tree, is_leaf=is_leaf)]
 
 
 def population_size(population: Tree) -> int:
@@ -70,6 +83,27 @@ def replicate(params: Tree, n: int) -> Tree:
     """Same-initialization population (the paper's default for WASH)."""
     return tree_map(
         lambda x: x.unsqueeze(0).expand((n,) + tuple(x.shape)).clone(), params)
+
+
+def init_population(init_fn: Callable[[int], Tree], seed: int, n: int,
+                    same_init: bool = True) -> Tree:
+    """Initialize a population from ``init_fn(seed) -> params``.
+
+    ``same_init=True`` follows WASH (all members start at θ0, one
+    ``init_fn`` call replicated); ``False`` follows PAPA's setup (member
+    i initialized from ``fold_in(seed, i)``)."""
+    if same_init:
+        return replicate(init_fn(seed), n)
+    return stack([init_fn(fold_in(seed, i)) for i in range(n)])
+
+
+def map_members(fn: Callable, population: Tree, *rest: Tree) -> Tree:
+    """``fn`` on each member (and the same member of each tree in
+    ``rest``), results stacked: the reference's ``vmap`` over the ens
+    axis, written as a loop."""
+    n = population_size(population)
+    return stack([fn(member(population, i), *(member(r, i) for r in rest))
+                  for i in range(n)])
 
 
 def num_params(params: Tree) -> int:

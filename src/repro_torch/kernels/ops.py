@@ -15,7 +15,40 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import paged_attention as _pa
-from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.kernels import wash_shuffle as _ws
+from repro_torch.kernels.ref import (bucketed_shuffle_ref_,
+                                     paged_attention_ref, wash_shuffle_ref)
+
+
+def _route(t: torch.Tensor, what: str) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what}: no route for device {t.device}")
+    return t.device.type
+
+
+def wash_shuffle(x: torch.Tensor, perm: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Dense WASH apply on a stacked leaf: x (N,D), perm (N,D) int32,
+    mask (D,) bool -> a new (N,D) tensor with
+    ``out[n,i] = x[perm[n,i], i]`` where ``mask[i]``, else ``x[n,i]``."""
+    if _route(x, "wash_shuffle") == "cuda":
+        return _ws.wash_shuffle_cuda(x, perm, mask)
+    return wash_shuffle_ref(x, perm, mask)
+
+
+def bucketed_shuffle_(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Bucketed WASH apply on a stacked leaf x (N,D), **in place**: bucket
+    s of the (N,k_per) plan ``idx`` moves its columns by the cyclic shift
+    ``x[n] <- x[(n+s) mod N]``.  Returns ``x``."""
+    if _route(x, "bucketed_shuffle") == "cuda":
+        return _ws.bucketed_shuffle_cuda_(x, idx)
+    return bucketed_shuffle_ref_(x, idx)
+
+
+def bucketed_shuffle(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The reference's functional signature: :func:`bucketed_shuffle_` on
+    a copy of ``x``."""
+    return bucketed_shuffle_(x.clone(), idx)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -30,10 +63,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     both or neither.  Returns (B,H,hd) in q's dtype."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale, or neither")
-    if q.device.type == "cuda":
+    if _route(q, "paged_attention") == "cuda":
         return _pa.paged_attention_cuda(q, k_pool, v_pool, page_table,
                                         lengths, k_scale, v_scale)
-    if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pool, v_pool, page_table, lengths,
-                                   k_scale, v_scale)
-    raise ValueError(f"paged_attention: no route for device {q.device}")
+    return paged_attention_ref(q, k_pool, v_pool, page_table, lengths,
+                               k_scale, v_scale)

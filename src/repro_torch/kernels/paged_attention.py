@@ -5,9 +5,9 @@ Replaces ``repro/kernels/paged_attention.py`` ``paged_attention_pallas``.
 The source is ``csrc/paged_attention.cu`` (its head says what bounds the
 kernel and what the design does about it).  It is compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C entry point, at first
-use, into ``build/repro_torch_kernels/`` at the repository root; the
-library's name carries a hash of the source, so an edited source is
-rebuilt.  Nothing is compiled or loaded when this module is imported.
+use, into ``build/repro_torch_kernels/`` at the repository root, by
+``kernels/build.py``.  Nothing is compiled or loaded when this module is
+imported.
 
 :func:`paged_attention_cuda` takes CUDA tensors only; the CPU path of
 ``kernels.ops.paged_attention`` never reaches this module's build.
@@ -16,15 +16,12 @@ rebuilt.  Nothing is compiled or loaded when this module is imported.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels import build as _build
 
 #: kernel launches made through :func:`paged_attention_cuda`
 launches = 0
@@ -36,9 +33,6 @@ build_seconds: Optional[float] = None
 build_log = ""
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 MAX_GROUP = 8        # kMaxG in the source
 MAX_HEAD_DIM = 128   # kMaxHd in the source
@@ -51,42 +45,12 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the paged-attention kernel is built "
-                       "from source with the CUDA toolkit")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libpaged_attention_{digest}.so"
-
-
 def build() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library."""
     global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
-    path = library_path()
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
+    lib, build_seconds, build_log = _build.load(SOURCE)
     fn = lib.repro_paged_attention
     fn.restype = ctypes.c_int
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
-Port of ``repro/kernels/ref.py:37`` ``paged_attention_ref``.  The CPU path
-of :func:`repro_torch.kernels.ops.paged_attention` runs this, and
-``chip_smoke.py`` holds the CUDA kernel against it on the card.
+Port of ``repro/kernels/ref.py`` ``wash_shuffle_ref`` and
+``paged_attention_ref``, plus the plain bucketed shuffle (the reference's
+``core/shuffle.py`` ``bucketed_apply_stacked``).  The CPU paths of
+:mod:`repro_torch.kernels.ops` run these, and ``chip_smoke.py`` holds the
+CUDA kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -12,6 +14,35 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+def wash_shuffle_ref(x: torch.Tensor, perm: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """x: (N, D); perm: (N, D) int; mask: (D,) bool -> a new (N, D) tensor,
+    ``out[n, i] = x[perm[n, i], i]`` where ``mask[i]``, else ``x[n, i]``."""
+    shuffled = torch.gather(x, 0, perm)
+    return torch.where(mask[None, :], shuffled, x)
+
+
+def bucketed_shuffle_ref_(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Bucketed WASH apply on a stacked ``(N, D)`` tensor, in place.
+
+    ``idx``: ``(N, k_per)`` int with pairwise-disjoint rows; bucket ``s``
+    moves its columns by the cyclic shift ``x[n] <- x[(n + s) mod N]``
+    (member n takes member n+s's value), bucket 0 is the identity.  The
+    N - 1 rounds of ``bucketed_apply_stacked``, each a gather of the
+    bucket's columns, a roll along N and a scatter back.  Returns ``x``."""
+    n = x.shape[0]
+    for s in range(1, n):
+        cols = idx[s]
+        x[:, cols] = torch.roll(x[:, cols], -s, dims=0)
+    return x
+
+
+def bucketed_shuffle_ref(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Functional form of :func:`bucketed_shuffle_ref_` (the reference's
+    signature): shuffles a copy of ``x``."""
+    return bucketed_shuffle_ref_(x.clone(), idx)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

@@ -1,8 +1,9 @@
-"""Shared layers for the paged-KV serving path: norms, rope, SwiGLU, GQA.
+"""Shared layers: norms, rope, SwiGLU, GQA for training and paged serving.
 
-Port of the parts of ``repro/models/layers.py`` that continuous-batching
-serving runs.  Plain functions over explicit parameter dicts, in the
-reference's layout (linear weights ``(d_in, d_out)`` used as ``x @ w``).
+Port of the parts of ``repro/models/layers.py`` that training and
+continuous-batching serving run.  Plain functions over explicit parameter
+dicts, in the reference's layout (linear weights ``(d_in, d_out)`` used as
+``x @ w``).
 Compute-sensitive reductions run in float32.
 
 Where the reference returns new pools (JAX donates them), the paged
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -153,6 +155,76 @@ def sdpa(q, k, v, mask, num_kv_heads: int):
     return out.reshape(B, Tq, H, hd).to(q.dtype)
 
 
+def sdpa_chunked(q, k, v, num_kv_heads: int, *, chunk: int, window=None,
+                 bidirectional: bool = False):
+    """Online-softmax attention over kv chunks — never materializes S x S.
+
+    The reference's flash-style formulation (running max and sum over kv
+    chunks), as a Python loop; differentiable.  Used when
+    ``cfg.attn_impl == "chunked"``."""
+    B, Tq, H, hd = q.shape
+    S = k.shape[1]
+    kv = num_kv_heads
+    g = H // kv
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"pad S={S} to a multiple of chunk={chunk}")
+    qf = q.reshape(B, Tq, kv, g, hd).float() * (hd ** -0.5)
+    qpos = torch.arange(Tq, device=q.device)
+    acc = torch.zeros((B, kv, g, Tq, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((B, kv, g, Tq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, kv, g, Tq), dtype=torch.float32, device=q.device)
+    for j in range(S // chunk):
+        k_c = k[:, j * chunk:(j + 1) * chunk].float()
+        v_c = v[:, j * chunk:(j + 1) * chunk].float()
+        scores = torch.einsum("btkgh,bskh->bkgts", qf, k_c)
+        if not bidirectional:
+            kpos = j * chunk + torch.arange(chunk, device=q.device)
+            mask = kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                mask = mask & (kpos[None, :] > qpos[:, None] - window)
+            scores = torch.where(mask, scores, torch.tensor(
+                NEG_INF, dtype=scores.dtype, device=scores.device))
+        m_new = torch.maximum(m, torch.amax(scores, dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l = l * alpha + torch.sum(p, dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgts,bskh->bkgth", p, v_c)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-20)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, hd).to(q.dtype)
+
+
+def causal_mask(T: int, window: Optional[int] = None, device=None):
+    i = torch.arange(T, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    m = j <= i
+    if window is not None:
+        m = m & (j > i - window)
+    return m
+
+
+def gqa_train(p, cfg: ModelConfig, x, bidirectional: bool = False):
+    """Full-sequence GQA over ``x`` (B, T, D) at positions 0..T-1."""
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device)
+    q, k, v = _qkv(p, cfg, x, positions)
+    if cfg.attn_impl == "chunked":
+        if (not bidirectional and cfg.window and T % cfg.window == 0
+                and T > cfg.window):
+            raise NotImplementedError(
+                "banded sliding-window attention (sdpa_banded) is not "
+                "ported yet")
+        out = sdpa_chunked(q, k, v, cfg.num_kv_heads,
+                           chunk=min(cfg.attn_chunk, T), window=cfg.window,
+                           bidirectional=bidirectional)
+    else:
+        mask = (torch.ones((T, T), dtype=torch.bool, device=x.device)
+                if bidirectional else causal_mask(T, cfg.window, x.device))
+        out = sdpa(q, k, v, mask, cfg.num_kv_heads)
+    return out.reshape(B, T, -1) @ p["wo"]
+
+
 # ---------------------------------------------------------------------------
 # paged KV cache (continuous-batching serving)
 # ---------------------------------------------------------------------------
@@ -174,16 +246,18 @@ Pool = object  # a tensor, or {"q": int8 tensor, "scale": f32 tensor}
 
 def paged_pools_init(cfg: ModelConfig, num_pages: int, page_size: int,
                      num_layers: int, kv_dtype: Optional[str] = None,
-                     device="cpu") -> Dict[str, Pool]:
+                     device="cuda") -> Dict[str, Pool]:
     """Block-pool KV cache ``(num_layers, num_pages, page_size, KV, hd)``.
 
     ``kv_dtype=None`` stores pages in the model's param dtype.
     ``kv_dtype="int8"`` stores each pool as
     ``{"q": int8 (L, P, page_size, KV, hd), "scale": f32 (L, P)}`` with page
     0's scale pinned to :data:`KV_SCRATCH_SCALE`.  Page 0 is the runtime's
-    scratch page for inactive slots."""
+    scratch page for inactive slots.  The pools land on ``device`` (the
+    card unless the caller asks for the CPU)."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype={kv_dtype!r}; expected one of {KV_DTYPES}")
+    device = resolve_device(device)
     hd = cfg.resolved_head_dim
     shape = (num_layers, num_pages, page_size, cfg.num_kv_heads, hd)
     if kv_dtype is None:

@@ -1,19 +1,21 @@
-"""Model assembly for the paged-KV serving path.
+"""Model assembly for training and the paged-KV serving path.
 
-Port of the parts of ``repro/models/transformer.py`` that continuous
-batching runs: ``init_params`` (attention blocks), the embedding and LM
-head, and the paged decode and prefill steps.  Parameters keep the
-reference's tree: every block leaf is stacked along a leading
-``num_layers`` axis under ``params["blocks"]``.  Where the reference runs
-``lax.scan`` over the stacked blocks, the port loops over layers in
-Python on per-layer views (``leaf[l]``, ``pool[l]``), which copy nothing.
+Port of the parts of ``repro/models/transformer.py`` that training and
+continuous batching run: ``init_params`` (attention blocks), the training
+forward and loss, the embedding and LM head, and the paged decode and
+prefill steps.  Parameters keep the reference's tree: every block leaf is
+stacked along a leading ``num_layers`` axis under ``params["blocks"]``.
+Where the reference runs ``lax.scan`` over the stacked blocks, the port
+loops over layers in Python on per-layer views (``leaf[l]``, ``pool[l]``),
+which copy nothing.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
@@ -113,6 +115,61 @@ def _logits(params, cfg: ModelConfig, x):
     if cfg.tie_embeddings:
         return x @ params["embed"]["tok"].T
     return x @ params["lm_head"]["w"]
+
+
+# ---------------------------------------------------------------------------
+# training forward / loss
+# ---------------------------------------------------------------------------
+
+
+def _block_train(p, cfg: ModelConfig, x):
+    """One attention block over the full sequence."""
+    x = x + L.gqa_train(p["attn"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps))
+    return x + L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+
+
+def _layer_views(blocks: Tree, num_layers: int) -> List[Tree]:
+    """The per-layer trees of the stacked ``blocks``, each leaf unbound
+    once: the gradient of an ``unbind`` is one stack of the layers'
+    gradients, where indexing the stacked leaf once per layer would
+    scatter each layer's gradient into a zero tensor of the whole leaf."""
+    parts = tree_map(lambda t: t.unbind(0), blocks)
+    return [tree_map(lambda u: u[l], parts, is_leaf=lambda u: isinstance(u, tuple))
+            for l in range(num_layers)]
+
+
+def _run_blocks_train(params, cfg: ModelConfig, x):
+    """All blocks in order, a Python loop over per-layer views; with
+    ``cfg.remat_blocks`` each block's activations are recomputed in the
+    backward pass (``torch.utils.checkpoint``) instead of stored."""
+    for blk in _layer_views(params["blocks"], cfg.num_layers):
+        if cfg.remat_blocks:
+            x = checkpoint(_block_train, blk, cfg, x, use_reentrant=False)
+        else:
+            x = _block_train(blk, cfg, x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_logits(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor,
+                                                               torch.Tensor]:
+    """Full-sequence logits (B, S, V) and the auxiliary loss (0 for the
+    dense attention models the port has)."""
+    _check_ported(cfg)
+    x = _embed_tokens(params, cfg, batch["tokens"].long())
+    x, aux = _run_blocks_train(params, cfg, x)
+    return _logits(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor,
+                                                        Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (+ the router aux loss, 0 here), computed
+    in float32."""
+    logits, aux = forward_logits(params, cfg, batch)
+    targets = batch["tokens"][:, 1:].long()
+    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
+    loss = torch.mean(nll)
+    return loss + cfg.router_aux_coef * aux, {"nll": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,187 @@
+"""Population training loop (paper Alg. 1).
+
+Port of ``repro/train/loop.py`` (``engine="vmap"``, the reference loop).
+Each step: (1) an independent optimizer step per member on its own data
+stream, then (2) the configured mixing op (WASH shuffle / PAPA EMA /
+PAPA-all average / none) on the stacked population.
+
+Where the reference vmaps ``value_and_grad`` over the stacked members,
+the port loops over them: member m's parameters are views ``leaf[m]`` of
+the stacked leaves, so one member's activations and gradients exist at a
+time, and the optimizer and the shuffle write the stacked ``(N, ...)``
+leaves in place.  The loop works for any model: the caller supplies
+``init_fn(seed) -> params``, ``loss_fn(params, batch) -> scalar`` and
+``data_fn(member, step, seed) -> batch``.  Seeds play the role of the
+reference's keys (``core.prng``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.core import population as pop
+from repro_torch.core.consensus import avg_distance_to_consensus
+from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.layer_index import infer_layer_ids, total_layers
+from repro_torch.core.mixing import (MixingConfig, mix_once, mixing_due,
+                                     static_mix_comm)
+from repro_torch.core.prng import fold_in, step_seed
+from repro_torch.optim import cosine_lr, make_optimizer
+
+Tree = Any
+
+#: the phases of a step that :attr:`TrainResult.phase_ms` times
+PHASES = ("fwd_bwd", "opt", "mix")
+
+
+@dataclasses.dataclass
+class TrainResult:
+    population: Tree
+    opt_state: Tree
+    history: Dict[str, List[float]]
+    comm_scalars: float  # total scalars sent per member over training
+    #: per step, milliseconds in forward+backward (all members), the
+    #: optimizer updates and the mixing op: CUDA events on the card, the
+    #: host clock on the CPU
+    phase_ms: Dict[str, List[float]] = dataclasses.field(default_factory=dict)
+
+
+class _PhaseClock:
+    """Marks on the device's own clock; read once, after the loop, so the
+    timing adds no synchronization to the steps."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._spans: List[tuple] = []
+
+    def mark(self):
+        if self._cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+        return time.perf_counter()
+
+    def add(self, phase: str, step: int, start, end) -> None:
+        self._spans.append((phase, step, start, end))
+
+    def per_step(self, steps: int) -> Dict[str, List[float]]:
+        if self._cuda:
+            torch.cuda.synchronize()
+        out = {p: [0.0] * steps for p in PHASES}
+        for phase, step, a, b in self._spans:
+            out[phase][step] += (a.elapsed_time(b) if self._cuda
+                                 else (b - a) * 1e3)
+        return out
+
+
+def _grad_step(loss_fn, params_m: Tree, batch):
+    """Loss and gradients of one member; ``params_m`` holds views of the
+    stacked leaves, detached so that gradients land per member."""
+    leaves = [x.detach().requires_grad_() for x in pop.tree_leaves(params_m)]
+    it = iter(leaves)
+    loss = loss_fn(pop.tree_map(lambda _: next(it), params_m), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    it = iter(grads)
+    return loss.detach(), pop.tree_map(lambda _: next(it), params_m)
+
+
+def train_population(seed: int, init_fn: Callable[[int], Tree],
+                     loss_fn: Callable[[Tree, Any], torch.Tensor],
+                     data_fn: Callable[[int, int, int], Any],
+                     tcfg: TrainConfig, mcfg: MixingConfig, num_blocks: int,
+                     record_every: int = 25,
+                     record_fn: Optional[Callable[[int, Tree],
+                                                  Dict[str, float]]] = None,
+                     engine: str = "vmap",
+                     device: DeviceLike = "cuda") -> TrainResult:
+    """Train a population on ``device`` (the card unless the caller asks
+    for the CPU); ``init_fn`` must put the parameters there.
+    ``engine="vmap"`` is the reference loop; the fused multi-device
+    ``"shard_map"`` engine is not ported yet."""
+    if engine == "shard_map":
+        raise NotImplementedError(
+            "engine='shard_map' (train/engine.py) is not ported yet: "
+            "ROADMAP §1, 'Multi-device training'")
+    if engine != "vmap":
+        raise ValueError(f"unknown engine {engine!r}")
+    dev = resolve_device(device)
+    n = tcfg.population
+    population = pop.init_population(init_fn, seed, n, same_init=tcfg.same_init)
+    for x in pop.tree_leaves(population):
+        if x.device != dev:
+            raise ValueError(f"init_fn put parameters on {x.device}; the "
+                             f"loop trains on {dev}")
+    lids = infer_layer_ids(pop.member(population, 0), num_blocks)
+    tl = total_layers(num_blocks)
+
+    opt_init, opt_update = make_optimizer(
+        tcfg.optimizer, momentum=tcfg.momentum, weight_decay=tcfg.weight_decay)
+    opt_state = opt_init(population)  # moments (N, ...), as vmap(opt_init)
+    opt_state["step"] = torch.zeros((n,), dtype=torch.int32, device=dev)
+
+    # exact float64 comm per mixing step from the plan sizes; None for
+    # dense WASH (data-dependent Bernoulli masks: use mix_once's count)
+    member_tpl = pop.tree_map(
+        lambda x: torch.empty(x.shape[1:], dtype=x.dtype, device="meta"),
+        population)
+    static_comm = static_mix_comm(member_tpl, mcfg, lids, tl, n,
+                                  opt_state=opt_state)
+
+    history: Dict[str, List[float]] = {
+        "step": [], "loss": [], "consensus": [], "comm": []}
+    comm_total = 0.0
+    base_seed = fold_in(seed, 1234)
+    data_seed = fold_in(seed, 5678)
+    clock = _PhaseClock(dev)
+
+    t0 = time.time()
+    for step in range(tcfg.total_steps):
+        lr = cosine_lr(step, tcfg.total_steps, tcfg.lr, tcfg.min_lr,
+                       tcfg.warmup_steps)
+        ds = fold_in(data_seed, step)
+        losses = []
+        for m in range(n):
+            batch = data_fn(m, step, fold_in(ds, m))
+            a = clock.mark()
+            loss, grads = _grad_step(loss_fn, pop.member(population, m), batch)
+            b = clock.mark()
+            opt_update(pop.member(population, m), grads,
+                       pop.member(opt_state, m), lr)
+            c = clock.mark()
+            clock.add("fwd_bwd", step, a, b)
+            clock.add("opt", step, b, c)
+            losses.append(loss)
+            del grads
+        loss = torch.mean(torch.stack(losses).float())
+
+        if mixing_due(step, mcfg):
+            a = clock.mark()
+            population, opt_state, comm = mix_once(
+                step_seed(base_seed, step), population, opt_state, mcfg,
+                lids, tl)
+            clock.add("mix", step, a, clock.mark())
+            if static_comm is not None and comm != static_comm:
+                raise RuntimeError(
+                    f"step {step}: the applied plans sent {comm} scalars per "
+                    f"member, the shapes give {static_comm}")
+            comm_step = float(comm) if static_comm is None else static_comm
+            comm_total += comm_step
+
+        if step % record_every == 0 or step == tcfg.total_steps - 1:
+            history["step"].append(step)
+            history["loss"].append(float(loss))
+            history["consensus"].append(
+                float(avg_distance_to_consensus(population)))
+            history["comm"].append(comm_total)
+            if record_fn is not None:
+                for k_, v in record_fn(step, population).items():
+                    history.setdefault(k_, []).append(v)
+
+    phase_ms = clock.per_step(tcfg.total_steps)
+    history["wall_s"] = [time.time() - t0]
+    return TrainResult(population, opt_state, history, comm_total, phase_ms)

@@ -1,7 +1,7 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor any
 module of the JAX package, its entry points run on the card unless the
-caller asks for the CPU, and the CPU route of ``ops.paged_attention``
-never reaches the CUDA kernel's build."""
+caller asks for the CPU, and the CPU routes of ``ops.paged_attention``
+and the shuffles never reach the CUDA kernels' build."""
 
 import os
 import pkgutil
@@ -16,8 +16,14 @@ import repro_torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.configs.base import TrainConfig
+from repro_torch.core.mixing import MixingConfig
+from repro_torch.kernels import wash_shuffle as ws
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_cli
+from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TM
+from repro_torch.train import loop
 from repro_torch.serving import batching as TB
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,7 +38,11 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _modules()
-    assert "repro_torch.serving.batching" in mods and len(mods) >= 20
+    assert "repro_torch.serving.batching" in mods and len(mods) >= 30
+    for name in ("train.loop", "launch.train", "kernels.wash_shuffle",
+                 "kernels.build", "core.shuffle", "core.mixing", "optim",
+                 "data.synthetic"):
+        assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -61,6 +71,16 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "llama3.2-3b", "--reduced", "--continuous",
                     "--population", "1", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(["--arch", "llama3.2-3b", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loop.train_population(0, lambda s: params, None, None,
+                              TrainConfig(population=1, total_steps=1),
+                              MixingConfig(), CFG.num_layers)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TL.paged_pools_init(CFG, 4, 2, CFG.num_layers)
+    pools = TL.paged_pools_init(CFG, 4, 2, CFG.num_layers, device="cpu")
+    assert pools["k"].device.type == "cpu"
 
 
 def test_server_refuses_params_on_another_device():
@@ -95,3 +115,27 @@ def test_cuda_wrapper_refuses_cpu_tensors_before_building(monkeypatch):
         pa.paged_attention_cuda(x, pool, pool,
                                 torch.zeros(1, 1, dtype=torch.int32),
                                 torch.ones(1, dtype=torch.int32))
+
+
+def test_shuffle_routes_never_build_for_cpu_tensors(monkeypatch):
+    monkeypatch.setattr(ws, "build", lambda: pytest.fail("built"))
+    x = torch.arange(12.0).reshape(3, 4)
+    ops.bucketed_shuffle_(x, torch.tensor([[0], [1], [2]], dtype=torch.int32))
+    ops.wash_shuffle(x, torch.zeros(3, 4, dtype=torch.int32),
+                     torch.ones(4, dtype=torch.bool))
+    assert ws._lib is None
+
+
+def test_plan_and_data_helpers_default_to_the_card(no_card):
+    from repro_torch.core import shuffle as shf
+    from repro_torch.data import make_lm_task
+    from repro_torch.launch.specs import concrete_batch
+
+    for call in (lambda: shf.dense_plan(0, (4,), 2, 0.5),
+                 lambda: shf.bucketed_plan(0, 64, 2, 0.5),
+                 lambda: shf.stratified_unique_indices(0, 64, 4),
+                 lambda: make_lm_task(0, vocab=8),
+                 lambda: concrete_batch(CFG, 0, 1, 4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert shf.bucketed_plan(0, 64, 2, 0.5, device="cpu").device.type == "cpu"

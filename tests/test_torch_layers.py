@@ -187,12 +187,13 @@ def test_paged_store_chunk_bitwise(kind, pos0, T):
 def test_paged_pools_init_matches_layout():
     tcfg, jcfg = ModelConfig(**CFG_KW), JaxConfig(**CFG_KW)
     for kv_dtype in (None, "int8"):
-        got = TL.paged_pools_init(tcfg, 8, 4, 2, kv_dtype=kv_dtype)
+        got = TL.paged_pools_init(tcfg, 8, 4, 2, kv_dtype=kv_dtype,
+                                  device="cpu")
         want = JL.paged_pools_init(jcfg, 8, 4, 2, kv_dtype=kv_dtype)
         for side in ("k", "v"):
             _assert_pool_equal(got[side], want[side])
     with pytest.raises(ValueError, match="kv_dtype"):
-        TL.paged_pools_init(tcfg, 8, 4, 2, kv_dtype="fp8")
+        TL.paged_pools_init(tcfg, 8, 4, 2, kv_dtype="fp8", device="cpu")
 
 
 def test_kv_quantize_rounds_half_to_even_like_jax():
