@@ -5,8 +5,8 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``src/repro_torch/kernels/csrc`` and
-then, failing on the first phase that fails:
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+and then, failing on the first phase that fails:
 
   1. holds the paged-attention kernel against its plain PyTorch version at
      the llama3.2-3b attention geometry (24 heads, 8 kv heads, head dim
@@ -45,7 +45,26 @@ then, failing on the first phase that fails:
      kernel on params, ``mu`` and ``nu``), once on the kernels and once
      on the plain versions: every shuffle bitwise equal, the final params
      within 1e-5; then the train CLI's ``--ckpt-population`` into the
-     serve CLI's ``--ckpt`` at the reduced size.
+     serve CLI's ``--ckpt`` at the reduced size;
+  7. holds the flash-attention kernel against its plain version at the
+     llama3.2-3b prefill shape (B=4, S=2048, 24 heads over 8 kv heads,
+     head dim 128): bf16 and f32 causal, bf16 with a 512-token window,
+     and a ragged S=1000 non-causal case; and the WKV kernel at the
+     rwkv6-3b prefill shape (B=4, T=2048, 40 heads of 64) from zero and
+     from a carried state (y and the final state), at T=1, and with bf16
+     inputs; then times each kernel, its plain version and, for flash,
+     ``scaled_dot_product_attention`` (which the port never calls);
+  8. serves full-width rwkv6-3b (32 layers, bf16) and llama3.2-3b (28
+     layers, bf16) from random N=2 populations through the serve CLI's
+     scan engine (``--compare``: soup, member and ensemble, B=4, S=2048,
+     32 new tokens), checking that every rwkv6 time mix went through the
+     WKV kernel (launches == requests x 32 layers x members x (1 prefill
+     + 31 decode steps)) and every llama prefill attention through the
+     flash kernel (launches == requests x 28 x members); one teacher-forced
+     prefill + decode step per model on the kernel path against the plain
+     path (logits, and every layer's rwkv6 state); then the reduced
+     float32 rwkv6 and llama through ``engine.generate`` on the kernel and
+     plain paths: greedy tokens identical.
 
 Kernels are built from the sources in the checkout, each ``nvcc`` started
 at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
@@ -304,15 +323,18 @@ def check_kernel(torch, pa, ref, F, device):
 
 
 @contextlib.contextmanager
-def plain_attention(ops, ref):
-    """Route every paged attend through the plain version for the block
-    (the comparison path; the kernel's counter does not move)."""
-    kernel_route = ops.paged_attention
-    ops.paged_attention = ref.paged_attention_ref
+def plain_routes(ops, ref, *names):
+    """Route each named op of ``kernels.ops`` (``paged_attention``,
+    ``flash_attention``, ``rwkv6_scan``) through its plain version for the
+    block (the comparison path; the kernels' counters do not move)."""
+    kernel_routes = {name: getattr(ops, name) for name in names}
+    for name in names:
+        setattr(ops, name, getattr(ref, f"{name}_ref"))
     try:
         yield
     finally:
-        ops.paged_attention = kernel_route
+        for name, route in kernel_routes.items():
+            setattr(ops, name, route)
 
 
 def check_results(out, reqs, vocab: int, what: str):
@@ -418,7 +440,7 @@ def full_width(torch, device, kernels):
         M.decode_step_paged(soup, cfg, tokens, positions, pools, tables)
 
     step_ms = wall_ms(torch, step)
-    with plain_attention(ops, ref):
+    with plain_routes(ops, ref, "paged_attention"):
         plain_step_ms = wall_ms(torch, step)
     pa.launches = 0
     log(f"decode step (full width, 8 slots at 512 tokens, eager, host "
@@ -442,7 +464,7 @@ def full_width(torch, device, kernels):
                                          table[None])
     if pa.launches != cfg.num_layers:
         fail(f"teacher-forced step made {pa.launches} kernel launches")
-    with plain_attention(ops, ref):
+    with plain_routes(ops, ref, "paged_attention"):
         plain, _ = M.decode_step_paged(soup, cfg, tok, pos, copy, table[None])
     torch.cuda.synchronize()
     diff = float((with_kernel.float() - plain.float()).abs().max())
@@ -475,7 +497,7 @@ def reduced_f32(torch, device, kernels):
         torch, pa, B.ContinuousServer(soup, cfg, prefill_chunk=16, **geo),
         reqs, "reduced f32 stream, kernel path", cfg.num_layers)
     kernels["f32"]["launches"] = launches
-    with plain_attention(ops, ref):
+    with plain_routes(ops, ref, "paged_attention"):
         plain_server = B.ContinuousServer(soup, cfg, prefill_chunk=16, **geo)
         out_p = plain_server.run(reqs)
     same = all((out_k[r.uid].tokens == out_p[r.uid].tokens).all()
@@ -861,7 +883,6 @@ def profile_training_step(torch, device, cfg):
     share of the step's wall time (the step ends in a synchronizing
     read of the loss; the profiler's own host cost is in the wall time,
     so the idle share is an upper bound)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.core.mixing import MixingConfig
@@ -877,8 +898,23 @@ def profile_training_step(torch, device, cfg):
 
         _train(cfg, mcfg, "sgd", 3, device, seq=TRAIN_SEQ, record_fn=record)
     wall_ms = (marks[2] - marks[1]) * 1e3
-    # the union of the device's activity intervals (the launch queue's
-    # "Command Buffer Full" markers are the host waiting, not device work)
+    busy_ms, spans, full, top = device_activity(prof)
+    log(f"profiled training step (full width, N=2, 2 x {TRAIN_SEQ} tokens a "
+        f"member, under torch.profiler): wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%, the union of "
+        f"{spans} device activities), idle "
+        f"{100 * (1 - busy_ms / wall_ms):.1f}%; the host found the launch "
+        f"queue full {full} times; device time by operator: {top}")
+
+
+def device_activity(prof, n_top: int = 10):
+    """From a finished ``torch.profiler`` run: the device's busy time (ms,
+    the union of its activity intervals; the launch queue's "Command
+    Buffer Full" markers are the host waiting, not device work), the
+    number of activities, how often the host found the queue full, and
+    the device time of the top operators."""
+    from torch.autograd import DeviceType
+
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA
                    and e.name != "Command Buffer Full")
@@ -886,7 +922,6 @@ def profile_training_step(torch, device, cfg):
     for a, b in spans:
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
-    busy_ms = busy_us / 1e3
     full = sum(e.name == "Command Buffer Full" for e in prof.events())
     ops = sorted((a for a in prof.key_averages()
                   if a.device_type == DeviceType.CPU
@@ -894,13 +929,8 @@ def profile_training_step(torch, device, cfg):
                   and a.self_device_time_total > 0),
                  key=lambda a: -a.self_device_time_total)
     top = "; ".join(f"{a.key} {a.self_device_time_total / 1e3:.1f} ms "
-                    f"x{a.count}" for a in ops[:10])
-    log(f"profiled training step (full width, N=2, 2 x {TRAIN_SEQ} tokens a "
-        f"member, under torch.profiler): wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%, the union of "
-        f"{len(spans)} device activities), idle "
-        f"{100 * (1 - busy_ms / wall_ms):.1f}%; the host found the launch "
-        f"queue full {full} times; device time by operator: {top}")
+                    f"x{a.count}" for a in ops[:n_top])
+    return busy_us / 1e3, len(spans), full, top
 
 
 # ---------------------------------------------------------------------------
@@ -1032,19 +1062,514 @@ def reduced_paths(torch, device, kernels):
 
 
 
-def build_kernels(pa, ws):
-    """Both libraries, each nvcc started at once."""
+# ---------------------------------------------------------------------------
+# phase 7: the flash-attention and WKV kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPE = (4, 2048, 24, 8, 128)  # llama3.2-3b prefill: B, S, H, KV, hd
+WKV_SHAPE = (4, 2048, 40, 64)        # rwkv6-3b prefill: B, T, H, hd
+
+# tolerances, the tests/test_kernels.py bounds: flash 2e-5 in f32 (f32
+# sums in another order), 2e-2 in bf16 (one bf16 rounding of the output);
+# WKV (rtol, atol) 1e-4 in f32 (the f32 state summed in another order),
+# 3e-2 / 3e-1 with bf16 inputs and outputs
+FLASH_TOL = {"bf16": 2e-2, "f32": 2e-5}
+WKV_TOL = {"f32": (1e-4, 1e-4), "bf16": (3e-2, 3e-1)}
+
+_DTYPES = {"bf16": "bfloat16", "f32": "float32"}
+
+
+def _gen(torch, device, seed):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def flash_inputs(torch, B, S, H, KV, hd, dt, device, seed):
+    gen = _gen(torch, device, seed)
+    dtype = getattr(torch, _DTYPES[dt])
+    return tuple(torch.randn(B, S, n, hd, generator=gen, device=device)
+                 .to(dtype) for n in (H, KV, KV))
+
+
+def flash_work(B, S, H, KV, hd, dt, causal, window=None):
+    """Bytes (q, k, v read once, out written once) and operations (QK^T
+    and PV, a multiply and an add each, over the visible pairs only)."""
+    i = np.arange(S)[:, None]
+    j = np.arange(S)[None, :]
+    visible = np.ones((S, S), bool)
+    if causal:
+        visible &= j <= i
+    if window is not None:
+        visible &= j > i - window
+    elt = 2 if dt == "bf16" else 4
+    nbytes = elt * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    ops = 4 * B * H * hd * int(visible.sum())
+    return nbytes, ops
+
+
+def bound(nbytes, ops, dt):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dt] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_flash(torch, fa, ref, F, device):
+    """Phase 7, flash attention.  Returns the entries of the JSON line for
+    the two variants the scan engine runs (bf16 at full width, f32 at the
+    reduced size), launches filled in by phase 8."""
+    B, S, H, KV, hd = FLASH_SHAPE
+    cases = [("bf16", S, True, None), ("f32", S, True, None),
+             ("bf16", S, True, 512), ("bf16", 1000, False, None),
+             ("f32", 1000, False, None)]
+    errs = {}
+    for n, (dt, s, causal, window) in enumerate(cases):
+        q, k, v = flash_inputs(torch, B, s, H, KV, hd, dt, device, 70 + n)
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            fail(f"flash {dt} S={s}: kernel output is not finite")
+        err = float((got.float() - want.float()).abs().max())
+        what = (f"flash attention {dt} B={B} S={s} H={H} KV={KV} hd={hd} "
+                f"{'causal' if causal else 'non-causal'}"
+                f"{f' window {window}' if window else ''}")
+        log(f"{what}: max |kernel - plain| = {err:.3e} (tolerance "
+            f"{FLASH_TOL[dt]:g})")
+        if err > FLASH_TOL[dt]:
+            fail(f"{what} disagrees with its plain version: {err}")
+        if s == S and causal and window is None:
+            errs[dt] = err
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    entries = {}
+    for dt in ("bf16", "f32"):
+        # two input sets, cycled, so K/V do not stay in L2 between calls
+        sets = [flash_inputs(torch, B, S, H, KV, hd, dt, device, 80 + i)
+                for i in range(2)]
+        lib = [tuple(x.transpose(1, 2).contiguous() for x in xs)
+               for xs in sets]
+        n0 = fa.launches
+        ms = device_ms(torch, lambda i: fa.flash_attention_cuda(*sets[i]), 2)
+        plain_ms = device_ms(torch,
+                             lambda i: ref.flash_attention_ref(*sets[i]), 2,
+                             reps=5)
+        library_ms = device_ms(torch, lambda i: F.scaled_dot_product_attention(
+            *lib[i], is_causal=True, enable_gqa=True), 2)
+        ms2 = device_ms(torch, lambda i: fa.flash_attention_cuda(*sets[i]), 2)
+        fa.launches = n0  # comparison launches do not count
+        nbytes, ops = flash_work(B, S, H, KV, hd, dt, True)
+        bound_ms, bound_by = bound(nbytes, ops, dt)
+        log(f"flash attention {dt} causal at the llama3.2-3b prefill shape: "
+            f"{ms:.4f} ms on the device (again {ms2:.4f}), plain "
+            f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {ops} ops); "
+            f"achieved {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        entries[f"flash_{dt}"] = {
+            "name": f"flash_attention[{dt},causal]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:77",
+            "launches": 0,
+            "max_abs_err": errs[dt],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+        }
+        del sets, lib
+        torch.cuda.empty_cache()
+    return entries
+
+
+def wkv_inputs(torch, B, T, H, hd, dt, device, seed):
+    """Drawn as tests/test_kernels.py draws them: normal r/k/v,
+    w = sigmoid(normal), u = 0.1 normal; plus a normal initial state."""
+    gen = _gen(torch, device, seed)
+    dtype = getattr(torch, _DTYPES[dt])
+    r, k, v = (torch.randn(B, T, H, hd, generator=gen, device=device)
+               .to(dtype) for _ in range(3))
+    w = torch.sigmoid(torch.randn(B, T, H, hd, generator=gen,
+                                  device=device)).to(dtype)
+    u = 0.1 * torch.randn(H, hd, generator=gen, device=device)
+    s0 = torch.randn(B, H, hd, hd, generator=gen, device=device)
+    return r, k, v, w, u, s0
+
+
+def wkv_work(B, T, H, hd):
+    """Bytes (r, k, v, w, u and the state read once, y and the state
+    written once, f32) and operations (5 per state element and step: the
+    r S multiply-add for y, k v and the w S + kv multiply-add; the bonus
+    factors as v_j * sum_i r_i u_i k_i, O(hd) per step)."""
+    nbytes = 4 * (5 * B * T * H * hd + H * hd + 2 * B * H * hd * hd)
+    return nbytes, 5 * B * T * H * hd * hd
+
+
+def check_wkv(torch, wkv, ref, device):
+    """Phase 7, WKV.  Returns its entry of the JSON line (launches filled
+    in by phase 8).  The time mix feeds the kernel float32 r/k/v/w and a
+    carried state at every width, so that is the variant timed."""
+    B, T, H, hd = WKV_SHAPE
+    cases = [("f32", T, False), ("f32", T, True), ("f32", 1, True),
+             ("bf16", T, False)]
+    err_main = 0.0
+    for n, (dt, t, with_state) in enumerate(cases):
+        r, k, v, w, u, s0 = wkv_inputs(torch, B, t, H, hd, dt, device, 90 + n)
+        state = s0 if with_state else None
+        got = wkv.rwkv6_scan_cuda(r, k, v, w, u, state=state)
+        want = ref.rwkv6_scan_ref(r, k, v, w, u, state=state)
+        torch.cuda.synchronize()
+        if not with_state:
+            got, want = (got, None), (want, None)
+        rtol, atol = WKV_TOL[dt]
+        what = (f"rwkv6 scan {dt} B={B} T={t} H={H} hd={hd} "
+                f"{'from a carried state' if with_state else 'from zero'}")
+        for name, g, wa in (("y", got[0], want[0]),
+                            ("final state", got[1], want[1])):
+            if g is None:
+                continue
+            g, wa = g.float(), wa.float()
+            if not torch.isfinite(g).all():
+                fail(f"{what}: {name} is not finite")
+            err = float((g - wa).abs().max())
+            excess = float(((g - wa).abs() - rtol * wa.abs()).max())
+            log(f"{what}: {name} max |kernel - plain| = {err:.3e} (max "
+                f"|plain| {float(wa.abs().max()):.3e}; tolerance rtol "
+                f"{rtol:g} atol {atol:g})")
+            if excess > atol:
+                fail(f"{what}: {name} disagrees with its plain version")
+            if dt == "f32" and t == T and with_state:
+                err_main = max(err_main, err)
+        del r, k, v, w, u, s0, got, want
+    torch.cuda.empty_cache()
+
+    sets = [wkv_inputs(torch, B, T, H, hd, "f32", device, 95 + i)
+            for i in range(2)]
+    n0 = wkv.launches
+    ms = device_ms(torch, lambda i: wkv.rwkv6_scan_cuda(
+        *sets[i][:5], state=sets[i][5]), 2)
+    plain_ms = device_ms(torch, lambda i: ref.rwkv6_scan_ref(
+        *sets[i][:5], state=sets[i][5]), 2, reps=3)
+    ms2 = device_ms(torch, lambda i: wkv.rwkv6_scan_cuda(
+        *sets[i][:5], state=sets[i][5]), 2)
+    wkv.launches = n0
+    nbytes, ops = wkv_work(B, T, H, hd)
+    bound_ms, bound_by = bound(nbytes, ops, "f32")
+    log(f"rwkv6 scan f32 with a carried state at the rwkv6-3b prefill shape: "
+        f"{ms:.4f} ms on the device (again {ms2:.4f}), plain {plain_ms:.4f} "
+        f"ms, library none, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} "
+        f"B, {ops} ops); achieved {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+    del sets
+    torch.cuda.empty_cache()
+    return {"wkv": {
+        "name": "rwkv6_scan[f32,state]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:48",
+        "launches": 0,
+        "max_abs_err": err_main,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the scan engine at full width, then reduced against plain
+# ---------------------------------------------------------------------------
+
+SCAN_B, SCAN_S, SCAN_NEW = 4, 2048, 32  # the request shape of phase 8
+MODE_MEMBERS = {"soup": 1, "member": 1, "ensemble": 2}  # with N = 2
+REQUESTS_PER_MODE = 2  # the serve CLI's first request and its timed one
+
+def _counts(fa, wkv, pa):
+    return {"flash": fa.launches, "wkv": wkv.launches, "paged": pa.launches}
+
+
+def _zero(fa, wkv, pa):
+    fa.launches = wkv.launches = pa.launches = 0
+
+
+def serve_full_width(torch, device, arch, card):
+    """The serve CLI without --continuous, --compare: each mode served
+    twice (its first request and the timed one) from a random N = 2
+    population.  Returns the launches of the run, checked exactly."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.prng import fold_in
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.specs import concrete_batch
+
+    cfg = get_arch(arch)
+    members = sum(MODE_MEMBERS.values())
+    if cfg.block_kind == "rwkv6":  # every time mix, prefill and decode
+        expect = {"flash": 0, "paged": 0, "wkv": REQUESTS_PER_MODE
+                  * cfg.num_layers * members * (1 + SCAN_NEW - 1)}
+    else:  # every prefill attention; decode attends with plain sdpa
+        expect = {"flash": REQUESTS_PER_MODE * cfg.num_layers * members,
+                  "paged": 0, "wkv": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fa, wkv, pa)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(pa.build), pool.submit(ws.build)]:
+    outs = serve_cli.main(["--arch", arch, "--population", "2", "--seed", "0",
+                           "--batch-size", str(SCAN_B), "--seq-len",
+                           str(SCAN_S), "--max-new", str(SCAN_NEW),
+                           "--compare"])
+    torch.cuda.synchronize()
+    counts = _counts(fa, wkv, pa)
+    dt = time.perf_counter() - t0
+    log(f"scan engine {arch} (full width, {cfg.num_layers} layers, "
+        f"{cfg.dtype}, N=2, B={SCAN_B}, S={SCAN_S}, max_new {SCAN_NEW}, "
+        f"every mode twice): {dt:.2f} s with the population's init; kernel "
+        f"launches {counts} (expected {expect}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if counts != expect:
+        fail(f"{arch}: kernel launches {counts}, expected {expect}")
+    prompts = concrete_batch(cfg, fold_in(0, 2), SCAN_B, SCAN_S,
+                             device=device)["tokens"]
+    for mode, res in outs.items():
+        toks = res["tokens"]
+        if toks.shape != (SCAN_B, SCAN_S + SCAN_NEW):
+            fail(f"{arch} {mode}: tokens of shape {tuple(toks.shape)}")
+        if not torch.equal(toks[:, :SCAN_S].long(), prompts.long()):
+            fail(f"{arch} {mode}: the prompt was not kept")
+        if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+            fail(f"{arch} {mode}: sampled out of the vocabulary")
+        log(f"scan engine {arch} {mode}: {res['tok_s']:.2f} tok/s (B="
+            f"{SCAN_B} x {SCAN_NEW} new tokens in {res['steady_s']:.3f} s, "
+            f"prefill of {SCAN_S} tokens included; first request "
+            f"{res['first_s']:.2f} s) on {card}")
+    return counts
+
+
+def _forced_layers(torch, M, ops, ref, route, params, cfg, x, caches, pos,
+                   worst):
+    """Every layer once on the kernel route and once on the plain route,
+    both on the same input (the plain route's output of the layer before)
+    and each into its own cache; records each layer's max |kernel - plain|
+    over max |plain| in ``worst``.  Returns the last layer's two outputs."""
+    cache_k, cache_p = caches
+    for l in range(cfg.num_layers):
+        blk = M._block(params, l)
+        xk, new_k = M._block_serve(blk, cfg, x, M._cache_layer(cache_k, l),
+                                   pos)
+        M._store_layer(cache_k, l, new_k)
+        with plain_routes(ops, ref, route):
+            xp, new_p = M._block_serve(blk, cfg, x,
+                                       M._cache_layer(cache_p, l), pos)
+        M._store_layer(cache_p, l, new_p)
+        pairs = [("layer output", xk, xp)]
+        if "state" in new_k:
+            pairs += [(f"state {leaf}", new_k["state"][leaf],
+                       new_p["state"][leaf]) for leaf in ("S", "x_tm", "x_cm")]
+        for name, a, b in pairs:
+            rel = float((a.float() - b.float()).abs().max()
+                        / b.float().abs().max().clamp(min=1e-30))
+            worst[name] = max(worst.get(name, 0.0), rel)
+        x = xp
+    return xk, xp
+
+
+def profile_serving(torch, params, cfg, tokens, cap, arch):
+    """One full-width prefill and one decode step on the kernel path, each
+    under ``torch.profiler``: the device's busy share of the wall time
+    (the profiler's own host cost is in the wall time, so the idle share
+    is an upper bound) and device time by operator."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as M
+
+    cache = {}
+
+    def prefill():
+        _, cache["c"] = M.prefill(params, cfg, {"tokens": tokens},
+                                  capacity=cap)
+
+    def step():
+        M.decode_step(params, cfg, tokens[:, -1:], cache["c"], SCAN_S)
+
+    for what, fn in (("prefill", prefill), ("decode step", step)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, spans, full, top = device_activity(prof, n_top=6)
+        log(f"profiled {arch} {what} (full width, B={SCAN_B}, kernel path, "
+            f"under torch.profiler): wall {wall_ms:.1f} ms, device busy "
+            f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%, {spans} "
+            f"device activities), idle {100 * (1 - busy_ms / wall_ms):.1f}%; "
+            f"launch queue full {full} times; device time by operator: {top}")
+
+
+def teacher_forced(torch, device, arch):
+    """Phase 8's kernel path against its plain path on member 0 (the CLI's
+    seed), at the phase's request shape: a prefill and one decode step.
+
+    Teacher-forced, layer by layer (the gate): every layer gets the same
+    input on both paths (the plain path's output of the layer before; for
+    the decode step, the plain path's cache too), and its output, rwkv6's
+    new state, and the logits of the last layer's two outputs must agree
+    within bf16 tolerance (``LOGIT_REL_TOL`` x the plain side's max).
+    Before it, one timed prefill and decode step on the kernel path alone,
+    which must launch the path's kernel once a layer each."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import population as pop
+    from repro_torch.core.prng import fold_in
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models import transformer as M
+
+    cfg = get_arch(arch)
+    route = "rwkv6_scan" if cfg.block_kind == "rwkv6" else "flash_attention"
+    key = "wkv" if route == "rwkv6_scan" else "flash"
+    params = M.init_params(cfg, seed=0, device=device)
+    tokens = concrete_batch(cfg, fold_in(0, 2), SCAN_B, SCAN_S,
+                            device=device)["tokens"]
+    cap = SCAN_S + SCAN_NEW
+
+    def drift(a, b):
+        return max(float((x.float() - y.float()).abs().max()
+                         / y.float().abs().max()) for x, y in zip(a, b))
+
+    with torch.no_grad():
+        _zero(fa, wkv, pa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = M.prefill(params, cfg, {"tokens": tokens}, capacity=cap)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        M.decode_step(params, cfg, lg[:, -1].argmax(-1)[:, None], cache,
+                      SCAN_S)
+        torch.cuda.synchronize()
+        t_pre, t_dec = t1 - t0, time.perf_counter() - t1
+        counts = _counts(fa, wkv, pa)
+        del lg, cache
+        expect = cfg.num_layers * (2 if route == "rwkv6_scan" else 1)
+        log(f"{arch} (full width, member 0, B={SCAN_B}): prefill of {SCAN_S} "
+            f"tokens {t_pre:.3f} s, one decode step {t_dec * 1e3:.1f} ms on the "
+            f"kernel path (eager, host included; {counts[key]} {key} "
+            f"launches, expected {expect})")
+        if counts[key] != expect:
+            fail(f"{arch}: {counts[key]} launches for a prefill and a step")
+        profile_serving(torch, params, cfg, tokens, cap, arch)
+
+        worst = {}
+        caches = (M.init_cache(cfg, SCAN_B, cap, device=device),
+                  M.init_cache(cfg, SCAN_B, cap, device=device))
+        x = M._embed_tokens(params, cfg, tokens)
+        xk, xp = _forced_layers(torch, M, ops, ref, route, params, cfg, x,
+                                caches, None, worst)
+        lg_k = M._logits(params, cfg, xk[:, -1:])
+        lg_p = M._logits(params, cfg, xp[:, -1:])
+        nxt = lg_p[:, -1].argmax(-1)
+        for a, b in zip(pop.tree_leaves(caches[0]),
+                        pop.tree_leaves(caches[1])):
+            a.copy_(b)  # the decode step starts from the plain cache
+        x = M._embed_tokens(params, cfg, nxt[:, None], pos0=SCAN_S)
+        xk2, xp2 = _forced_layers(torch, M, ops, ref, route, params, cfg, x,
+                                  caches, SCAN_S, worst)
+        worst["prefill logits"] = drift([lg_k], [lg_p])
+        worst["decode-step logits"] = drift(
+            [M._logits(params, cfg, xk2)], [M._logits(params, cfg, xp2)])
+    log(f"teacher-forced {arch}, layer by layer ({cfg.num_layers} layers, "
+        f"prefill and decode step): worst max |kernel - plain| / max |plain| "
+        + ", ".join(f"{name} {v:.4e}" for name, v in worst.items())
+        + f" (tolerance {LOGIT_REL_TOL:g})")
+    bad = {name: v for name, v in worst.items() if not v <= LOGIT_REL_TOL}
+    if bad:
+        fail(f"teacher-forced {arch}: kernel path differs from plain: {bad}")
+    _zero(fa, wkv, pa)
+    del params, caches
+    torch.cuda.empty_cache()
+
+
+def scan_reduced_f32(torch, device):
+    """The reduced float32 rwkv6 and llama through ``engine.generate`` on
+    the kernel path and on the plain path: greedy tokens identical.
+    Returns the launches of the kernel runs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.launch.serve import init_population
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.serving import engine
+    from repro_torch.serving.engine import averaged_params
+
+    launches = {}
+    for arch in ("rwkv6-3b", "llama3.2-3b"):
+        cfg = get_arch(arch).reduced()
+        popn = init_population(cfg, 2, seed=3, device=device)
+        batch = concrete_batch(cfg, 7, 4, 64, device=device)
+        route = "rwkv6_scan" if cfg.block_kind == "rwkv6" else "flash_attention"
+        for mode in ("soup", "ensemble"):
+            params = engine.serving_params(popn, mode)
+            torch.cuda.synchronize()
+            _zero(fa, wkv, pa)
+            out_k = engine.generate(params, cfg, batch, 16, mode=mode,
+                                    device=device)
+            torch.cuda.synchronize()
+            counts = _counts(fa, wkv, pa)
+            with plain_routes(ops, ref, route):
+                out_p = engine.generate(params, cfg, batch, 16, mode=mode,
+                                        device=device)
+            same = torch.equal(out_k, out_p)
+            members = MODE_MEMBERS[mode]
+            expect = cfg.num_layers * members * (16 if route == "rwkv6_scan"
+                                                 else 1)
+            key = "wkv" if route == "rwkv6_scan" else "flash"
+            log(f"reduced f32 {arch} {mode} (B=4, S=64, 16 new): greedy "
+                f"tokens kernel path == plain path: {same}; {key} launches "
+                f"{counts[key]} (expected {expect})")
+            if not same:
+                fail(f"reduced f32 {arch} {mode}: greedy tokens differ")
+            if counts[key] != expect:
+                fail(f"reduced f32 {arch} {mode}: {counts[key]} launches")
+            launches[key] = launches.get(key, 0) + counts[key]
+        del popn
+    return launches
+
+
+def scan_engine(torch, device, kernels, card):
+    """Phase 8."""
+    counts = serve_full_width(torch, device, "rwkv6-3b", card)
+    kernels["wkv"]["launches"] = counts["wkv"]
+    teacher_forced(torch, device, "rwkv6-3b")
+    counts = serve_full_width(torch, device, "llama3.2-3b", card)
+    kernels["flash_bf16"]["launches"] = counts["flash"]
+    teacher_forced(torch, device, "llama3.2-3b")
+    reduced = scan_reduced_f32(torch, device)
+    kernels["flash_f32"]["launches"] = reduced["flash"]
+
+
+def build_kernels(*mods):
+    """Every library, each nvcc started at once."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(mods)) as pool:
+        for fut in [pool.submit(mod.build) for mod in mods]:
             fut.result()
+    each = ", ".join(f"{mod.SOURCE.stem} {mod.build_seconds or 0:.2f} s"
+                     for mod in mods)
     log(f"kernel build: {time.perf_counter() - t0:.2f} s in parallel (nvcc "
-        f"paged_attention {pa.build_seconds or 0:.2f} s, wash_shuffle "
-        f"{ws.build_seconds or 0:.2f} s)")
-    for mod in (pa, ws):
+        f"{each})")
+    for mod in mods:
         for line in sorted({ln.strip() for ln in mod.build_log.splitlines()
                             if "registers" in ln or "spill" in ln}):
-            log(f"  ptxas: {line}")
+            log(f"  ptxas {mod.SOURCE.stem}: {line}")
 
 
 def main() -> int:
@@ -1064,14 +1589,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in f32
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as wkv
     from repro_torch.kernels import wash_shuffle as ws
 
     device = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    build_kernels(pa, ws)
+    build_kernels(pa, ws, fa, wkv)
 
     kernels = check_kernel(torch, pa, ref, F, device)
     full_width(torch, device, kernels)
@@ -1080,6 +1607,9 @@ def main() -> int:
     train_full_width(torch, device, shuffles)
     reduced_paths(torch, device, shuffles)
     kernels.update(shuffles)
+    kernels.update(check_flash(torch, fa, ref, F, device))
+    kernels.update(check_wkv(torch, wkv, ref, device))
+    scan_engine(torch, device, kernels, card)
     for entry in kernels.values():
         if entry["launches"] == 0:
             fail(f"kernel {entry['name']} was never launched on its path")

@@ -12,6 +12,7 @@ compare the two packages carry JAX's plans and data across as arrays.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _MASK = (1 << 64) - 1
@@ -40,6 +41,13 @@ def step_seed(base_seed: int, step: int) -> int:
 def leaf_seed(seed: int, leaf_index: int) -> int:
     """Per-leaf seed derived from the shared step seed."""
     return fold_in(seed, leaf_index)
+
+
+def stream_seed(seed: int, step: int) -> int:
+    """The generator seed of one (request, step) of a sample stream: a hash
+    of both, so a request's draws depend on nothing else in its batch."""
+    return int(np.random.SeedSequence([int(seed), int(step)])
+               .generate_state(1, np.uint64)[0])
 
 
 def generator(seed: int, device) -> torch.Generator:

@@ -1,0 +1,104 @@
+"""The Hopper flash-attention kernel: its build, its ctypes binding and its
+launch counter.
+
+Replaces ``repro/kernels/flash_attention.py`` ``flash_attention_pallas``.
+The source is ``csrc/flash_attention.cu`` (its head says what bounds the
+kernel and what the design does about it), built at first use by
+``kernels/build.py``.  Nothing is compiled or loaded when this module is
+imported.
+
+:func:`flash_attention_cuda` takes CUDA tensors only; the CPU path of
+``kernels.ops.flash_attention`` never reaches this module's build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build as _build
+
+#: kernel launches made through :func:`flash_attention_cuda`
+launches = 0
+
+#: seconds the last build took (None until built in this process)
+build_seconds: Optional[float] = None
+
+#: what nvcc printed for the last build (ptxas register / smem report)
+build_log = ""
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+
+HEAD_DIMS = (32, 64, 128)  # the instantiations in the source
+
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib = None
+
+
+def build() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    lib, build_seconds, build_log = _build.load(SOURCE)
+    ci, vp = ctypes.c_int, ctypes.c_void_p
+    lib.repro_flash_attention.restype = ci
+    lib.repro_flash_attention.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci,
+                                          ci, ci, ci, ctypes.c_float, vp]
+    _lib = lib
+    return lib
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"flash_attention_cuda: {msg}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Launch the kernel on the current stream; same contract as
+    ``kernels.ref.flash_attention_ref``.
+
+      q     : (B, S, H, hd) float32 or bfloat16, contiguous, hd in
+              :data:`HEAD_DIMS`
+      k, v  : (B, S, KV, hd), q's dtype, contiguous, H a multiple of KV
+      window: None, or the sliding window (>= 1 keys, the query's own
+              included)
+
+    Returns a new contiguous (B, S, H, hd) tensor in q's dtype."""
+    global launches
+    _check(all(t.is_cuda and t.device == q.device for t in (q, k, v)),
+           "q, k and v must be on one CUDA device")
+    _check(q.dtype in _CODES, f"dtype {q.dtype} not in {list(_CODES)}")
+    _check(k.dtype == q.dtype and v.dtype == q.dtype,
+           "q, k and v must share one dtype")
+    _check(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
+           "q must be (B, S, H, hd) and k, v one (B, S, KV, hd) shape")
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    _check(k.shape[0] == B and k.shape[1] == S and k.shape[3] == hd,
+           f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    _check(KV > 0 and H % KV == 0, f"H={H} is not a multiple of KV={KV}")
+    _check(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+    _check(all(t.is_contiguous() for t in (q, k, v)),
+           "q, k and v must be contiguous")
+    _check(window is None or window >= 1, f"window={window} must be >= 1")
+    _check(min(B, S, H) >= 1, f"empty input {tuple(q.shape)}")
+    _check(B * H * -(-S // 64) < 2 ** 31, "too many blocks")
+    out = torch.empty_like(q)
+    lib = build()
+    rc = lib.repro_flash_attention(
+        _CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), B, S, H, KV, hd, int(bool(causal)),
+        0 if window is None else int(window), hd ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches += 1
+    return out

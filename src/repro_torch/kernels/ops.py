@@ -14,10 +14,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import rwkv6_scan as _wkv
 from repro_torch.kernels import wash_shuffle as _ws
 from repro_torch.kernels.ref import (bucketed_shuffle_ref_,
-                                     paged_attention_ref, wash_shuffle_ref)
+                                     flash_attention_ref,
+                                     paged_attention_ref, rwkv6_scan_ref,
+                                     wash_shuffle_ref)
 
 
 def _route(t: torch.Tensor, what: str) -> str:
@@ -68,3 +72,23 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                         lengths, k_scale, v_scale)
     return paged_attention_ref(q, k_pool, v_pool, page_table, lengths,
                                k_scale, v_scale)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Whole-sequence GQA self-attention: q (B,S,H,hd), k/v (B,S,KV,hd)
+    -> (B,S,H,hd) in q's dtype; causal and/or a sliding ``window``."""
+    if _route(q, "flash_attention") == "cuda":
+        return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor,
+               state: Optional[torch.Tensor] = None):
+    """RWKV-6 WKV recurrence: r/k/v/w (B,T,H,hd), u (H,hd) -> y (B,T,H,hd);
+    with an initial ``state`` (B,H,hd,hd) float32, ``(y, final_state)``."""
+    if _route(r, "rwkv6_scan") == "cuda":
+        return _wkv.rwkv6_scan_cuda(r, k, v, w, u, state=state)
+    return rwkv6_scan_ref(r, k, v, w, u, state=state)

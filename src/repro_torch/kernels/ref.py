@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
-Port of ``repro/kernels/ref.py`` ``wash_shuffle_ref`` and
-``paged_attention_ref``, plus the plain bucketed shuffle (the reference's
-``core/shuffle.py`` ``bucketed_apply_stacked``).  The CPU paths of
+Port of ``repro/kernels/ref.py`` (``wash_shuffle_ref``,
+``flash_attention_ref``, ``paged_attention_ref``, ``rwkv6_scan_ref``), plus
+the plain bucketed shuffle (the reference's ``core/shuffle.py``
+``bucketed_apply_stacked``).  The CPU paths of
 :mod:`repro_torch.kernels.ops` run these, and ``chip_smoke.py`` holds the
 CUDA kernels against them on the card.
 """
@@ -43,6 +44,61 @@ def bucketed_shuffle_ref(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Functional form of :func:`bucketed_shuffle_ref_` (the reference's
     signature): shuffles a copy of ``x``."""
     return bucketed_shuffle_ref_(x.clone(), idx)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Self-attention over a whole sequence, as one masked softmax.
+
+    q: (B,S,H,hd); k/v: (B,S,KV,hd), H a multiple of KV (query head h reads
+    kv head ``h // (H // KV)``) -> (B,S,H,hd) in q's dtype.  Scores are
+    divided by sqrt(hd) in float32; key j is visible to query i where
+    ``j <= i`` (when ``causal``) and ``j > i - window`` (when a window is
+    given); masked scores are ``NEG_INF``, so no row is all -inf."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qf = q.reshape(B, S, KV, H // KV, hd).float()
+    scores = torch.einsum("btkgh,bskh->bkgts", qf, k.float()) / (hd ** 0.5)
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (j <= i)
+    if window is not None:
+        mask = mask & (j > i - window)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", w, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor,
+                   state: Optional[torch.Tensor] = None):
+    """The RWKV-6 WKV recurrence, one step at a time, in float32.
+
+    r/k/v/w: (B,T,H,hd), w the per-step decay in (0, 1); u: (H,hd) -> y
+    (B,T,H,hd) in r's dtype, with per (batch, head) an (hd x hd) state::
+
+        y_t = r_t . (S + diag(u) k_t^T v_t)
+        S  <- diag(w_t) S + k_t^T v_t
+
+    ``state`` None starts from zero and returns ``y`` alone (the TPU
+    kernel's function).  Given an initial state (B,H,hd,hd) float32 it
+    returns ``(y, final_state)``, as the model's time mix needs."""
+    B, T, H, hd = r.shape
+    S = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    uf = u.float()[None, :, :, None]
+    ys = []
+    for t in range(T):
+        k_t = k[:, t].float()
+        kv = k_t[..., :, None] * v[:, t].float()[..., None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t].float(), S + uf * kv))
+        S = w[:, t].float()[..., None] * S + kv
+    y = torch.stack(ys, dim=1).to(r.dtype)
+    return y if state is None else (y, S)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

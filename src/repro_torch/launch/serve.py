@@ -1,19 +1,31 @@
-"""CLI launcher: serve a WASH population through continuous batching.
+"""CLI launcher: serve a WASH population (scan engine or continuous batching).
 
-Port of the ``--continuous`` path of ``repro/launch/serve.py``.  Loads a
-population (random-init from ``--seed``, or ``--ckpt``, a stacked
-population ``.npz`` written by either package's ``train.checkpoint.save``,
-for example the JAX train CLI's ``--ckpt-population``), turns it into the
-``--mode``'s serving params, and serves a mixed-length request stream
-through ``serving.batching.ContinuousServer`` over a paged KV cache,
-reporting tokens/s and the runtime's page accounting.  On the card every
-decode attend runs the hand-written paged-attention kernel.
+Port of ``repro/launch/serve.py`` without the mesh, pipeline, quick-train,
+timed-arrival and telemetry options.  Loads a population (random-init
+from ``--seed``, or ``--ckpt``, a stacked population ``.npz`` written by
+either package's ``train.checkpoint.save``, for example the JAX train
+CLI's ``--ckpt-population``), turns it into the ``--mode``'s serving
+params, and serves it through one of two runtimes:
+
+  * default — the scan engine (``serving.engine.generate``): a
+    shape-uniform batch of ``--batch-size`` prompts of ``--seq-len``
+    tokens, prefilled at once and decoded ``--max-new`` tokens, reporting
+    tokens/s; ``--compare`` serves the same batch in every mode.  On the
+    card every prefill attention runs the hand-written flash-attention
+    kernel and every rwkv6 time mix the hand-written WKV kernel;
+  * ``--continuous`` — a mixed-length request stream through
+    ``serving.batching.ContinuousServer`` over a paged KV cache, reporting
+    tokens/s and the runtime's page accounting; every decode attend runs
+    the hand-written paged-attention kernel.
+
+  python -m repro_torch.launch.serve --arch rwkv6-3b --population 2 \\
+      --batch-size 4 --seq-len 2048 --max-new 32 --compare
+
+  python -m repro_torch.launch.serve --arch llama3.2-3b --reduced \\
+      --device cpu --mode ensemble --temperature 0.7 --seed 3
 
   python -m repro_torch.launch.serve --arch llama3.2-3b --continuous \\
       --population 2 --requests 16 --max-slots 8 --seq-len 512 --max-new 32
-
-  python -m repro_torch.launch.serve --arch llama3.2-3b --reduced \\
-      --continuous --device cpu --requests 8 --max-new 8 --seq-len 16
 """
 
 from __future__ import annotations
@@ -27,10 +39,12 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core import population as pop
 from repro_torch.core.device import resolve_device
-from repro_torch.kernels import paged_attention
+from repro_torch.core.prng import fold_in
+from repro_torch.kernels import flash_attention, paged_attention, rwkv6_scan
+from repro_torch.launch.specs import concrete_batch
 from repro_torch.models import transformer as M
 from repro_torch.serving import batching
-from repro_torch.serving.engine import MODES
+from repro_torch.serving import engine as serving
 from repro_torch.train import checkpoint
 
 
@@ -50,6 +64,67 @@ def _population(args, cfg, device):
         print(f"restored population <- {args.ckpt}")
         return popn
     return init_population(cfg, args.population, args.seed, device)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _serve_once(popn, cfg, batch, args, mode, sample_seed, device):
+    """Serve ``batch`` in ``mode`` through the scan engine twice: the first
+    request builds the programs (and the kernels, on a fresh card), the
+    second is timed.  Resolves the mode's params once (soup averaging and
+    member slicing are per-deployment work).  Returns
+    ``{"tokens", "tok_s", "first_s", "steady_s"}``."""
+    params = serving.serving_params(popn, mode, args.member)
+    gen_mode = "ensemble" if mode == "ensemble" else "soup"
+
+    def request():
+        out = serving.generate(params, cfg, batch, args.max_new,
+                               temperature=args.temperature, seed=sample_seed,
+                               mode=gen_mode, device=device)
+        _sync(device)
+        return out
+
+    t0 = time.perf_counter()
+    request()
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = request()
+    dt = max(time.perf_counter() - t0, 1e-9)
+    toks = args.batch_size * args.max_new
+    print(f"mode={mode:9s} {toks / dt:9.1f} tok/s  (first request "
+          f"{first:.2f}s, steady {dt:.3f}s/req, decode programs "
+          f"{serving.decode_trace_count()}, programs cached "
+          f"{serving.executable_cache_size()}, device={device})")
+    return {"tokens": out, "tok_s": toks / dt, "first_s": first,
+            "steady_s": dt}
+
+
+def _serve_scan(popn, cfg, args, device):
+    """The default runtime: one shape-uniform batch through the scan
+    engine in ``--mode`` (every mode with ``--compare``)."""
+    batch = concrete_batch(cfg, fold_in(args.seed, 2), args.batch_size,
+                           args.seq_len, device=device)
+    sample_seed = fold_in(args.seed, 999) if args.temperature > 0.0 else None
+    print(f"arch={cfg.name} population={args.population} "
+          f"B={args.batch_size} S={args.seq_len} new={args.max_new} "
+          f"temperature={args.temperature}")
+    serving.reset_trace_counts()
+    modes = list(serving.MODES) if args.compare else [args.mode]
+    launches0 = (flash_attention.launches, rwkv6_scan.launches)
+    outs = {m: _serve_once(popn, cfg, batch, args, m, sample_seed, device)
+            for m in modes}
+    print(f"kernel launches: flash attention "
+          f"{flash_attention.launches - launches0[0]}, rwkv6 scan "
+          f"{rwkv6_scan.launches - launches0[1]}")
+    if args.compare:
+        soup = outs["soup"]["tokens"][:, args.seq_len:]
+        ens = outs["ensemble"]["tokens"][:, args.seq_len:]
+        agree = float((soup == ens).float().mean())
+        print(f"soup/ensemble token agreement: {agree:.0%}")
+    return outs
 
 
 def mixed_stream(cfg, n_requests: int, max_prompt: int, max_new: int,
@@ -89,12 +164,10 @@ def _serve_continuous(popn, cfg, args, device):
     reqs = mixed_stream(cfg, args.requests, args.seq_len, args.max_new,
                         args.seed, args.temperature)
     launches0 = paged_attention.launches
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     t0 = time.perf_counter()
     out = server.run(reqs)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     dt = max(time.perf_counter() - t0, 1e-9)
     toks = sum(r.max_new for r in reqs)
     st = server.stats
@@ -124,7 +197,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve the reduced (small, float32) config variant")
     ap.add_argument("--population", type=int, default=4,
                     help="population size N (members to init/restore)")
-    ap.add_argument("--mode", default="soup", choices=list(MODES),
+    ap.add_argument("--mode", default="soup", choices=list(serving.MODES),
                     help="serving mode: soup (1x cost), member (one member), "
                          "ensemble (Nx decode, averaged logits)")
     ap.add_argument("--member", type=int, default=0,
@@ -132,28 +205,39 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature; 0 = greedy")
     ap.add_argument("--max-new", type=int, default=32,
-                    help="the maximum of the per-request new-token budgets")
+                    help="new tokens per request (continuous: the maximum "
+                         "of the per-request budget range)")
+    ap.add_argument("--batch-size", type=int, default=8,
+                    help="scan engine: prompts in the shape-uniform batch")
     ap.add_argument("--seq-len", type=int, default=32,
-                    help="the maximum of the per-request prompt lengths")
+                    help="prompt length (continuous: the maximum of the "
+                         "per-request prompt-length range)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed for weights, prompts, and stream shape")
+                    help="seed for weights, prompts, stream shape, and (scan "
+                         "engine, --temperature > 0) the sample streams")
     ap.add_argument("--ckpt", default=None,
                     help="restore a stacked-population .npz (for example "
                          "from the JAX train CLI's --ckpt-population)")
+    ap.add_argument("--compare", action="store_true",
+                    help="scan engine: serve the same batch in every mode "
+                         "and report the soup/ensemble token agreement")
     ap.add_argument("--continuous", action="store_true",
-                    help="serve the stream through the continuous-batching "
-                         "paged-KV runtime (the only runtime ported)")
+                    help="serve a mixed-length request stream through the "
+                         "continuous-batching paged-KV runtime instead of "
+                         "the scan engine")
     ap.add_argument("--requests", type=int, default=16,
-                    help="number of requests in the stream")
+                    help="continuous: number of requests in the stream")
     ap.add_argument("--max-slots", type=int, default=4,
-                    help="in-flight request slots (the decode step's batch)")
+                    help="continuous: in-flight request slots (the decode "
+                         "step's batch)")
     ap.add_argument("--page-size", type=int, default=16,
-                    help="tokens per KV page")
+                    help="continuous: tokens per KV page")
     ap.add_argument("--num-pages", type=int, default=256,
-                    help="KV page-pool size shared by all slots")
+                    help="continuous: KV page-pool size shared by all slots")
     ap.add_argument("--kv-dtype", default=None, choices=["int8"],
-                    help="quantize the paged KV pools to int8, one scale per "
-                         "(layer, page) (default: the model's param dtype)")
+                    help="continuous: quantize the paged KV pools to int8, "
+                         "one scale per (layer, page) (default: the model's "
+                         "param dtype)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on: cuda (the default; "
                          "raises without a card) or cpu")
@@ -161,16 +245,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    """Serve as the flags say.  Returns what the runtime served: the
+    continuous server's results, or per mode the scan engine's tokens and
+    timings."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if not args.continuous:
-        ap.error("only the --continuous runtime is ported; add --continuous")
+    if args.continuous and args.compare:
+        ap.error("--compare is a scan-engine option; drop --continuous")
+    if args.kv_dtype and not args.continuous:
+        ap.error("--kv-dtype is a continuous-runtime option; add --continuous")
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     popn = _population(args, cfg, device)
-    _serve_continuous(popn, cfg, args, device)
+    if args.continuous:
+        return _serve_continuous(popn, cfg, args, device)
+    return _serve_scan(popn, cfg, args, device)
 
 
 if __name__ == "__main__":

@@ -105,6 +105,9 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    reason = M.train_supported(cfg)
+    if reason is not None:
+        raise NotImplementedError(f"training {cfg.name}: {reason}")
 
     task = make_lm_task(fold_in(args.seed, 1), vocab=min(cfg.vocab_size, 512),
                         device=device)

@@ -1,15 +1,16 @@
-"""Shared layers: norms, rope, SwiGLU, GQA for training and paged serving.
+"""Shared layers: norms, rope, SwiGLU, GQA for training and serving.
 
-Port of the parts of ``repro/models/layers.py`` that training and
-continuous-batching serving run.  Plain functions over explicit parameter
+Port of the parts of ``repro/models/layers.py`` that training, the scan
+engine (the contiguous ring KV cache) and continuous batching (the paged
+KV cache) run.  Plain functions over explicit parameter
 dicts, in the reference's layout (linear weights ``(d_in, d_out)`` used as
 ``x @ w``).
 Compute-sensitive reductions run in float32.
 
-Where the reference returns new pools (JAX donates them), the paged
-stores here write into the preallocated pool tensors **in place** and
-return the same objects; a per-layer view ``pool[l]`` is written through
-to the stacked ``(L, P, ...)`` pool.
+Where the reference returns new caches and pools (JAX donates them), the
+stores here write into the preallocated tensors **in place** and return
+the same objects; a per-layer view ``cache[l]`` is written through to the
+stacked ``(L, ...)`` tensor.
 """
 
 from __future__ import annotations
@@ -48,6 +49,12 @@ def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
 # ---------------------------------------------------------------------------
 # norms, rope, MLP
 # ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, dtype: torch.dtype, lead: Tuple[int, ...] = (),
+                 device=None):
+    return {"scale": torch.ones(tuple(lead) + (d,), dtype=dtype,
+                                device=device)}
 
 
 def rmsnorm(p, x, eps: float = 1e-5):
@@ -223,6 +230,80 @@ def gqa_train(p, cfg: ModelConfig, x, bidirectional: bool = False):
                 if bidirectional else causal_mask(T, cfg.window, x.device))
         out = sdpa(q, k, v, mask, cfg.num_kv_heads)
     return out.reshape(B, T, -1) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# contiguous ring KV cache (the scan engine)
+# ---------------------------------------------------------------------------
+
+
+def gqa_cache_init(cfg: ModelConfig, batch: int, capacity: int,
+                   num_layers: int, device="cuda"):
+    """Ring KV cache ``(L, B, capacity, KV, hd)`` in the param dtype, and
+    the absolute position held by each ring slot, ``pos_ids`` (L, capacity)
+    int32, -1 where empty."""
+    device = resolve_device(device)
+    hd = cfg.resolved_head_dim
+    dtype = param_dtype(cfg)
+    shape = (num_layers, batch, capacity, cfg.num_kv_heads, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos_ids": torch.full((num_layers, capacity), -1, dtype=torch.int32,
+                              device=device),
+    }
+
+
+def gqa_prefill(p, cfg: ModelConfig, x, cache_l):
+    """Whole-prompt attention over ``x`` (B, T, D) at positions 0..T-1 that
+    also fills this layer's ring (``cache_l``: per-layer views, written in
+    place).  The ring keeps the last ``capacity`` tokens at slot
+    ``pos % capacity``, so decode appends at ``pos % capacity``.
+
+    The attention is ``ops.flash_attention`` (causal, ``cfg.window``) —
+    the hand-written kernel for CUDA tensors, the plain masked softmax for
+    CPU tensors — whatever ``cfg.attn_impl`` says: the reference's naive,
+    chunked and banded forms all compute that function.
+    Returns ``(out (B, T, D), cache_l)``."""
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device)
+    q, k, v = _qkv(p, cfg, x, positions)
+    ck, cv, cpos = cache_l["k"], cache_l["v"], cache_l["pos_ids"]
+    cap = ck.shape[1]
+    if cap <= T:
+        start = T - cap
+        shift = start % cap
+        ck.copy_(torch.roll(k[:, start:], shift, dims=1))
+        cv.copy_(torch.roll(v[:, start:], shift, dims=1))
+        cpos.copy_(torch.roll(torch.arange(start, T, dtype=torch.int32,
+                                           device=x.device), shift))
+    else:
+        ck[:, :T] = k
+        cv[:, :T] = v
+        cpos[:T] = positions.to(torch.int32)
+    out = ops.flash_attention(q, k, v, causal=True, window=cfg.window)
+    return out.reshape(B, T, -1) @ p["wo"], cache_l
+
+
+def gqa_decode(p, cfg: ModelConfig, x, cache_l, pos: int):
+    """One-token decode of ``x`` (B, 1, D) at absolute position ``pos``
+    against this layer's ring (views, written in place): the token's K/V
+    go to slot ``pos % capacity``, then it attends to every filled slot
+    (within the window, if any) with plain ``sdpa``, as the reference
+    computes it outside any Pallas kernel.  Returns ``(out, cache_l)``."""
+    B, T, _ = x.shape
+    assert T == 1
+    q, k, v = _qkv(p, cfg, x, torch.full((1,), pos, device=x.device))
+    ck, cv, cpos = cache_l["k"], cache_l["v"], cache_l["pos_ids"]
+    slot = pos % ck.shape[1]
+    ck[:, slot] = k[:, 0]
+    cv[:, slot] = v[:, 0]
+    cpos[slot] = pos
+    valid = cpos >= 0
+    if cfg.window is not None:
+        valid = valid & (cpos > pos - cfg.window)
+    out = sdpa(q, ck, cv, valid[None, :], cfg.num_kv_heads)
+    return out.reshape(B, 1, -1) @ p["wo"], cache_l
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,18 @@
-"""Model assembly for training and the paged-KV serving path.
+"""Model assembly for training and the two serving paths.
 
-Port of the parts of ``repro/models/transformer.py`` that training and
-continuous batching run: ``init_params`` (attention blocks), the training
-forward and loss, the embedding and LM head, and the paged decode and
-prefill steps.  Parameters keep the reference's tree: every block leaf is
-stacked along a leading ``num_layers`` axis under ``params["blocks"]``.
-Where the reference runs ``lax.scan`` over the stacked blocks, the port
-loops over layers in Python on per-layer views (``leaf[l]``, ``pool[l]``),
-which copy nothing.
+Port of the parts of ``repro/models/transformer.py`` that training, the
+scan engine and continuous batching run: ``init_params`` (attention and
+rwkv6 blocks), the training forward and loss, the embedding and LM head,
+the contiguous-cache ``prefill`` / ``decode_step`` / ``decode_scan``, and
+the paged decode and prefill steps.  Parameters keep the reference's tree:
+every block leaf is stacked along a leading ``num_layers`` axis under
+``params["blocks"]``.  Where the reference runs ``lax.scan`` over the
+stacked blocks, the port loops over layers in Python on per-layer views
+(``leaf[l]``, ``cache[l]``), which copy nothing.
+
+Which path takes which config, one gate each:
+:func:`scan_supported` (init, the scan engine), :func:`train_supported`
+(training) and :func:`paged_decode_supported` (continuous batching).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.population import tree_map
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 Tree = Any
 
@@ -30,10 +36,40 @@ Tree = Any
 # ---------------------------------------------------------------------------
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    reason = paged_decode_supported(cfg)
+def scan_supported(cfg: ModelConfig) -> Optional[str]:
+    """None if the port can build this config and serve it through the
+    scan engine (``prefill`` / ``decode_step``), else the reason: plain
+    GQA attention blocks (sliding windows included) and rwkv6 blocks."""
+    if cfg.block_kind not in ("attn", "rwkv6"):
+        return f"block_kind={cfg.block_kind!r} is not ported yet"
+    if cfg.moe:
+        return "MoE layers are not ported to PyTorch yet"
+    if cfg.mla:
+        return "MLA attention is not ported to PyTorch yet"
+    if cfg.is_encdec:
+        return "encoder-decoder models are not ported to PyTorch yet"
+    if cfg.frontend is not None:
+        return f"frontend={cfg.frontend!r} inputs are not ported yet"
+    return None
+
+
+def train_supported(cfg: ModelConfig) -> Optional[str]:
+    """None if the port can train this config, else the reason.  rwkv6 is
+    refused: its training needs the gradient of the WKV recurrence, and
+    the card has no backward kernel for it yet (the plain step loop must
+    not stand in for one)."""
+    reason = scan_supported(cfg)
     if reason is not None:
-        raise NotImplementedError(f"{cfg.name}: {reason}")
+        return reason
+    if cfg.block_kind == "rwkv6":
+        return ("training rwkv6 needs a WKV backward kernel, which is not "
+                "written yet")
+    return None
+
+
+def _require(reason: Optional[str], what: str, cfg: ModelConfig) -> None:
+    if reason is not None:
+        raise NotImplementedError(f"{what} {cfg.name}: {reason}")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -42,7 +78,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     from a ``torch.Generator`` seeded with ``seed`` (the numbers differ
     from ``jax.random``; carry JAX weights across with
     ``train.interop.params_from_numpy`` to compare the two)."""
-    _check_ported(cfg)
+    _require(scan_supported(cfg), "init", cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -62,16 +98,20 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     params["blocks"] = {
         "ln1": {"scale": ones(NL, D)},
         "ln2": {"scale": ones(NL, D)},
-        "attn": L.gqa_init(gen, cfg, lead=lead),
-        "mlp": L.swiglu_init(gen, D, cfg.d_ff, dtype, lead=lead),
     }
+    if cfg.block_kind == "rwkv6":
+        params["blocks"]["rwkv"] = SSM.rwkv6_init(gen, cfg, lead=lead)
+    else:
+        params["blocks"]["attn"] = L.gqa_init(gen, cfg, lead=lead)
+        params["blocks"]["mlp"] = L.swiglu_init(gen, D, cfg.d_ff, dtype,
+                                                lead=lead)
     return params
 
 
 def param_shapes(cfg: ModelConfig) -> Tree:
     """The parameter tree as ``meta`` tensors: shapes and dtypes only, for
     restoring a checkpoint without drawing random weights first."""
-    _check_ported(cfg)
+    _require(scan_supported(cfg), "init", cfg)
     dtype = L.param_dtype(cfg)
     hd = cfg.resolved_head_dim
     D, V, NL, F = cfg.d_model, cfg.vocab_size, cfg.num_layers, cfg.d_ff
@@ -83,6 +123,11 @@ def param_shapes(cfg: ModelConfig) -> Tree:
         params["lm_head"] = {"w": m(D, V)}
     if cfg.pos_kind == "learned":
         params["embed"]["pos"] = m(cfg.max_position, D)
+    if cfg.block_kind == "rwkv6":
+        params["blocks"] = {"ln1": {"scale": m(NL, D)},
+                            "ln2": {"scale": m(NL, D)},
+                            "rwkv": SSM.rwkv6_shapes(cfg, NL)}
+        return params
     attn = {"wq": m(NL, D, H * hd), "wk": m(NL, D, KV * hd),
             "wv": m(NL, D, KV * hd), "wo": m(NL, H * hd, D)}
     if cfg.qkv_bias:
@@ -141,7 +186,9 @@ def _layer_views(blocks: Tree, num_layers: int) -> List[Tree]:
 def _run_blocks_train(params, cfg: ModelConfig, x):
     """All blocks in order, a Python loop over per-layer views; with
     ``cfg.remat_blocks`` each block's activations are recomputed in the
-    backward pass (``torch.utils.checkpoint``) instead of stored."""
+    backward pass (``torch.utils.checkpoint``) instead of stored.  Raises
+    for what :func:`train_supported` refuses (rwkv6)."""
+    _require(train_supported(cfg), "training", cfg)
     for blk in _layer_views(params["blocks"], cfg.num_layers):
         if cfg.remat_blocks:
             x = checkpoint(_block_train, blk, cfg, x, use_reentrant=False)
@@ -153,8 +200,7 @@ def _run_blocks_train(params, cfg: ModelConfig, x):
 def forward_logits(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor,
                                                                torch.Tensor]:
     """Full-sequence logits (B, S, V) and the auxiliary loss (0 for the
-    dense attention models the port has)."""
-    _check_ported(cfg)
+    dense attention models the port trains)."""
     x = _embed_tokens(params, cfg, batch["tokens"].long())
     x, aux = _run_blocks_train(params, cfg, x)
     return _logits(params, cfg, x), aux
@@ -170,6 +216,118 @@ def loss_fn(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor,
     nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
     loss = torch.mean(nll)
     return loss + cfg.router_aux_coef * aux, {"nll": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# serving with the contiguous cache (the scan engine)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               device: DeviceLike = "cuda") -> Tree:
+    """Decode state of every layer, on ``device`` (the card unless the
+    caller asks for the CPU).  ``capacity`` is the logical context;
+    sliding-window configs keep only ``min(window, capacity)`` ring slots.
+    rwkv6 keeps ``{"state": {"S", "x_tm", "x_cm"}}``, attention
+    ``{"kv": {"k", "v", "pos_ids"}}``, each leaf led by the layer axis."""
+    _require(scan_supported(cfg), "scan-engine serving of", cfg)
+    if cfg.block_kind == "rwkv6":
+        return {"state": SSM.rwkv_state_init(cfg, batch, cfg.num_layers,
+                                             device=device)}
+    cap = capacity if cfg.window is None else min(cfg.window, capacity)
+    return {"kv": L.gqa_cache_init(cfg, batch, cap, cfg.num_layers,
+                                   device=device)}
+
+
+def _cache_layer(cache: Tree, l: int) -> Tree:
+    return tree_map(lambda x: x[l], cache)
+
+
+def _store_layer(cache: Tree, l: int, new_l: Tree) -> None:
+    """Write layer ``l``'s new state into the stacked cache (the ring
+    stores already wrote through their views; rwkv6 returns new tensors)."""
+    for key, value in new_l.items():
+        if isinstance(value, dict):
+            _store_layer(cache[key], l, value)
+        elif value.data_ptr() != cache[key][l].data_ptr():
+            cache[key][l].copy_(value)
+
+
+def _block_serve(block_l, cfg: ModelConfig, x, cache_l, pos: Optional[int]):
+    """One layer of prefill (``pos`` None: the whole prompt from position
+    0; the reference's ``prefill`` scan body) or of one-token decode at
+    ``pos`` (the reference's ``_block_decode``).  Returns
+    ``(x, new_cache_l)``."""
+    if cfg.block_kind == "rwkv6":
+        x, state = SSM.rwkv6_block(
+            block_l["rwkv"], cfg, x, cache_l["state"],
+            {"ln1": block_l["ln1"], "ln2": block_l["ln2"]})
+        return x, {"state": state}
+    h = L.rmsnorm(block_l["ln1"], x, cfg.norm_eps)
+    if pos is None:
+        a, kv = L.gqa_prefill(block_l["attn"], cfg, h, cache_l["kv"])
+    else:
+        a, kv = L.gqa_decode(block_l["attn"], cfg, h, cache_l["kv"], pos)
+    x = x + a
+    x = x + L.swiglu(block_l["mlp"], L.rmsnorm(block_l["ln2"], x,
+                                               cfg.norm_eps))
+    return x, {"kv": kv}
+
+
+def decode_step(params, cfg: ModelConfig, tokens, cache, pos: int):
+    """ONE new token per row, ``tokens`` (B, 1), at absolute position
+    ``pos`` (a Python int, shared by the batch) against ``cache``, which is
+    written in place.  Returns ``(logits (B, 1, V), cache)``."""
+    pos = int(pos)
+    x = _embed_tokens(params, cfg, tokens.long(), pos0=pos)
+    for l in range(cfg.num_layers):
+        x, new_l = _block_serve(_block(params, l), cfg, x,
+                                _cache_layer(cache, l), pos)
+        _store_layer(cache, l, new_l)
+    return _logits(params, cfg, x), cache
+
+
+def decode_scan(params, cfg: ModelConfig, first, cache, start_pos: int,
+                num_steps: int, next_fn, step_fn=None):
+    """Multi-token decode: ``num_steps`` decode steps from absolute position
+    ``start_pos``, the reference's ``lax.scan`` as a Python loop (eager, so
+    every kernel launch is counted where it happens).
+
+      first    : (B,) int — token ids fed to the first step
+      next_fn  : (logits (B,1,V), step i) -> (B,) next token ids
+      step_fn  : optional override of :func:`decode_step`, called as
+                 ``step_fn(params, cache, tokens (B,1), pos)``; the
+                 ensemble passes a member loop that averages logits
+
+    Returns ``(tokens (B, num_steps), cache)``; ``tokens[:, i]`` is the id
+    sampled after the step at position ``start_pos + i``."""
+    if step_fn is None:
+        def step_fn(p, c, t, pos):  # noqa: E306
+            return decode_step(p, cfg, t, c, pos)
+    nxt = first
+    toks = []
+    for i in range(num_steps):
+        logits, cache = step_fn(params, cache, nxt[:, None], start_pos + i)
+        nxt = next_fn(logits, i)
+        toks.append(nxt)
+    if not toks:
+        return first.new_zeros((first.shape[0], 0)), cache
+    return torch.stack(toks, dim=1), cache
+
+
+def prefill(params, cfg: ModelConfig, batch, capacity: Optional[int] = None):
+    """Process the whole prompt ``batch["tokens"]`` (B, T) from position 0.
+    Returns ``(last-position logits (B, 1, V), the filled cache)``; the
+    cache lands on the tokens' device."""
+    tokens = batch["tokens"].long()
+    B, T = tokens.shape
+    cache = init_cache(cfg, B, capacity or T, device=tokens.device)
+    x = _embed_tokens(params, cfg, tokens)
+    for l in range(cfg.num_layers):
+        x, new_l = _block_serve(_block(params, l), cfg, x,
+                                _cache_layer(cache, l), None)
+        _store_layer(cache, l, new_l)
+    return _logits(params, cfg, x[:, -1:]), cache
 
 
 # ---------------------------------------------------------------------------

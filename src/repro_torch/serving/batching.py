@@ -50,6 +50,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import averaging
 from repro_torch.core import population as pop
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.prng import stream_seed
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as M
 from repro_torch.serving.engine import MODES, serving_params
@@ -243,13 +244,6 @@ def _chain_hashes(tokens: np.ndarray, page_size: int) -> List[bytes]:
 # ---------------------------------------------------------------------------
 
 
-def _stream_seed(seed: int, step: int) -> int:
-    """The generator seed of one (request, step): a hash of both, so a
-    request's draws depend on nothing else in the batch."""
-    return int(np.random.SeedSequence([int(seed), int(step)])
-               .generate_state(1, np.uint64)[0])
-
-
 def _sample_steps(last: torch.Tensor, seeds, steps, temperature: float,
                   greedy: bool) -> np.ndarray:
     """Next-token ids (B,) int32 on the host from last-position logits (B, V).
@@ -263,7 +257,7 @@ def _sample_steps(last: torch.Tensor, seeds, steps, temperature: float,
     probs = torch.softmax(last.float() / temperature, dim=-1)
     for b in range(last.shape[0]):
         gen = torch.Generator(device=last.device)
-        gen.manual_seed(_stream_seed(seeds[b], steps[b]))
+        gen.manual_seed(stream_seed(seeds[b], steps[b]))
         out[b] = int(torch.multinomial(probs[b], 1, generator=gen))
     return out
 

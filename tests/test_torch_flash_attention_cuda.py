@@ -1,0 +1,83 @@
+"""The CUDA flash-attention kernel against its plain version, on the card.
+
+Imports neither JAX nor the JAX package, so it runs on the machine with
+the card (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu \\
+        tests/test_torch_flash_attention_cuda.py
+
+Without a card every test here skips.  Tolerances: 2e-5 in f32 (both
+sides accumulate in f32, in another order) and 2e-2 in bf16 (one bf16
+rounding of the output), the ``tests/test_kernels.py`` bounds.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import flash_attention_ref
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, decided when the test runs (never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def _inputs(device, B, S, H, KV, hd, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, hd)).astype(np.float32)
+    return [torch.from_numpy(a).to(device).to(dtype) for a in (q, k, v)]
+
+
+CASES = [
+    # B, S, H, KV, hd, causal, window
+    (1, 64, 4, 4, 32, True, None),     # MHA, one tile
+    (2, 128, 4, 2, 64, True, None),    # GQA
+    (1, 96, 8, 1, 128, True, None),    # MQA, ragged last tile
+    (2, 200, 6, 2, 128, True, 37),     # window inside a tile, ragged
+    (1, 257, 4, 2, 64, True, 64),      # window of one tile, S = 4 tiles + 1
+    (2, 100, 4, 2, 32, False, None),   # non-causal, ragged
+    (1, 130, 4, 4, 64, False, 20),     # non-causal with a window
+    (1, 1, 4, 2, 128, True, None),     # a single token
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", CASES)
+def test_kernel_matches_plain_version(cuda_device, dtype, B, S, H, KV, hd,
+                                      causal, window):
+    q, k, v = _inputs(cuda_device, B, S, H, KV, hd, dtype, seed=S + hd)
+    n0 = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
+    q, k, v = _inputs(cuda_device, 1, 16, 4, 2, 48, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, k, v)
+    q, k, v = _inputs(cuda_device, 1, 16, 4, 3, 64, torch.float32)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(q, k, v)
+    q, k, v = _inputs(cuda_device, 1, 16, 4, 2, 64, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, v)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_attention(q.half(), k.half(), v.half())

@@ -25,6 +25,9 @@ from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TM
 from repro_torch.train import loop
 from repro_torch.serving import batching as TB
+from repro_torch.serving import engine as TE
+from repro_torch.configs import get_arch
+from repro_torch.models import ssm as SSM
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = ModelConfig(num_layers=2, d_model=32, num_heads=4, num_kv_heads=2,
@@ -41,7 +44,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert "repro_torch.serving.batching" in mods and len(mods) >= 30
     for name in ("train.loop", "launch.train", "kernels.wash_shuffle",
                  "kernels.build", "core.shuffle", "core.mixing", "optim",
-                 "data.synthetic"):
+                 "data.synthetic", "kernels.flash_attention",
+                 "kernels.rwkv6_scan", "models.ssm", "serving.engine"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -77,6 +81,16 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_card):
         loop.train_population(0, lambda s: params, None, None,
                               TrainConfig(population=1, total_steps=1),
                               MixingConfig(), CFG.num_layers)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "rwkv6-3b", "--reduced", "--population", "1",
+                    "--batch-size", "1", "--max-new", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TE.generate(params, CFG, {"tokens": torch.zeros((1, 2),
+                                                        dtype=torch.int32)}, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TM.init_cache(CFG, 1, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SSM.rwkv_state_init(get_arch("rwkv6-3b").reduced(), 1, 1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TL.paged_pools_init(CFG, 4, 2, CFG.num_layers)
     pools = TL.paged_pools_init(CFG, 4, 2, CFG.num_layers, device="cpu")
