@@ -8,12 +8,16 @@ Run from the root of a checkout, with no arguments:
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 and then, failing on the first phase that fails:
 
-  1. holds the paged-attention kernel against its plain PyTorch version at
-     the llama3.2-3b attention geometry (24 heads, 8 kv heads, head dim
-     128, 16-token pages, 8 slots, contexts up to 1152 tokens) for bf16,
-     int8 and f32 pools, and times the kernel, the plain version and a
-     library yardstick (``scaled_dot_product_attention`` on the context
-     gathered beforehand, which the port never calls);
+  1. holds the paged-attention kernel (each slot's context split across
+     blocks, then merged) against its plain PyTorch version and against
+     the plain model of the split (``paged_attention_partials_ref`` then
+     ``merge_partials_ref``) at the llama3.2-3b attention geometry (24
+     heads, 8 kv heads, head dim 128, 16-token pages, 8 slots, contexts
+     up to 1152 tokens) for bf16, int8 and f32 pools, and times the
+     kernel, the plain version and a library yardstick
+     (``scaled_dot_product_attention`` on the context gathered
+     beforehand, which the port never calls), with the achieved GB/s and
+     the registers and shared memory of the variant launched;
   2. serves a mixed request stream through ``ContinuousServer`` in soup
      mode from a population of two full-width llama3.2-3b members (bf16,
      random weights from a seed), checking that every decode attention
@@ -52,8 +56,11 @@ and then, failing on the first phase that fails:
      and a ragged S=1000 non-causal case; and the WKV kernel at the
      rwkv6-3b prefill shape (B=4, T=2048, 40 heads of 64) from zero and
      from a carried state (y and the final state), at T=1, and with bf16
-     inputs; then times each kernel, its plain version and, for flash,
-     ``scaled_dot_product_attention`` (which the port never calls);
+     inputs; then times each kernel (WKV also at the decode shape, T=1),
+     its plain version and, for flash,
+     ``scaled_dot_product_attention`` (which the port never calls), with
+     flash's achieved TFLOP/s and the registers and shared memory of each
+     flash variant (bf16: wgmma on the tensor cores, TMA-fed);
   8. serves full-width rwkv6-3b (32 layers, bf16) and llama3.2-3b (28
      layers, bf16) from random N=2 populations through the serve CLI's
      scan engine (``--compare``: soup, member and ensemble, B=4, S=2048,
@@ -224,29 +231,45 @@ def work_of(variant: str, q, lengths, scales: bool):
     return nbytes, ops
 
 
+def attributes_line(attrs: dict) -> str:
+    return ", ".join(f"{v} {k.replace('_', ' ')}" for k, v in attrs.items())
+
+
 def check_kernel(torch, pa, ref, F, device):
     """Phase 1.  Returns the kernel entries of the JSON line (launches
     filled in later from the main-path runs)."""
     entries = {}
+    split_tokens, n_split = pa.split_of(PAGE, -(-max(LENGTHS) // PAGE))
     for variant in ("bf16", "int8", "f32"):
         q, k, v, table, lengths, ks, vs = kernel_inputs(torch, variant, device)
-        err = 0.0
+        err = err_split = 0.0
         for layer in (0, LAYERS - 1):
-            args = (q[layer], k[layer], v[layer], table, lengths,
-                    None if ks is None else ks[layer],
-                    None if vs is None else vs[layer])
-            got = pa.paged_attention_cuda(*args)
-            want = ref.paged_attention_ref(*args)
+            args = (q[layer], k[layer], v[layer], table, lengths)
+            scales = {} if ks is None else dict(k_scale=ks[layer],
+                                                v_scale=vs[layer])
+            got = pa.paged_attention_cuda(*args, **scales)
+            want = ref.paged_attention_ref(*args, **scales)
+            split = ref.merge_partials_ref(
+                *ref.paged_attention_partials_ref(*args, split_tokens,
+                                                  **scales), q.dtype)
             torch.cuda.synchronize()
             if not torch.isfinite(got.float()).all():
                 fail(f"{variant}: kernel output is not finite")
             err = max(err, float((got.float() - want.float()).abs().max()))
+            err_split = max(err_split,
+                            float((got.float() - split.float()).abs().max()))
         tol = KERNEL_TOL[variant]
-        log(f"kernel {variant}: max |kernel - plain| = {err:.3e} "
-            f"(tolerance {tol:g}), lengths {LENGTHS}")
-        if err > tol:
+        log(f"kernel {variant}: max |kernel - plain| = {err:.3e}, max "
+            f"|kernel - plain split model| = {err_split:.3e} ({n_split} "
+            f"splits of {split_tokens} tokens; tolerance {tol:g}), lengths "
+            f"{LENGTHS}")
+        if err > tol or err_split > tol:
             fail(f"paged attention {variant} disagrees with its plain "
-                 f"version: {err} > {tol}")
+                 f"version: {err}, split model {err_split} > {tol}")
+        vec = pa.load_width(k[0], v[0], H // KV)
+        attrs = pa.kernel_attributes(q.dtype, k.dtype, H, KV, HD, vec)
+        log(f"kernel {variant}: split kernel launched with {vec}-element "
+            f"loads: {attributes_line(attrs)}")
 
         def run_kernel(layer):
             pa.paged_attention_cuda(
@@ -293,11 +316,12 @@ def check_kernel(torch, pa, ref, F, device):
         t_ops = ops / PEAK_OPS[variant] * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"kernel {variant}: {ms:.4f} ms on the device (again {ms2:.4f}; "
-            f"{launch_ms:.4f} ms a call through the Python wrapper), plain "
-            f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {ops} ops); "
-            f"achieved {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+        log(f"kernel {variant}: {ms:.4f} ms on the device, a call's two "
+            f"launches (again {ms2:.4f}; {launch_ms:.4f} ms a call through "
+            f"the Python wrapper), plain {plain_ms:.4f} ms, library (SDPA) "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+            f"({nbytes} B, {ops} ops); achieved "
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
         entries[variant] = {
             "name": f"paged_attention[q={'f32' if variant == 'f32' else 'bf16'}"
                     f",kv={variant}]",
@@ -1070,7 +1094,8 @@ FLASH_SHAPE = (4, 2048, 24, 8, 128)  # llama3.2-3b prefill: B, S, H, KV, hd
 WKV_SHAPE = (4, 2048, 40, 64)        # rwkv6-3b prefill: B, T, H, hd
 
 # tolerances, the tests/test_kernels.py bounds: flash 2e-5 in f32 (f32
-# sums in another order), 2e-2 in bf16 (one bf16 rounding of the output);
+# sums in another order), 2e-2 in bf16 (the tensor-core kernel rounds P to
+# bf16 for P V, as every tensor-core flash does, and the output once);
 # WKV (rtol, atol) 1e-4 in f32 (the f32 state summed in another order),
 # 3e-2 / 3e-1 with bf16 inputs and outputs
 FLASH_TOL = {"bf16": 2e-2, "f32": 2e-5}
@@ -1161,11 +1186,14 @@ def check_flash(torch, fa, ref, F, device):
         fa.launches = n0  # comparison launches do not count
         nbytes, ops = flash_work(B, S, H, KV, hd, dt, True)
         bound_ms, bound_by = bound(nbytes, ops, dt)
-        log(f"flash attention {dt} causal at the llama3.2-3b prefill shape: "
-            f"{ms:.4f} ms on the device (again {ms2:.4f}), plain "
-            f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+        design = ("wgmma on the tensor cores, TMA-fed" if dt == "bf16"
+                  else "f32 FMAs on the CUDA cores")
+        log(f"flash attention {dt} causal at the llama3.2-3b prefill shape "
+            f"({design}): {ms:.4f} ms on the device (again {ms2:.4f}), plain "
+            f"{plain_ms:.4f} ms, library (SDPA) {library_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {ops} ops); "
-            f"achieved {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+            f"achieved {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; "
+            f"{attributes_line(fa.kernel_attributes(sets[0][0].dtype, hd))}")
         entries[f"flash_{dt}"] = {
             "name": f"flash_attention[{dt},causal]",
             "route": "cuda",
@@ -1254,6 +1282,11 @@ def check_wkv(torch, wkv, ref, device):
         *sets[i][:5], state=sets[i][5]), 2, reps=3)
     ms2 = device_ms(torch, lambda i: wkv.rwkv6_scan_cuda(
         *sets[i][:5], state=sets[i][5]), 2)
+    # the decode shape (T = 1), where most of the path's launches are
+    dec = [wkv_inputs(torch, B, 1, H, hd, "f32", device, 97 + i)
+           for i in range(2)]
+    dec_ms = device_ms(torch, lambda i: wkv.rwkv6_scan_cuda(
+        *dec[i][:5], state=dec[i][5]), 2)
     wkv.launches = n0
     nbytes, ops = wkv_work(B, T, H, hd)
     bound_ms, bound_by = bound(nbytes, ops, "f32")
@@ -1261,7 +1294,12 @@ def check_wkv(torch, wkv, ref, device):
         f"{ms:.4f} ms on the device (again {ms2:.4f}), plain {plain_ms:.4f} "
         f"ms, library none, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} "
         f"B, {ops} ops); achieved {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
-    del sets
+    dec_bytes, dec_ops = wkv_work(B, 1, H, hd)
+    dec_bound, dec_by = bound(dec_bytes, dec_ops, "f32")
+    log(f"rwkv6 scan f32 with a carried state at the decode shape (B={B}, "
+        f"T=1): {dec_ms:.4f} ms on the device, bound {dec_bound:.4f} ms by "
+        f"{dec_by} ({dec_bytes} B, {dec_ops} ops)")
+    del sets, dec
     torch.cuda.empty_cache()
     return {"wkv": {
         "name": "rwkv6_scan[f32,state]",
@@ -1275,6 +1313,8 @@ def check_wkv(torch, wkv, ref, device):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "decode_ms": dec_ms,
+        "decode_bound_ms": dec_bound,
     }}
 
 

@@ -4,7 +4,8 @@ Every kernel of the port is CUDA C++ for ``sm_90a`` with a plain C entry
 point (no PyTorch headers, so ``nvcc`` takes seconds).  :func:`load`
 compiles a source at first use into ``build/repro_torch_kernels/`` at the
 repository root and loads the library.  The library's name carries a hash
-of the source and the flags, so an edited source is rebuilt; a build
+of the source, the local headers it includes (``csrc/sm90.cuh``) and the
+flags, so an edited source or header is rebuilt; a build
 writes a temporary file and renames it, so two processes building the
 same source do not see half a library.  Nothing is compiled when a module
 is imported.
@@ -15,11 +16,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -37,10 +39,32 @@ def nvcc() -> str:
                        "source with the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_includes(source: Path) -> List[Path]:
+    """Every file that ``source`` reaches through ``#include "..."``
+    (resolved beside the including file), each once, in the order met."""
+    seen: List[Path] = []
+    todo = [source]
+    while todo:
+        cur = todo.pop()
+        for name in _LOCAL_INCLUDE.findall(cur.read_bytes()):
+            path = (cur.parent / name.decode()).resolve()
+            if path.exists() and path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return seen
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha1(source.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    """The library's path: its name hashes the source, every local header
+    it includes and the flags, so an edit to any of them rebuilds it."""
+    h = hashlib.sha1(source.read_bytes())
+    for header in local_includes(source):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
 def load(source: Path) -> Tuple[ctypes.CDLL, Optional[float], str]:

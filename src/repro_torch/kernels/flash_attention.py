@@ -3,7 +3,9 @@ launch counter.
 
 Replaces ``repro/kernels/flash_attention.py`` ``flash_attention_pallas``.
 The source is ``csrc/flash_attention.cu`` (its head says what bounds the
-kernel and what the design does about it), built at first use by
+kernels and what their designs do about it: bf16 on the tensor cores
+through wgmma with TMA-fed tiles, float32 on the CUDA cores), with the
+PTX helpers of ``csrc/sm90.cuh``, built at first use by
 ``kernels/build.py``.  Nothing is compiled or loaded when this module is
 imported.
 
@@ -49,8 +51,24 @@ def build() -> ctypes.CDLL:
     lib.repro_flash_attention.restype = ci
     lib.repro_flash_attention.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci,
                                           ci, ci, ci, ctypes.c_float, vp]
+    lib.repro_flash_attention_attributes.restype = ci
+    lib.repro_flash_attention_attributes.argtypes = [ci, ci,
+                                                     ctypes.POINTER(ci)]
     _lib = lib
     return lib
+
+
+def kernel_attributes(dtype: torch.dtype, hd: int) -> dict:
+    """What the compiler gave the kernel a call with this dtype and head
+    dim launches: registers a thread, static and dynamic shared bytes,
+    local (stack and spill) bytes.  Builds the library if needed;
+    launches nothing."""
+    out = (ctypes.c_int * 4)()
+    rc = build().repro_flash_attention_attributes(_CODES[dtype], hd, out)
+    if rc != 0:
+        raise RuntimeError(f"flash attention attributes: CUDA error {rc}")
+    return {"registers": out[0], "shared_bytes": out[1],
+            "local_bytes": out[2], "dynamic_shared_bytes": out[3]}
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -65,7 +83,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kernels.ref.flash_attention_ref``.
 
       q     : (B, S, H, hd) float32 or bfloat16, contiguous, hd in
-              :data:`HEAD_DIMS`
+              :data:`HEAD_DIMS`; bfloat16 tensors start on a 16-byte
+              boundary (the tensor-core kernel loads them with TMA)
       k, v  : (B, S, KV, hd), q's dtype, contiguous, H a multiple of KV
       window: None, or the sliding window (>= 1 keys, the query's own
               included)
@@ -91,6 +110,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(min(B, S, H) >= 1, f"empty input {tuple(q.shape)}")
     _check(B * H * -(-S // 64) < 2 ** 31, "too many blocks")
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)),
+               "bf16 q, k, v and out must start on a 16-byte boundary (TMA)")
     lib = build()
     rc = lib.repro_flash_attention(
         _CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),

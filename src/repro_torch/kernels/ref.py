@@ -3,7 +3,9 @@
 Port of ``repro/kernels/ref.py`` (``wash_shuffle_ref``,
 ``flash_attention_ref``, ``paged_attention_ref``, ``rwkv6_scan_ref``), plus
 the plain bucketed shuffle (the reference's ``core/shuffle.py``
-``bucketed_apply_stacked``).  The CPU paths of
+``bucketed_apply_stacked``) and a plain model of how the CUDA paged kernel
+splits a slot's context (``paged_attention_partials_ref``,
+``merge_partials_ref``).  The CPU paths of
 :mod:`repro_torch.kernels.ops` run these, and ``chip_smoke.py`` holds the
 CUDA kernels against them on the card.
 """
@@ -138,3 +140,78 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", w, v.float())
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def _gathered_scores(q, k_pool, v_pool, page_table, k_scale, v_scale):
+    """Each slot's context gathered from its pages (dequantized), and the
+    f32 scores of its query rows: ((B, KV, g, ctx) scores, (B, ctx, KV,
+    hd) values)."""
+    B, H, hd = q.shape
+    _, page_size, KV, _ = k_pool.shape
+    pt = page_table.long()
+    k = k_pool[pt].reshape(B, -1, KV, hd).float()
+    v = v_pool[pt].reshape(B, -1, KV, hd).float()
+    if k_scale is not None:
+        k = k * k_scale[pt].repeat_interleave(page_size, dim=1)[:, :, None,
+                                                                 None]
+    if v_scale is not None:
+        v = v * v_scale[pt].repeat_interleave(page_size, dim=1)[:, :, None,
+                                                                None]
+    qf = q.reshape(B, KV, H // KV, hd).float()
+    return torch.einsum("bkgh,bskh->bkgs", qf, k) / (hd ** 0.5), v
+
+
+def paged_attention_partials_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor,
+                                 page_table: torch.Tensor,
+                                 lengths: torch.Tensor, split_tokens: int,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None):
+    """The per-split softmax states the CUDA paged kernel writes.
+
+    A slot's context (its page table's width in tokens) is cut into
+    ``n_split = ceil(max_pages * page_size / split_tokens)`` runs of
+    ``split_tokens``; for each query row and split, over the split's
+    tokens below the slot's length: ``m`` the max score (scores f32,
+    divided by sqrt(hd)), ``l = sum exp(s - m)`` and ``acc = sum exp(s - m)
+    v``.  A split with no such token has ``m = NEG_INF``, ``l = 0`` and
+    ``acc = 0``.  Returns ``(m, l, acc)``: (B, H, n_split) f32 twice and
+    (B, H, n_split, hd) f32."""
+    B, H, hd = q.shape
+    scores, v = _gathered_scores(q, k_pool, v_pool, page_table, k_scale,
+                                 v_scale)
+    ctx = scores.shape[-1]
+    n_split = -(-ctx // split_tokens)
+    pos = torch.arange(ctx, device=q.device)
+    valid = pos[None, :] < lengths.to(q.device).long()[:, None]  # (B, ctx)
+    ms, ls, accs = [], [], []
+    for s in range(n_split):
+        sl = slice(s * split_tokens, min((s + 1) * split_tokens, ctx))
+        ok = valid[:, None, None, sl]                     # (B, 1, 1, n)
+        sc = scores[..., sl].masked_fill(~ok, NEG_INF)    # (B, KV, g, n)
+        m = sc.amax(dim=-1)
+        p = torch.exp(sc - m[..., None]) * ok
+        ms.append(torch.where(ok.any(dim=-1), m, torch.full_like(m, NEG_INF)))
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgs,bskh->bkgh", p, v[:, sl]))
+    m = torch.stack(ms, dim=-1).reshape(B, H, n_split)
+    l = torch.stack(ls, dim=-1).reshape(B, H, n_split)
+    acc = torch.stack(accs, dim=-2).reshape(B, H, n_split, hd)
+    return m, l, acc
+
+
+def merge_partials_ref(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """Merge per-split softmax states (as
+    :func:`paged_attention_partials_ref` returns them) into the attention
+    output: rescale each split by ``exp(m_s - max m)``, skipping empty
+    splits (``l = 0``), and divide by ``max(sum l, 1e-20)``.  Returns
+    (B, H, hd) in ``dtype``."""
+    live = l > 0
+    mx = torch.where(live, m, torch.full_like(m, NEG_INF)).amax(dim=-1,
+                                                                keepdim=True)
+    e = torch.where(live, torch.exp(m - mx), torch.zeros_like(m))
+    lsum = (l * e).sum(dim=-1)
+    out = torch.where(live[..., None], acc * e[..., None],
+                      torch.zeros_like(acc)).sum(dim=-2)
+    return (out / lsum.clamp(min=1e-20)[..., None]).to(dtype)

@@ -7,8 +7,9 @@ the card (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
         tests/test_torch_flash_attention_cuda.py
 
 Without a card every test here skips.  Tolerances: 2e-5 in f32 (both
-sides accumulate in f32, in another order) and 2e-2 in bf16 (one bf16
-rounding of the output), the ``tests/test_kernels.py`` bounds.
+sides accumulate in f32, in another order) and 2e-2 in bf16 (the
+tensor-core kernel rounds P to bf16 for P V, and the output once), the
+``tests/test_kernels.py`` bounds.
 """
 
 import numpy as np
@@ -81,3 +82,53 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
                             k, v)
     with pytest.raises(ValueError, match="dtype"):
         ops.flash_attention(q.half(), k.half(), v.half())
+
+
+# the bf16 tensor-core kernel's edges: S below, at and past 64 rows (one
+# consumer warpgroup's) and 128 (a block's q tile and a key tile), each
+# head dim (hd 32 uses the 64-byte swizzle, hd 128 two 64-column TMA
+# boxes), group sizes 1, 3 and 8
+EDGE_S = [1, 63, 64, 65, 127, 128, 129, 1000, 2048]
+EDGE_HEADS = [(2, 2), (6, 2), (8, 1)]  # (H, KV): g = 1, 3, 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("H,KV", EDGE_HEADS, ids=["g1", "g3", "g8"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", EDGE_S)
+def test_bf16_kernel_edges(cuda_device, S, hd, H, KV, causal):
+    q, k, v = _inputs(cuda_device, 1, S, H, KV, hd, torch.bfloat16,
+                      seed=S * 7 + hd + H)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("window", [17, 200])  # inside one tile; > a q tile
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", [65, 1000, 2048])
+def test_bf16_kernel_windows(cuda_device, S, hd, window, causal):
+    q, k, v = _inputs(cuda_device, 2, S, 6, 2, hd, torch.bfloat16,
+                      seed=S + hd + window)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_bf16_wrapper_refuses_a_misaligned_view(cuda_device):
+    q, k, v = _inputs(cuda_device, 1, 16, 4, 2, 64, torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
+    shifted = flat[1:].view(q.shape)  # contiguous, 2 bytes off 16
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(shifted, k, v)
