@@ -55,12 +55,15 @@ and then, failing on the first phase that fails:
      head dim 128): bf16 and f32 causal, bf16 with a 512-token window,
      and a ragged S=1000 non-causal case; and the WKV kernel at the
      rwkv6-3b prefill shape (B=4, T=2048, 40 heads of 64) from zero and
-     from a carried state (y and the final state), at T=1, and with bf16
-     inputs; then times each kernel (WKV also at the decode shape, T=1),
-     its plain version and, for flash,
-     ``scaled_dot_product_attention`` (which the port never calls), with
-     flash's achieved TFLOP/s and the registers and shared memory of each
-     flash variant (bf16: wgmma on the tensor cores, TMA-fed);
+     from a carried state (y and the final state), at T=1 (the step
+     kernel), with bf16 inputs, and with extreme decays (w = exp(-exp(x)),
+     x over [-8, 6], exact 0s and 1 - 2**-24; every value finite); then
+     times each kernel (WKV also at the decode shape, T=1), its plain
+     version and, for flash, ``scaled_dot_product_attention`` (which the
+     port never calls), with flash's achieved TFLOP/s and the registers
+     and shared memory of each variant launched (flash bf16: wgmma on the
+     tensor cores, TMA-fed; WKV: the chunked kernel, 3xTF32 mma.sync,
+     TMA-fed, and the step kernel);
   8. serves full-width rwkv6-3b (32 layers, bf16) and llama3.2-3b (28
      layers, bf16) from random N=2 populations through the serve CLI's
      scan engine (``--compare``: soup, member and ensemble, B=4, S=2048,
@@ -78,6 +81,14 @@ at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.
+
+``python3 chip_smoke.py --wkv-variants [--against DIR]`` runs phase 7's
+WKV part alone, then builds the variants of the WKV source
+(``WKV_VARIANTS``: chunk length, key channels a block, 3xTF32 or f32
+FMAs), holds each against the plain version at the prefill shape and
+times it beside the default build (default first and last); with
+``--against DIR`` it first times the WKV kernel of another checkout
+(the parent commit unpacked with ``git archive``) and this one in turns.
 """
 
 from __future__ import annotations
@@ -1212,18 +1223,27 @@ def check_flash(torch, fa, ref, F, device):
     return entries
 
 
-def wkv_inputs(torch, B, T, H, hd, dt, device, seed):
+def wkv_inputs(torch, B, T, H, hd, dt, device, seed, extreme=False):
     """Drawn as tests/test_kernels.py draws them: normal r/k/v,
-    w = sigmoid(normal), u = 0.1 normal; plus a normal initial state."""
+    w = sigmoid(normal), u = 0.1 normal; plus a normal initial state.
+    ``extreme``: w = exp(-exp(x)), x uniform over [-8, 6] (from ~0.9997
+    down to an underflow to 0), every 7th value exactly 0 and every 11th
+    1 - 2**-24."""
     gen = _gen(torch, device, seed)
     dtype = getattr(torch, _DTYPES[dt])
     r, k, v = (torch.randn(B, T, H, hd, generator=gen, device=device)
                .to(dtype) for _ in range(3))
-    w = torch.sigmoid(torch.randn(B, T, H, hd, generator=gen,
-                                  device=device)).to(dtype)
+    x = torch.randn(B, T, H, hd, generator=gen, device=device)
+    if extreme:
+        x = torch.rand(B, T, H, hd, generator=gen, device=device) * 14 - 8
+        w = torch.exp(-torch.exp(x))
+        w.view(-1)[::7] = 0.0
+        w.view(-1)[3::11] = 1.0 - 2.0 ** -24
+    else:
+        w = torch.sigmoid(x)
     u = 0.1 * torch.randn(H, hd, generator=gen, device=device)
     s0 = torch.randn(B, H, hd, hd, generator=gen, device=device)
-    return r, k, v, w, u, s0
+    return r, k, v, w.to(dtype), u, s0
 
 
 def wkv_work(B, T, H, hd):
@@ -1240,11 +1260,14 @@ def check_wkv(torch, wkv, ref, device):
     in by phase 8).  The time mix feeds the kernel float32 r/k/v/w and a
     carried state at every width, so that is the variant timed."""
     B, T, H, hd = WKV_SHAPE
-    cases = [("f32", T, False), ("f32", T, True), ("f32", 1, True),
-             ("bf16", T, False)]
+    # (dtype, steps, carried state, extreme decays)
+    cases = [("f32", T, False, False), ("f32", T, True, False),
+             ("f32", 1, True, False), ("bf16", T, False, False),
+             ("f32", T, True, True), ("bf16", 1, True, False)]
     err_main = 0.0
-    for n, (dt, t, with_state) in enumerate(cases):
-        r, k, v, w, u, s0 = wkv_inputs(torch, B, t, H, hd, dt, device, 90 + n)
+    for n, (dt, t, with_state, extreme) in enumerate(cases):
+        r, k, v, w, u, s0 = wkv_inputs(torch, B, t, H, hd, dt, device, 90 + n,
+                                       extreme)
         state = s0 if with_state else None
         got = wkv.rwkv6_scan_cuda(r, k, v, w, u, state=state)
         want = ref.rwkv6_scan_ref(r, k, v, w, u, state=state)
@@ -1253,13 +1276,14 @@ def check_wkv(torch, wkv, ref, device):
             got, want = (got, None), (want, None)
         rtol, atol = WKV_TOL[dt]
         what = (f"rwkv6 scan {dt} B={B} T={t} H={H} hd={hd} "
-                f"{'from a carried state' if with_state else 'from zero'}")
+                f"{'from a carried state' if with_state else 'from zero'}"
+                f"{', extreme decays' if extreme else ''}")
         for name, g, wa in (("y", got[0], want[0]),
                             ("final state", got[1], want[1])):
             if g is None:
                 continue
             g, wa = g.float(), wa.float()
-            if not torch.isfinite(g).all():
+            if not (torch.isfinite(g).all() and torch.isfinite(wa).all()):
                 fail(f"{what}: {name} is not finite")
             err = float((g - wa).abs().max())
             excess = float(((g - wa).abs() - rtol * wa.abs()).max())
@@ -1276,29 +1300,29 @@ def check_wkv(torch, wkv, ref, device):
     sets = [wkv_inputs(torch, B, T, H, hd, "f32", device, 95 + i)
             for i in range(2)]
     n0 = wkv.launches
-    ms = device_ms(torch, lambda i: wkv.rwkv6_scan_cuda(
-        *sets[i][:5], state=sets[i][5]), 2)
-    plain_ms = device_ms(torch, lambda i: ref.rwkv6_scan_ref(
-        *sets[i][:5], state=sets[i][5]), 2, reps=3)
-    ms2 = device_ms(torch, lambda i: wkv.rwkv6_scan_cuda(
-        *sets[i][:5], state=sets[i][5]), 2)
+    ms = wkv_ms(torch, wkv.rwkv6_scan_cuda, sets)
+    plain_ms = wkv_ms(torch, ref.rwkv6_scan_ref, sets, reps=3)
+    ms2 = wkv_ms(torch, wkv.rwkv6_scan_cuda, sets)
     # the decode shape (T = 1), where most of the path's launches are
-    dec = [wkv_inputs(torch, B, 1, H, hd, "f32", device, 97 + i)
-           for i in range(2)]
-    dec_ms = device_ms(torch, lambda i: wkv.rwkv6_scan_cuda(
-        *dec[i][:5], state=dec[i][5]), 2)
+    dec = decode_sets(torch, device)
+    dec_ms = wkv_ms(torch, wkv.rwkv6_scan_cuda, dec)
+    dec_plain_ms = wkv_ms(torch, ref.rwkv6_scan_ref, dec)
     wkv.launches = n0
     nbytes, ops = wkv_work(B, T, H, hd)
     bound_ms, bound_by = bound(nbytes, ops, "f32")
     log(f"rwkv6 scan f32 with a carried state at the rwkv6-3b prefill shape: "
         f"{ms:.4f} ms on the device (again {ms2:.4f}), plain {plain_ms:.4f} "
         f"ms, library none, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} "
-        f"B, {ops} ops); achieved {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+        f"B, {ops} ops); achieved {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s; "
+        f"{attributes_line(wkv.kernel_attributes(torch.float32, hd, T))}")
     dec_bytes, dec_ops = wkv_work(B, 1, H, hd)
     dec_bound, dec_by = bound(dec_bytes, dec_ops, "f32")
     log(f"rwkv6 scan f32 with a carried state at the decode shape (B={B}, "
-        f"T=1): {dec_ms:.4f} ms on the device, bound {dec_bound:.4f} ms by "
-        f"{dec_by} ({dec_bytes} B, {dec_ops} ops)")
+        f"T=1; {WKV_DECODE_LAYERS} layers' calls, a state each, in one "
+        f"graph): {dec_ms:.4f} ms on the device, plain {dec_plain_ms:.4f} ms, "
+        f"bound {dec_bound:.4f} ms by {dec_by} ({dec_bytes} B, {dec_ops} "
+        f"ops); achieved {dec_bytes / (dec_ms * 1e-3) / 1e9:.1f} GB/s; "
+        f"{attributes_line(wkv.kernel_attributes(torch.float32, hd, 1))}")
     del sets, dec
     torch.cuda.empty_cache()
     return {"wkv": {
@@ -1314,8 +1338,100 @@ def check_wkv(torch, wkv, ref, device):
         "bound_by": bound_by,
         "library_ms": None,
         "decode_ms": dec_ms,
+        "decode_plain_ms": dec_plain_ms,
         "decode_bound_ms": dec_bound,
     }}
+
+
+def wkv_ms(torch, fn, sets, reps=20, **kw):
+    """Device time of one ``fn`` call (f32, carried state), one call an
+    input set in the graph."""
+    return device_ms(torch, lambda i: fn(*sets[i][:5], state=sets[i][5],
+                                         **kw), len(sets), reps=reps)
+
+
+WKV_DECODE_LAYERS = 32  # rwkv6-3b: one WKV call a layer in a decode step
+
+
+def decode_sets(torch, device):
+    """The decode shape (T = 1) as a decode step meets it: one input set
+    (and state) a layer, so a graph of the layers' calls reads more than
+    L2 holds and its launch is a small part of it."""
+    B, _, H, hd = WKV_SHAPE
+    return [wkv_inputs(torch, B, 1, H, hd, "f32", device, 97 + i)
+            for i in range(WKV_DECODE_LAYERS)]
+
+
+# the variants of csrc/rwkv6_scan.cu timed beside the default build:
+# (steps a chunk C, key channels a block, the state products on the tensor
+# cores)
+WKV_VARIANTS = [(16, 32, False), (32, 32, True), (64, 32, True),
+                (16, 16, True), (16, 64, True)]
+
+
+def wkv_variants(torch, wkv, ref, device, against=None):
+    """``chip_smoke.py --wkv-variants [--against DIR]``: each variant of
+    the WKV source built, held against the plain version at the rwkv6-3b
+    prefill shape (f32, carried state, WKV_TOL) and timed at the prefill
+    and the decode shape, in turns with the default build (default first
+    and last).  With ``--against DIR`` (another checkout's root, such as
+    the parent commit unpacked by ``git archive``) its WKV wrapper is
+    timed the same way, in turns: other, this, this, other."""
+    B, T, H, hd = WKV_SHAPE
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(WKV_VARIANTS)) as pool:
+        built = list(pool.map(lambda c: wkv.build_variant(*c), WKV_VARIANTS))
+    log(f"variant builds: {time.perf_counter() - t0:.2f} s in parallel")
+    rows = [("default", None)]
+    for (c, keys, tc), (lib, secs, blog) in zip(WKV_VARIANTS, built):
+        name = f"C={c} keys={keys} {'3xTF32' if tc else 'FFMA'}"
+        rows.append((name, lib))
+        for line in sorted({ln.strip() for ln in blog.splitlines()
+                            if "registers" in ln or "spill" in ln}):
+            log(f"  ptxas {name}: {line}")
+    rows.append(("default again", None))
+    r, k, v, w, u, s0 = wkv_inputs(torch, B, T, H, hd, "f32", device, 93)
+    want_y, want_s = ref.rwkv6_scan_ref(r, k, v, w, u, state=s0)
+    sets = [wkv_inputs(torch, B, T, H, hd, "f32", device, 95 + i)
+            for i in range(2)]
+    dec = decode_sets(torch, device)
+    rtol, atol = WKV_TOL["f32"]
+    if against is not None:
+        other = load_wkv_from(against)
+        for name, fn in (("other", other.rwkv6_scan_cuda),
+                         ("this", wkv.rwkv6_scan_cuda),
+                         ("this", wkv.rwkv6_scan_cuda),
+                         ("other", other.rwkv6_scan_cuda)):
+            ms = wkv_ms(torch, fn, sets)
+            dec_ms = wkv_ms(torch, fn, dec)
+            log(f"wkv in turns, {name} ({against if name == 'other' else ROOT}"
+                f"): prefill shape {ms:.4f} ms, decode shape {dec_ms:.4f} ms")
+    for name, lib in rows:
+        y, s = wkv.rwkv6_scan_cuda(r, k, v, w, u, state=s0, lib=lib)
+        torch.cuda.synchronize()
+        err = max(float((y - want_y).abs().max()),
+                  float((s - want_s).abs().max()))
+        excess = max(float(((y - want_y).abs() - rtol * want_y.abs()).max()),
+                     float(((s - want_s).abs() - rtol * want_s.abs()).max()))
+        if not excess <= atol:
+            fail(f"wkv variant {name} disagrees with the plain version")
+        ms = wkv_ms(torch, wkv.rwkv6_scan_cuda, sets, lib=lib)
+        dec_ms = wkv_ms(torch, wkv.rwkv6_scan_cuda, dec, lib=lib)
+        attrs = wkv.kernel_attributes(torch.float32, hd, T, lib)
+        log(f"wkv variant {name}: prefill shape {ms:.4f} ms, decode shape "
+            f"{dec_ms:.4f} ms, max |kernel - plain| {err:.3e}; "
+            f"{attributes_line(attrs)}")
+
+
+def load_wkv_from(root):
+    """The WKV wrapper module of the checkout at ``root`` (built from its
+    own source, into this checkout's build directory)."""
+    import importlib.util
+    path = Path(root).resolve() / "src/repro_torch/kernels/rwkv6_scan.py"
+    spec = importlib.util.spec_from_file_location("wkv_other", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 # ---------------------------------------------------------------------------
@@ -1638,6 +1754,17 @@ def main() -> int:
     device = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if sys.argv[1:2] == ["--wkv-variants"]:
+        args = sys.argv[2:]
+        against = args[1] if args[:1] == ["--against"] and len(args) == 2 \
+            else None
+        if args and against is None:
+            fail("usage: chip_smoke.py --wkv-variants [--against DIR]")
+        build_kernels(wkv)
+        check_wkv(torch, wkv, ref, device)
+        wkv_variants(torch, wkv, ref, device, against)
+        print(card)
+        return 0
     build_kernels(pa, ws, fa, wkv)
 
     kernels = check_kernel(torch, pa, ref, F, device)

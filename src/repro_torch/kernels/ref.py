@@ -3,9 +3,11 @@
 Port of ``repro/kernels/ref.py`` (``wash_shuffle_ref``,
 ``flash_attention_ref``, ``paged_attention_ref``, ``rwkv6_scan_ref``), plus
 the plain bucketed shuffle (the reference's ``core/shuffle.py``
-``bucketed_apply_stacked``) and a plain model of how the CUDA paged kernel
+``bucketed_apply_stacked``), a plain model of how the CUDA paged kernel
 splits a slot's context (``paged_attention_partials_ref``,
-``merge_partials_ref``).  The CPU paths of
+``merge_partials_ref``) and one of the CUDA WKV kernel's chunked form of
+the recurrence (``rwkv6_scan_chunked_ref``; nothing on a main path runs
+it).  The CPU paths of
 :mod:`repro_torch.kernels.ops` run these, and ``chip_smoke.py`` holds the
 CUDA kernels against them on the card.
 """
@@ -100,6 +102,70 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t].float(), S + uf * kv))
         S = w[:, t].float()[..., None] * S + kv
     y = torch.stack(ys, dim=1).to(r.dtype)
+    return y if state is None else (y, S)
+
+
+def rwkv6_scan_chunked_ref(r: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+                           state: Optional[torch.Tensor] = None,
+                           chunk: int = 16, keys: int = 32):
+    """The WKV recurrence computed as the CUDA kernel computes it: a plain
+    model of its algorithm, same contract as :func:`rwkv6_scan_ref`.
+
+    The sequence is walked ``chunk`` steps at a time; the last chunk is
+    padded to ``chunk`` with r = k = v = 0 and w = 1.  The key channels are
+    split into tiles of ``keys``, as the kernel's blocks split them; within
+    a chunk starting at c0, a tile holds its rows of the state ``S_in``
+    and, over its own channels only::
+
+        P_t = prod_{c0 <= tau < t} w_tau        (exclusive prefix)
+        Q_s = prod_{s < tau < c0 + chunk} w_tau (exclusive suffix)
+        G   = prod over the chunk of w_tau
+        A[t, s] = sum_i r_t[i] k_s[i] prod_{s < tau < t} w_tau[i]  (s < t)
+        A[t, t] = sum_i r_t[i] u[i] k_t[i]
+        y_part = (r * P) S_in + A v
+        S      = diag(G) S_in + (k * Q)^T v
+
+    y is the sum of the tiles' y_part (the kernel's blocks exchange them).
+    Every decay factor is a running product of w, never a quotient or a
+    logarithm, so a w that underflows to 0 gives 0, not inf or NaN."""
+    B, T, H, hd = r.shape
+    f = lambda x: x.float().permute(0, 2, 1, 3)  # (B, H, T, hd)
+    r_, k_, v_, w_ = f(r), f(k), f(v), f(w)
+    pad = -T % chunk
+    if pad:
+        zeros = r_.new_zeros((B, H, pad, hd))
+        r_, k_, v_ = (torch.cat([x, zeros], 2) for x in (r_, k_, v_))
+        w_ = torch.cat([w_, torch.ones_like(zeros)], 2)
+    S = (r_.new_zeros((B, H, hd, hd)) if state is None
+         else state.float().clone())
+    uf = u.float()[None]                           # (1, H, hd)
+    y = r_.new_zeros((B, H, T + pad, hd))
+    for c0 in range(0, T + pad, chunk):
+        vc = v_[:, :, c0:c0 + chunk]
+        for i0 in range(0, hd, keys):
+            ch = slice(i0, i0 + keys)
+            rc, kc, wc = (x[:, :, c0:c0 + chunk, ch] for x in (r_, k_, w_))
+            p, P = torch.ones_like(wc[:, :, 0]), []
+            for t in range(chunk):
+                P.append(p)
+                p = p * wc[:, :, t]
+            G, q, Q = p, torch.ones_like(p), [None] * chunk
+            for s in reversed(range(chunk)):
+                Q[s] = q
+                q = q * wc[:, :, s]
+            A = r_.new_zeros((B, H, chunk, chunk))
+            for s in range(chunk):
+                A[:, :, s, s] = (rc[:, :, s] * uf[..., ch] * kc[:, :, s]).sum(-1)
+                kd = kc[:, :, s]
+                for t in range(s + 1, chunk):
+                    A[:, :, t, s] = (rc[:, :, t] * kd).sum(-1)
+                    kd = kd * wc[:, :, t]
+            S_in = S[:, :, ch]
+            y[:, :, c0:c0 + chunk] += rc * torch.stack(P, 2) @ S_in + A @ vc
+            S[:, :, ch] = (G[..., None] * S_in
+                           + (kc * torch.stack(Q, 2)).transpose(-1, -2) @ vc)
+    y = y[:, :, :T].permute(0, 2, 1, 3).to(r.dtype)
     return y if state is None else (y, S)
 
 

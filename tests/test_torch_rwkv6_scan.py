@@ -3,15 +3,22 @@ JAX package's Pallas kernel (interpret mode on the CPU), and, from a
 carried state, against the model's own ``lax.scan`` form of it.
 
 Inputs are made with numpy from a seed, drawn as ``tests/test_kernels.py``
-draws them (normal r/k/v, w = sigmoid(normal), u = 0.1 normal).  On the
-CPU ``ops.rwkv6_scan`` runs the plain step loop; the CUDA kernel is held
-to it on the card by ``chip_smoke.py`` and by
-``tests/test_torch_rwkv6_scan_cuda.py``.
+draws them (normal r/k/v, w = sigmoid(normal), u = 0.1 normal), and in an
+extreme-decay draw: w = exp(-exp(x)) with x uniform over [-8, 6], plus
+exact 0s and values of 1 - 2**-24.  On the CPU ``ops.rwkv6_scan`` runs
+the plain step loop; the CUDA kernel is held to it on the card by
+``chip_smoke.py`` and by ``tests/test_torch_rwkv6_scan_cuda.py``.  The
+plain model of the kernel's algorithm, ``ref.rwkv6_scan_chunked_ref``
+(chunks, key-channel tiles, running products of the decays), is held here to
+the step loop, to the Pallas kernel and to the model's scan, with chunk
+lengths that leave a ragged last chunk, a single step and whole chunks.
 
 Tolerances, the ``tests/test_kernels.py`` bounds: 1e-4 in f32 (both sides
 keep the state in f32 and sum in another order), 3e-2 / 3e-1 (rtol /
 atol) with bf16 inputs and outputs.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +29,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_scan as wkv
 
 
@@ -34,6 +42,17 @@ def _inputs(seed, B, T, H, hd):
     u = (0.1 * rng.standard_normal((H, hd))).astype(np.float32)
     s0 = rng.standard_normal((B, H, hd, hd)).astype(np.float32)
     return r, k, v, w, u, s0
+
+
+def _extreme_decays(seed, B, T, H, hd):
+    """w = exp(-exp(x)), x uniform over [-8, 6]: from ~0.9997 down to an
+    underflow to 0; every 7th value exactly 0, every 11th 1 - 2**-24."""
+    rng = np.random.default_rng(seed)
+    w = np.exp(-np.exp(rng.uniform(-8.0, 6.0, (B, T, H, hd))))
+    w = w.astype(np.float32)
+    w.flat[::7] = 0.0
+    w.flat[3::11] = np.float32(1.0 - 2.0 ** -24)
+    return w
 
 
 def _jax_scan_from(r, k, v, w, u, s0):
@@ -100,3 +119,92 @@ def test_cpu_route_never_builds_the_kernel(monkeypatch):
     ops.rwkv6_scan(*map(torch.from_numpy, (r, k, v, w, u)),
                    state=torch.from_numpy(s0))
     assert wkv.launches == n0 and wkv._lib is None
+
+
+# (chunk, keys) of the plain model of the kernel: its default, one key
+# tile a head, chunks longer than most sequences here with narrow tiles
+CHUNKINGS = [(16, 32), (32, 64), (64, 16)]
+
+
+def _torch(*xs):
+    return [torch.from_numpy(x) for x in xs]
+
+
+@pytest.mark.parametrize("chunk,keys", CHUNKINGS)
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 64, 300])
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "state"])
+def test_chunked_model_matches_the_step_loop(T, hd, chunk, keys, carried):
+    r, k, v, w, u, s0 = _inputs(T + hd + chunk, 2, T, 2, hd)
+    ts = _torch(r, k, v, w, u)
+    state = torch.from_numpy(s0) if carried else None
+    got = ref.rwkv6_scan_chunked_ref(*ts, state=state, chunk=chunk, keys=keys)
+    want = ref.rwkv6_scan_ref(*ts, state=state)
+    if not carried:
+        got, want = (got,), (want,)
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w_.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk,keys", CHUNKINGS)
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 64, 300])
+def test_chunked_model_matches_pallas(T, hd, chunk, keys):
+    r, k, v, w, u, _ = _inputs(2 * T + hd, 1, T, 2, hd)
+    want = np.asarray(jops.rwkv6_scan(
+        *(jnp.asarray(a) for a in (r, k, v, w, u)), chunk=math.gcd(T, 16),
+        interpret=True))
+    got = ref.rwkv6_scan_chunked_ref(*_torch(r, k, v, w, u), chunk=chunk,
+                                     keys=keys)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk,keys", CHUNKINGS)
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("T", [1, 17, 300])
+def test_chunked_model_matches_the_model_scan(T, hd, chunk, keys):
+    r, k, v, w, u, s0 = _inputs(3 * T + hd, 2, T, 2, hd)
+    want_y, want_s = _jax_scan_from(r, k, v, w, u, s0)
+    y, s = ref.rwkv6_scan_chunked_ref(*_torch(r, k, v, w, u),
+                                      state=torch.from_numpy(s0),
+                                      chunk=chunk, keys=keys)
+    np.testing.assert_allclose(y.numpy(), want_y, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(s.numpy(), want_s, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk,keys", CHUNKINGS)
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 64, 300])
+def test_chunked_model_extreme_decays(T, hd, chunk, keys):
+    """Decays that underflow to 0, exact 0s and 1 - 2**-24: every factor
+    is a running product, so y and the state stay finite and equal the
+    step loop's."""
+    r, k, v, _, u, s0 = _inputs(T + 5, 2, T, 2, hd)
+    w = _extreme_decays(T + 6, 2, T, 2, hd)
+    assert w.min() == 0.0 and w.max() == np.float32(1.0 - 2.0 ** -24)
+    ts = _torch(r, k, v, w, u)
+    y, s = ref.rwkv6_scan_chunked_ref(*ts, state=torch.from_numpy(s0),
+                                      chunk=chunk, keys=keys)
+    want_y, want_s = ref.rwkv6_scan_ref(*ts, state=torch.from_numpy(s0))
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(s.numpy(), want_s.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_chunked_model_bf16_inputs():
+    """bf16 r/k/v/w give y in bf16, within the bf16 bound of the step
+    loop on the same inputs."""
+    r, k, v, w, u, s0 = _inputs(11, 2, 37, 2, 32)
+    ts = [t.to(torch.bfloat16) for t in _torch(r, k, v, w)]
+    y, s = ref.rwkv6_scan_chunked_ref(*ts, torch.from_numpy(u),
+                                      state=torch.from_numpy(s0))
+    want_y, want_s = ref.rwkv6_scan_ref(*ts, torch.from_numpy(u),
+                                        state=torch.from_numpy(s0))
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    np.testing.assert_allclose(y.float().numpy(), want_y.float().numpy(),
+                               rtol=3e-2, atol=3e-1)
+    np.testing.assert_allclose(s.numpy(), want_s.numpy(), rtol=1e-4,
+                               atol=1e-4)

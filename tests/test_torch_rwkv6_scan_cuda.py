@@ -8,9 +8,14 @@ the card (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
 
 Without a card every test here skips.  Inputs are drawn as
 ``tests/test_kernels.py`` draws them (normal r/k/v, w = sigmoid(normal),
-u = 0.1 normal).  Tolerances, the ``tests/test_kernels.py`` bounds: 1e-4
-in f32 (both sides keep the state in f32 and sum in another order) and
-3e-2 / 3e-1 (rtol / atol) with bf16 inputs and outputs.
+u = 0.1 normal), and in an extreme-decay draw: w = exp(-exp(x)) with x
+uniform over [-8, 6] (w from ~0.9997 down to an underflow to 0), plus
+exact 0s and values of 1 - 2**-24.  Tolerances, the
+``tests/test_kernels.py`` bounds: 1e-4 in f32 (both sides keep the state
+in f32 and sum in another order; the kernel's state products are 3xTF32,
+which keeps f32 accuracy) and 3e-2 / 3e-1 (rtol / atol) with bf16 inputs
+and outputs.  The kernel walks 16-step chunks, so T = 15, 16, 17 and the
+splits at 16 and off it cover a ragged chunk, a whole one and one more.
 """
 
 import numpy as np
@@ -30,11 +35,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(device, B, T, H, hd, dtype, seed=0):
+def _inputs(device, B, T, H, hd, dtype, seed=0, extreme=False):
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, T, H, hd)).astype(np.float32)
                for _ in range(3))
-    w = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, T, H, hd))))
+    if extreme:
+        w = np.exp(-np.exp(rng.uniform(-8.0, 6.0, (B, T, H, hd))))
+        w.flat[::7] = 0.0
+        w.flat[3::11] = 1.0 - 2.0 ** -24
+    else:
+        w = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, T, H, hd))))
     u = (0.1 * rng.standard_normal((H, hd))).astype(np.float32)
     s0 = rng.standard_normal((B, H, hd, hd)).astype(np.float32)
     xs = [torch.from_numpy(a).to(device).to(dtype)
@@ -53,7 +63,10 @@ def _tol(dtype):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,T,H,hd", [(1, 32, 2, 32), (2, 64, 3, 64),
                                       (2, 37, 2, 64), (3, 1, 4, 32),
-                                      (1, 300, 2, 64)])
+                                      (1, 300, 2, 64), (2, 2, 3, 64),
+                                      (2, 15, 2, 32), (2, 16, 2, 64),
+                                      (2, 17, 2, 32), (1, 2048, 2, 64),
+                                      (1, 2048, 2, 32)])
 def test_kernel_matches_plain_version_from_zero(cuda_device, dtype, B, T, H,
                                                 hd):
     r, k, v, w, u, _ = _inputs(cuda_device, B, T, H, hd, dtype, seed=T + hd)
@@ -88,6 +101,70 @@ def test_kernel_carries_the_state(cuda_device, dtype, T):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("T", [1, 2, 15, 16, 17, 2048])
+def test_kernel_matches_plain_version_from_a_state(cuda_device, dtype, hd,
+                                                   T):
+    r, k, v, w, u, s0 = _inputs(cuda_device, 2, T, 3, hd, dtype, seed=T)
+    y, s1 = ops.rwkv6_scan(r, k, v, w, u, state=s0)
+    want_y, want_s = rwkv6_scan_ref(r, k, v, w, u, state=s0)
+    torch.testing.assert_close(y.float(), want_y.float(), **_tol(dtype))
+    torch.testing.assert_close(s1, want_s, **_tol(torch.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("T", [1, 17, 300, 2048])
+def test_extreme_decays_stay_finite_and_match(cuda_device, hd, T):
+    """Decays that underflow to 0, exact 0s and 1 - 2**-24: the running
+    products give finite y and state, equal to the step loop's."""
+    r, k, v, w, u, s0 = _inputs(cuda_device, 2, T, 3, hd, torch.float32,
+                                seed=7 + T, extreme=True)
+    assert float(w.min()) == 0.0 and float(w.max()) == 1.0 - 2.0 ** -24
+    y, s1 = ops.rwkv6_scan(r, k, v, w, u, state=s0)
+    want_y, want_s = rwkv6_scan_ref(r, k, v, w, u, state=s0)
+    assert torch.isfinite(y).all() and torch.isfinite(s1).all()
+    torch.testing.assert_close(y, want_y, **_tol(torch.float32))
+    torch.testing.assert_close(s1, want_s, **_tol(torch.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("split", [1, 7, 16, 23, 32, 47])
+def test_two_calls_equal_one_at_and_off_a_chunk_boundary(cuda_device, dtype,
+                                                         split):
+    r, k, v, w, u, s0 = _inputs(cuda_device, 2, 48, 3, 64, dtype, seed=split)
+    y, s1 = ops.rwkv6_scan(r, k, v, w, u, state=s0)
+    y_a, s_a = ops.rwkv6_scan(
+        *(x[:, :split].contiguous() for x in (r, k, v, w)), u, state=s0)
+    y_b, s_b = ops.rwkv6_scan(
+        *(x[:, split:].contiguous() for x in (r, k, v, w)), u, state=s_a)
+    torch.testing.assert_close(torch.cat([y_a, y_b], 1).float(), y.float(),
+                               **_tol(dtype))
+    torch.testing.assert_close(s_b, s1, **_tol(torch.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk,keys,tensor_cores", [
+    (16, 32, False), (32, 32, True), (64, 32, True), (16, 16, True),
+    (16, 64, True)])
+def test_build_variants_match_plain_version(cuda_device, chunk, keys,
+                                            tensor_cores):
+    """The timed variants of the source compute the same function."""
+    lib, _, _ = wkv.build_variant(chunk, keys, tensor_cores)
+    for hd, T in ((64, 300), (32, 37), (64, 1)):
+        r, k, v, w, u, s0 = _inputs(cuda_device, 2, T, 3, hd, torch.float32,
+                                    seed=hd + T)
+        y, s1 = wkv.rwkv6_scan_cuda(r, k, v, w, u, state=s0, lib=lib)
+        want_y, want_s = rwkv6_scan_ref(r, k, v, w, u, state=s0)
+        torch.testing.assert_close(y, want_y, **_tol(torch.float32))
+        torch.testing.assert_close(s1, want_s, **_tol(torch.float32))
+
+
+@pytest.mark.gpu
 def test_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
     r, k, v, w, u, s0 = _inputs(cuda_device, 1, 4, 2, 64, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
@@ -100,3 +177,10 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ops.rwkv6_scan(r.transpose(1, 2).contiguous().transpose(1, 2), k, v,
                        w, u)
+    with pytest.raises(ValueError, match="share a dtype"):
+        ops.rwkv6_scan(r, k.bfloat16(), v, w, u)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        off = torch.empty(r.numel() + 1, device=cuda_device)[1:]
+        ops.rwkv6_scan(off.view(r.shape).copy_(r), k, v, w, u)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.rwkv6_scan(r, k, v, w, u.cpu())
