@@ -58,7 +58,8 @@ and then, failing on the first phase that fails:
      from a carried state (y and the final state), at T=1 (the step
      kernel), with bf16 inputs, and with extreme decays (w = exp(-exp(x)),
      x over [-8, 6], exact 0s and 1 - 2**-24; every value finite); then
-     times each kernel (WKV also at the decode shape, T=1), its plain
+     times each kernel (WKV also at the decode shape, T=1: two input
+     sets cycled, and a decode step's 32 layers' calls), its plain
      version and, for flash, ``scaled_dot_product_attention`` (which the
      port never calls), with flash's achieved TFLOP/s and the registers
      and shared memory of each variant launched (flash bf16: wgmma on the
@@ -81,14 +82,6 @@ at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
 and prints no result.
-
-``python3 chip_smoke.py --wkv-variants [--against DIR]`` runs phase 7's
-WKV part alone, then builds the variants of the WKV source
-(``WKV_VARIANTS``: chunk length, key channels a block, 3xTF32 or f32
-FMAs), holds each against the plain version at the prefill shape and
-times it beside the default build (default first and last); with
-``--against DIR`` it first times the WKV kernel of another checkout
-(the parent commit unpacked with ``git archive``) and this one in turns.
 """
 
 from __future__ import annotations
@@ -1103,6 +1096,7 @@ def reduced_paths(torch, device, kernels):
 
 FLASH_SHAPE = (4, 2048, 24, 8, 128)  # llama3.2-3b prefill: B, S, H, KV, hd
 WKV_SHAPE = (4, 2048, 40, 64)        # rwkv6-3b prefill: B, T, H, hd
+WKV_DECODE_LAYERS = 32  # rwkv6-3b: one WKV call a layer in a decode step
 
 # tolerances, the tests/test_kernels.py bounds: flash 2e-5 in f32 (f32
 # sums in another order), 2e-2 in bf16 (the tensor-core kernel rounds P to
@@ -1303,10 +1297,16 @@ def check_wkv(torch, wkv, ref, device):
     ms = wkv_ms(torch, wkv.rwkv6_scan_cuda, sets)
     plain_ms = wkv_ms(torch, ref.rwkv6_scan_ref, sets, reps=3)
     ms2 = wkv_ms(torch, wkv.rwkv6_scan_cuda, sets)
-    # the decode shape (T = 1), where most of the path's launches are
-    dec = decode_sets(torch, device)
+    # the decode shape (T = 1), where most of the path's launches are: two
+    # input sets cycled (decode_ms), and a decode step's 32 layers' calls,
+    # a state each, so the states are read cold (decode_step_ms)
+    dec = [wkv_inputs(torch, B, 1, H, hd, "f32", device, 97 + i)
+           for i in range(2)]
     dec_ms = wkv_ms(torch, wkv.rwkv6_scan_cuda, dec)
     dec_plain_ms = wkv_ms(torch, ref.rwkv6_scan_ref, dec)
+    dec_layers = [wkv_inputs(torch, B, 1, H, hd, "f32", device, 97 + i)
+                  for i in range(WKV_DECODE_LAYERS)]
+    dec_step_ms = wkv_ms(torch, wkv.rwkv6_scan_cuda, dec_layers)
     wkv.launches = n0
     nbytes, ops = wkv_work(B, T, H, hd)
     bound_ms, bound_by = bound(nbytes, ops, "f32")
@@ -1318,12 +1318,13 @@ def check_wkv(torch, wkv, ref, device):
     dec_bytes, dec_ops = wkv_work(B, 1, H, hd)
     dec_bound, dec_by = bound(dec_bytes, dec_ops, "f32")
     log(f"rwkv6 scan f32 with a carried state at the decode shape (B={B}, "
-        f"T=1; {WKV_DECODE_LAYERS} layers' calls, a state each, in one "
-        f"graph): {dec_ms:.4f} ms on the device, plain {dec_plain_ms:.4f} ms, "
-        f"bound {dec_bound:.4f} ms by {dec_by} ({dec_bytes} B, {dec_ops} "
-        f"ops); achieved {dec_bytes / (dec_ms * 1e-3) / 1e9:.1f} GB/s; "
+        f"T=1): {dec_ms:.4f} ms on the device (two input sets cycled), "
+        f"plain {dec_plain_ms:.4f} ms, {dec_step_ms:.4f} ms a call over "
+        f"{WKV_DECODE_LAYERS} layers' calls, a state each; bound "
+        f"{dec_bound:.4f} ms by {dec_by} ({dec_bytes} B, {dec_ops} ops); "
+        f"achieved {dec_bytes / (dec_ms * 1e-3) / 1e9:.1f} GB/s; "
         f"{attributes_line(wkv.kernel_attributes(torch.float32, hd, 1))}")
-    del sets, dec
+    del sets, dec, dec_layers
     torch.cuda.empty_cache()
     return {"wkv": {
         "name": "rwkv6_scan[f32,state]",
@@ -1339,99 +1340,16 @@ def check_wkv(torch, wkv, ref, device):
         "library_ms": None,
         "decode_ms": dec_ms,
         "decode_plain_ms": dec_plain_ms,
+        "decode_step_ms": dec_step_ms,
         "decode_bound_ms": dec_bound,
     }}
 
 
-def wkv_ms(torch, fn, sets, reps=20, **kw):
+def wkv_ms(torch, fn, sets, reps=20):
     """Device time of one ``fn`` call (f32, carried state), one call an
     input set in the graph."""
-    return device_ms(torch, lambda i: fn(*sets[i][:5], state=sets[i][5],
-                                         **kw), len(sets), reps=reps)
-
-
-WKV_DECODE_LAYERS = 32  # rwkv6-3b: one WKV call a layer in a decode step
-
-
-def decode_sets(torch, device):
-    """The decode shape (T = 1) as a decode step meets it: one input set
-    (and state) a layer, so a graph of the layers' calls reads more than
-    L2 holds and its launch is a small part of it."""
-    B, _, H, hd = WKV_SHAPE
-    return [wkv_inputs(torch, B, 1, H, hd, "f32", device, 97 + i)
-            for i in range(WKV_DECODE_LAYERS)]
-
-
-# the variants of csrc/rwkv6_scan.cu timed beside the default build:
-# (steps a chunk C, key channels a block, the state products on the tensor
-# cores)
-WKV_VARIANTS = [(16, 32, False), (32, 32, True), (64, 32, True),
-                (16, 16, True), (16, 64, True)]
-
-
-def wkv_variants(torch, wkv, ref, device, against=None):
-    """``chip_smoke.py --wkv-variants [--against DIR]``: each variant of
-    the WKV source built, held against the plain version at the rwkv6-3b
-    prefill shape (f32, carried state, WKV_TOL) and timed at the prefill
-    and the decode shape, in turns with the default build (default first
-    and last).  With ``--against DIR`` (another checkout's root, such as
-    the parent commit unpacked by ``git archive``) its WKV wrapper is
-    timed the same way, in turns: other, this, this, other."""
-    B, T, H, hd = WKV_SHAPE
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(WKV_VARIANTS)) as pool:
-        built = list(pool.map(lambda c: wkv.build_variant(*c), WKV_VARIANTS))
-    log(f"variant builds: {time.perf_counter() - t0:.2f} s in parallel")
-    rows = [("default", None)]
-    for (c, keys, tc), (lib, secs, blog) in zip(WKV_VARIANTS, built):
-        name = f"C={c} keys={keys} {'3xTF32' if tc else 'FFMA'}"
-        rows.append((name, lib))
-        for line in sorted({ln.strip() for ln in blog.splitlines()
-                            if "registers" in ln or "spill" in ln}):
-            log(f"  ptxas {name}: {line}")
-    rows.append(("default again", None))
-    r, k, v, w, u, s0 = wkv_inputs(torch, B, T, H, hd, "f32", device, 93)
-    want_y, want_s = ref.rwkv6_scan_ref(r, k, v, w, u, state=s0)
-    sets = [wkv_inputs(torch, B, T, H, hd, "f32", device, 95 + i)
-            for i in range(2)]
-    dec = decode_sets(torch, device)
-    rtol, atol = WKV_TOL["f32"]
-    if against is not None:
-        other = load_wkv_from(against)
-        for name, fn in (("other", other.rwkv6_scan_cuda),
-                         ("this", wkv.rwkv6_scan_cuda),
-                         ("this", wkv.rwkv6_scan_cuda),
-                         ("other", other.rwkv6_scan_cuda)):
-            ms = wkv_ms(torch, fn, sets)
-            dec_ms = wkv_ms(torch, fn, dec)
-            log(f"wkv in turns, {name} ({against if name == 'other' else ROOT}"
-                f"): prefill shape {ms:.4f} ms, decode shape {dec_ms:.4f} ms")
-    for name, lib in rows:
-        y, s = wkv.rwkv6_scan_cuda(r, k, v, w, u, state=s0, lib=lib)
-        torch.cuda.synchronize()
-        err = max(float((y - want_y).abs().max()),
-                  float((s - want_s).abs().max()))
-        excess = max(float(((y - want_y).abs() - rtol * want_y.abs()).max()),
-                     float(((s - want_s).abs() - rtol * want_s.abs()).max()))
-        if not excess <= atol:
-            fail(f"wkv variant {name} disagrees with the plain version")
-        ms = wkv_ms(torch, wkv.rwkv6_scan_cuda, sets, lib=lib)
-        dec_ms = wkv_ms(torch, wkv.rwkv6_scan_cuda, dec, lib=lib)
-        attrs = wkv.kernel_attributes(torch.float32, hd, T, lib)
-        log(f"wkv variant {name}: prefill shape {ms:.4f} ms, decode shape "
-            f"{dec_ms:.4f} ms, max |kernel - plain| {err:.3e}; "
-            f"{attributes_line(attrs)}")
-
-
-def load_wkv_from(root):
-    """The WKV wrapper module of the checkout at ``root`` (built from its
-    own source, into this checkout's build directory)."""
-    import importlib.util
-    path = Path(root).resolve() / "src/repro_torch/kernels/rwkv6_scan.py"
-    spec = importlib.util.spec_from_file_location("wkv_other", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return device_ms(torch, lambda i: fn(*sets[i][:5], state=sets[i][5]),
+                     len(sets), reps=reps)
 
 
 # ---------------------------------------------------------------------------
@@ -1754,17 +1672,6 @@ def main() -> int:
     device = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    if sys.argv[1:2] == ["--wkv-variants"]:
-        args = sys.argv[2:]
-        against = args[1] if args[:1] == ["--against"] and len(args) == 2 \
-            else None
-        if args and against is None:
-            fail("usage: chip_smoke.py --wkv-variants [--against DIR]")
-        build_kernels(wkv)
-        check_wkv(torch, wkv, ref, device)
-        wkv_variants(torch, wkv, ref, device, against)
-        print(card)
-        return 0
     build_kernels(pa, ws, fa, wkv)
 
     kernels = check_kernel(torch, pa, ref, F, device)

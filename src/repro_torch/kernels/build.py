@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -57,37 +57,29 @@ def local_includes(source: Path) -> List[Path]:
     return seen
 
 
-def _flags(defines: Sequence[str]) -> Tuple[str, ...]:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def library_path(source: Path, defines: Sequence[str] = ()) -> Path:
+def library_path(source: Path) -> Path:
     """The library's path: its name hashes the source, every local header
-    it includes and the flags (``defines`` among them), so an edit to any
-    of them rebuilds it."""
+    it includes and the flags, so an edit to any of them rebuilds it."""
     h = hashlib.sha1(source.read_bytes())
     for header in local_includes(source):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(_flags(defines)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
-def load(source: Path, defines: Sequence[str] = ()
-         ) -> Tuple[ctypes.CDLL, Optional[float], str]:
-    """Compile ``source`` (with ``-D`` for each of ``defines``) if its
-    library is not built yet, then load it.
+def load(source: Path) -> Tuple[ctypes.CDLL, Optional[float], str]:
+    """Compile ``source`` if its library is not built yet, then load it.
 
     Returns ``(library, seconds nvcc took or None when no build ran,
     what nvcc printed)``; ``-Xptxas -v`` makes that the per-kernel
     register and shared-memory report."""
-    path = library_path(source, defines)
+    path = library_path(source)
     seconds, log = None, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(), *_flags(defines), "-o", str(tmp),
-                               str(source)],
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr

@@ -54,7 +54,8 @@
 //     inf or NaN (a prefix quotient P_t / P_s would divide by 0);
 //   * the products are 3xTF32 mma.sync.m16n8k8: each f32 operand splits
 //     into a TF32 high part and a TF32 residual, and hi*hi + hi*lo + lo*hi
-//     keeps float32 accuracy (the 1e-4 bound of the f32 path).  Operands
+//     keeps float32 accuracy (the 1e-4 bound of the f32 path; plain TF32
+//     would not).  Operands
 //     that several warps read (r*P, k*Q, A) are split once, as they are
 //     written; the state tile is the accumulator of the state update and,
 //     read in place, the A operand of y^T = S_in^T (r*P)^T (each 8-wide k
@@ -66,17 +67,16 @@
 //   * the warps' work before the products (the pair term on two warps,
 //     the decays and the previous chunk's y on the other two) rotates with
 //     the block, so the blocks of an SM spread it over its schedulers; the
-//     registers are capped so that every cluster is resident at once.
+//     registers are capped so that every cluster of the rwkv6-3b prefill
+//     shape is resident at once (see Geo::MIN_BLOCKS).
 // Decode (T = 1) runs a separate step kernel: one block per (batch, head),
 // a thread per 4 x 4 piece of the state, the partial y of the row groups
 // summed in shared memory; a chunk of the chunked kernel would be mostly
 // padding and two cluster barriers.
 //
-// Build-time variants (the defaults are the adopted design; chip_smoke.py
-// --wkv-variants times them): WKV_CHUNK (C, 16 | 32 | 64), WKV_KEYS
-// (KC, 16 | 32 | 64, at most hd), WKV_TENSOR_CORES (1: 3xTF32 mma.sync;
-// 0: the same fragments multiplied in f32 FMAs, operands exchanged by warp
-// shuffles).
+// C = 16, 32 key channels a block and 3xTF32 were chosen on the H100
+// against C = 32 and 64, 16 and 64 channels a block and the products in
+// f32 FMAs, all slower (PERF.md lists their times).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -85,24 +85,10 @@
 
 #include "sm90.cuh"
 
-#ifndef WKV_CHUNK
-#define WKV_CHUNK 16
-#endif
-#ifndef WKV_TENSOR_CORES
-#define WKV_TENSOR_CORES 1
-#endif
-#ifndef WKV_KEYS
-#define WKV_KEYS 32
-#endif
-
 namespace {
 
-constexpr int kC = WKV_CHUNK;
-constexpr bool kTensorCores = WKV_TENSOR_CORES != 0;
-constexpr int kKeys = WKV_KEYS;
-static_assert(kKeys == 16 || kKeys == 32 || kKeys == 64,
-              "WKV_KEYS: 16, 32 or 64");
-static_assert(kC == 16 || kC == 32 || kC == 64, "WKV_CHUNK: 16, 32 or 64");
+constexpr int kC = 16;     // steps a chunk
+constexpr int kKeys = 32;  // key channels a block (at most hd)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -154,58 +140,35 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// An operand fragment: its values, and under 3xTF32 their TF32 split.
+// An operand fragment: its values and their TF32 split.
 template <int N>
 struct Frag {
   float x[N];
   uint32_t hi[N], lo[N];
   __device__ __forceinline__ void split() {
-    if constexpr (kTensorCores) {
 #pragma unroll
-      for (int e = 0; e < N; ++e) split_tf32(x[e], hi[e], lo[e]);
-    }
+    for (int e = 0; e < N; ++e) split_tf32(x[e], hi[e], lo[e]);
   }
   // two elements stored split, {hi, lo} each (see store_split)
   __device__ __forceinline__ void load_split(const uint2* p) {
     const uint4 v = *reinterpret_cast<const uint4*>(p);
     hi[0] = v.x, lo[0] = v.y, hi[1] = v.z, lo[1] = v.w;
-    x[0] = __uint_as_float(v.x), x[1] = __uint_as_float(v.z);
   }
 };
 
-// an operand element kept in shared memory for several warps, split once:
-// {hi, lo} under 3xTF32, {x, 0} for the FMA route
+// an operand element kept in shared memory for several warps, split once
 __device__ __forceinline__ void store_split(uint2* p, float x) {
-  uint2 v = make_uint2(__float_as_uint(x), 0u);
-  if constexpr (kTensorCores) split_tf32(x, v.x, v.y);
+  uint2 v;
+  split_tf32(x, v.x, v.y);
   *p = v;
 }
 
+// 3xTF32: d += a.lo b.hi + a.hi b.lo + a.hi b.hi
 __device__ __forceinline__ void mma(float* d, const Frag<4>& a,
                                     const Frag<2>& b) {
-  if constexpr (kTensorCores) {
-    mma_tf32(d, a.lo, b.hi);
-    mma_tf32(d, a.hi, b.lo);
-    mma_tf32(d, a.hi, b.hi);
-  } else {
-    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const int src = kk & 3;
-      const float a0 = __shfl_sync(0xffffffffu, kk < 4 ? a.x[0] : a.x[2],
-                                   4 * g + src);
-      const float a1 = __shfl_sync(0xffffffffu, kk < 4 ? a.x[1] : a.x[3],
-                                   4 * g + src);
-      const float b0 = __shfl_sync(0xffffffffu, kk < 4 ? b.x[0] : b.x[1],
-                                   8 * q + src);
-      const float b1 = __shfl_sync(0xffffffffu, kk < 4 ? b.x[0] : b.x[1],
-                                   8 * q + 4 + src);
-      d[0] = fmaf(a0, b0, d[0]);
-      d[1] = fmaf(a0, b1, d[1]);
-      d[2] = fmaf(a1, b0, d[2]);
-      d[3] = fmaf(a1, b1, d[3]);
-    }
-  }
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
 }
 
 // ---- cluster (distributed shared memory) -----------------------------------
@@ -291,11 +254,12 @@ struct Geo {
   static constexpr int NT = 32 * NW;
   static constexpr int KT = KC / 8;      // 8-channel tiles of the block
   static constexpr int WPR = KC / 16;    // warps whose columns a block owns
-  // blocks an SM must hold, which caps the registers a thread: the
-  // clusters of the rwkv6-3b prefill shape (B=4, 40 heads of 64, so 160 NB
-  // blocks) resident at once with a fifth to spare (clusters are placed
-  // within a GPC, so an SM count that just fits the blocks leaves some
-  // clusters to a second wave)
+  // blocks an SM must hold, which caps the registers a thread.  A tuning
+  // for one shape and one card only: the clusters of the rwkv6-3b prefill
+  // shape (B=4, 40 heads of 64, so 160 NB blocks) resident at once on the
+  // H100's 132 SMs with a fifth to spare (clusters are placed within a
+  // GPC, so an SM count that just fits the blocks leaves some clusters to
+  // a second wave).  Other shapes and cards get the same register cap.
   static constexpr int MIN_BLOCKS = (192 * NB + 131) / 132;
   static constexpr int TT = C / 8;       // 8-step tiles of a chunk
   static constexpr int E = TT * 4;       // y accumulator floats a lane
@@ -564,14 +528,14 @@ __global__ void __launch_bounds__(Geo<T, HD>::NT, Geo<T, HD>::MIN_BLOCKS)
       uint2* dst = s_rp + (fwd ? c : (Gm::KQ - Gm::RP) / 8 + c * Gm::S_ROW + C - 1);
       const int dstep = fwd ? Gm::P_ROW : -1;
       // bit n: the n-th step of the walk is real (t < n_valid)
-      const uint64_t ones = n_valid >= 64 ? ~0ull : (1ull << n_valid) - 1ull;
-      const uint64_t real = fwd ? ones : ones << (C - n_valid);
+      const uint32_t ones = (1u << n_valid) - 1u;
+      const uint32_t real = fwd ? ones : ones << (C - n_valid);
       float p = 1.f;
 #pragma unroll
       for (int n = 0; n < C; ++n) {
         const float xv = to_f32(xs[n * step]), wv = to_f32(ws[n * step]);
         store_split(dst + n * dstep, xv * p);
-        if ((real >> n) & 1ull) p *= wv;
+        if ((real >> n) & 1u) p *= wv;
       }
       if (fwd) s_g[c] = p;
       // the previous chunk's y, while the pair term still runs

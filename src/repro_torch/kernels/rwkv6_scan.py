@@ -14,9 +14,7 @@ state products on the tensor cores in 3xTF32, each head's key channels
 split across a cluster of two blocks that exchange partial outputs;
 ``kernels.ref.rwkv6_scan_chunked_ref`` is a plain model of that
 algorithm.  A one-step call (decode) runs a small step kernel.  Either
-way one call is one launch.  :func:`build_variant` builds the same source
-with another chunk length, key tile or product route, for timing the
-variants side by side.
+way one call is one launch.
 
 :func:`rwkv6_scan_cuda` takes CUDA tensors only; the CPU path of
 ``kernels.ops.rwkv6_scan`` never reaches this module's build.
@@ -26,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -50,7 +48,12 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def build() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    lib, build_seconds, build_log = _build.load(SOURCE)
     ci, vp = ctypes.c_int, ctypes.c_void_p
     lib.repro_rwkv6_scan.restype = ci
     lib.repro_rwkv6_scan.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
@@ -58,42 +61,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_rwkv6_scan_attributes.restype = ci
     lib.repro_rwkv6_scan_attributes.argtypes = [ci, ci, ci,
                                                 ctypes.POINTER(ci)]
+    _lib = lib
     return lib
 
 
-def build() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library."""
-    global _lib, build_seconds, build_log
-    if _lib is not None:
-        return _lib
-    lib, build_seconds, build_log = _build.load(SOURCE)
-    _lib = _bind(lib)
-    return _lib
-
-
-def build_variant(chunk: int, keys: int, tensor_cores: bool
-                  ) -> Tuple[ctypes.CDLL, Optional[float], str]:
-    """The source built with ``chunk`` steps a chunk (16, 32 or 64),
-    ``keys`` key channels a block (16, 32 or 64) and the state products on
-    the tensor cores (3xTF32) or in f32 FMAs; returns ``(library, nvcc
-    seconds or None, nvcc's report)``.  For timing variants beside the default
-    build, through :func:`rwkv6_scan_cuda`'s ``lib``."""
-    lib, seconds, log = _build.load(SOURCE, (
-        f"WKV_CHUNK={chunk}", f"WKV_KEYS={keys}",
-        f"WKV_TENSOR_CORES={int(tensor_cores)}"))
-    return _bind(lib), seconds, log
-
-
-def kernel_attributes(dtype: torch.dtype, hd: int, steps: int,
-                      lib: Optional[ctypes.CDLL] = None) -> dict:
+def kernel_attributes(dtype: torch.dtype, hd: int, steps: int) -> dict:
     """What the compiler gave the kernel a call with this dtype, head dim
     and number of steps launches (one step: the step kernel; more: the
     chunked kernel): registers a thread, static and dynamic shared bytes,
     local (stack and spill) bytes.  Builds the library if needed; launches
     nothing."""
     out = (ctypes.c_int * 4)()
-    rc = (lib or build()).repro_rwkv6_scan_attributes(_CODES[dtype], hd,
-                                                      steps, out)
+    rc = build().repro_rwkv6_scan_attributes(_CODES[dtype], hd, steps, out)
     if rc != 0:
         raise RuntimeError(f"rwkv6 scan attributes: CUDA error {rc}")
     return {"registers": out[0], "shared_bytes": out[1],
@@ -107,8 +86,7 @@ def _check(cond: bool, msg: str) -> None:
 
 def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     w: torch.Tensor, u: torch.Tensor,
-                    state: Optional[torch.Tensor] = None,
-                    lib: Optional[ctypes.CDLL] = None):
+                    state: Optional[torch.Tensor] = None):
     """Launch the kernel on the current stream; same contract as
     ``kernels.ref.rwkv6_scan_ref``.
 
@@ -118,8 +96,6 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       u          : (H, hd) float32, contiguous, 16-byte aligned
       state      : None, or the initial state (B, H, hd, hd) float32,
                    contiguous
-      lib        : another build of the source (:func:`build_variant`);
-                   None launches the default build
 
     Returns y, a new (B, T, H, hd) tensor in r's dtype; with a ``state``,
     ``(y, final_state)``, the final state a new float32 tensor."""
@@ -148,7 +124,7 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                "state must be contiguous float32 (B, H, hd, hd)")
     y = torch.empty_like(r)
     final = None if state is None else torch.empty_like(state)
-    rc = (lib or build()).repro_rwkv6_scan(
+    rc = build().repro_rwkv6_scan(
         _CODES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
         w.data_ptr(), u.data_ptr(),
         None if state is None else state.data_ptr(),

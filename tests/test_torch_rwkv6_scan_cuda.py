@@ -148,23 +148,6 @@ def test_two_calls_equal_one_at_and_off_a_chunk_boundary(cuda_device, dtype,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("chunk,keys,tensor_cores", [
-    (16, 32, False), (32, 32, True), (64, 32, True), (16, 16, True),
-    (16, 64, True)])
-def test_build_variants_match_plain_version(cuda_device, chunk, keys,
-                                            tensor_cores):
-    """The timed variants of the source compute the same function."""
-    lib, _, _ = wkv.build_variant(chunk, keys, tensor_cores)
-    for hd, T in ((64, 300), (32, 37), (64, 1)):
-        r, k, v, w, u, s0 = _inputs(cuda_device, 2, T, 3, hd, torch.float32,
-                                    seed=hd + T)
-        y, s1 = wkv.rwkv6_scan_cuda(r, k, v, w, u, state=s0, lib=lib)
-        want_y, want_s = rwkv6_scan_ref(r, k, v, w, u, state=s0)
-        torch.testing.assert_close(y, want_y, **_tol(torch.float32))
-        torch.testing.assert_close(s1, want_s, **_tol(torch.float32))
-
-
-@pytest.mark.gpu
 def test_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
     r, k, v, w, u, s0 = _inputs(cuda_device, 1, 4, 2, 64, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
