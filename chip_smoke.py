@@ -25,14 +25,19 @@ and then, failing on the first phase that fails:
      ensemble stream, a short int8-KV stream, and one teacher-forced decode
      step on the kernel path against the plain path;
   3. serves a stream at the reduced float32 config on the kernel path and
-     on the plain path: greedy tokens must be identical;
+     on the plain path: greedy tokens must be identical; a server for a
+     config of 9 query heads a kv head must be refused on the card, with
+     the paged kernel's limit as the reason;
   4. holds the two WASH-shuffle kernels (dense and bucketed) bitwise
      against their plain versions for float32 and bfloat16 at N in
      {2, 3, 4, 8} on a leaf width that is a multiple of no block, and at
      the real stacked leaf ``blocks.mlp.w1`` with N = 4 (2.82e9 elements,
-     past 2**31) and N = 2, then times each kernel, its plain version and
-     a yardstick of library calls at the shapes its path gives it (device
-     time: the calls captured in a CUDA graph and replayed);
+     past 2**31) and N = 2 (the bucketed kernel on the plans' ascending
+     rows and on each row shuffled), then times each kernel, its plain
+     version and a yardstick of library calls at the shapes its path
+     gives it (device time: the calls captured in a CUDA graph and
+     replayed), the bucketed one on both row orders, beside its bytes
+     bound and its sector floor, and on a plan ten times denser;
   5. trains full-width llama3.2-3b (28 layers, bf16, N = 2, SGD, bucketed
      WASH at p = 0.01, batch 2 x 256 tokens per member, 4 steps) through
      the train CLI's ``main``: every shuffle through the bucketed kernel
@@ -61,10 +66,12 @@ and then, failing on the first phase that fails:
      times each kernel (WKV also at the decode shape, T=1: two input
      sets cycled, and a decode step's 32 layers' calls), its plain
      version and, for flash, ``scaled_dot_product_attention`` (which the
-     port never calls), with flash's achieved TFLOP/s and the registers
-     and shared memory of each variant launched (flash bf16: wgmma on the
-     tensor cores, TMA-fed; WKV: the chunked kernel, 3xTF32 mma.sync,
-     TMA-fed, and the step kernel);
+     port never calls), with flash's achieved TFLOP/s (f32 against both
+     the 3xTF32 and the FFMA rate) and the registers and shared memory of
+     each variant launched (flash bf16: wgmma on the tensor cores,
+     TMA-fed; flash f32: 3xTF32 mma.sync, cp.async-fed, its TF32 mma
+     counted in the library's SASS; WKV: the chunked kernel, 3xTF32
+     mma.sync, TMA-fed, and the step kernel);
   8. serves full-width rwkv6-3b (32 layers, bf16) and llama3.2-3b (28
      layers, bf16) from random N=2 populations through the serve CLI's
      scan engine (``--compare``: soup, member and ensemble, B=4, S=2048,
@@ -75,7 +82,9 @@ and then, failing on the first phase that fails:
      prefill + decode step per model on the kernel path against the plain
      path (logits, and every layer's rwkv6 state); then the reduced
      float32 rwkv6 and llama through ``engine.generate`` on the kernel and
-     plain paths: greedy tokens identical.
+     plain paths: greedy tokens identical; rwkv6 at rwkv_head_dim=16 must
+     be refused on the card, with the WKV kernel's head dims as the
+     reason.
 
 Kernels are built from the sources in the checkout, each ``nvcc`` started
 at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
@@ -115,9 +124,15 @@ PARAM_TOL = 1e-5
 LOGIT_REL_TOL = 5e-2
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): memory rate and the
-# operation rate for the type the kernel computes in
+# operation rate for the type the kernel computes in.  float32 at float32
+# accuracy runs fastest through 3xTF32 on the tensor cores (three TF32
+# products for one float32 product), so its peak is the dense TF32 rate
+# over 3, not the CUDA cores' FFMA rate (67 TFLOP/s), which a 3xTF32
+# kernel can beat
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+TF32_OPS = 494.7e12
+FFMA_OPS = 67e12
+PEAK_OPS = {"bf16": 989e12, "f32": TF32_OPS / 3, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
@@ -509,6 +524,19 @@ def full_width(torch, device, kernels):
     torch.cuda.empty_cache()
 
 
+def refused(what, fn, limit: str) -> None:
+    """A run on the card that the kernels cannot take is refused up front
+    (``transformer.cuda_supported``), with a reason naming the limit."""
+    try:
+        fn()
+    except NotImplementedError as e:
+        if limit not in str(e):
+            fail(f"{what}: refused without naming the limit {limit!r}: {e}")
+        log(f"{what}: refused on the card, as it must be: {e}")
+        return
+    fail(f"{what}: not refused on the card")
+
+
 def reduced_f32(torch, device, kernels):
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops, ref
@@ -533,6 +561,11 @@ def reduced_f32(torch, device, kernels):
     log(f"reduced f32: greedy tokens kernel path == plain path: {same}")
     if not same:
         fail("reduced f32 greedy tokens differ between kernel and plain path")
+    group9 = dataclasses.replace(cfg, num_heads=9, num_kv_heads=1,
+                                 head_dim=64)
+    refused("ContinuousServer at 9 query heads a kv head",
+            lambda: B.ContinuousServer(soup, group9, **geo),
+            f"at most {pa.MAX_GROUP}")
 
 
 # ---------------------------------------------------------------------------
@@ -571,9 +604,10 @@ def _randn(torch, n, d, dtype, device, seed):
     return torch.randn(n, d, generator=gen, device=device).to(dtype)
 
 
-def _w1_plan(shf, sch, n, device):
-    """The bucketed plan the training path draws for blocks.mlp.w1."""
-    p_vec = sch.layer_probability_array(0.01, np.arange(1, W1_LAYERS + 1),
+def _w1_plan(shf, sch, n, device, base_p=0.01):
+    """The bucketed plan the training path draws for blocks.mlp.w1 (at
+    another ``base_p``, a plan as much denser)."""
+    p_vec = sch.layer_probability_array(base_p, np.arange(1, W1_LAYERS + 1),
                                         W1_LAYERS + 2, "decreasing")
     return shf.bucketed_plan_layered(0, W1_LAYERS, W1_REST, n, p_vec,
                                      device=device)
@@ -589,6 +623,23 @@ def shuffle_bytes_bucketed(n, k_per, elt):
     """Each selected column of buckets 1..N-1 read and written once (N
     values each), plus its plan entry."""
     return 2 * n * (n - 1) * k_per * elt + 4 * (n - 1) * k_per
+
+
+def shuffle_sector_floor_bytes(n, k_per):
+    """What the scattered accesses cost at best: the selected columns lie
+    ~1/p apart, so no two share a 32-byte sector, and each of the N
+    values of a column costs a sector read and a sector written, plus the
+    column's plan entry."""
+    return (n - 1) * k_per * (2 * n * 32 + 4)
+
+
+def _shuffled_rows(torch, idx, seed):
+    """A copy of a bucketed plan with every row in a random order: the
+    rows stay disjoint, so it moves the same bits as the plan."""
+    gen = _gen(torch, idx.device, seed)
+    return torch.stack([row[torch.randperm(row.numel(), generator=gen,
+                                           device=idx.device)]
+                        for row in idx]).contiguous()
 
 
 def check_shuffle_kernels(torch, device):
@@ -621,11 +672,16 @@ def check_shuffle_kernels(torch, device):
             hold("dense", ws.wash_shuffle_cuda(x, perm, mask),
                  ref.wash_shuffle_ref(x, perm, mask), f"N={n} {dtype} D={d}")
             idx = shf.bucketed_plan(n, d, n, 0.3, device=device)
+            want = ref.bucketed_shuffle_ref(x, idx)
             hold("bucketed", ws.bucketed_shuffle_cuda_(x.clone(), idx),
-                 ref.bucketed_shuffle_ref(x, idx), f"N={n} {dtype} D={d}")
+                 want, f"N={n} {dtype} D={d}")
+            hold("bucketed", ws.bucketed_shuffle_cuda_(
+                x.clone(), _shuffled_rows(torch, idx, n)), want,
+                f"N={n} {dtype} D={d}, rows shuffled")
     torch.cuda.synchronize()
     log(f"shuffle kernels: bitwise equal to their plain versions for "
-        f"float32 and bfloat16 at N in (2, 3, 4, 8), D = {d}")
+        f"float32 and bfloat16 at N in (2, 3, 4, 8), D = {d} (bucketed: "
+        f"on the ascending rows the plans draw and on each row shuffled)")
 
     w1_d = W1_D
     # the real stacked leaf, N = 4: 2.82e9 bf16 elements
@@ -637,7 +693,11 @@ def check_shuffle_kernels(torch, device):
     ws.bucketed_shuffle_cuda_(x, idx)
     torch.cuda.synchronize()
     hold("bucketed", x, want, f"blocks.mlp.w1 N={n}")
-    del want
+    x2 = _randn(torch, n, w1_d, torch.bfloat16, device, seed=40)
+    ws.bucketed_shuffle_cuda_(x2, _shuffled_rows(torch, idx, 42))
+    torch.cuda.synchronize()
+    hold("bucketed", x2, want, f"blocks.mlp.w1 N={n}, rows shuffled")
+    del want, x2
     perm = _cyclic_perm(torch, n, w1_d, device, seed=41)
     mask = torch.rand(w1_d, device=device) < 0.01
     got = ws.wash_shuffle_cuda(x, perm, mask)
@@ -673,29 +733,54 @@ def check_shuffle_kernels(torch, device):
     def yard_b():
         x.index_copy_(1, cols, x.index_select(1, cols).gather(0, src))
 
-    ms = device_ms(torch, lambda _: ws.bucketed_shuffle_cuda_(x, idx), 1)
+    shuffled = _shuffled_rows(torch, idx, 51)
+    # 100 replays a reading: 20 of a ~0.3 ms call varied by ~0.03 ms
+    ms = device_ms(torch, lambda _: ws.bucketed_shuffle_cuda_(x, idx), 1, 100)
     plain_ms = device_ms(torch, lambda _: ref.bucketed_shuffle_ref_(x, idx), 1)
     yard_ms = device_ms(torch, lambda _: yard_b(), 1)
-    ms2 = device_ms(torch, lambda _: ws.bucketed_shuffle_cuda_(x, idx), 1)
+    shuffled_ms = device_ms(
+        torch, lambda _: ws.bucketed_shuffle_cuda_(x, shuffled), 1, 100)
+    ms2 = device_ms(torch, lambda _: ws.bucketed_shuffle_cuda_(x, idx), 1, 100)
     call_ms = wall_ms(torch, lambda: ws.bucketed_shuffle_cuda_(x, idx), 20, 2)
+    # what sets the time: at the path's density a moved column comes every
+    # ~800 bytes of a member row, so each sector costs a DRAM page of its
+    # own and the row order barely matters; on a plan ten times denser,
+    # neighbouring columns share pages and the ascending rows pay
+    dense_idx = _w1_plan(shf, sch, 2, device, base_p=0.1)
+    dense_shuffled = _shuffled_rows(torch, dense_idx, 53)
+    dense_ms = device_ms(
+        torch, lambda _: ws.bucketed_shuffle_cuda_(x, dense_idx), 1, 100)
+    dense_shuffled_ms = device_ms(
+        torch, lambda _: ws.bucketed_shuffle_cuda_(x, dense_shuffled), 1, 100)
     ws.bucketed_launches = n0  # comparison launches do not count
     nbytes = shuffle_bytes_bucketed(2, k_per, 2)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
+    floor_bytes = shuffle_sector_floor_bytes(2, k_per)
+    floor_ms = floor_bytes / HBM_BYTES_PER_S * 1e3
     log(f"bucketed shuffle, blocks.mlp.w1 N=2 bf16, plan (2, {k_per}), "
-        f"device time: kernel {ms:.4f} ms (again {ms2:.4f}; {call_ms:.4f} ms "
-        f"a call through the Python wrapper), plain {plain_ms:.4f} ms, "
-        f"yardstick index_select+gather+index_copy_ {yard_ms:.4f} ms "
-        f"(no single PyTorch call computes the function), bound "
-        f"{bound:.4f} ms by bytes ({nbytes} B); achieved "
-        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of the bytes it needs")
+        f"device time: kernel {ms:.4f} ms on the plan's ascending rows "
+        f"(again {ms2:.4f}; {call_ms:.4f} ms a call through the Python "
+        f"wrapper), {shuffled_ms:.4f} ms on the same rows shuffled, plain "
+        f"{plain_ms:.4f} ms, yardstick index_select+gather+index_copy_ "
+        f"{yard_ms:.4f} ms (no single PyTorch call computes the function), "
+        f"bound {bound:.4f} ms by bytes ({nbytes} B), sector floor "
+        f"{floor_ms:.4f} ms ({floor_bytes} B: a 32-byte sector read and "
+        f"written a value); achieved {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
+        f"of the bytes it needs, {floor_bytes / (ms * 1e-3) / 1e9:.1f} GB/s "
+        f"of sectors; on a plan ten times denser (2, {dense_idx.shape[1]}) "
+        f"{dense_ms:.4f} ms on ascending rows, {dense_shuffled_ms:.4f} ms "
+        f"on the rows shuffled")
     entries["bucketed"] = {
         "name": "bucketed_shuffle[bf16,N=2,blocks.mlp.w1]", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wash_shuffle.cu",
         "replaces": "src/repro/kernels/wash_shuffle.py:75",
         "launches": 0, "max_abs_err": err["bucketed"], "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-        "library_ms": None, "yardstick_ms": yard_ms}
-    del x, idx, cols, src
+        "library_ms": None, "yardstick_ms": yard_ms,
+        "shuffled_rows_ms": shuffled_ms, "sector_floor_ms": floor_ms,
+        "denser_plan_ms": dense_ms,
+        "denser_plan_shuffled_rows_ms": dense_shuffled_ms}
+    del x, idx, cols, src, shuffled, dense_idx, dense_shuffled
     torch.cuda.empty_cache()
 
     # the dense path: phase 6's blocks.mlp.w1, float32, N = 2
@@ -1144,6 +1229,26 @@ def bound(nbytes, ops, dt):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sass_count(library: Path, function_part: str, opcode: str) -> int:
+    """Instructions whose text starts with ``opcode`` in the functions of
+    a built library whose names hold ``function_part``, as ``cuobjdump
+    -sass`` (beside ``nvcc``) disassembles them."""
+    from repro_torch.kernels import build as kbuild
+
+    tool = Path(kbuild.nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(library)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump: {out.stderr.strip()}")
+    count, inside = 0, False
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            inside = function_part in line
+        elif inside and f" {opcode}" in line:
+            count += 1
+    return count
+
+
 def check_flash(torch, fa, ref, F, device):
     """Phase 7, flash attention.  Returns the entries of the JSON line for
     the two variants the scan engine runs (bf16 at full width, f32 at the
@@ -1192,12 +1297,19 @@ def check_flash(torch, fa, ref, F, device):
         nbytes, ops = flash_work(B, S, H, KV, hd, dt, True)
         bound_ms, bound_by = bound(nbytes, ops, dt)
         design = ("wgmma on the tensor cores, TMA-fed" if dt == "bf16"
-                  else "f32 FMAs on the CUDA cores")
+                  else "3xTF32 mma.sync on the tensor cores, cp.async-fed")
+        rate = ops / (ms * 1e-3)
+        against = (f"{rate / PEAK_OPS['bf16']:.1%} of the bf16 rate"
+                   if dt == "bf16" else
+                   f"{rate / PEAK_OPS['f32']:.1%} of the 3xTF32 rate "
+                   f"({PEAK_OPS['f32'] / 1e12:.1f} TFLOP/s), "
+                   f"{rate / FFMA_OPS:.1%} of the FFMA rate "
+                   f"({FFMA_OPS / 1e12:.0f} TFLOP/s)")
         log(f"flash attention {dt} causal at the llama3.2-3b prefill shape "
             f"({design}): {ms:.4f} ms on the device (again {ms2:.4f}), plain "
             f"{plain_ms:.4f} ms, library (SDPA) {library_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {ops} ops); "
-            f"achieved {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; "
+            f"achieved {rate / 1e12:.2f} TFLOP/s, {against}; "
             f"{attributes_line(fa.kernel_attributes(sets[0][0].dtype, hd))}")
         entries[f"flash_{dt}"] = {
             "name": f"flash_attention[{dt},causal]",
@@ -1214,6 +1326,14 @@ def check_flash(torch, fa, ref, F, device):
         }
         del sets, lib
         torch.cuda.empty_cache()
+    from repro_torch.kernels import build as kbuild
+
+    hmma = sass_count(kbuild.library_path(fa.SOURCE), "flash_f32_kernel",
+                      "HMMA.1688.F32.TF32")
+    log(f"flash attention f32 in the library's SASS: {hmma} TF32 tensor-core "
+        f"instructions (HMMA.1688.F32.TF32) over its three head dims")
+    if hmma == 0:
+        fail("the f32 flash kernel issues no TF32 mma")
     return entries
 
 
@@ -1614,6 +1734,12 @@ def scan_reduced_f32(torch, device):
             if counts[key] != expect:
                 fail(f"reduced f32 {arch} {mode}: {counts[key]} launches")
             launches[key] = launches.get(key, 0) + counts[key]
+        if route == "rwkv6_scan":
+            hd16 = dataclasses.replace(cfg, rwkv_head_dim=16)
+            refused("engine.generate of rwkv6 at rwkv_head_dim=16",
+                    lambda: engine.generate(params, hd16, batch, 16,
+                                            device=device),
+                    str(wkv.HEAD_DIMS))
         del popn
     return launches
 

@@ -100,6 +100,20 @@ def dense_apply(leaf: torch.Tensor, perm: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _stratified_ascending(seed: int, d: int, k: int, device) -> torch.Tensor:
+    """k unique int32 indices in [0, d), one uniform draw per equal stratum,
+    in ascending order (the strata are)."""
+    if d > _INT32_MAX:
+        raise ValueError(f"leaf of {d} scalars per member: int32 plans "
+                         f"address at most {_INT32_MAX}")
+    i = torch.arange(k, dtype=torch.int64, device=device)
+    starts = (i * d) // k
+    widths = torch.clamp((i + 1) * d // k - starts, min=1)
+    offs = torch.randint(0, _INT32_MAX, (k,), generator=generator(
+        fold_in(seed, 0), device), device=device) % widths
+    return (starts + offs).to(torch.int32)
+
+
 def stratified_unique_indices(seed: int, d: int, k: int, device="cuda"
                               ) -> torch.Tensor:
     """k unique int32 indices in [0, d), one uniform draw per equal stratum,
@@ -111,18 +125,44 @@ def stratified_unique_indices(seed: int, d: int, k: int, device="cuda"
     device = resolve_device(device)
     if k <= 0:
         return torch.zeros((0,), dtype=torch.int32, device=device)
-    if d > _INT32_MAX:
-        raise ValueError(f"leaf of {d} scalars per member: int32 plans "
-                         f"address at most {_INT32_MAX}")
-    i = torch.arange(k, dtype=torch.int64, device=device)
-    starts = (i * d) // k
-    widths = torch.clamp((i + 1) * d // k - starts, min=1)
-    offs = torch.randint(0, _INT32_MAX, (k,), generator=generator(
-        fold_in(seed, 0), device), device=device) % widths
-    idx = (starts + offs).to(torch.int32)
+    idx = _stratified_ascending(seed, d, k, device)
     order = torch.randperm(k, generator=generator(fold_in(seed, 1), device),
                            device=device)
     return idx[order]
+
+
+def _deal_rows(seed: int, pool: torch.Tensor, n: int) -> Optional[torch.Tensor]:
+    """Deal an ascending pool of unique coordinates into ``(n, k_per)``
+    rows, ``k_per = len(pool) // n``: as a uniformly random permutation of
+    the pool cut into rows would (each row a uniformly random subset, the
+    rows disjoint, the ``len(pool) - n * k_per`` left over dropped at
+    random), but every row stays in the pool's ascending order, so the
+    shuffle kernel's neighbouring threads touch neighbouring columns.
+
+    Balanced random labels (row j // k_per for the pool entry at place j
+    of a random permutation; n marks a dropped entry), then each row
+    compacted in pool order by one scatter.  An entry's slot is the
+    running count of the (row, entry) one-hot flattened row after row:
+    every row holds k_per labels, so in row s that count is s * k_per plus
+    the entry's place in its row.  One flat scan (a scan along each of n
+    rows is many times slower on the card), no sort, no host sync."""
+    device = pool.device
+    total = pool.shape[0]
+    k_per = total // n
+    if k_per == 0:
+        return None
+    order = torch.randperm(total, generator=generator(seed, device),
+                           device=device)
+    label = torch.empty(total, dtype=torch.int64, device=device)
+    label[order] = torch.clamp(
+        torch.arange(total, device=device) // k_per, max=n)
+    onehot = label[None, :] == torch.arange(n, device=device)[:, None]
+    slot = torch.cumsum(onehot.view(-1), 0, dtype=torch.int32).view(n, total)
+    slot = slot.gather(0, torch.clamp(label, max=n - 1)[None])[0].long() - 1
+    dest = torch.where(label < n, slot, n * k_per)
+    out = torch.empty(n * k_per + 1, dtype=pool.dtype, device=device)
+    out.scatter_(0, dest, pool)  # dropped entries all land in the last slot
+    return out[:n * k_per].view(n, k_per)
 
 
 def bucket_count(d: int, n: int, p_l: float) -> int:
@@ -135,13 +175,14 @@ def bucketed_plan(seed: int, d: int, n: int, p_l: float,
                   k_per: Optional[int] = None, device="cuda"
                   ) -> Optional[torch.Tensor]:
     """Index plan ``(n, k_per)`` int32; row s holds coordinates shifted by
-    s.  None when the leaf is too small or the probability too low for
-    one coordinate per bucket."""
+    s, in ascending order.  None when the leaf is too small or the
+    probability too low for one coordinate per bucket."""
     if k_per is None:
         k_per = bucket_count(d, n, p_l)
     if k_per == 0:
         return None
-    return stratified_unique_indices(seed, d, k_per * n, device).reshape(n, k_per)
+    pool = _stratified_ascending(seed, d, k_per * n, resolve_device(device))
+    return _deal_rows(fold_in(seed, 1), pool, n)
 
 
 def layered_counts(num_layers: int, d_rest: int, p_vec,
@@ -161,26 +202,22 @@ def bucketed_plan_layered(seed: int, num_layers: int, d_rest: int, n: int,
 
     Layer l contributes its :func:`layered_counts` coordinates inside its
     own flat range [l*d_rest, (l+1)*d_rest), so the pooled set keeps
-    Eq. 6's depth profile; the pool is randomly permuted, trimmed to a
-    multiple of N and reshaped to (N, k_per)."""
+    Eq. 6's depth profile; the pool (ascending, layer after layer) is
+    dealt into N random rows of k_per, each in ascending order, the
+    remainder of N dropped at random (:func:`_deal_rows`)."""
     if num_layers * d_rest > _INT32_MAX:
         raise ValueError(f"leaf of {num_layers * d_rest} scalars per member: "
                          f"int32 plans address at most {_INT32_MAX}")
+    device = resolve_device(device)
     pieces = []
     for l, k_l in enumerate(layered_counts(num_layers, d_rest, p_vec, counts)):
         if k_l <= 0:
             continue
-        idx_l = stratified_unique_indices(fold_in(seed, l), d_rest, k_l, device)
-        pieces.append(idx_l + l * d_rest)
+        pieces.append(_stratified_ascending(fold_in(seed, l), d_rest, k_l,
+                                            device) + l * d_rest)
     if not pieces:
         return None
-    idx = torch.cat(pieces)
-    k_per = idx.shape[0] // n
-    if k_per == 0:
-        return None
-    order = torch.randperm(idx.shape[0], generator=generator(
-        fold_in(seed, num_layers + 1), device), device=device)
-    return idx[order[: k_per * n]].reshape(n, k_per)
+    return _deal_rows(fold_in(seed, num_layers + 1), torch.cat(pieces), n)
 
 
 def bucketed_apply_stacked(leaf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,9 @@
 // What bounds it on the H100: operations.  At llama3.2-3b's prefill (B=4,
 // S=2048, 24 heads over 8 kv heads, hd=128, causal) the function needs
 // ~1.0e11 flops (the half of QK^T and PV below the diagonal) and reads
-// and writes ~134 MB: ~0.10 ms at the bf16 tensor-core rate against
-// ~0.04 ms at the memory rate.
+// and writes ~134 MB in bf16: ~0.10 ms at the bf16 tensor-core rate
+// against ~0.04 ms at the memory rate; in f32, ~0.63 ms at the 3xTF32
+// rate (a third of the 495 TFLOP/s TF32 rate) against ~0.08 ms.
 //
 // Two kernels, one per type:
 //
@@ -60,16 +61,34 @@
 // block holds Q (32 KB), two stages of K and V (128 KB) and the staged
 // output (34 KB): one block an SM.
 //
-// f32 (`flash_attention_kernel`, the reduced float32 path only): float32
-// FMAs on the CUDA cores, kept because TF32 on the tensor cores would
-// break the 2e-5 float32 tolerance, and it already beats the library's
-// float32 attention.  One block per (batch, q head, 64-row q tile); K and
-// V tiles stream through shared memory, Q and K stored d-major so the
-// score loop reads four rows with one 16-byte load; 256 threads in a
-// 16 x 16 grid each compute a 4 x 4 score patch, reduce the row max and
-// sum across their 16-thread half-warp with shuffles and own 4 rows x
-// hd/16 columns of the accumulator; P goes through shared memory once a
-// tile for P.V, in the space K^T held.
+// f32 (`f32::flash_f32_kernel`, the reduced float32 path): float32
+// products on the tensor cores by 3xTF32 mma.sync.m16n8k8 (helpers in
+// sm90.cuh, shared with the WKV kernel): each operand splits into a TF32
+// high part and a TF32 residual, and hi*hi + hi*lo + lo*hi keeps float32
+// accuracy (the 2e-5 bound; one TF32 product would not hold it, see
+// kernels/ref.py `flash_attention_3xtf32_ref`).  Its bound is then the
+// TF32 rate over 3, not the CUDA cores' FFMA rate.
+//   * one block per (batch, q head, 128-row q tile), eight warps of 16
+//     query rows, heavy q tiles first;
+//   * the Q tile lands in shared memory once, K and V tiles of 64 keys
+//     stream into two stages behind it, all by cp.async (the next tile's
+//     copy runs under this tile's products), raw f32 with padded rows so
+//     that every fragment load is free of bank conflicts; a fragment is
+//     split as it is loaded (Q's held in registers instead spilled);
+//   * S = Q K^T accumulates in registers; the softmax runs there (row max
+//     and sum across the 4 threads of a row, exp2 on the MUFU, O rescaled
+//     only where the max moved; the mask only on tiles that straddle the
+//     diagonal, the window's edge or S);
+//   * P feeds P V from the accumulators, without shared memory: the m16n8
+//     accumulator holds keys 2c and 2c + 1 of each 8 where the k8 A
+//     fragment wants slots c and c + 4, and the sum over keys does not
+//     care about their order, so key 2c is slot c, key 2c + 1 slot c + 4,
+//     and V's fragment reads rows 2c and 2c + 1;
+//   * key tiles wholly past the diagonal, or before every row's window,
+//     are never loaded; a warp skips the products of a tile its rows
+//     cannot see.
+// At hd = 128 the Q tile and two stages take 207 KB: one block (8 warps)
+// an SM.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -80,236 +99,343 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // key rows per tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kPad = 4;        // keeps 16-byte alignment, spreads banks
-constexpr int kLd = kBQ + kPad;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// the CUDA-core kernel's element conversions (float32 only)
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-// floats of the region that holds K^T while the scores are computed and
-// P after them: (max(HD, kBQ), kLd)
-template <int HD>
-__host__ __device__ constexpr int kt_floats() {
-  return (HD > kBQ ? HD : kBQ) * kLd;
+// key `key` is visible to query `row`
+__device__ __forceinline__ bool visible(int row, int key, int S, int causal,
+                                        int window) {
+  return key < S && (!causal || key <= row) &&
+         (window <= 0 || key > row - window);
 }
 
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 mma.sync on the tensor cores, cp.async-fed K/V
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int kWarps = 8;             // 16 query rows each
+constexpr int kBQ = 16 * kWarps;      // query rows per block
+constexpr int kBK = 64;               // keys per tile
+constexpr int kThreads = 32 * kWarps;
+
 template <int HD>
-constexpr size_t smem_bytes() {
-  // Qt: (HD, kLd); Kt / P: kt_floats; V: (kBK, HD)
-  return sizeof(float) * (HD * kLd + kt_floats<HD>() + kBK * HD);
+struct Geo {
+  // row strides of the K and V tiles in floats: a K fragment (an 8-byte
+  // load of dims 2q, 2q+1 of key g) and a V fragment (rows 2q and 2q+1,
+  // column g) each hit distinct banks
+  static constexpr int kKLd = HD + 8;  // Q's rows too (its A fragments)
+  static constexpr int kVLd = HD + 4;
+  static constexpr int kQ = kBQ * kKLd;               // floats of the Q tile
+  static constexpr int kStage = kBK * (kKLd + kVLd);  // floats of K + V
+  static constexpr int kSmem = (kQ + 2 * kStage) * 4;  // Q, two stages
+};
+
+// 16 bytes from global to shared memory, asynchronously; zeros where
+// !valid (the source is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   sm90::smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 2) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int S, int H, int KV,
-    int causal, int window, float scale) {
-  constexpr int kDpt = HD / 16;  // output columns per thread
+// rows [r0, r0 + ROWS) of a (B, S, heads, HD) tensor's head at `base` into
+// shared memory rows of LD floats, rows past S as zeros; every thread
+// issues its share
+template <int HD, int ROWS, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const float* base,
+                                          long long row_stride, int r0,
+                                          int S) {
+  constexpr int kPieces = HD / 4;  // 16-byte pieces a row
+  for (int idx = threadIdx.x; idx < ROWS * kPieces; idx += kThreads) {
+    const int row = idx / kPieces;
+    const int c = 4 * (idx - row * kPieces);
+    const bool ok = r0 + row < S;
+    cp_async16(dst + row * LD + c,
+               base + (ok ? r0 + row : 0) * row_stride + c, ok);
+  }
+}
+
+// the K and V rows [k0, k0 + kBK) of one kv head into a stage
+template <int HD>
+__device__ __forceinline__ void load_tile(float* ks, const float* kb,
+                                          const float* vb, long long kv_row,
+                                          int k0, int S) {
+  using G = Geo<HD>;
+  load_rows<HD, kBK, G::kKLd>(ks, kb, kv_row, k0, S);
+  load_rows<HD, kBK, G::kVLd>(ks + kBK * G::kKLd, vb, kv_row, k0, S);
+}
+
+// Below hd 128 the Q tile and two stages fit twice in an SM, so two blocks
+// an SM are asked for; at hd 64 that caps a thread at 128 registers and
+// spills 44 bytes, and was still faster at S = 2048 on the H100 than one
+// block an SM without the spill.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD == 128 ? 1 : 2)
+    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     int S, int H, int KV, int causal, int window,
+                     float scale_log2) {
+  using G = Geo<HD>;
+  using sm90::Frag;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Qt = smem;              // [HD][kLd]   q, d-major, pre-scaled
-  float* Kt = Qt + HD * kLd;     // [HD][kLd]   k, d-major
-  float* Ps = Kt;                // [kBQ][kLd]  probabilities, row-major,
-                                 //             once the scores are done
-  float* Vs = Kt + kt_floats<HD>();  // [kBK][HD]
+  float* qs = reinterpret_cast<float*>(smem4);  // the Q tile
+  float* smem = qs + G::kQ;                      // [stage][K tile, V tile]
 
   const int n_qt = (S + kBQ - 1) / kBQ;
-  const int qt = n_qt - 1 - (blockIdx.x % n_qt);  // heavy tiles first
-  const int bh = blockIdx.x / n_qt;
+  const int BH = gridDim.x / n_qt;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / BH);  // heavy first
+  const int bh = blockIdx.x % BH;
   const int b = bh / H;
   const int h = bh - b * H;
   const int kvh = h / (H / KV);
   const int q0 = qt * kBQ;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // score columns 4tx.., output columns tx + 16c
-  const int ty = tid >> 4;  // rows 4ty..4ty+3
+  const int n_kt = (S + kBK - 1) / kBK;
+  // key tiles any row of the block can see: [kt_begin, kt_end)
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  const int kt_end =
+      causal ? min(n_kt, (min(q0 + kBQ, S) - 1) / kBK + 1) : n_kt;
 
   const long long q_row = (long long)H * HD;   // stride of s in q / out
   const long long kv_row = (long long)KV * HD;  // stride of s in k / v
-  const T* qb = q + (long long)b * S * q_row + (long long)h * HD;
-  const T* kb = k + (long long)b * S * kv_row + (long long)kvh * HD;
-  const T* vb = v + (long long)b * S * kv_row + (long long)kvh * HD;
+  const float* kb = k + (long long)b * S * kv_row + (long long)kvh * HD;
+  const float* vb = v + (long long)b * S * kv_row + (long long)kvh * HD;
+  load_rows<HD, kBQ, G::kKLd>(
+      qs, q + (long long)b * S * q_row + (long long)h * HD, q_row, q0, S);
+  load_tile<HD>(smem, kb, vb, kv_row, kt_begin * kBK, S);
+  cp_async_commit();
 
-  for (int idx = tid; idx < kBQ * HD; idx += kThreads) {
-    const int row = idx / HD;
-    const int d = idx - row * HD;
-    const int s = q0 + row;
-    Qt[d * kLd + row] = s < S ? to_f32(qb[s * q_row + d]) * scale : 0.f;
+  // this warp's 16 rows from r0w; the thread's rows a and b = a + 8 and
+  // its column pair 2c, 2c + 1 of every 8 (the m16n8 accumulator layout)
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int c = lane % 4;
+  const int r0w = q0 + 16 * warp;
+  const int row_a = r0w + g;
+  const int row_b = row_a + 8;
+  // the block's tiles these rows can see: [w_lo, w_hi) (none past S)
+  int w_lo = kt_end, w_hi = kt_end;
+  if (r0w < S) {
+    w_lo = window > 0 ? max(0, r0w - window + 1) / kBK : 0;
+    w_hi = causal ? min(r0w + 15, S - 1) / kBK + 1 : n_kt;
   }
 
-  float m[4], l[4], acc[4][kDpt];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kDpt; ++c) acc[r][c] = 0.f;
-  }
+  // Q's A fragments are read from the Q tile at each k step and split
+  // there.  Every 8-wide k step takes its slot c from dim 2c and slot
+  // c + 4 from dim 2c + 1 (a permutation of the sum; the K fragments
+  // follow it), so a thread's dims of a row are one 8-byte load
+  const float* qa = qs + (16 * warp + g) * G::kKLd + 2 * c;
 
-  // key tiles that any row of this q tile can see
-  const int n_kt = (S + kBK - 1) / kBK;
-  int kt_end = n_kt;
-  if (causal) kt_end = min(n_kt, (min(q0 + kBQ, S) - 1) / kBK + 1);
-  int kt_begin = 0;
-  if (window > 0) kt_begin = max(0, q0 - window + 1) / kBK;
+  float m_a = kNegInf, m_b = kNegInf;  // running max, log2 units
+  float l_a = 0.f, l_b = 0.f;          // running sum of this thread's columns
+  float o[HD / 8][4];
+#pragma unroll
+  for (int t = 0; t < HD / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < kBK * HD; idx += kThreads) {
-      const int row = idx / HD;
-      const int d = idx - row * HD;
-      const int s = k0 + row;
-      const bool ok = s < S;
-      Kt[d * kLd + row] = ok ? to_f32(kb[s * kv_row + d]) : 0.f;
-      Vs[row * HD + d] = ok ? to_f32(vb[s * kv_row + d]) : 0.f;
+    const float* ks = smem + ((kt - kt_begin) & 1) * G::kStage;
+    const float* vs = ks + kBK * G::kKLd;
+    if (kt + 1 < kt_end) {  // the next tile streams in under this one
+      load_tile<HD>(smem + ((kt + 1 - kt_begin) & 1) * G::kStage, kb, vb,
+                    kv_row, (kt + 1) * kBK, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
+    __syncthreads();  // tile kt is in shared memory for every thread
+    if (kt >= w_lo && kt < w_hi) {
+      const int k0 = kt * kBK;
+      // S = Q K^T, 16 rows x 64 keys: s[j] holds keys 8j + 2c, 8j + 2c + 1
+      float s[kBK / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        const float2 xa = *reinterpret_cast<const float2*>(qa + 8 * kk);
+        const float2 xb =
+            *reinterpret_cast<const float2*>(qa + 8 * G::kKLd + 8 * kk);
+        Frag<4> a;
+        a.x[0] = xa.x;
+        a.x[1] = xb.x;
+        a.x[2] = xa.y;
+        a.x[3] = xb.y;
+        a.split();
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+          const float2 kv = *reinterpret_cast<const float2*>(
+              ks + (8 * j + g) * G::kKLd + 8 * kk + 2 * c);
+          Frag<2> bf;
+          bf.x[0] = kv.x;
+          bf.x[1] = kv.y;
+          bf.split();
+          sm90::mma(s[j], a, bf);
+        }
+      }
 
-    // scores for rows 4ty.., columns 4tx..
-    float sc[4][4];
+      // the softmax in registers: scale into log2 units, mask only where
+      // the tile straddles the diagonal, the window's edge or S, move the
+      // running max across the 4 threads of a row, P = 2^(x - m)
+      const bool need_mask = k0 + kBK > S || (causal && k0 + kBK - 1 > r0w) ||
+                             (window > 0 && k0 <= r0w + 15 - window);
+      float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+      for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) sc[r][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(&Qt[d * kLd + 4 * ty]);
-      const float4 ka = *reinterpret_cast<const float4*>(&Kt[d * kLd + 4 * tx]);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) sc[r][c] += qv[r] * kv[c];
-    }
-
-    __syncthreads();  // every thread is done with Kt before P lands there
-
-    // mask, then the streaming-softmax update of each row
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qpos = q0 + 4 * ty + r;
-      float mx = m[r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kpos = k0 + 4 * tx + c;
-        bool ok = kpos < S;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && kpos > qpos - window;
-        if (!ok) sc[r][c] = kNegInf;
-        mx = fmaxf(mx, sc[r][c]);
+        for (int e = 0; e < 2; ++e) {
+          float xa = s[j][e] * scale_log2;
+          float xb = s[j][2 + e] * scale_log2;
+          if (need_mask) {
+            const int key = k0 + 8 * j + 2 * c + e;
+            if (!visible(row_a, key, S, causal, window)) xa = kNegInf;
+            if (!visible(row_b, key, S, causal, window)) xb = kNegInf;
+          }
+          s[j][e] = xa;
+          s[j][2 + e] = xb;
+          mx_a = fmaxf(mx_a, xa);
+          mx_b = fmaxf(mx_b, xb);
+        }
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float alpha = expf(m[r] - mx);
-      float p[4];
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float alpha_a = sm90::exp2_approx(m_a - mx_a);
+      const float alpha_b = sm90::exp2_approx(m_b - mx_b);
+      m_a = mx_a;
+      m_b = mx_b;
+      float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) p[c] = expf(sc[r][c] - mx);
-      float psum = (p[0] + p[1]) + (p[2] + p[3]);
-      *reinterpret_cast<float4*>(&Ps[(4 * ty + r) * kLd + 4 * tx]) =
-          make_float4(p[0], p[1], p[2], p[3]);
+      for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      l[r] = l[r] * alpha + psum;
-      m[r] = mx;
+        for (int e = 0; e < 2; ++e) {
+          s[j][e] = sm90::exp2_approx(s[j][e] - mx_a);
+          s[j][2 + e] = sm90::exp2_approx(s[j][2 + e] - mx_b);
+          sum_a += s[j][e];
+          sum_b += s[j][2 + e];
+        }
+      }
+      l_a = l_a * alpha_a + sum_a;
+      l_b = l_b * alpha_b + sum_b;
+      if (alpha_a != 1.f) {  // O rescaled only where the max moved
 #pragma unroll
-      for (int c = 0; c < kDpt; ++c) acc[r][c] *= alpha;
-    }
-    __syncthreads();
+        for (int t = 0; t < HD / 8; ++t) {
+          o[t][0] *= alpha_a;
+          o[t][1] *= alpha_a;
+        }
+      }
+      if (alpha_b != 1.f) {
+#pragma unroll
+        for (int t = 0; t < HD / 8; ++t) {
+          o[t][2] *= alpha_b;
+          o[t][3] *= alpha_b;
+        }
+      }
 
-    // acc[r][c] += sum_j P[row 4ty + r][j] * V[j][tx + 16 c], four keys
-    // at a time (one 16-byte load of P per row)
-#pragma unroll 2
-    for (int j0 = 0; j0 < kBK; j0 += 4) {
-      float pv[4][4];
+      // O += P V straight from the accumulators: the 8 keys of s[j] are
+      // the k step, key 8j + 2c in slot c and 8j + 2c + 1 in slot c + 4,
+      // so V's fragment reads rows 2c and 2c + 1
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float4 pa =
-            *reinterpret_cast<const float4*>(&Ps[(4 * ty + r) * kLd + j0]);
-        pv[r][0] = pa.x;
-        pv[r][1] = pa.y;
-        pv[r][2] = pa.z;
-        pv[r][3] = pa.w;
-      }
+      for (int j = 0; j < kBK / 8; ++j) {
+        Frag<4> a;
+        a.x[0] = s[j][0];
+        a.x[1] = s[j][2];
+        a.x[2] = s[j][1];
+        a.x[3] = s[j][3];
+        a.split();
+        const float* v0 = vs + (8 * j + 2 * c) * G::kVLd + g;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float vv[kDpt];
-#pragma unroll
-        for (int c = 0; c < kDpt; ++c) vv[c] = Vs[(j0 + u) * HD + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < kDpt; ++c) acc[r][c] += pv[r][u] * vv[c];
+        for (int t = 0; t < HD / 8; ++t) {
+          Frag<2> bf;
+          bf.x[0] = v0[8 * t];
+          bf.x[1] = v0[G::kVLd + 8 * t];
+          bf.split();
+          sm90::mma(o[t], a, bf);
+        }
       }
     }
+    __syncthreads();  // every thread is done with the stage before reuse
   }
 
-  T* ob = out + (long long)b * S * q_row + (long long)h * HD;
+  // epilogue: acc / max(l, 1e-20), rows past S not written
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int s = q0 + 4 * ty + r;
-    if (s < S) {
-      const float inv = 1.f / fmaxf(l[r], 1e-20f);
-#pragma unroll
-      for (int c = 0; c < kDpt; ++c)
-        ob[s * q_row + tx + 16 * c] = from_f32<T>(acc[r][c] * inv);
-    }
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
-}
-
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int KV, int causal, int window, float scale,
-           cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  auto kernel = flash_attention_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (long long)B * H * ((S + kBQ - 1) / kBQ);
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, H, KV, causal,
-      window, scale);
-  return static_cast<int>(cudaGetLastError());
+  const float inv_a = 1.f / fmaxf(l_a, 1e-20f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-20f);
+  float* oa = out + ((long long)b * S + row_a) * q_row + h * HD + 2 * c;
+  float* ob = oa + 8 * q_row;
+#pragma unroll
+  for (int t = 0; t < HD / 8; ++t) {
+    if (row_a < S)
+      *reinterpret_cast<float2*>(oa + 8 * t) =
+          make_float2(o[t][0] * inv_a, o[t][1] * inv_a);
+    if (row_b < S)
+      *reinterpret_cast<float2*>(ob + 8 * t) =
+          make_float2(o[t][2] * inv_b, o[t][3] * inv_b);
+  }
 }
 
 template <int HD>
-int attributes_f32(cudaFuncAttributes* attr, int* dynamic_smem) {
-  *dynamic_smem = static_cast<int>(smem_bytes<HD>());
-  return static_cast<int>(
-      cudaFuncGetAttributes(attr, flash_attention_kernel<float, HD>));
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int S, int H, int KV, int causal, int window, float scale,
+           cudaStream_t stream) {
+  auto kernel = flash_f32_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<HD>::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (long long)B * H * ((S + kBQ - 1) / kBQ);
+  kernel<<<(unsigned)blocks, kThreads, Geo<HD>::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, H, KV,
+      causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// the kernel's attributes and its dynamic shared memory
+template <int HD>
+int attributes(cudaFuncAttributes* attr, int* dynamic_smem) {
+  *dynamic_smem = Geo<HD>::kSmem;
+  return static_cast<int>(cudaFuncGetAttributes(attr, flash_f32_kernel<HD>));
+}
+
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* out,
               int B, int S, int H, int KV, int causal, int window,
               float scale, cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, out, B, S, H, KV, causal, window, scale,
-                           stream);
+      return launch<32>(q, k, v, out, B, S, H, KV, causal, window, scale,
+                        stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, B, S, H, KV, causal, window, scale,
-                           stream);
+      return launch<64>(q, k, v, out, B, S, H, KV, causal, window, scale,
+                        stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, B, S, H, KV, causal, window, scale,
-                            stream);
+      return launch<128>(q, k, v, out, B, S, H, KV, causal, window, scale,
+                         stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma on the tensor cores, TMA-fed K/V ring
@@ -323,8 +449,6 @@ constexpr int kBQ = kRowsWg * kConsumers;   // query rows per block
 constexpr int kBK = 128;                    // keys per tile
 constexpr int kStages = 2;                  // K/V ring depth
 constexpr int kThreads = 128 * kConsumers + 32;  // + the producer warp
-constexpr float kLog2e = 1.4426950408889634f;
-
 template <int HD>
 struct Geo {
   static constexpr int kSw = HD >= 64 ? 128 : 64;  // swizzle = chunk row bytes
@@ -341,12 +465,6 @@ struct Geo {
   static constexpr int kSmem =
       kQBytes + 2 * kStages * kTileBytes + kEpiBytes + 1024;
 };
-
-__device__ __forceinline__ bool visible(int row, int key, int S, int causal,
-                                        int window) {
-  return key < S && (!causal || key <= row) &&
-         (window <= 0 || key > row - window);
-}
 
 // S = Q K^T for one warpgroup's 64 rows and a key tile (issued, not
 // waited for): hd / 16 k-steps, both operands K-major in shared memory
@@ -745,11 +863,12 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  dtype: 0 float32 (the CUDA-core
-// kernel), 1 bfloat16 (the tensor-core kernel; q, k, v and out 16-byte
-// aligned, as TMA requires); q, k, v and out share the dtype; q/out
-// (B,S,H,hd) and k/v (B,S,KV,hd), all contiguous; window <= 0 means none.  Returns cudaGetLastError() after
-// the launch (0 on success).
+// Plain C entry point, loaded with ctypes.  dtype: 0 float32 (3xTF32
+// mma.sync, cp.async-fed), 1 bfloat16 (wgmma, TMA-fed); q, k, v and out
+// share the dtype and are 16-byte aligned (cp.async and TMA copy 16-byte
+// pieces); q/out (B,S,H,hd) and k/v (B,S,KV,hd), all contiguous; window
+// <= 0 means none.  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* out, int B, int S,
                                      int H, int KV, int hd, int causal,
@@ -759,8 +878,8 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_hd<float>(hd, q, k, v, out, B, S, H, KV, causal, window,
-                              scale, st);
+      return f32::launch_hd(hd, q, k, v, out, B, S, H, KV, causal, window,
+                            scale, st);
     case 1:
       return tc::launch_hd(hd, q, k, v, out, B, S, H, KV, causal, window,
                            scale, st);
@@ -776,9 +895,9 @@ extern "C" int repro_flash_attention_attributes(int dtype, int hd, int* out) {
   int dynamic_smem = 0;
   int rc = static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
-    if (hd == 32) rc = attributes_f32<32>(&attr, &dynamic_smem);
-    if (hd == 64) rc = attributes_f32<64>(&attr, &dynamic_smem);
-    if (hd == 128) rc = attributes_f32<128>(&attr, &dynamic_smem);
+    if (hd == 32) rc = f32::attributes<32>(&attr, &dynamic_smem);
+    if (hd == 64) rc = f32::attributes<64>(&attr, &dynamic_smem);
+    if (hd == 128) rc = f32::attributes<128>(&attr, &dynamic_smem);
   } else if (dtype == 1) {
     if (hd == 32) rc = tc::attributes<32>(&attr, &dynamic_smem);
     if (hd == 64) rc = tc::attributes<64>(&attr, &dynamic_smem);

@@ -1,7 +1,10 @@
 // Hopper (sm_90a) building blocks written out in PTX: mbarriers, TMA tile
-// loads, wgmma descriptors and the wgmma shapes the flash-attention kernel
-// issues.  Included by flash_attention.cu; kernels/build.py hashes every
-// local header a source includes, so an edit here rebuilds its users.
+// loads, wgmma descriptors and the wgmma shapes the bf16 flash-attention
+// kernel issues, and the 3xTF32 mma.sync helpers that give the f32
+// flash-attention and WKV kernels float32 products on the tensor cores.
+// Included by flash_attention.cu and rwkv6_scan.cu; kernels/build.py
+// hashes every local header a source includes, so an edit here rebuilds
+// its users.
 //
 // Conventions (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"):
 //   * a tile in shared memory is written by a TMA load with 128-byte (or
@@ -257,6 +260,65 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) {
 // __syncthreads)
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- 3xTF32 mma.sync: float32 products on the tensor cores ---------------
+//
+// D(16x8) += A(16x8) B(8x8), the m16n8k8 fragment layout:
+// lane = 4 g + q: a = {A[g][q], A[g+8][q], A[g][q+4], A[g+8][q+4]},
+// b = {B[q][g], B[q+4][g]}, d = {D[g][2q], D[g][2q+1], D[g+8][2q],
+// D[g+8][2q+1]}.
+
+// x = hi + lo in TF32: hi is x rounded to TF32 (10 mantissa bits, ties
+// away), lo the exact residual; the tensor cores read the top 19 bits of
+// each register, so hi is passed unmasked and lo unrounded (lo's truncation
+// costs at most 2^-21 |x|).  Three instructions; cvt.rna.tf32.f32 is
+// emulated on sm_90, in more.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) + 0x1000u;
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
+}
+
+// not volatile: independent products may be interleaved by the compiler
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An operand fragment: its values and their TF32 split.
+template <int N>
+struct Frag {
+  float x[N];
+  uint32_t hi[N], lo[N];
+  __device__ __forceinline__ void split() {
+#pragma unroll
+    for (int e = 0; e < N; ++e) split_tf32(x[e], hi[e], lo[e]);
+  }
+  // two elements stored split, {hi, lo} each (see store_split)
+  __device__ __forceinline__ void load_split(const uint2* p) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    hi[0] = v.x, lo[0] = v.y, hi[1] = v.z, lo[1] = v.w;
+  }
+};
+
+// an operand element kept in shared memory for several warps, split once
+__device__ __forceinline__ void store_split(uint2* p, float x) {
+  uint2 v;
+  split_tf32(x, v.x, v.y);
+  *p = v;
+}
+
+// 3xTF32: d += a.lo b.hi + a.hi b.lo + a.hi b.hi
+__device__ __forceinline__ void mma(float* d, const Frag<4>& a,
+                                    const Frag<2>& b) {
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
 }
 
 }  // namespace sm90

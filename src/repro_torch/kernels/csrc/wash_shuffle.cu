@@ -35,8 +35,16 @@
 //     the N - 1 buckets go in one launch.  It moves 2 N k_per (N - 1)
 //     elements plus the plan, not the leaf: the TPU version's shift map
 //     and full dense pass over N x D are gone.  The columns are scattered,
-//     so each access costs a 32-byte sector: the kernel runs far below the
-//     card's rate on the bytes it needs, but on ~1/100 of the leaf's.
+//     so each access costs a 32-byte sector, and at the training path's
+//     density (a moved column every ~800 bytes of a member row) each
+//     sector sits in a DRAM page of its own: the kernel is bound by page
+//     activations, not by bytes or sectors (several times its sector
+//     floor).  core.shuffle draws each plan row in ascending order, which
+//     makes neighbouring threads touch neighbouring columns: a little
+//     faster at that density, over twice as fast on a ten times denser
+//     plan, where neighbours share pages (chip_smoke.py phase 4 times
+//     both).  More columns a thread with all loads issued before any
+//     store, and other grid sizes, were no faster on the card;
 //   * offsets are 64-bit throughout: a stacked leaf passes 2^31 elements
 //     (28 x 3072 x 8192 x 4 members = 2.82e9).
 //   * a plan entry outside its range (a column outside [0, D), a perm

@@ -4,8 +4,9 @@ launch counter.
 Replaces ``repro/kernels/flash_attention.py`` ``flash_attention_pallas``.
 The source is ``csrc/flash_attention.cu`` (its head says what bounds the
 kernels and what their designs do about it: bf16 on the tensor cores
-through wgmma with TMA-fed tiles, float32 on the CUDA cores), with the
-PTX helpers of ``csrc/sm90.cuh``, built at first use by
+through wgmma with TMA-fed tiles, float32 on the tensor cores through
+3xTF32 mma.sync with cp.async-fed tiles), with the PTX helpers of
+``csrc/sm90.cuh``, built at first use by
 ``kernels/build.py``.  Nothing is compiled or loaded when this module is
 imported.
 
@@ -83,8 +84,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kernels.ref.flash_attention_ref``.
 
       q     : (B, S, H, hd) float32 or bfloat16, contiguous, hd in
-              :data:`HEAD_DIMS`; bfloat16 tensors start on a 16-byte
-              boundary (the tensor-core kernel loads them with TMA)
+              :data:`HEAD_DIMS`, starting on a 16-byte boundary (the
+              kernels copy 16-byte pieces)
       k, v  : (B, S, KV, hd), q's dtype, contiguous, H a multiple of KV
       window: None, or the sliding window (>= 1 keys, the query's own
               included)
@@ -110,9 +111,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(min(B, S, H) >= 1, f"empty input {tuple(q.shape)}")
     _check(B * H * -(-S // 64) < 2 ** 31, "too many blocks")
     out = torch.empty_like(q)
-    if q.dtype == torch.bfloat16:
-        _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)),
-               "bf16 q, k, v and out must start on a 16-byte boundary (TMA)")
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)),
+           "q, k, v and out must start on a 16-byte boundary (the kernels "
+           "copy 16-byte pieces: TMA in bf16, cp.async in f32)")
     lib = build()
     rc = lib.repro_flash_attention(
         _CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),

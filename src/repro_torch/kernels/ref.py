@@ -77,6 +77,76 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
+def _tf32_split(x: torch.Tensor):
+    """float32 ``x`` as the CUDA kernels' ``split_tf32`` hands it to the
+    tensor cores, which read the top 19 bits of each register: ``hi`` is x
+    rounded to TF32 (ties away), ``lo`` the residual ``x - hi`` truncated
+    to TF32.  Emulated on the int32 view."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, products: int = 3):
+    """``a @ b`` as 3xTF32: lo_a hi_b + hi_a lo_b + hi_a hi_b, each a
+    float32 product of TF32 values (exact) summed in float32; with
+    ``products=1``, hi_a hi_b alone (one TF32 product)."""
+    a_hi, a_lo = _tf32_split(a)
+    b_hi, b_lo = _tf32_split(b)
+    if products == 1:
+        return a_hi @ b_hi
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def flash_attention_3xtf32_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, causal: bool = True,
+                               window: Optional[int] = None,
+                               block_k: int = 64,
+                               products: int = 3) -> torch.Tensor:
+    """The float32 flash attention computed as the CUDA kernel computes
+    it: a plain model of its arithmetic, same contract as
+    :func:`flash_attention_ref` (float32 only).
+
+    Scores are 3xTF32 products (:func:`_mm_3xtf32`), scaled by
+    ``hd**-0.5 * log2(e)`` in float32; the softmax is online over tiles of
+    ``block_k`` keys in base 2: per tile, the masked scores (``NEG_INF``),
+    the new row max m, ``alpha = 2**(m_old - m)``, ``P = 2**(x - m)``,
+    ``l = l alpha + sum P`` and ``acc = acc alpha + P V`` with P V in
+    3xTF32 too; the output is ``acc / max(l, 1e-20)``.  ``products=1``
+    models the one-TF32-product route instead (used by the tests to show
+    why the kernel takes three).  Nothing on a main path runs this."""
+    B, S, H, hd = q.shape
+    g = H // k.shape[2]
+    qh = q.float().permute(0, 2, 1, 3)                         # (B, H, S, hd)
+    kh = k.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    vh = v.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    scale = (torch.tensor(hd ** -0.5, dtype=torch.float32)
+             * torch.tensor(1.4426950408889634, dtype=torch.float32))
+    i = torch.arange(S, device=q.device)[:, None]
+    m = qh.new_full((B, H, S, 1), NEG_INF)
+    l = qh.new_zeros((B, H, S, 1))
+    acc = qh.new_zeros((B, H, S, hd))
+    for k0 in range(0, S, block_k):
+        j = torch.arange(k0, min(k0 + block_k, S), device=q.device)[None, :]
+        ok = torch.ones((S, j.shape[1]), dtype=torch.bool, device=q.device)
+        if causal:
+            ok = ok & (j <= i)
+        if window is not None:
+            ok = ok & (j > i - window)
+        x = _mm_3xtf32(qh, kh[:, :, k0:k0 + block_k].transpose(-1, -2),
+                       products) * scale
+        x = x.masked_fill(~ok, NEG_INF)
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + _mm_3xtf32(p, vh[:, :, k0:k0 + block_k], products)
+        m = m_new
+    out = acc / l.clamp(min=1e-20)
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
 def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    w: torch.Tensor, u: torch.Tensor,
                    state: Optional[torch.Tensor] = None):

@@ -258,6 +258,12 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if device.type == "cuda":  # before any weight reaches the card
+        path = "continuous" if args.continuous else "scan"
+        reason = M.cuda_supported(cfg, path)
+        if reason is not None:
+            raise NotImplementedError(f"serving {cfg.name} on the card "
+                                      f"({path}): {reason}")
     popn = _population(args, cfg, device)
     if args.continuous:
         return _serve_continuous(popn, cfg, args, device)

@@ -12,7 +12,9 @@ stacked blocks, the port loops over layers in Python on per-layer views
 
 Which path takes which config, one gate each:
 :func:`scan_supported` (init, the scan engine), :func:`train_supported`
-(training) and :func:`paged_decode_supported` (continuous batching).
+(training) and :func:`paged_decode_supported` (continuous batching);
+:func:`cuda_supported` adds the card's kernel limits to the serving
+paths, asked where a run on the card starts.
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.population import tree_map
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import rwkv6_scan as _wkv
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 
@@ -65,6 +70,35 @@ def train_supported(cfg: ModelConfig) -> Optional[str]:
         return ("training rwkv6 needs a WKV backward kernel, which is not "
                 "written yet")
     return None
+
+
+def cuda_supported(cfg: ModelConfig, path: str) -> Optional[str]:
+    """None if the card's kernels take ``cfg`` on ``path`` (``"scan"``: the
+    scan engine; ``"continuous"``: continuous batching), else the reason,
+    naming the kernel's limit.  Pure: the limits are the kernel modules'
+    own constants, and nothing is built.  The CPU path has no such limit
+    (the plain versions take any head dim), so only a run on the card
+    asks."""
+    if path == "scan":
+        if cfg.block_kind == "rwkv6":
+            if cfg.rwkv_head_dim not in _wkv.HEAD_DIMS:
+                return (f"rwkv_head_dim={cfg.rwkv_head_dim}: the WKV kernel "
+                        f"takes head dims {_wkv.HEAD_DIMS}")
+        elif cfg.resolved_head_dim not in _fa.HEAD_DIMS:
+            return (f"head_dim={cfg.resolved_head_dim}: the flash-attention "
+                    f"kernel takes head dims {_fa.HEAD_DIMS}")
+        return None
+    if path == "continuous":
+        group = cfg.num_heads // cfg.num_kv_heads
+        if group > _pa.MAX_GROUP:
+            return (f"{group} query heads a kv head: the paged-attention "
+                    f"kernel takes at most {_pa.MAX_GROUP}")
+        if cfg.resolved_head_dim > _pa.MAX_HEAD_DIM:
+            return (f"head_dim={cfg.resolved_head_dim}: the paged-attention "
+                    f"kernel takes at most {_pa.MAX_HEAD_DIM}")
+        return None
+    raise ValueError(f"unknown path {path!r}; expected 'scan' or "
+                     "'continuous'")
 
 
 def _require(reason: Optional[str], what: str, cfg: ModelConfig) -> None:

@@ -301,6 +301,11 @@ class ContinuousServer:
                  kv_dtype: Optional[str] = None,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            reason = M.cuda_supported(cfg, "continuous")
+            if reason is not None:
+                raise NotImplementedError(
+                    f"continuous batching on the card: {reason}")
         if mode not in MODES:
             raise ValueError(
                 f"unknown serving mode {mode!r}; expected one of {MODES}")

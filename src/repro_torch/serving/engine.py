@@ -210,10 +210,17 @@ def _programs(cfg: ModelConfig, ensemble: bool, B: int, S: int, max_new: int,
     return _PROGRAMS[key]
 
 
-def _place(params: Tree, batch: Dict[str, torch.Tensor],
+def _place(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
            device: DeviceLike) -> Dict[str, torch.Tensor]:
-    """The request's tokens on ``device``; the params must live there."""
+    """The request's tokens on ``device``; the params must live there.  On
+    the card, a config whose shapes the kernels do not take is refused
+    here, before the first prefill (``transformer.cuda_supported``)."""
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        reason = M.cuda_supported(cfg, "scan")
+        if reason is not None:
+            raise NotImplementedError(
+                f"scan-engine serving of {cfg.name} on the card: {reason}")
     for x in pop.tree_leaves(params):
         if x.device != dev:
             raise ValueError(f"params must live on {dev}, found {x.device}")
@@ -263,7 +270,7 @@ def generate(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         raise ValueError(f"unknown serving mode {mode!r}; expected one of {MODES}")
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
-    batch = _place(params, batch, device)
+    batch = _place(params, cfg, batch, device)
     ensemble = mode == "ensemble"
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -302,7 +309,7 @@ def generate_reference(params: Tree, cfg: ModelConfig,
     reference re-traces), ``decode_step`` driven token by token with a list
     append per token.  Sampling uses the same per-request streams, so the
     two agree token for token."""
-    batch = _place(params, batch, device)
+    batch = _place(params, cfg, batch, device)
     tokens = batch["tokens"]
     B, S = tokens.shape
     prefix = internal_prefix(cfg)

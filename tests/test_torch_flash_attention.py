@@ -22,6 +22,7 @@ from repro.kernels import ops as jops
 from repro.kernels.ref import flash_attention_ref as jax_ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import flash_attention_3xtf32_ref
 
 
 def _inputs(seed, B, S, H, KV, hd):
@@ -97,3 +98,49 @@ def test_cpu_route_never_builds_the_kernel(monkeypatch):
     q, k, v = _inputs(0, 1, 8, 2, 1, 32)
     ops.flash_attention(*map(torch.from_numpy, (q, k, v)))
     assert fa.launches == n0 and fa._lib is None
+
+
+# ---------------------------------------------------------------------------
+# the float32 CUDA kernel's arithmetic (3xTF32), modelled on the CPU
+# ---------------------------------------------------------------------------
+
+TF32_CASES = [
+    # B, S, H, KV, hd, causal, window, block_q, block_k (of the Pallas run)
+    (1, 64, 4, 4, 16, True, None, 16, 16),
+    (2, 128, 4, 2, 32, True, None, 32, 64),
+    (1, 96, 8, 1, 16, True, None, 32, 32),
+    (1, 64, 4, 2, 16, True, 8, 16, 16),
+    (1, 32, 2, 2, 16, False, None, 16, 16),
+    (1, 512, 4, 2, 128, True, None, 128, 128),  # one longer row
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window,bq,bk", TF32_CASES)
+def test_3xtf32_model_matches_pallas(B, S, H, KV, hd, causal, window, bq, bk):
+    """The CUDA f32 kernel's arithmetic (``flash_attention_3xtf32_ref``:
+    TF32 split emulated on the int32 view, three products per float32
+    product, the online softmax over 64-key tiles in base 2) holds the
+    float32 bound of 2e-5 against the Pallas kernel in interpret mode.
+    One TF32 product instead would not (see the next test)."""
+    q, k, v = _inputs(S + hd + 1, B, S, H, KV, hd)
+    want = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, block_q=bq, block_k=bk, interpret=True))
+    got = flash_attention_3xtf32_ref(*map(torch.from_numpy, (q, k, v)),
+                                     causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_one_tf32_product_breaks_the_f32_bound():
+    """A row of S=512, hd=128 (B=1, 4 heads over 2, causal): one TF32
+    product per product (``products=1``) lands 1.24e-3 from the plain
+    version, 62x the 2e-5 float32 bound; 3xTF32 lands 9.5e-7 from it (the
+    CPU model's numbers at this seed).  That is why the kernel takes
+    three products, and why TF32 alone was ruled out."""
+    q, k, v = map(torch.from_numpy, _inputs(641, 1, 512, 4, 2, 128))
+    want = ops.flash_attention(q, k, v)
+    one = flash_attention_3xtf32_ref(q, k, v, products=1)
+    three = flash_attention_3xtf32_ref(q, k, v)
+    assert float((one - want).abs().max()) > 2e-5
+    assert float((three - want).abs().max()) < 2e-6

@@ -7,8 +7,9 @@ the card (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
         tests/test_torch_flash_attention_cuda.py
 
 Without a card every test here skips.  Tolerances: 2e-5 in f32 (both
-sides accumulate in f32, in another order) and 2e-2 in bf16 (the
-tensor-core kernel rounds P to bf16 for P V, and the output once), the
+sides accumulate in f32, in another order; the kernel's products are
+3xTF32, float32-accurate) and 2e-2 in bf16 (the tensor-core kernel
+rounds P to bf16 for P V, and the output once), the
 ``tests/test_kernels.py`` bounds.
 """
 
@@ -66,6 +67,19 @@ def test_kernel_matches_plain_version(cuda_device, dtype, B, S, H, KV, hd,
     assert torch.isfinite(got.float()).all()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_f32_kernel_at_the_llama_prefill_row(cuda_device):
+    """The 3xTF32 kernel at llama3.2-3b's prefill row (S=2048, 24 heads
+    over 8, hd 128, causal; one batch row): the float32 bound 2e-5."""
+    q, k, v = _inputs(cuda_device, 1, 2048, 24, 8, 128, torch.float32,
+                      seed=2048)
+    got = ops.flash_attention(q, k, v)
+    want = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.gpu
@@ -128,6 +142,19 @@ def test_bf16_wrapper_refuses_a_misaligned_view(cuda_device):
     q, k, v = _inputs(cuda_device, 1, 16, 4, 2, 64, torch.bfloat16)
     flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
     shifted = flat[1:].view(q.shape)  # contiguous, 2 bytes off 16
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(shifted, k, v)
+
+
+@pytest.mark.gpu
+def test_f32_wrapper_refuses_a_misaligned_view(cuda_device):
+    """The f32 kernel copies 16-byte pieces with cp.async, so it takes
+    16-byte aligned tensors only, as the bf16 one (TMA) does."""
+    q, k, v = _inputs(cuda_device, 1, 16, 4, 2, 64, torch.float32)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
+    shifted = flat[1:].view(q.shape)  # contiguous, 4 bytes off 16
     shifted.copy_(q)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
     with pytest.raises(ValueError, match="16-byte"):

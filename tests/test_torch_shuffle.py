@@ -328,3 +328,119 @@ def test_make_plan_rejects_unknown_mode():
     with pytest.raises(ValueError, match="mode"):
         shf.make_plan(0, {"w": torch.zeros(2, 3)}, {"w": 0}, 3, 0.5,
                       mode="sparse")
+
+
+# ---------------------------------------------------------------------------
+# bucketed plans drawn with each row in ascending order
+# ---------------------------------------------------------------------------
+
+def _layered_plan(seed, n=4):
+    L, d_rest = 8, 512
+    p_vec = sch.layer_probability_array(0.5, np.arange(1, L + 1), L + 2,
+                                        "decreasing")
+    return shf.bucketed_plan_layered(seed, L, d_rest, n, p_vec, device="cpu")
+
+
+def _plans():
+    for n, d, p, seed in CASES:
+        yield f"flat n={n} d={d}", shf.bucketed_plan(seed, d, n, p,
+                                                     device="cpu")
+    for n in (2, 3, 4, 8):
+        yield f"layered n={n}", _layered_plan(n, n)
+
+
+def test_bucketed_plan_rows_are_strictly_ascending_and_disjoint():
+    for what, idx in _plans():
+        if idx is None:
+            continue
+        assert bool((idx[:, 1:] > idx[:, :-1]).all()), what
+        flat = idx.reshape(-1)
+        assert len(torch.unique(flat)) == flat.numel(), what
+
+
+@pytest.mark.parametrize("n,d,p,seed", CASES)
+def test_bucketed_plan_sizes_are_as_drawn(n, d, p, seed):
+    """k_per = round(p d) // n per row (or no plan), and the rows together
+    are the stratified draw: one coordinate per stratum."""
+    idx = shf.bucketed_plan(seed, d, n, p, device="cpu")
+    k_per = shf.bucket_count(d, n, p)
+    if k_per == 0:
+        assert idx is None
+        return
+    assert idx.shape == (n, k_per) and idx.dtype == torch.int32
+    k = n * k_per
+    starts = (torch.arange(k) * d) // k
+    strata = torch.searchsorted(starts, idx.reshape(-1).long(), right=True) - 1
+    assert torch.equal(torch.sort(strata).values, torch.arange(k))
+
+
+def test_layered_plan_keeps_the_depth_profile_and_size():
+    L, d_rest, n = 8, 512, 3  # a pool of 1024: one coordinate dropped
+    p_vec = sch.layer_probability_array(0.5, np.arange(1, L + 1), L + 2,
+                                        "decreasing")
+    want = shf.layered_counts(L, d_rest, p_vec)
+    dropped = []
+    for seed in range(20):
+        plan = shf.bucketed_plan_layered(seed, L, d_rest, n, p_vec,
+                                         device="cpu")
+        assert plan.shape == (n, sum(want) // n)
+        counts = np.bincount(plan.reshape(-1).numpy() // d_rest, minlength=L)
+        assert np.all(counts <= np.asarray(want))
+        dropped.append(np.asarray(want) - counts)
+    # the remainder of N is dropped at random, not always from one layer
+    assert sum(want) % n and len({tuple(x) for x in dropped}) > 1
+
+
+@pytest.mark.parametrize("layered", [False, True], ids=["flat", "layered"])
+def test_each_coordinate_lands_in_each_bucket_uniformly(layered):
+    """Over 400 seeds, the bucket each pool coordinate lands in (or its
+    drop, for the layered pool's remainder) follows k_per / pool size per
+    bucket: a loose chi-square check (statistic below its mean plus 6
+    standard deviations)."""
+    n, seeds = 4, 400
+    if layered:
+        L, d_rest = 2, 13      # p = 1: a pool of 26, k_per 6, 2 dropped
+        pool = list(range(L * d_rest))
+        draw = lambda s: shf.bucketed_plan_layered(  # noqa: E731
+            s, L, d_rest, n, [1.0, 1.0], device="cpu")
+    else:
+        d = 40                                   # p = 1: the pool is all of d
+        pool = list(range(d))
+        draw = lambda s: shf.bucketed_plan(s, d, n, 1.0, device="cpu")  # noqa
+    where = {c: i for i, c in enumerate(pool)}
+    hits = np.zeros((len(pool), n + 1))
+    for s in range(seeds):
+        idx = draw(s).numpy()
+        landed = np.full(len(pool), n)
+        for row in range(n):
+            landed[[where[c] for c in idx[row]]] = row
+        hits[np.arange(len(pool)), landed] += 1
+    k_per = len(pool) // n
+    expect = np.full(n + 1, k_per / len(pool))
+    expect[n] = 1 - n * k_per / len(pool)
+    live = expect > 0
+    e = seeds * expect[live]
+    chi2 = float((((hits[:, live] - e) ** 2) / e).sum())
+    dof = len(pool) * (live.sum() - 1)
+    assert chi2 < dof + 6 * np.sqrt(2 * dof), (chi2, dof)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_bucketed_apply_ignores_the_order_within_rows(n, dtype):
+    """The rows are disjoint, so a plan and a copy of it with each row
+    shuffled move the same bits (the plain version)."""
+    d = 997
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (n, d)).astype(np.float32)).to(dtype)
+    idx = shf.bucketed_plan(n, d, n, 0.4, device="cpu")
+    gen = torch.Generator().manual_seed(n)
+    shuffled = torch.stack([row[torch.randperm(row.numel(), generator=gen)]
+                            for row in idx])
+    assert not torch.equal(shuffled, idx)
+    a = shf.bucketed_apply_stacked(x, idx)
+    b = shf.bucketed_apply_stacked(x, shuffled)
+    assert torch.equal(a.view(torch.int16 if dtype == torch.bfloat16
+                              else torch.int32),
+                       b.view(torch.int16 if dtype == torch.bfloat16
+                              else torch.int32))

@@ -78,6 +78,30 @@ def test_bucketed_kernel_is_bitwise_the_plain_version(cuda_device, n, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("n", [2, 3, 4, 8, 16])
+def test_bucketed_kernel_on_sorted_and_shuffled_rows(cuda_device, n, dtype):
+    """core.shuffle draws each row ascending; the kernel gives the same
+    bits on a copy with every row shuffled (JAX plans cross over
+    unsorted), and both equal the plain version."""
+    x = _leaf(n, D, dtype, cuda_device, seed=n)
+    idx = shf.bucketed_plan(n + 7, D, n, 0.2, device=cuda_device)
+    assert bool((idx[:, 1:] > idx[:, :-1]).all())
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(n)
+    shuffled = torch.stack([row[torch.randperm(row.numel(), generator=gen,
+                                               device=cuda_device)]
+                            for row in idx]).contiguous()
+    want = ref.bucketed_shuffle_ref(x, idx)
+    a = ws.bucketed_shuffle_cuda_(x.clone(), idx)
+    b = ws.bucketed_shuffle_cuda_(x.clone(), shuffled)
+    torch.cuda.synchronize()
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(a.view(bits), want.view(bits))
+    assert torch.equal(b.view(bits), want.view(bits))
+
+
+@pytest.mark.gpu
 def test_both_kernels_past_two_to_the_31_elements(cuda_device):
     """N * D = 4 * (2**29 + 7) > 2**31 bfloat16 elements (4.3 GB)."""
     n, d = 4, 2 ** 29 + 7
