@@ -37,7 +37,7 @@ and then, failing on the first phase that fails:
      version and a yardstick of library calls at the shapes its path
      gives it (device time: the calls captured in a CUDA graph and
      replayed), the bucketed one on both row orders, beside its bytes
-     bound and its sector floor, and on a plan ten times denser;
+     bound and its sector floor;
   5. trains full-width llama3.2-3b (28 layers, bf16, N = 2, SGD, bucketed
      WASH at p = 0.01, batch 2 x 256 tokens per member, 4 steps) through
      the train CLI's ``main``: every shuffle through the bucketed kernel
@@ -604,10 +604,9 @@ def _randn(torch, n, d, dtype, device, seed):
     return torch.randn(n, d, generator=gen, device=device).to(dtype)
 
 
-def _w1_plan(shf, sch, n, device, base_p=0.01):
-    """The bucketed plan the training path draws for blocks.mlp.w1 (at
-    another ``base_p``, a plan as much denser)."""
-    p_vec = sch.layer_probability_array(base_p, np.arange(1, W1_LAYERS + 1),
+def _w1_plan(shf, sch, n, device):
+    """The bucketed plan the training path draws for blocks.mlp.w1."""
+    p_vec = sch.layer_probability_array(0.01, np.arange(1, W1_LAYERS + 1),
                                         W1_LAYERS + 2, "decreasing")
     return shf.bucketed_plan_layered(0, W1_LAYERS, W1_REST, n, p_vec,
                                      device=device)
@@ -742,16 +741,6 @@ def check_shuffle_kernels(torch, device):
         torch, lambda _: ws.bucketed_shuffle_cuda_(x, shuffled), 1, 100)
     ms2 = device_ms(torch, lambda _: ws.bucketed_shuffle_cuda_(x, idx), 1, 100)
     call_ms = wall_ms(torch, lambda: ws.bucketed_shuffle_cuda_(x, idx), 20, 2)
-    # what sets the time: at the path's density a moved column comes every
-    # ~800 bytes of a member row, so each sector costs a DRAM page of its
-    # own and the row order barely matters; on a plan ten times denser,
-    # neighbouring columns share pages and the ascending rows pay
-    dense_idx = _w1_plan(shf, sch, 2, device, base_p=0.1)
-    dense_shuffled = _shuffled_rows(torch, dense_idx, 53)
-    dense_ms = device_ms(
-        torch, lambda _: ws.bucketed_shuffle_cuda_(x, dense_idx), 1, 100)
-    dense_shuffled_ms = device_ms(
-        torch, lambda _: ws.bucketed_shuffle_cuda_(x, dense_shuffled), 1, 100)
     ws.bucketed_launches = n0  # comparison launches do not count
     nbytes = shuffle_bytes_bucketed(2, k_per, 2)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
@@ -767,9 +756,7 @@ def check_shuffle_kernels(torch, device):
         f"{floor_ms:.4f} ms ({floor_bytes} B: a 32-byte sector read and "
         f"written a value); achieved {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
         f"of the bytes it needs, {floor_bytes / (ms * 1e-3) / 1e9:.1f} GB/s "
-        f"of sectors; on a plan ten times denser (2, {dense_idx.shape[1]}) "
-        f"{dense_ms:.4f} ms on ascending rows, {dense_shuffled_ms:.4f} ms "
-        f"on the rows shuffled")
+        f"of sectors")
     entries["bucketed"] = {
         "name": "bucketed_shuffle[bf16,N=2,blocks.mlp.w1]", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wash_shuffle.cu",
@@ -777,10 +764,8 @@ def check_shuffle_kernels(torch, device):
         "launches": 0, "max_abs_err": err["bucketed"], "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
         "library_ms": None, "yardstick_ms": yard_ms,
-        "shuffled_rows_ms": shuffled_ms, "sector_floor_ms": floor_ms,
-        "denser_plan_ms": dense_ms,
-        "denser_plan_shuffled_rows_ms": dense_shuffled_ms}
-    del x, idx, cols, src, shuffled, dense_idx, dense_shuffled
+        "shuffled_rows_ms": shuffled_ms}
+    del x, idx, cols, src, shuffled
     torch.cuda.empty_cache()
 
     # the dense path: phase 6's blocks.mlp.w1, float32, N = 2

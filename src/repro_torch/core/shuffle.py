@@ -100,9 +100,17 @@ def dense_apply(leaf: torch.Tensor, perm: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _stratified_ascending(seed: int, d: int, k: int, device) -> torch.Tensor:
+def stratified_unique_indices(seed: int, d: int, k: int, device="cuda"
+                              ) -> torch.Tensor:
     """k unique int32 indices in [0, d), one uniform draw per equal stratum,
-    in ascending order (the strata are)."""
+    in ascending order (the strata are).
+
+    Strata bounds are computed in int64 (the reference computes
+    ``i * d`` in int32, which wraps once ``i * d`` passes 2**31; ROADMAP
+    §3)."""
+    device = resolve_device(device)
+    if k <= 0:
+        return torch.zeros((0,), dtype=torch.int32, device=device)
     if d > _INT32_MAX:
         raise ValueError(f"leaf of {d} scalars per member: int32 plans "
                          f"address at most {_INT32_MAX}")
@@ -112,23 +120,6 @@ def _stratified_ascending(seed: int, d: int, k: int, device) -> torch.Tensor:
     offs = torch.randint(0, _INT32_MAX, (k,), generator=generator(
         fold_in(seed, 0), device), device=device) % widths
     return (starts + offs).to(torch.int32)
-
-
-def stratified_unique_indices(seed: int, d: int, k: int, device="cuda"
-                              ) -> torch.Tensor:
-    """k unique int32 indices in [0, d), one uniform draw per equal stratum,
-    returned in a random order.
-
-    Strata bounds are computed in int64 (the reference computes
-    ``i * d`` in int32, which wraps once ``i * d`` passes 2**31; ROADMAP
-    §3)."""
-    device = resolve_device(device)
-    if k <= 0:
-        return torch.zeros((0,), dtype=torch.int32, device=device)
-    idx = _stratified_ascending(seed, d, k, device)
-    order = torch.randperm(k, generator=generator(fold_in(seed, 1), device),
-                           device=device)
-    return idx[order]
 
 
 def _deal_rows(seed: int, pool: torch.Tensor, n: int) -> Optional[torch.Tensor]:
@@ -181,7 +172,7 @@ def bucketed_plan(seed: int, d: int, n: int, p_l: float,
         k_per = bucket_count(d, n, p_l)
     if k_per == 0:
         return None
-    pool = _stratified_ascending(seed, d, k_per * n, resolve_device(device))
+    pool = stratified_unique_indices(seed, d, k_per * n, device)
     return _deal_rows(fold_in(seed, 1), pool, n)
 
 
@@ -213,8 +204,8 @@ def bucketed_plan_layered(seed: int, num_layers: int, d_rest: int, n: int,
     for l, k_l in enumerate(layered_counts(num_layers, d_rest, p_vec, counts)):
         if k_l <= 0:
             continue
-        pieces.append(_stratified_ascending(fold_in(seed, l), d_rest, k_l,
-                                            device) + l * d_rest)
+        pieces.append(stratified_unique_indices(fold_in(seed, l), d_rest, k_l,
+                                                device) + l * d_rest)
     if not pieces:
         return None
     return _deal_rows(fold_in(seed, num_layers + 1), torch.cat(pieces), n)

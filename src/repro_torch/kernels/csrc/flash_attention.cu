@@ -88,7 +88,13 @@
 //     are never loaded; a warp skips the products of a tile its rows
 //     cannot see.
 // At hd = 128 the Q tile and two stages take 207 KB: one block (8 warps)
-// an SM.
+// an SM.  On the H100 the mma.sync rate sets its time: with one TF32
+// product in place of three it ran in 0.53x the time, so the products
+// take about 70% of it.  Splitting Q and each K/V tile once into shared
+// memory (it fits only below hd 128) was slower at hd 64: the fragments
+// then read twice the shared bytes to save a few ALU instructions.
+// Packing the query heads of a kv head into one block was slower at
+// hd 128 (6 warps of 32 rows a head: fewer warps an SM).
 
 #include <cuda.h>
 #include <cuda_bf16.h>

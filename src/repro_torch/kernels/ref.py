@@ -19,6 +19,8 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+# keys a tile of the float32 flash kernel (``kBK`` in csrc/flash_attention.cu)
+FLASH_F32_BK = 64
 
 
 def wash_shuffle_ref(x: torch.Tensor, perm: torch.Tensor,
@@ -102,16 +104,15 @@ def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, products: int = 3):
 def flash_attention_3xtf32_ref(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, causal: bool = True,
                                window: Optional[int] = None,
-                               block_k: int = 64,
                                products: int = 3) -> torch.Tensor:
     """The float32 flash attention computed as the CUDA kernel computes
     it: a plain model of its arithmetic, same contract as
     :func:`flash_attention_ref` (float32 only).
 
     Scores are 3xTF32 products (:func:`_mm_3xtf32`), scaled by
-    ``hd**-0.5 * log2(e)`` in float32; the softmax is online over tiles of
-    ``block_k`` keys in base 2: per tile, the masked scores (``NEG_INF``),
-    the new row max m, ``alpha = 2**(m_old - m)``, ``P = 2**(x - m)``,
+    ``hd**-0.5 * log2(e)`` in float32; the softmax is online over tiles
+    of ``FLASH_F32_BK`` keys in base 2: per tile, the masked scores
+    (``NEG_INF``), the new row max m, ``alpha = 2**(m_old - m)``, ``P = 2**(x - m)``,
     ``l = l alpha + sum P`` and ``acc = acc alpha + P V`` with P V in
     3xTF32 too; the output is ``acc / max(l, 1e-20)``.  ``products=1``
     models the one-TF32-product route instead (used by the tests to show
@@ -127,21 +128,22 @@ def flash_attention_3xtf32_ref(q: torch.Tensor, k: torch.Tensor,
     m = qh.new_full((B, H, S, 1), NEG_INF)
     l = qh.new_zeros((B, H, S, 1))
     acc = qh.new_zeros((B, H, S, hd))
-    for k0 in range(0, S, block_k):
-        j = torch.arange(k0, min(k0 + block_k, S), device=q.device)[None, :]
+    bk = FLASH_F32_BK
+    for k0 in range(0, S, bk):
+        j = torch.arange(k0, min(k0 + bk, S), device=q.device)[None, :]
         ok = torch.ones((S, j.shape[1]), dtype=torch.bool, device=q.device)
         if causal:
             ok = ok & (j <= i)
         if window is not None:
             ok = ok & (j > i - window)
-        x = _mm_3xtf32(qh, kh[:, :, k0:k0 + block_k].transpose(-1, -2),
+        x = _mm_3xtf32(qh, kh[:, :, k0:k0 + bk].transpose(-1, -2),
                        products) * scale
         x = x.masked_fill(~ok, NEG_INF)
         m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(x - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + _mm_3xtf32(p, vh[:, :, k0:k0 + block_k], products)
+        acc = acc * alpha + _mm_3xtf32(p, vh[:, :, k0:k0 + bk], products)
         m = m_new
     out = acc / l.clamp(min=1e-20)
     return out.permute(0, 2, 1, 3).to(q.dtype)

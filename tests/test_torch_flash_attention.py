@@ -12,6 +12,8 @@ divides the scores by sqrt(hd) and normalizes once, so rounding differs)
 and 2e-2 in bf16 (one bf16 rounding of the output).
 """
 
+import re
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -22,7 +24,7 @@ from repro.kernels import ops as jops
 from repro.kernels.ref import flash_attention_ref as jax_ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import flash_attention_3xtf32_ref
+from repro_torch.kernels.ref import FLASH_F32_BK, flash_attention_3xtf32_ref
 
 
 def _inputs(seed, B, S, H, KV, hd):
@@ -103,6 +105,15 @@ def test_cpu_route_never_builds_the_kernel(monkeypatch):
 # ---------------------------------------------------------------------------
 # the float32 CUDA kernel's arithmetic (3xTF32), modelled on the CPU
 # ---------------------------------------------------------------------------
+
+def test_3xtf32_model_tiles_keys_as_the_kernel_does():
+    """The model's online softmax walks the key tiles of the f32 kernel:
+    ``FLASH_F32_BK`` is ``kBK`` of the source's ``namespace f32``."""
+    src = fa.SOURCE.read_text()
+    body = src[src.index("namespace f32 {"):src.index("}  // namespace f32")]
+    assert int(re.search(r"constexpr int kBK = (\d+);", body).group(1)) \
+        == FLASH_F32_BK
+
 
 TF32_CASES = [
     # B, S, H, KV, hd, causal, window, block_q, block_k (of the Pallas run)
