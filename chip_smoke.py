@@ -71,7 +71,15 @@ and then, failing on the first phase that fails:
      each variant launched (flash bf16: wgmma on the tensor cores,
      TMA-fed; flash f32: 3xTF32 mma.sync, cp.async-fed, its TF32 mma
      counted in the library's SASS; WKV: the chunked kernel, 3xTF32
-     mma.sync, TMA-fed, and the step kernel);
+     mma.sync, TMA-fed, and the step kernel); then the WKV backward
+     (training, f32) against its plain version, every grad within 1e-4 of
+     max |plain| and finite: at rwkv6-3b's training shape (B=2, T=256, 40
+     heads of 64) from zero, at the prefill shape from a carried state with
+     a final-state grad, with extreme decays, at a ragged T=1000 and at hd
+     32; timed at both shapes beside its bound (the bytes the function
+     moves, or its operations at the f32 peak), the traffic of its kept
+     states, its plain version's time and its registers, shared memory and
+     spills;
   8. serves full-width rwkv6-3b (32 layers, bf16) and llama3.2-3b (28
      layers, bf16) from random N=2 populations through the serve CLI's
      scan engine (``--compare``: soup, member and ensemble, B=4, S=2048,
@@ -85,6 +93,18 @@ and then, failing on the first phase that fails:
      plain paths: greedy tokens identical; rwkv6 at rwkv_head_dim=16 must
      be refused on the card, with the WKV kernel's head dims as the
      reason.
+  9. trains full-width rwkv6-3b (32 layers, bf16, N = 2, SGD, bucketed
+     WASH at p = 0.01, 2 x 256 tokens per member, 4 steps) through the
+     train CLI's ``main``: every time mix through the WKV kernel forward
+     and its backward kernel (launches == 32 x 2 x 4 each), every shuffle
+     held bitwise against its plain version, the plans it applied sending
+     exactly ``static_mix_comm`` scalars a step, finite losses; serves the
+     trained soup through the scan engine; trains the same 4 steps again
+     without the checks for the step's split, tokens/s and peak memory, and
+     profiles one more full-width training step;
+     then trains the reduced float32 rwkv6 3 steps on the kernels and on
+     the plain versions (final params within 1e-5), and takes its train
+     CLI ``--ckpt-population`` through the serve CLI's ``--ckpt``.
 
 Kernels are built from the sources in the checkout, each ``nvcc`` started
 at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
@@ -810,12 +830,13 @@ def check_shuffle_kernels(torch, device):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: full-width training, then the trained soup served
+# phases 5 and 9: full-width training, then the trained soup served
 # ---------------------------------------------------------------------------
 
-TRAIN_STEPS, TRAIN_SEQ = 4, 256    # phase 5: steps, tokens per sequence
-PLANNED_LEAVES = 10                # leaves of llama3.2-3b that get a plan
-STEP_COMM = 9016867.0              # scalars sent per member a mixing step
+TRAIN_STEPS, TRAIN_SEQ = 4, 256    # phases 5, 9: steps, tokens a sequence
+# per arch trained at full width: the leaves that get a plan, and the
+# scalars sent per member a mixing step (also its static_mix_comm)
+TRAIN_PLANS = {"llama3.2-3b": (10, 9016867.0), "rwkv6-3b": (18, 7670170.0)}
 
 
 @contextlib.contextmanager
@@ -871,97 +892,38 @@ def watch_bucketed_shuffles(ops, width, seen):
         ops.bucketed_shuffle_ = route
 
 
-def train_full_width(torch, device, kernels):
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import wash_shuffle as ws
-    from repro_torch.launch import train as train_cli
-    from repro_torch.launch.serve import mixed_stream
-    from repro_torch.serving import batching as B
-    from repro_torch.serving.engine import averaged_params
+def training_argv(arch: str, device) -> list:
+    """The train CLI's arguments of phases 5 and 9: N = 2, SGD, bucketed
+    WASH at p = 0.01, 2 x TRAIN_SEQ tokens a member, TRAIN_STEPS steps."""
+    return ["--arch", arch, "--population", "2", "--mixing", "wash",
+            "--mode", "bucketed", "--base-p", "0.01", "--optimizer", "sgd",
+            "--steps", str(TRAIN_STEPS), "--batch-size", "2", "--seq-len",
+            str(TRAIN_SEQ), "--record-every", "1", "--lr", "0.01",
+            "--device", str(device)]
 
-    cfg = get_arch("llama3.2-3b")
-    steps, seq, n = TRAIN_STEPS, TRAIN_SEQ, 2
-    argv = ["--arch", "llama3.2-3b", "--population", str(n), "--mixing",
-            "wash", "--mode", "bucketed", "--base-p", "0.01", "--optimizer",
-            "sgd", "--steps", str(steps), "--batch-size", "2", "--seq-len",
-            str(seq), "--record-every", "1", "--lr", "0.01", "--device",
-            str(device)]
-    wk = cfg.num_layers * cfg.d_model * cfg.num_kv_heads * cfg.resolved_head_dim
-    seen, counts = {"plans": []}, {"dense": 0, "bucketed": 0}
-    torch.cuda.synchronize()
-    ws.bucketed_launches = ws.wash_launches = pa.launches = 0
-    t0 = time.perf_counter()
-    with checked_shuffles(ops, ref, torch, counts), \
-            watch_bucketed_shuffles(ops, wk, seen):
-        res = train_cli.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ws.bucketed_launches
-    log(f"training ({cfg.name}, {cfg.num_layers} layers, {cfg.dtype}, "
-        f"N={n}, SGD, bucketed WASH p=0.01, 2 x {seq} tokens per member, "
-        f"{steps} steps) through launch.train.main, every shuffle held "
-        f"against its plain version: {wall:.2f} s; bucketed shuffle "
-        f"launches {launches} (expected {PLANNED_LEAVES} x {steps}), "
-        f"{counts['bucketed']} of them bitwise equal to the plain version "
-        f"on the same inputs, dense {ws.wash_launches}; losses "
-        f"{res.history['loss']}; comm {res.history['comm']}")
-    if (launches != PLANNED_LEAVES * steps or ws.wash_launches
-            or counts["bucketed"] != launches):
-        fail(f"training: {launches} bucketed launches ({counts['bucketed']} "
-             f"checked) for {steps} steps of {PLANNED_LEAVES} planned leaves "
-             f"({ws.wash_launches} dense)")
-    # the comm of the plans that ran: idx.numel() (N - 1) / N per launch,
-    # PLANNED_LEAVES consecutive launches a step
+
+def comm_per_step(seen, history, n: int, per_step: int):
+    """The comm of the plans the bucketed route applied (idx.numel() (N -
+    1) / N a launch, ``per_step`` consecutive launches a step) and the
+    comm the loop recorded, each per step."""
     sent = [k_n * k_per * (n - 1) / n for k_n, k_per in seen["plans"]]
-    applied = [sum(sent[i:i + PLANNED_LEAVES])
-               for i in range(0, len(sent), PLANNED_LEAVES)]
-    recorded = np.diff([0.0] + res.history["comm"]).tolist()
-    log(f"comm per step of the plans applied {applied}, recorded {recorded} "
-        f"(expected {STEP_COMM})")
-    if applied != [STEP_COMM] * steps or recorded != applied:
-        fail(f"training: comm per step {applied} applied, {recorded} "
-             f"recorded, expected {STEP_COMM}")
-    if not np.isfinite(res.history["loss"]).all():
-        fail(f"training: losses {res.history['loss']} are not finite")
-    before, after = seen.get("before"), seen.get("after")
-    if before is None:
-        fail("training: no bucketed shuffle of blocks.attn.wk was seen")
-    moved = int((before != after).any(dim=0).sum())
-    same = torch.equal(torch.sort(before, dim=0).values,
-                       torch.sort(after, dim=0).values)
-    log(f"blocks.attn.wk across one shuffle: {moved} of {before.shape[1]} "
-        f"columns changed; each column's multiset of member values "
-        f"unchanged: {same}")
-    if not same or moved == 0:
-        fail("training: the shuffle did not preserve each coordinate's "
-             "multiset, or moved nothing")
-    del before, after, seen
-    kernels["bucketed"]["launches"] = launches
+    applied = [sum(sent[i:i + per_step]) for i in range(0, len(sent),
+                                                         per_step)]
+    return applied, np.diff([0.0] + history["comm"]).tolist()
 
-    soup = averaged_params(res)
-    del res
-    torch.cuda.empty_cache()
-    server = B.ContinuousServer(soup, cfg, mode="soup", page_size=16,
-                                max_slots=4, num_pages=128,
-                                max_pages_per_slot=-(-(seq + 16) // 16),
-                                device=device)
-    serve_stream(torch, pa, server, mixed_stream(cfg, 4, seq, 16, seed=12),
-                 "trained soup stream (full width)", cfg.num_layers)
-    pa.launches = 0
-    del soup, server
-    torch.cuda.empty_cache()
 
-    # the same run without the checks: the step's split, tokens/s, memory
+def timed_training_run(torch, train_cli, argv, what: str) -> None:
+    """The train CLI once more without the checks: the step's split,
+    tokens/s and peak memory."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = train_cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    tokens = steps * n * 2 * seq
+    steps = TRAIN_STEPS
+    tokens = steps * 2 * 2 * TRAIN_SEQ
     ph = {p: res.phase_ms[p] for p in ("fwd_bwd", "opt", "mix")}
-    log(f"training step split, the same run without checks (CUDA events, "
+    log(f"{what} step split, the same run without checks (CUDA events, "
         f"ms per step, both members): forward+backward {ph['fwd_bwd']}, "
         f"optimizer {ph['opt']}, mixing {ph['mix']}; trained {tokens} tokens "
         f"in {wall:.2f} s = {tokens / wall:.1f} tokens/s (population built "
@@ -969,10 +931,161 @@ def train_full_width(torch, device, kernels):
         f"{sum(sum(ph[p][1:]) for p in ph) / max(steps - 1, 1):.1f} ms in "
         f"the three phases; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def train_full_width(torch, device, arch, kernels):
+    """Phases 5 (llama3.2-3b) and 9 (rwkv6-3b): the arch at full width
+    through the train CLI's ``main`` (``training_argv``), every shuffle
+    held bitwise against its plain version.  Checks the bucketed launches
+    (``TRAIN_PLANS`` leaves a step), the comm the applied plans send a
+    step (``TRAIN_PLANS`` and ``static_mix_comm``), finite losses, and
+    the WKV kernels' launches (rwkv6: a forward and a backward a layer,
+    member and step; none for llama); for llama one leaf's coordinate
+    multisets across a shuffle.  Then the trained soup is served (llama:
+    ``ContinuousServer``; rwkv6: the scan engine), the same run made again
+    unchecked for the step's split, tokens/s and peak memory, and one more
+    step profiled.  Sets the launches of the kernel the phase owns in
+    ``kernels`` (llama: the bucketed shuffle; rwkv6: the WKV backward)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import layer_index as tli
+    from repro_torch.core.mixing import MixingConfig, static_mix_comm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.kernels import wash_shuffle as ws
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as M
+    from repro_torch.serving.engine import averaged_params
+
+    cfg = get_arch(arch)
+    rwkv = cfg.block_kind == "rwkv6"
+    steps, seq, n = TRAIN_STEPS, TRAIN_SEQ, 2
+    leaves, step_comm = TRAIN_PLANS[arch]
+    argv = training_argv(arch, device)
+    shapes = M.param_shapes(cfg)
+    static = static_mix_comm(
+        shapes, MixingConfig(kind="wash", base_p=0.01, mode="bucketed"),
+        tli.infer_layer_ids(shapes, cfg.num_layers),
+        tli.total_layers(cfg.num_layers), n)
+    # llama: the stacked blocks.attn.wk is copied across its first shuffle
+    # (width 0: no leaf is copied, only the applied plans' shapes kept)
+    wk = 0 if rwkv else (cfg.num_layers * cfg.d_model * cfg.num_kv_heads
+                         * cfg.resolved_head_dim)
+    # rwkv6: a WKV forward and backward a layer, member and step; the CLI
+    # then evaluates the averaged model's loss, a forward a layer
+    expect = cfg.num_layers * n * steps if rwkv else 0
+    expect_fwd = expect + cfg.num_layers if rwkv else 0
+    seen, counts = {"plans": []}, {"dense": 0, "bucketed": 0}
+    torch.cuda.synchronize()
+    ws.bucketed_launches = ws.wash_launches = pa.launches = 0
+    wkv.launches = wkv.backward_launches = 0
+    t0 = time.perf_counter()
+    with checked_shuffles(ops, ref, torch, counts), \
+            watch_bucketed_shuffles(ops, wk, seen):
+        res = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ws.bucketed_launches
+    fwd, bwd = wkv.launches, wkv.backward_launches
+    log(f"training ({cfg.name}, {cfg.num_layers} layers, {cfg.dtype}, "
+        f"N={n}, SGD, bucketed WASH p=0.01, 2 x {seq} tokens per member, "
+        f"{steps} steps) through launch.train.main, every shuffle held "
+        f"against its plain version: {wall:.2f} s; bucketed shuffle "
+        f"launches {launches} (expected {leaves} x {steps}), "
+        f"{counts['bucketed']} of them bitwise equal to the plain version "
+        f"on the same inputs, dense {ws.wash_launches}; WKV forward "
+        f"launches {fwd} (expected {expect_fwd}"
+        + (f": {cfg.num_layers} layers x {n} members x {steps} steps, + "
+           f"{cfg.num_layers} for the averaged model's loss" if rwkv else "")
+        + f"), backward calls {bwd} (expected {expect}); losses "
+        f"{res.history['loss']}; comm {res.history['comm']}")
+    if (launches != leaves * steps or ws.wash_launches
+            or counts["bucketed"] != launches):
+        fail(f"{arch} training: {launches} bucketed launches "
+             f"({counts['bucketed']} checked) for {steps} steps of {leaves} "
+             f"planned leaves ({ws.wash_launches} dense)")
+    if (fwd, bwd) != (expect_fwd, expect):
+        fail(f"{arch} training: {fwd} WKV forward launches and {bwd} "
+             f"backward calls, expected {expect_fwd} and {expect}")
+    applied, recorded = comm_per_step(seen, res.history, n, leaves)
+    log(f"{arch} comm per step of the plans applied {applied}, recorded "
+        f"{recorded} (expected {step_comm}, static_mix_comm {static})")
+    if (applied != [step_comm] * steps or recorded != applied
+            or static != step_comm):
+        fail(f"{arch} training: comm per step {applied} applied, {recorded} "
+             f"recorded, expected {step_comm}, static_mix_comm {static}")
+    if not np.isfinite(res.history["loss"]).all():
+        fail(f"{arch} training: losses {res.history['loss']} are not finite")
+    if not rwkv:
+        before, after = seen.get("before"), seen.get("after")
+        if before is None:
+            fail("training: no bucketed shuffle of blocks.attn.wk was seen")
+        moved = int((before != after).any(dim=0).sum())
+        same = torch.equal(torch.sort(before, dim=0).values,
+                           torch.sort(after, dim=0).values)
+        log(f"blocks.attn.wk across one shuffle: {moved} of "
+            f"{before.shape[1]} columns changed; each column's multiset of "
+            f"member values unchanged: {same}")
+        if not same or moved == 0:
+            fail("training: the shuffle did not preserve each coordinate's "
+                 "multiset, or moved nothing")
+        del before, after
+    del seen
+    if rwkv:
+        kernels["wkv_bwd"]["launches"] = bwd
+    else:
+        kernels["bucketed"]["launches"] = launches
+
+    soup = averaged_params(res)
     del res
     torch.cuda.empty_cache()
-    profile_training_step(torch, device, cfg)
+    serve_trained_soup(torch, device, cfg, soup)
+    del soup
     torch.cuda.empty_cache()
+
+    timed_training_run(torch, train_cli, argv, f"{arch} training")
+    torch.cuda.empty_cache()
+    profile_training_step(torch, device, cfg)
+    pa.launches = wkv.launches = wkv.backward_launches = 0
+    torch.cuda.empty_cache()
+
+
+def serve_trained_soup(torch, device, cfg, soup):
+    """llama: 4 requests through ``ContinuousServer``; rwkv6: 2 prompts of
+    TRAIN_SEQ tokens and 8 new tokens through the scan engine (a WKV
+    launch a layer for the prefill and each of the 7 decode steps, no
+    backward)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.launch.serve import mixed_stream
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.serving import batching as B
+    from repro_torch.serving import engine
+
+    seq = TRAIN_SEQ
+    if cfg.block_kind != "rwkv6":
+        server = B.ContinuousServer(soup, cfg, mode="soup", page_size=16,
+                                    max_slots=4, num_pages=128,
+                                    max_pages_per_slot=-(-(seq + 16) // 16),
+                                    device=device)
+        serve_stream(torch, pa, server, mixed_stream(cfg, 4, seq, 16,
+                                                     seed=12),
+                     "trained soup stream (full width)", cfg.num_layers)
+        return
+    batch = concrete_batch(cfg, 21, 2, seq, device=device)
+    wkv.launches = wkv.backward_launches = 0
+    with torch.no_grad():
+        toks = engine.generate(soup, cfg, batch, 8, device=device)
+    torch.cuda.synchronize()
+    log(f"trained rwkv6 soup through the scan engine (B=2, S={seq}, 8 new "
+        f"tokens): WKV launches {wkv.launches} (expected "
+        f"{cfg.num_layers * 8}), backward calls {wkv.backward_launches}")
+    if (toks.shape != (2, seq + 8) or int(toks.min()) < 0
+            or int(toks.max()) >= cfg.vocab_size
+            or not torch.equal(toks[:, :seq], batch["tokens"].to(toks.dtype))):
+        fail(f"trained rwkv6 soup: tokens of shape {tuple(toks.shape)}")
+    if wkv.launches != cfg.num_layers * 8 or wkv.backward_launches:
+        fail("trained rwkv6 soup: the scan engine's WKV launches are off")
 
 
 def profile_training_step(torch, device, cfg):
@@ -997,8 +1110,9 @@ def profile_training_step(torch, device, cfg):
         _train(cfg, mcfg, "sgd", 3, device, seq=TRAIN_SEQ, record_fn=record)
     wall_ms = (marks[2] - marks[1]) * 1e3
     busy_ms, spans, full, top = device_activity(prof)
-    log(f"profiled training step (full width, N=2, 2 x {TRAIN_SEQ} tokens a "
-        f"member, under torch.profiler): wall {wall_ms:.1f} ms, device busy "
+    log(f"profiled {cfg.name} training step (full width, N=2, 2 x "
+        f"{TRAIN_SEQ} tokens a member, under torch.profiler): wall "
+        f"{wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%, the union of "
         f"{spans} device activities), idle "
         f"{100 * (1 - busy_ms / wall_ms):.1f}%; the host found the launch "
@@ -1106,8 +1220,8 @@ def reduced_paths(torch, device, kernels):
         dt = time.perf_counter() - t0
         launches = {"dense": ws.wash_launches, "bucketed": ws.bucketed_launches}
         moments = 2 if optimizer == "adamw" else 1
-        per_step = PLANNED_LEAVES * (1 + moments if mcfg.kind == "wash_opt"
-                                     else 1)
+        per_step = TRAIN_PLANS[base.name][0] * (
+            1 + moments if mcfg.kind == "wash_opt" else 1)
         expected = {"dense": 0, "bucketed": 0}
         expected[kernel] = per_step * steps
         kept = pop.tree_map(torch.clone, res.population)
@@ -1450,6 +1564,139 @@ def check_wkv(torch, wkv, ref, device):
     }}
 
 
+WKV_TRAIN_SHAPE = (2, 256, 40, 64)  # rwkv6-3b training: B, T, H, hd
+# the backward against its plain version: max |kernel - plain| / max |plain|
+# per grad (both sum the f32 state's products in another order)
+WKV_BWD_TOL = 1e-4
+
+
+def wkv_bwd_inputs(torch, B, T, H, hd, device, seed, extreme=False):
+    """``wkv_inputs`` in f32 plus the upstream grads: dy (B, T, H, hd) and
+    the final state's grad (B, H, hd, hd), both normal."""
+    xs = wkv_inputs(torch, B, T, H, hd, "f32", device, seed, extreme)
+    gen = _gen(torch, device, seed + 1000)
+    dy = torch.randn(B, T, H, hd, generator=gen, device=device)
+    ds = torch.randn(B, H, hd, hd, generator=gen, device=device)
+    return xs + (dy, ds)
+
+
+def wkv_bwd_work(B, T, H, hd, carried: bool):
+    """What the function must move and compute.  Bytes: r, k, v, w, dy
+    read and dr, dk, dv, dw written once, u and du, with a carried state
+    the state and the final state's grad read and dstate0 written; all
+    f32 (the kernel's workspace is its design's cost, not the
+    function's).  Operations: 14 a state element and
+    step (the state w S + k v and its adjoint w G + r dy, 3 each; the
+    four sums G v, k G, G S and S dy, 2 each)."""
+    nbytes = 4 * (9 * B * T * H * hd + 2 * H * hd
+                  + (3 * B * H * hd * hd if carried else 0))
+    return nbytes, 14 * B * T * H * hd * hd
+
+
+def check_wkv_backward(torch, wkv, ref, device):
+    """Phase 7, the WKV backward (training): every grad against
+    ``rwkv6_scan_bwd_ref`` at rwkv6-3b's training shape from zero, at the
+    prefill shape from a carried state with a final-state grad, with
+    extreme decays, at a ragged T and at hd 32; then timed at both shapes.
+    Returns its entry of the JSON line (launches filled in by phase 9)."""
+    B, T, H, hd = WKV_TRAIN_SHAPE
+    PB, PT = WKV_SHAPE[:2]
+    # (what, shape, carried state and final-state grad, extreme decays)
+    cases = [("training shape, from zero", (B, T, H, hd), False, False),
+             ("prefill shape, carried state and final-state grad",
+              (PB, PT, H, hd), True, False),
+             ("extreme decays", (B, T, H, hd), True, True),
+             ("ragged T=1000", (B, 1000, H, hd), True, False),
+             ("hd 32", (B, T, 80, 32), True, False)]
+    err_main = 0.0
+    for n, (what, shape, carried, extreme) in enumerate(cases):
+        r, k, v, w, u, s0, dy, ds = wkv_bwd_inputs(torch, *shape, device,
+                                                   110 + n, extreme)
+        state, dfinal = (s0, ds) if carried else (None, None)
+        got = wkv.rwkv6_scan_bwd_cuda(r, k, v, w, u, state, dy, dfinal)
+        torch.cuda.synchronize()
+        want = ref.rwkv6_scan_bwd_ref(r, k, v, w, u, state, dy, dfinal)
+        errs = {}
+        for name, g, wa in zip(("dr", "dk", "dv", "dw", "du", "dstate0"),
+                               got, want):
+            if not carried and name == "dstate0":
+                continue
+            if not (torch.isfinite(g).all() and torch.isfinite(wa).all()):
+                fail(f"rwkv6 scan backward {what}: {name} is not finite")
+            errs[name] = float((g - wa).abs().max() / wa.abs().max())
+        log(f"rwkv6 scan backward {what} (B, T, H, hd = {shape}): max "
+            f"|kernel - plain| / max |plain| "
+            + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
+            + f" (tolerance {WKV_BWD_TOL:g}); every value finite")
+        if max(errs.values()) > WKV_BWD_TOL:
+            fail(f"rwkv6 scan backward {what} disagrees with its plain "
+                 f"version: {errs}")
+        if n == 0:
+            err_main = max(float((g - wa).abs().max())
+                           for g, wa in zip(got[:5], want[:5]))
+        del r, k, v, w, u, s0, dy, ds, got, want
+    torch.cuda.empty_cache()
+
+    times = {}
+    for key, (b, t, carried) in (("train", (B, T, False)),
+                                 ("prefill", (PB, PT, True))):
+        sets = [wkv_bwd_inputs(torch, b, t, H, hd, device, 120 + i)
+                for i in range(2)]
+
+        def args(i):
+            r, k, v, w, u, s0, dy, ds = sets[i]
+            return (r, k, v, w, u, s0 if carried else None, dy,
+                    ds if carried else None)
+
+        n0 = wkv.backward_launches
+        ms = device_ms(torch, lambda i: wkv.rwkv6_scan_bwd_cuda(*args(i)), 2)
+        plain_ms = device_ms(torch, lambda i: ref.rwkv6_scan_bwd_ref(
+            *args(i)), 1, reps=1 if key == "prefill" else 3)
+        ms2 = device_ms(torch, lambda i: wkv.rwkv6_scan_bwd_cuda(*args(i)), 2)
+        wkv.backward_launches = n0  # comparison launches do not count
+        nbytes, ops = wkv_bwd_work(b, t, H, hd, carried)
+        bound_ms, bound_by = bound(nbytes, ops, "f32")
+        # the kept states (f32, one every WKV_BWD_CHUNK steps) written and
+        # read once: the design's traffic, beside the function's
+        ws_bytes = 2 * 4 * b * H * -(-t // ref.WKV_BWD_CHUNK) * hd * hd
+        times[key] = (ms, plain_ms, bound_ms, bound_by)
+        log(f"rwkv6 scan backward f32 at the {key} shape (B={b}, T={t}, "
+            f"H={H}, hd={hd}{', carried state' if carried else ', from zero'}"
+            f"): {ms:.4f} ms on the device (again {ms2:.4f}; two input sets "
+            f"cycled, a call's two launches), plain {plain_ms:.4f} ms, "
+            f"library none, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} "
+            f"B the function moves: {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+            f"{ops} ops at the f32 peak: "
+            f"{ops / PEAK_OPS['f32'] * 1e3:.4f} ms); the kept states add "
+            f"{ws_bytes} B written and read "
+            f"({ws_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate; "
+            f"{wkv.backward_workspace_bytes(b, t, H, hd)} B of workspace "
+            f"allocated in all); achieved "
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of the function's bytes, "
+            f"{ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        del sets
+        torch.cuda.empty_cache()
+    for d in wkv.BACKWARD_HEAD_DIMS:
+        log(f"rwkv6 scan backward kernel at hd {d}: "
+            f"{attributes_line(wkv.backward_attributes(d))}")
+    ms, plain_ms, bound_ms, bound_by = times["train"]
+    return {"wkv_bwd": {
+        "name": "rwkv6_scan_bwd[f32,training shape]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/models/ssm.py:211",
+        "launches": 0,
+        "max_abs_err": err_main,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "prefill_ms": times["prefill"][0],
+        "prefill_plain_ms": times["prefill"][1],
+    }}
+
+
 def wkv_ms(torch, fn, sets, reps=20):
     """Device time of one ``fn`` call (f32, carried state), one call an
     input set in the graph."""
@@ -1741,6 +1988,80 @@ def scan_engine(torch, device, kernels, card):
     kernels["flash_f32"]["launches"] = reduced["flash"]
 
 
+# ---------------------------------------------------------------------------
+# phase 9 (after train_full_width on rwkv6-3b): reduced f32 rwkv6 training
+# on the kernels against plain
+# ---------------------------------------------------------------------------
+
+
+def train_rwkv6_reduced(torch, device):
+    """The reduced float32 rwkv6 (2 layers, d_model 256, hd 32) trained 3
+    steps on the kernels and on the plain versions: the final params
+    within PARAM_TOL; then the train CLI's ``--ckpt-population`` into the
+    serve CLI's ``--ckpt`` (the scan engine) on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import population as pop
+    from repro_torch.core.mixing import MixingConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as M
+    from repro_torch.train import checkpoint
+
+    cfg = get_arch("rwkv6-3b").reduced()
+    steps = REDUCED_STEPS
+    mcfg = MixingConfig(kind="wash", base_p=0.01, mode="bucketed")
+    torch.cuda.synchronize()
+    wkv.launches = wkv.backward_launches = 0
+    res = _train(cfg, mcfg, "sgd", steps, device)
+    torch.cuda.synchronize()
+    fwd, bwd = wkv.launches, wkv.backward_launches
+    kept = pop.tree_map(torch.clone, res.population)
+    losses = res.history["loss"]
+    del res
+    with plain_routes(ops, ref, "rwkv6_scan"), plain_shuffles(ops, ref):
+        plain = _train(cfg, mcfg, "sgd", steps, device)
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        pop.tree_leaves(kept), pop.tree_leaves(plain.population)))
+    expect = cfg.num_layers * 2 * steps
+    log(f"{cfg.name}, bucketed WASH, SGD, {steps} steps: WKV forward "
+        f"launches {fwd}, backward calls {bwd} (expected {expect} each); max "
+        f"|param kernel run - plain run| = {diff:.3e} (tolerance "
+        f"{PARAM_TOL:g}); losses {losses} vs {plain.history['loss']}")
+    if (fwd, bwd) != (expect, expect):
+        fail(f"reduced rwkv6 training: {fwd} forward / {bwd} backward "
+             f"launches, expected {expect}")
+    if diff > PARAM_TOL or not np.isfinite(losses).all():
+        fail(f"reduced rwkv6 training: kernel and plain runs differ by {diff}")
+    del kept, plain
+
+    ckpt = str(ROOT / "build" / "chip_smoke" / "rwkv6_population.npz")
+    res = train_cli.main(["--arch", "rwkv6-3b", "--reduced", "--population",
+                          "2", "--mode", "bucketed", "--steps", "3",
+                          "--batch-size", "2", "--seq-len", "32",
+                          "--ckpt-population", ckpt, "--device", str(device)])
+    like = pop.tree_map(lambda x: x.unsqueeze(0).expand((2,) + x.shape),
+                        M.param_shapes(cfg))
+    back = checkpoint.restore(ckpt, like, device=device)
+    if not all(torch.equal(a, b) for a, b in zip(
+            pop.tree_leaves(back), pop.tree_leaves(res.population))):
+        fail("rwkv6 population file does not restore bitwise")
+    wkv.launches = 0
+    outs = serve_cli.main(["--arch", "rwkv6-3b", "--reduced", "--population",
+                           "2", "--ckpt", ckpt, "--batch-size", "2",
+                           "--seq-len", "32", "--max-new", "8", "--device",
+                           str(device)])
+    torch.cuda.synchronize()
+    log(f"rwkv6 train CLI --ckpt-population -> serve CLI --ckpt (scan "
+        f"engine): restored bitwise, served with {wkv.launches} WKV launches "
+        f"(expected {2 * cfg.num_layers * 8}: two requests)")
+    if (wkv.launches != 2 * cfg.num_layers * 8
+            or outs["soup"]["tokens"].shape != (2, 40)):
+        fail("the served rwkv6 population's launches or tokens are off")
+    wkv.launches = wkv.backward_launches = 0
+
+
 def build_kernels(*mods):
     """Every library, each nvcc started at once."""
     t0 = time.perf_counter()
@@ -1789,12 +2110,15 @@ def main() -> int:
     full_width(torch, device, kernels)
     reduced_f32(torch, device, kernels)
     shuffles = check_shuffle_kernels(torch, device)
-    train_full_width(torch, device, shuffles)
+    train_full_width(torch, device, "llama3.2-3b", shuffles)
     reduced_paths(torch, device, shuffles)
     kernels.update(shuffles)
     kernels.update(check_flash(torch, fa, ref, F, device))
     kernels.update(check_wkv(torch, wkv, ref, device))
+    kernels.update(check_wkv_backward(torch, wkv, ref, device))
     scan_engine(torch, device, kernels, card)
+    train_full_width(torch, device, "rwkv6-3b", kernels)
+    train_rwkv6_reduced(torch, device)
     for entry in kernels.values():
         if entry["launches"] == 0:
             fail(f"kernel {entry['name']} was never launched on its path")

@@ -138,23 +138,10 @@ struct Geo {
   static constexpr int kSmem = (kQ + 2 * kStage) * 4;  // Q, two stages
 };
 
-// 16 bytes from global to shared memory, asynchronously; zeros where
-// !valid (the source is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   sm90::smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// cp.async: the helpers of sm90.cuh
+using sm90::cp_async16;
+using sm90::cp_async_commit;
+using sm90::cp_async_wait;
 
 // rows [r0, r0 + ROWS) of a (B, S, heads, HD) tensor's head at `base` into
 // shared memory rows of LD floats, rows past S as zeros; every thread

@@ -77,6 +77,11 @@
 // C = 16, 32 key channels a block and 3xTF32 were chosen on the H100
 // against C = 32 and 64, 16 and 64 channels a block and the products in
 // f32 FMAs, all slower (PERF.md lists their times).
+//
+// Training's backward (the gradient of the recurrence, which the TPU side
+// leaves to XLA's autodiff of a lax.scan) is the second half of this file:
+// rwkv6_bwd_kernel and a small reduction kernel, entry point
+// repro_rwkv6_scan_bwd; its own head comment says how it works.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -650,6 +655,332 @@ __global__ void __launch_bounds__(HD * HD / 16) rwkv6_step_kernel(
   }
 }
 
+// ---- the backward (training) ----------------------------------------------
+//
+// The gradient of the recurrence, for training.  The TPU side has no kernel
+// for it (XLA differentiates the reference's lax.scan); on the card it is
+// this one.  float32 only: the time mix hands the forward float32 r/k/v/w.
+// With G_t the adjoint of the state after step t (G_{T-1} the final
+// state's gradient, or zero) and S_{t-1} the state entering step t:
+//
+//   dr_t[i] = sum_j S_{t-1}[i][j] dy_t[j] + u[i] k_t[i] (v_t . dy_t)
+//   dk_t[i] = sum_j G_t[i][j] v_t[j]      + r_t[i] u[i] (v_t . dy_t)
+//   dv_t[j] = sum_i k_t[i] G_t[i][j]      + (sum_i r_t[i] u[i] k_t[i]) dy_t[j]
+//   dw_t[i] = sum_j G_t[i][j] S_{t-1}[i][j]
+//   du[i]   = sum_{b,t} r_t[i] k_t[i] (v_t . dy_t)
+//   G_{t-1} = diag(w_t) G_t + r_t^T dy_t,     dstate0 = G_{-1}
+//
+// kernels/ref.py::rwkv6_scan_bwd_ref is its plain model.
+//
+// What bounds it: at rwkv6-3b's training shape (B=2, T=256, 40 heads of
+// 64) the call moves ~50 MB (r, k, v, w, dy in, dr, dk, dv, dw out, the
+// boundary states written and read: ~0.015 ms at 3.35 TB/s) and does ~12
+// flops per state element and step (~1.0e9, 0.015 ms at the FFMA rate).
+// As in the forward, each head is a serial chain of T steps, so one chain
+// a (batch, head, row slice) sets the time, not the card's rates.
+//
+// The design (simple first; PERF.md has its times):
+//   * every element S[i][j] and G[i][j] evolves alone (w_t[i] scales a row,
+//     k v^T and r^T dy add to it), so a block takes one (batch, head) and
+//     32 rows of the state (hd / 32 blocks a head), a lane one row and a
+//     warp 16 columns (hd / 16 warps); a thread keeps its 16 elements of G
+//     in registers;
+//   * pass 1 walks forward and writes the state entering each 16-step
+//     chunk to a workspace (only the thread that wrote an element reads
+//     it back); pass 2 walks the chunks in reverse: it recomputes the
+//     chunk's states from its boundary into shared memory, then walks the
+//     chunk backwards.  The state is never walked backwards (that would
+//     divide by w, which may be 0) and nothing takes a logarithm: dw is
+//     the sum above, so a decay that underflows to 0 gives exact grads;
+//   * the sums over j (dr, dk, dw) are in-thread over the warp's 16
+//     columns, then over the warps in shared memory once a chunk; the sum
+//     over i (dv) is a butterfly of warp shuffles over the lanes' rows,
+//     then over a head's row slices by a second small kernel, which also
+//     sums du over the batch, each in a fixed order: no float atomics, so
+//     the grads are the same from run to run;
+//   * each chunk's r, k, w, v, dy arrive by cp.async into the other of two
+//     stages while the block computes the current chunk; a ragged last
+//     chunk runs only its real steps.
+
+namespace bwd {
+
+constexpr int kC = 16;     // steps a chunk (the workspace keeps each's entry)
+constexpr int kRows = 32;  // state rows a block, one a lane
+constexpr int kCols = 16;  // state columns a warp, one set a thread
+
+template <int HD>
+struct Geo {
+  static constexpr int NS = HD / kRows;  // blocks (row slices) a head
+  static constexpr int NW = HD / kCols;  // warps (column groups) a block
+  static constexpr int NT = 32 * NW;
+  // shared layout (floats): two stages of the chunk's inputs, each five
+  // [step][channel] tiles (k, w, v, then r, dy: pass 1 loads the first
+  // three); the chunk's states, a thread's 16 columns a step as 4 float4
+  // ([step][quad][thread], so a warp's accesses are conflict-free); the
+  // per-warp partial sums over j of dr, dk, dw ([q][warp][step][row]); the
+  // block's partial dv ([step][column]); v . dy and the bonus sum a step;
+  // u of the head
+  static constexpr int IN = kC * HD;
+  static constexpr int STAGE = 5 * IN;
+  static constexpr int HIST = 2 * STAGE;
+  static constexpr int RED = HIST + kC * kCols * NT;
+  static constexpr int DV = RED + 3 * NW * kC * kRows;
+  static constexpr int VDY = DV + kC * HD;
+  static constexpr int BONUS = VDY + kC;
+  static constexpr int U = BONUS + kC;
+  static constexpr int SMEM = (U + HD) * 4;
+  static_assert(NS >= 1 && NW >= 2 && NT >= 2 * kC, "block shape");
+  static_assert(HIST % 4 == 0 && STAGE % 4 == 0, "float4 alignment");
+};
+
+// 16 columns of one state row: global <-> registers
+__device__ __forceinline__ void load16(const float* p, float* x) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) load4(p + 4 * q, x + 4 * q);
+}
+__device__ __forceinline__ void store16(float* p, const float* x) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    *reinterpret_cast<float4*>(p + 4 * q) =
+        make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+}
+
+// One block per (batch, head, 32-row slice); lane = row i0 + lane, warp =
+// columns [16 warp, +16).  dv_part: the block's dv over its rows, at
+// slice * (B T H hd) (dv itself when a head has one slice); du_part:
+// (B, H, hd), each batch row's du.
+template <int HD>
+__global__ void __launch_bounds__(Geo<HD>::NT) rwkv6_bwd_kernel(
+    const float* __restrict__ r, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ w,
+    const float* __restrict__ u, const float* __restrict__ state_in,
+    const float* __restrict__ dy, const float* __restrict__ dstate_final,
+    float* __restrict__ dr, float* __restrict__ dk, float* __restrict__ dw,
+    float* __restrict__ dstate0, float* __restrict__ ws,
+    float* __restrict__ dv_part, float* __restrict__ du_part, int steps,
+    int H) {
+  using Gm = Geo<HD>;
+  constexpr int NS = Gm::NS, NT = Gm::NT, NW = Gm::NW, IN = Gm::IN;
+  extern __shared__ __align__(16) float sm[];
+  float4* s_hist = reinterpret_cast<float4*>(sm + Gm::HIST);
+  float* s_red = sm + Gm::RED;
+  float* s_dv = sm + Gm::DV;
+  float* s_vdy = sm + Gm::VDY;
+  float* s_bonus = sm + Gm::BONUS;
+  float* s_u = sm + Gm::U;
+
+  const int bh = blockIdx.x / NS, slice = blockIdx.x % NS;
+  const int b = bh / H, h = bh - b * H;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int i = slice * kRows + lane, j0 = wid * kCols;
+  const int chunks = (steps + kC - 1) / kC;
+  const long long n_all = (long long)gridDim.x / NS * steps * HD;  // B T H hd
+  const long long row0 = (long long)b * steps * H + h;  // (b, 0, h) row
+  const long long s_at = ((long long)bh * HD + i) * HD + j0;  // S[i][j0]
+  float* ws_row = ws + ((long long)bh * chunks * HD + i) * HD + j0;
+
+  for (int a = tid; a < HD; a += NT) s_u[a] = u[h * HD + a];
+
+  // chunk ch's first `nx` inputs (k, w, v, r, dy) into stage `buf`; steps
+  // past the end arrive as zeros
+  auto stage = [&](int ch, int buf, int nx) {
+    constexpr int V4 = HD / 4;
+    float* dst = sm + buf * Gm::STAGE;
+#pragma unroll
+    for (int x = 0; x < 5; ++x) {
+      if (x < nx) {
+        const float* src =
+            x == 0 ? k : x == 1 ? w : x == 2 ? v : x == 3 ? r : dy;
+        for (int a = tid; a < kC * V4; a += NT) {
+          const int s = a / V4, q = a - s * V4, t = ch * kC + s;
+          const bool ok = t < steps;
+          sm90::cp_async16(dst + x * IN + s * HD + 4 * q,
+                           src + ((row0 + (long long)(ok ? t : 0) * H) * HD +
+                                  4 * q),
+                           ok);
+        }
+      }
+    }
+    sm90::cp_async_commit();
+  };
+  // S[i][j0..] <- w_s[i] S + k_s[i] v_s[j0..], step s of a staged chunk
+  auto advance = [&](float* S, const float* in, int s) {
+    const float kk = in[s * HD + i], ww = in[IN + s * HD + i];
+    float vv[kCols];
+    load16(in + 2 * IN + s * HD + j0, vv);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) S[c] = ww * S[c] + kk * vv[c];
+  };
+
+  // ---- pass 1: forward, the state entering each chunk into ws
+  {
+    float S[kCols] = {};
+    if (state_in) load16(state_in + s_at, S);
+    if (chunks > 1) stage(0, 0, 3);
+    for (int ch = 0; ch < chunks; ++ch) {
+      store16(ws_row + (long long)ch * HD * HD, S);
+      if (ch + 1 == chunks) break;  // the last chunk's steps: in pass 2
+      sm90::cp_async_wait<0>();
+      __syncthreads();  // chunk ch landed; chunk ch-1's readers are done
+      if (ch + 2 < chunks) stage(ch + 1, (ch + 1) & 1, 3);
+      const float* in = sm + (ch & 1) * Gm::STAGE;
+      for (int s = 0; s < kC; ++s) advance(S, in, s);
+    }
+  }
+  __syncthreads();  // pass 1's readers of the stages are done
+
+  // ---- pass 2: the chunks in reverse
+  float G[kCols] = {};
+  if (dstate_final) load16(dstate_final + s_at, G);
+  float du_acc = 0.f;
+  stage(chunks - 1, (chunks - 1) & 1, 5);
+  for (int ch = chunks - 1; ch >= 0; --ch) {
+    const int c0 = ch * kC, nv = min(kC, steps - c0);
+    sm90::cp_async_wait<0>();
+    __syncthreads();  // chunk ch landed; chunk ch+1's readers are done
+    if (ch > 0) stage(ch - 1, (ch - 1) & 1, 5);
+    const float* in = sm + (ch & 1) * Gm::STAGE;
+    const float *s_k = in, *s_v = in + 2 * IN, *s_r = in + 3 * IN,
+                *s_dy = in + 4 * IN;
+    if (tid < kC) {  // v_s . dy_s
+      float acc = 0.f;
+      for (int j = 0; j < HD; ++j)
+        acc += s_v[tid * HD + j] * s_dy[tid * HD + j];
+      s_vdy[tid] = acc;
+    } else if (tid < 2 * kC) {  // sum_i r_s[i] u[i] k_s[i], over the head
+      const int s = tid - kC;
+      float acc = 0.f;
+      for (int a = 0; a < HD; ++a)
+        acc += s_r[s * HD + a] * s_u[a] * s_k[s * HD + a];
+      s_bonus[s] = acc;
+    }
+    {  // the chunk's states S_{c0+s-1}, each thread its own 16 elements
+      float S[kCols];
+      load16(ws_row + (long long)ch * HD * HD, S);
+      for (int s = 0; s < nv; ++s) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          s_hist[(s * 4 + q) * NT + tid] =
+              make_float4(S[4 * q], S[4 * q + 1], S[4 * q + 2], S[4 * q + 3]);
+        if (s + 1 < nv) advance(S, in, s);
+      }
+    }
+    __syncthreads();  // v . dy and the bonus sums
+
+    for (int s = nv - 1; s >= 0; --s) {
+      float sp[kCols], vv[kCols], dd[kCols], part[kCols];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 x = s_hist[(s * 4 + q) * NT + tid];
+        sp[4 * q] = x.x, sp[4 * q + 1] = x.y, sp[4 * q + 2] = x.z,
+        sp[4 * q + 3] = x.w;
+      }
+      load16(s_v + s * HD + j0, vv);
+      load16(s_dy + s * HD + j0, dd);
+      const float kk = s_k[s * HD + i], ww = in[IN + s * HD + i],
+                  rr = s_r[s * HD + i];
+      float p_dr = 0.f, p_dk = 0.f, p_dw = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        p_dr += sp[c] * dd[c];
+        p_dk += G[c] * vv[c];
+        p_dw += G[c] * sp[c];
+        part[c] = kk * G[c];
+        G[c] = ww * G[c] + rr * dd[c];
+      }
+      // dv over the warp's 32 rows: after the butterfly, lanes 2m and 2m+1
+      // hold column j0 + m
+      float unused = 0.f;
+      fold<0, 4, kCols, 32>(part, unused, lane);
+      part[0] += __shfl_xor_sync(0xffffffffu, part[0], 1);
+      if ((lane & 1) == 0) s_dv[s * HD + j0 + (lane >> 1)] = part[0];
+      float* red = s_red + (wid * kC + s) * kRows + lane;
+      red[0] = p_dr;
+      red[NW * kC * kRows] = p_dk;
+      red[2 * NW * kC * kRows] = p_dw;
+      if (wid == 0) du_acc += rr * kk * s_vdy[s];
+    }
+    __syncthreads();  // the chunk's partial sums
+
+    for (int a = tid; a < nv * kRows; a += NT) {
+      const int s = a / kRows, row = a - s * kRows, ii = slice * kRows + row;
+      float sum[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+#pragma unroll
+        for (int x = 0; x < NW; ++x)
+          sum[q] += s_red[((q * NW + x) * kC + s) * kRows + row];
+      const float vd = s_vdy[s], uu = s_u[ii];
+      const long long o = (row0 + (long long)(c0 + s) * H) * HD + ii;
+      dr[o] = sum[0] + uu * s_k[s * HD + ii] * vd;
+      dk[o] = sum[1] + s_r[s * HD + ii] * uu * vd;
+      dw[o] = sum[2];
+    }
+    for (int a = tid; a < nv * HD; a += NT) {
+      const int s = a / HD, j = a - s * HD;
+      float val = s_dv[s * HD + j];
+      if (slice == 0) val += s_bonus[s] * s_dy[s * HD + j];
+      dv_part[slice * n_all + (row0 + (long long)(c0 + s) * H) * HD + j] = val;
+    }
+  }
+  if (dstate0) store16(dstate0 + s_at, G);
+  if (wid == 0) du_part[(long long)bh * HD + i] = du_acc;
+}
+
+// dv = the sum of a head's row slices' partials (when it has more than
+// one), du = the sum of du_part over the batch; each in a fixed order
+__global__ void rwkv6_bwd_reduce_kernel(const float* __restrict__ dv_part,
+                                        int ns, long long n,
+                                        float* __restrict__ dv,
+                                        const float* __restrict__ du_part,
+                                        int B, int hhd,
+                                        float* __restrict__ du) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long at = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (ns > 1)
+    for (long long e = at; e < n; e += stride) {
+      float acc = dv_part[e];
+      for (int x = 1; x < ns; ++x) acc += dv_part[x * n + e];
+      dv[e] = acc;
+    }
+  for (long long e = at; e < hhd; e += stride) {
+    float acc = 0.f;
+    for (int bb = 0; bb < B; ++bb) acc += du_part[(long long)bb * hhd + e];
+    du[e] = acc;
+  }
+}
+
+template <int HD>
+int launch_bwd(const float* r, const float* k, const float* v, const float* w,
+               const float* u, const float* state_in, const float* dy,
+               const float* dstate_final, float* dr, float* dk, float* dv,
+               float* dw, float* du, float* dstate0, float* ws,
+               float* dv_part, float* du_part, int B, int steps, int H,
+               cudaStream_t stream) {
+  using Gm = Geo<HD>;
+  auto kernel = rwkv6_bwd_kernel<HD>;
+  static int configured = -1;  // cudaFuncSetAttribute's result, once
+  if (configured < 0)
+    configured = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Gm::SMEM));
+  if (configured != 0) return configured;
+  float* part = Gm::NS == 1 ? dv : dv_part;
+  kernel<<<B * H * Gm::NS, Gm::NT, Gm::SMEM, stream>>>(
+      r, k, v, w, u, state_in, dy, dstate_final, dr, dk, dw, dstate0, ws,
+      part, du_part, steps, H);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const long long n = (long long)B * steps * H * HD;
+  const long long work = Gm::NS > 1 ? n : (long long)H * HD;
+  const long long want = (work + 255) / 256;
+  const int blocks = static_cast<int>(want < 1024 ? want : 1024);
+  rwkv6_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(
+      dv_part, Gm::NS, n, dv, du_part, B, H * HD, du);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bwd
+
 // cuTensorMapEncodeTiled, through the runtime's driver entry point (no
 // link against libcuda)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -809,4 +1140,59 @@ extern "C" int repro_rwkv6_scan_attributes(int dtype, int hd, int steps,
   if (dtype == 1 && hd == 32) return attributes<__nv_bfloat16, 32>(steps, out);
   if (dtype == 1 && hd == 64) return attributes<__nv_bfloat16, 64>(steps, out);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward, float32: the grads of r, k, v, w (B, T, H, hd), u (H, hd)
+// and, when dstate0 is not null, of the initial state (B, H, hd, hd), for
+// the upstream grads dy (B, T, H, hd) and dstate_final (the final state's;
+// null: zero).  state_in null: a zero initial state.  Workspaces, all
+// float32 and written before they are read: ws (B, H, ceil(T / 16), hd,
+// hd), the state entering each 16-step chunk; dv_part (hd / 32, B, T, H,
+// hd), each row slice's dv (unused at hd = 32: dv is written directly);
+// du_part (B, H, hd).  Two launches; returns cudaGetLastError() after
+// them (0 on success).
+extern "C" int repro_rwkv6_scan_bwd(
+    const void* r, const void* k, const void* v, const void* w, const void* u,
+    const void* state_in, const void* dy, const void* dstate_final, void* dr,
+    void* dk, void* dv, void* dw, void* du, void* dstate0, void* ws,
+    void* dv_part, void* du_part, int B, int steps, int H, int hd,
+    void* stream) {
+  if (B <= 0 || steps <= 0 || H <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto m = [](void* p) { return static_cast<float*>(p); };
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 32:
+      return bwd::launch_bwd<32>(f(r), f(k), f(v), f(w), f(u), f(state_in),
+                                 f(dy), f(dstate_final), m(dr), m(dk), m(dv),
+                                 m(dw), m(du), m(dstate0), m(ws), m(dv_part),
+                                 m(du_part), B, steps, H, st);
+    case 64:
+      return bwd::launch_bwd<64>(f(r), f(k), f(v), f(w), f(u), f(state_in),
+                                 f(dy), f(dstate_final), m(dr), m(dk), m(dv),
+                                 m(dw), m(du), m(dstate0), m(ws), m(dv_part),
+                                 m(du_part), B, steps, H, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// What the compiler gave the backward's main kernel at head dim hd, as
+// repro_rwkv6_scan_attributes reports the forward's.
+extern "C" int repro_rwkv6_scan_bwd_attributes(int hd, int* out) {
+  cudaFuncAttributes attr;
+  int rc = static_cast<int>(cudaErrorInvalidValue), smem = 0;
+  if (hd == 32) {
+    rc = cudaFuncGetAttributes(&attr, bwd::rwkv6_bwd_kernel<32>);
+    smem = bwd::Geo<32>::SMEM;
+  } else if (hd == 64) {
+    rc = cudaFuncGetAttributes(&attr, bwd::rwkv6_bwd_kernel<64>);
+    smem = bwd::Geo<64>::SMEM;
+  }
+  if (rc != 0) return rc;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = smem;
+  return 0;
 }

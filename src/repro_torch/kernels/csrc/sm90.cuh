@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks written out in PTX: mbarriers, TMA tile
-// loads, wgmma descriptors and the wgmma shapes the bf16 flash-attention
-// kernel issues, and the 3xTF32 mma.sync helpers that give the f32
-// flash-attention and WKV kernels float32 products on the tensor cores.
+// loads, cp.async copies, wgmma descriptors and the wgmma shapes the bf16
+// flash-attention kernel runs, and the 3xTF32 mma.sync helpers that give
+// the f32 flash-attention and WKV kernels float32 products on the tensor
+// cores.
 // Included by flash_attention.cu and rwkv6_scan.cu; kernels/build.py
 // hashes every local header a source includes, so an edit here rebuilds
 // its users.
@@ -254,6 +255,24 @@ __device__ __forceinline__ float bf16_lo(uint32_t v) {
 }
 __device__ __forceinline__ float bf16_hi(uint32_t v) {
   return __uint_as_float(v & 0xffff0000u);
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros where
+// !valid (the source is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // barrier over `count` threads on named barrier `id` (1..15; 0 is

@@ -20,8 +20,8 @@ from repro_torch.kernels import rwkv6_scan as _wkv
 from repro_torch.kernels import wash_shuffle as _ws
 from repro_torch.kernels.ref import (bucketed_shuffle_ref_,
                                      flash_attention_ref,
-                                     paged_attention_ref, rwkv6_scan_ref,
-                                     wash_shuffle_ref)
+                                     paged_attention_ref, rwkv6_scan_bwd_ref,
+                                     rwkv6_scan_ref, wash_shuffle_ref)
 
 
 def _route(t: torch.Tensor, what: str) -> str:
@@ -84,11 +84,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
+def _rwkv6_scan_forward(r, k, v, w, u, state):
+    if _route(r, "rwkv6_scan") == "cuda":
+        return _wkv.rwkv6_scan_cuda(r, k, v, w, u, state=state)
+    return rwkv6_scan_ref(r, k, v, w, u, state=state)
+
+
+class _RWKV6Scan(torch.autograd.Function):
+    """The WKV recurrence with its gradient: the forward's route, and a
+    backward on the same device's route (the CUDA backward kernel, or the
+    plain reverse recurrence for CPU tensors).  The forward saves only its
+    inputs; the backward recomputes the states it needs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return _rwkv6_scan_forward(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate_final=None):
+        r, k, v, w, u, state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        fn = (_wkv.rwkv6_scan_bwd_cuda if r.device.type == "cuda"
+              else rwkv6_scan_bwd_ref)
+        return fn(r, k, v, w, u, state, dy.contiguous(),
+                  None if dstate_final is None else dstate_final.contiguous())
+
+
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor,
                state: Optional[torch.Tensor] = None):
     """RWKV-6 WKV recurrence: r/k/v/w (B,T,H,hd), u (H,hd) -> y (B,T,H,hd);
-    with an initial ``state`` (B,H,hd,hd) float32, ``(y, final_state)``."""
-    if _route(r, "rwkv6_scan") == "cuda":
-        return _wkv.rwkv6_scan_cuda(r, k, v, w, u, state=state)
-    return rwkv6_scan_ref(r, k, v, w, u, state=state)
+    with an initial ``state`` (B,H,hd,hd) float32, ``(y, final_state)``.
+
+    Differentiable: where autograd records (grad mode on and an input that
+    requires a grad), the gradient is the backward kernel on the card and
+    the plain reverse recurrence on the CPU, float32 only (a bf16 input
+    that needs a grad raises).  Otherwise the call is the forward alone."""
+    xs = (r, k, v, w, u) + (() if state is None else (state,))
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+        return _rwkv6_scan_forward(r, k, v, w, u, state)
+    if any(x.dtype != torch.float32 for x in xs):
+        raise ValueError("rwkv6_scan: the gradient takes float32 inputs "
+                         f"only, got {sorted({str(x.dtype) for x in xs})}")
+    return _RWKV6Scan.apply(r, k, v, w, u, state)

@@ -7,9 +7,10 @@ the plain bucketed shuffle (the reference's ``core/shuffle.py``
 splits a slot's context (``paged_attention_partials_ref``,
 ``merge_partials_ref``) and one of the CUDA WKV kernel's chunked form of
 the recurrence (``rwkv6_scan_chunked_ref``; nothing on a main path runs
-it).  The CPU paths of
-:mod:`repro_torch.kernels.ops` run these, and ``chip_smoke.py`` holds the
-CUDA kernels against them on the card.
+it), and the WKV recurrence's gradient as its reverse recurrence
+(``rwkv6_scan_bwd_ref``, which the JAX package leaves to autodiff).  The
+CPU paths of :mod:`repro_torch.kernels.ops` run these, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ import torch
 NEG_INF = -1e30
 # keys a tile of the float32 flash kernel (``kBK`` in csrc/flash_attention.cu)
 FLASH_F32_BK = 64
+# steps between the states the WKV backward keeps (``bwd::kC`` in
+# csrc/rwkv6_scan.cu)
+WKV_BWD_CHUNK = 16
 
 
 def wash_shuffle_ref(x: torch.Tensor, perm: torch.Tensor,
@@ -175,6 +179,66 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         S = w[:, t].float()[..., None] * S + kv
     y = torch.stack(ys, dim=1).to(r.dtype)
     return y if state is None else (y, S)
+
+
+def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor,
+                       state: Optional[torch.Tensor], dy: torch.Tensor,
+                       dstate_final: Optional[torch.Tensor] = None):
+    """The gradient of :func:`rwkv6_scan_ref` written out as the reverse
+    recurrence, the plain model of what the CUDA backward kernel computes.
+
+    r/k/v/w/dy: (B,T,H,hd); u: (H,hd); ``state`` the initial state
+    (B,H,hd,hd) or None (zero); ``dstate_final`` the gradient of the final
+    state or None (zero).  Returns ``(dr, dk, dv, dw, du, dstate0)`` in
+    float32, ``dstate0`` None when ``state`` is.  With G_t the adjoint of
+    the state after step t, walked back from ``dstate_final``::
+
+        dr_t[i] = sum_j (S_{t-1}[i,j] + u_i k_t[i] v_t[j]) dy_t[j]
+        dk_t[i] = sum_j G_t[i,j] v_t[j] + r_t[i] u_i (v_t . dy_t)
+        dv_t[j] = sum_i k_t[i] G_t[i,j] + (sum_i r_t[i] u_i k_t[i]) dy_t[j]
+        dw_t[i] = sum_j G_t[i,j] S_{t-1}[i,j]
+        du[h,i] = sum_{b,t} r_t[i] k_t[i] (v_t . dy_t)
+        G_{t-1} = diag(w_t) G_t + r_t^T dy_t,   dstate0 = G_{-1}
+
+    As the kernel does, a forward walk keeps the state entering every
+    :data:`WKV_BWD_CHUNK` steps, and the backward walk recomputes each
+    chunk's states from that boundary: the state is never walked backwards
+    (that would divide by w, which may be 0), and nothing divides or takes
+    a log."""
+    B, T, H, hd = r.shape
+    chunk = WKV_BWD_CHUNK
+    r_, k_, v_, w_, dy_ = (x.float() for x in (r, k, v, w, dy))
+    uf = u.float()[None]                                   # (1, H, hd)
+    S = (r_.new_zeros((B, H, hd, hd)) if state is None
+         else state.float().clone())
+    bounds = []
+    for t in range(T):
+        if t % chunk == 0:
+            bounds.append(S)
+        S = (w_[:, t, ..., None] * S
+             + k_[:, t, ..., None] * v_[:, t, :, None, :])
+    G = (r_.new_zeros((B, H, hd, hd)) if dstate_final is None
+         else dstate_final.float().clone())
+    dr, dk, dv, dw = (torch.zeros_like(r_) for _ in range(4))
+    du = torch.zeros_like(uf[0])
+    for c0 in reversed(range(0, T, chunk)):
+        hist = [bounds[c0 // chunk]]             # S_{t-1} for t in the chunk
+        for t in range(c0, min(c0 + chunk, T) - 1):
+            hist.append(w_[:, t, ..., None] * hist[-1]
+                        + k_[:, t, ..., None] * v_[:, t, :, None, :])
+        for t in reversed(range(c0, min(c0 + chunk, T))):
+            Sp = hist[t - c0]
+            rt, kt, vt, wt, dyt = (x[:, t] for x in (r_, k_, v_, w_, dy_))
+            vdy = (vt * dyt).sum(-1, keepdim=True)         # (B, H, 1)
+            dr[:, t] = (Sp @ dyt[..., None])[..., 0] + uf * kt * vdy
+            dk[:, t] = (G @ vt[..., None])[..., 0] + rt * uf * vdy
+            bonus = (rt * uf * kt).sum(-1, keepdim=True)
+            dv[:, t] = (kt[..., None, :] @ G)[..., 0, :] + bonus * dyt
+            dw[:, t] = (G * Sp).sum(-1)
+            du += (rt * kt * vdy).sum(0)
+            G = wt[..., None] * G + rt[..., None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du, None if state is None else G
 
 
 def rwkv6_scan_chunked_ref(r: torch.Tensor, k: torch.Tensor,

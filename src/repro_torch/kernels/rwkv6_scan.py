@@ -16,22 +16,37 @@ split across a cluster of two blocks that exchange partial outputs;
 algorithm.  A one-step call (decode) runs a small step kernel.  Either
 way one call is one launch.
 
-:func:`rwkv6_scan_cuda` takes CUDA tensors only; the CPU path of
-``kernels.ops.rwkv6_scan`` never reaches this module's build.
+:func:`rwkv6_scan_bwd_cuda` is training's backward, float32 only, from
+the same library (the TPU side has no such kernel: XLA differentiates the
+reference's scan): a forward walk keeps the state entering every
+``kernels.ref.WKV_BWD_CHUNK`` steps in a workspace of the call, then the
+chunks are walked in reverse, each chunk's states recomputed from its
+boundary; ``kernels.ref.rwkv6_scan_bwd_ref`` is its plain model.  It
+counts its calls in :data:`backward_launches` (a call is the main kernel
+and a small reduction kernel).
+
+:func:`rwkv6_scan_cuda` and :func:`rwkv6_scan_bwd_cuda` take CUDA tensors
+only; the CPU path of ``kernels.ops.rwkv6_scan`` never reaches this
+module's build.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels.ref import WKV_BWD_CHUNK
 
 #: kernel launches made through :func:`rwkv6_scan_cuda`
 launches = 0
+
+#: backward calls made through :func:`rwkv6_scan_bwd_cuda`
+backward_launches = 0
 
 #: seconds the last build took (None until built in this process)
 build_seconds: Optional[float] = None
@@ -42,6 +57,10 @@ build_log = ""
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu"
 
 HEAD_DIMS = (32, 64)  # the instantiations in the source
+BACKWARD_HEAD_DIMS = (32, 64)  # the backward's instantiations
+
+#: state rows a block of the backward takes (``bwd::kRows``)
+BWD_ROWS = 32
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,6 +80,10 @@ def build() -> ctypes.CDLL:
     lib.repro_rwkv6_scan_attributes.restype = ci
     lib.repro_rwkv6_scan_attributes.argtypes = [ci, ci, ci,
                                                 ctypes.POINTER(ci)]
+    lib.repro_rwkv6_scan_bwd.restype = ci
+    lib.repro_rwkv6_scan_bwd.argtypes = [vp] * 17 + [ci, ci, ci, ci, vp]
+    lib.repro_rwkv6_scan_bwd_attributes.restype = ci
+    lib.repro_rwkv6_scan_bwd_attributes.argtypes = [ci, ctypes.POINTER(ci)]
     _lib = lib
     return lib
 
@@ -79,9 +102,36 @@ def kernel_attributes(dtype: torch.dtype, hd: int, steps: int) -> dict:
             "local_bytes": out[2], "dynamic_shared_bytes": out[3]}
 
 
-def _check(cond: bool, msg: str) -> None:
+def backward_attributes(hd: int) -> dict:
+    """:func:`kernel_attributes` of the backward's main kernel at head
+    dim ``hd``."""
+    out = (ctypes.c_int * 4)()
+    rc = build().repro_rwkv6_scan_bwd_attributes(hd, out)
+    if rc != 0:
+        raise RuntimeError(f"rwkv6 scan backward attributes: CUDA error {rc}")
+    return {"registers": out[0], "shared_bytes": out[1],
+            "local_bytes": out[2], "dynamic_shared_bytes": out[3]}
+
+
+def _workspace_shapes(B: int, T: int, H: int, hd: int):
+    """The float32 workspaces of one backward call: the state entering
+    every ``WKV_BWD_CHUNK`` steps, the row slices' dv partials (None when
+    a head is one slice: dv is written directly) and each batch row's
+    du."""
+    slices = hd // BWD_ROWS
+    return ((B, H, -(-T // WKV_BWD_CHUNK), hd, hd),
+            (slices, B, T, H, hd) if slices > 1 else None, (B, H, hd))
+
+
+def backward_workspace_bytes(B: int, T: int, H: int, hd: int) -> int:
+    """Bytes of workspace one backward call allocates."""
+    return 4 * sum(math.prod(shape) for shape in _workspace_shapes(B, T, H, hd)
+                   if shape is not None)
+
+
+def _check(cond: bool, msg: str, what: str = "rwkv6_scan_cuda") -> None:
     if not cond:
-        raise ValueError(f"rwkv6_scan_cuda: {msg}")
+        raise ValueError(f"{what}: {msg}")
 
 
 def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -134,3 +184,67 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"rwkv6 scan kernel launch failed: CUDA error {rc}")
     launches += 1
     return y if state is None else (y, final)
+
+
+def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor,
+                        state: Optional[torch.Tensor], dy: torch.Tensor,
+                        dstate_final: Optional[torch.Tensor] = None):
+    """Launch the backward on the current stream; same contract as
+    ``kernels.ref.rwkv6_scan_bwd_ref``.
+
+      r, k, v, w, dy : (B, T, H, hd) float32, contiguous, 16-byte aligned,
+                       hd in :data:`BACKWARD_HEAD_DIMS`
+      u              : (H, hd) float32, contiguous, 16-byte aligned
+      state          : None (zero), or the forward's initial state
+                       (B, H, hd, hd) float32, contiguous, 16-byte aligned
+      dstate_final   : None (zero), or the final state's gradient, as
+                       ``state``
+
+    Returns ``(dr, dk, dv, dw, du, dstate0)``, new float32 tensors;
+    ``dstate0`` is None when ``state`` is."""
+    global backward_launches
+    what = "rwkv6_scan_bwd_cuda"
+    xs = (r, k, v, w, dy)
+    sts = tuple(t for t in (state, dstate_final) if t is not None)
+    _check(all(t.is_cuda and t.device == r.device for t in xs + (u,) + sts),
+           "r, k, v, w, dy, u and the states must be on one CUDA device",
+           what)
+    _check(all(t.dtype == torch.float32 for t in xs + (u,) + sts),
+           "every input must be float32 (the backward has no bf16 form)",
+           what)
+    _check(r.dim() == 4 and all(t.shape == r.shape for t in xs),
+           "r, k, v, w, dy must share one (B, T, H, hd) shape", what)
+    B, T, H, hd = r.shape
+    _check(hd in BACKWARD_HEAD_DIMS,
+           f"head dim {hd} not in {BACKWARD_HEAD_DIMS}", what)
+    _check(min(B, T, H) >= 1, f"empty input {tuple(r.shape)}", what)
+    _check(B * H * hd < 2 ** 31 and T < 2 ** 31, "too large", what)
+    _check(u.shape == (H, hd), "u must be (H, hd)", what)
+    _check(all(t.shape == (B, H, hd, hd) for t in sts),
+           "state and dstate_final must be (B, H, hd, hd)", what)
+    _check(all(t.is_contiguous() for t in xs + (u,) + sts),
+           "every input must be contiguous", what)
+    _check(all(t.data_ptr() % 16 == 0 for t in xs + (u,) + sts),
+           "every input must be 16-byte aligned", what)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty_like(u)
+    dstate0 = None if state is None else torch.empty_like(state)
+    ws, dv_part, du_part = (
+        None if shape is None
+        else torch.empty(shape, dtype=torch.float32, device=r.device)
+        for shape in _workspace_shapes(B, T, H, hd))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = build().repro_rwkv6_scan_bwd(
+        *(ptr(t) for t in (r, k, v, w, u, state, dy, dstate_final, dr, dk,
+                           dv, dw, du, dstate0, ws, dv_part, du_part)),
+        B, T, H, hd, torch.cuda.current_stream(r.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rwkv6 scan backward launch failed: CUDA error "
+                           f"{rc}")
+    backward_launches += 1
+    return dr, dk, dv, dw, du, dstate0
+

@@ -2,10 +2,14 @@
 
 Port of ``repro/launch/train.py`` with the reference loop
 (``--engine vmap``).  On the card every WASH shuffle of the stacked
-population runs the hand-written CUDA kernels (``kernels/wash_shuffle``);
-the device decides, there is no switch.  ``--ckpt-population`` writes the
-stacked population in the format ``repro_torch.launch.serve --ckpt`` (and
-the JAX package's ``train.checkpoint.restore``) reads.
+population runs the hand-written CUDA kernels (``kernels/wash_shuffle``),
+and an rwkv6 model's time mixes run the WKV kernel forward and its
+backward kernel (``kernels/rwkv6_scan``); the device decides, there is no
+switch.  A config those kernels cannot take is refused on the card before
+any weight moves there (``models/transformer.py::cuda_supported``).
+``--ckpt-population`` writes the stacked population in the format
+``repro_torch.launch.serve --ckpt`` (and the JAX package's
+``train.checkpoint.restore``) reads.
 
   python -m repro_torch.launch.train --arch llama3.2-3b --population 2 \\
       --mixing wash --mode bucketed --base-p 0.01 --steps 4 \\
@@ -14,6 +18,10 @@ the JAX package's ``train.checkpoint.restore``) reads.
   python -m repro_torch.launch.train --arch llama3.2-3b --reduced \\
       --device cpu --population 2 --mode bucketed --steps 4 \\
       --batch-size 2 --seq-len 16
+
+  python -m repro_torch.launch.train --arch rwkv6-3b --population 2 \\
+      --mode bucketed --steps 4 --batch-size 2 --seq-len 256 \\
+      --ckpt-population build/pop.npz
 
 Every flag is documented with its default: ``--help``.  The multi-device
 engine and its flags (``--engine shard_map``, ``--mesh*``,
@@ -108,6 +116,11 @@ def main(argv=None):
     reason = M.train_supported(cfg)
     if reason is not None:
         raise NotImplementedError(f"training {cfg.name}: {reason}")
+    if device.type == "cuda":  # before any weight reaches the card
+        reason = M.cuda_supported(cfg, "train")
+        if reason is not None:
+            raise NotImplementedError(f"training {cfg.name} on the card: "
+                                      f"{reason}")
 
     task = make_lm_task(fold_in(args.seed, 1), vocab=min(cfg.vocab_size, 512),
                         device=device)

@@ -9,8 +9,14 @@ The WKV recurrence of the time mix goes through
 ``kernels.ops.rwkv6_scan``: the hand-written CUDA kernel for CUDA tensors,
 the plain step loop for CPU tensors.  Where the reference runs the
 recurrence as a ``lax.scan`` from a carried state ``S0``, the kernel takes
-``S0`` and returns the final state.  The selective SSM (Mamba, for the
-hybrid family) is not ported yet.
+``S0`` and returns the final state.  In training, where the reference
+differentiates that scan, ``ops.rwkv6_scan``'s backward gives the grads
+of r, k, v, w, u, and of ``S0`` where one is given (training starts from
+``S0`` None, a zero state); the CUDA backward kernel on the card, the
+plain reverse recurrence on the CPU.  The rest of the time mix is plain
+autograd, so the grads reach ``w0`` and ``w_lora_*`` through
+``w = exp(-exp(w_dd))`` and the bonus ``u`` directly.  The selective SSM
+(Mamba, for the hybrid family) is not ported yet.
 """
 
 from __future__ import annotations
@@ -114,7 +120,9 @@ def _token_shift(x, prev):
 
 
 def _rwkv_time_mix(p, cfg: ModelConfig, x, S0, x_prev):
-    """Returns ``(out (B,T,D), final WKV state, x[:, -1])``."""
+    """Returns ``(out (B,T,D), final WKV state, x[:, -1])``; ``S0`` None
+    is a zero state whose final state is not wanted (training), and the
+    final state returned is then None."""
     B, T, D = x.shape
     H, hd = rwkv_heads(cfg), cfg.rwkv_head_dim
     xs = _token_shift(x, x_prev)
@@ -132,9 +140,11 @@ def _rwkv_time_mix(p, cfg: ModelConfig, x, S0, x_prev):
     # data-dependent decay (the RWKV6 signature): w in (0,1) per channel/step
     w_dd = p["w0"] + (torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]).float()
     w = torch.exp(-torch.exp(w_dd)).reshape(B, T, H, hd)
-    y, S = ops.rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(),
-                          w.contiguous(), p["u"].float().contiguous(),
-                          state=S0.float().contiguous())
+    out = ops.rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(),
+                         w.contiguous(), p["u"].float().contiguous(),
+                         state=None if S0 is None
+                         else S0.float().contiguous())
+    y, S = (out, None) if S0 is None else out
     y = y.reshape(B, T, D).to(x.dtype)
     y = rmsnorm(p["ln"], y, cfg.norm_eps) * g
     return y @ p["wo"], S, x[:, -1]
@@ -152,7 +162,8 @@ def rwkv6_block(p, cfg: ModelConfig, x, state_l, norms):
     """Full RWKV block: time mix + channel mix, each after its pre-norm.
 
     ``norms``: the block's ``ln1``/``ln2`` rmsnorm params; ``state_l``:
-    this layer's ``{"S", "x_tm", "x_cm"}``.  Returns
+    this layer's ``{"S", "x_tm", "x_cm"}`` (``S`` None: a zero WKV state
+    whose final value is not wanted, as in training).  Returns
     ``(x_out, new_state_l)`` (new tensors; ``state_l`` is not written)."""
     h = rmsnorm(norms["ln1"], x, cfg.norm_eps)
     y, S, x_tm = _rwkv_time_mix(p["tm"], cfg, h, state_l["S"], state_l["x_tm"])

@@ -13,8 +13,8 @@ stacked blocks, the port loops over layers in Python on per-layer views
 Which path takes which config, one gate each:
 :func:`scan_supported` (init, the scan engine), :func:`train_supported`
 (training) and :func:`paged_decode_supported` (continuous batching);
-:func:`cuda_supported` adds the card's kernel limits to the serving
-paths, asked where a run on the card starts.
+:func:`cuda_supported` adds the card's kernel limits to each path, asked
+where a run on the card starts.
 """
 
 from __future__ import annotations
@@ -59,26 +59,30 @@ def scan_supported(cfg: ModelConfig) -> Optional[str]:
 
 
 def train_supported(cfg: ModelConfig) -> Optional[str]:
-    """None if the port can train this config, else the reason.  rwkv6 is
-    refused: its training needs the gradient of the WKV recurrence, and
-    the card has no backward kernel for it yet (the plain step loop must
-    not stand in for one)."""
-    reason = scan_supported(cfg)
-    if reason is not None:
-        return reason
-    if cfg.block_kind == "rwkv6":
-        return ("training rwkv6 needs a WKV backward kernel, which is not "
-                "written yet")
-    return None
+    """None if the port can train this config, else the reason: what it
+    can build (:func:`scan_supported`), attention and rwkv6 blocks alike
+    (rwkv6's WKV recurrence is differentiated by ``ops.rwkv6_scan``'s
+    backward)."""
+    return scan_supported(cfg)
 
 
 def cuda_supported(cfg: ModelConfig, path: str) -> Optional[str]:
     """None if the card's kernels take ``cfg`` on ``path`` (``"scan"``: the
-    scan engine; ``"continuous"``: continuous batching), else the reason,
-    naming the kernel's limit.  Pure: the limits are the kernel modules'
-    own constants, and nothing is built.  The CPU path has no such limit
-    (the plain versions take any head dim), so only a run on the card
-    asks."""
+    scan engine; ``"continuous"``: continuous batching; ``"train"``:
+    training), else the reason, naming the kernel's limit.  Pure: the
+    limits are the kernel modules' own constants, and nothing is built.
+    The CPU path has no such limit (the plain versions take any head dim),
+    so only a run on the card asks."""
+    if path == "train":
+        # attention trains through plain sdpa, as the reference does; rwkv6
+        # through the WKV kernel forward and its backward kernel
+        hd = cfg.rwkv_head_dim
+        if cfg.block_kind == "rwkv6" and (
+                hd not in _wkv.HEAD_DIMS or hd not in _wkv.BACKWARD_HEAD_DIMS):
+            return (f"rwkv_head_dim={hd}: the WKV kernel takes head dims "
+                    f"{_wkv.HEAD_DIMS}, its backward kernel "
+                    f"{_wkv.BACKWARD_HEAD_DIMS}")
+        return None
     if path == "scan":
         if cfg.block_kind == "rwkv6":
             if cfg.rwkv_head_dim not in _wkv.HEAD_DIMS:
@@ -97,8 +101,8 @@ def cuda_supported(cfg: ModelConfig, path: str) -> Optional[str]:
             return (f"head_dim={cfg.resolved_head_dim}: the paged-attention "
                     f"kernel takes at most {_pa.MAX_HEAD_DIM}")
         return None
-    raise ValueError(f"unknown path {path!r}; expected 'scan' or "
-                     "'continuous'")
+    raise ValueError(f"unknown path {path!r}; expected 'scan', "
+                     "'continuous' or 'train'")
 
 
 def _require(reason: Optional[str], what: str, cfg: ModelConfig) -> None:
@@ -201,8 +205,14 @@ def _logits(params, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 
 
-def _block_train(p, cfg: ModelConfig, x):
-    """One attention block over the full sequence."""
+def _block_train(p, cfg: ModelConfig, x, state_l=None):
+    """One block over the full sequence; an rwkv6 block starts from
+    ``state_l`` (a zero start) and its new state is dropped, as the
+    reference's ``_run_blocks_train`` drops it."""
+    if cfg.block_kind == "rwkv6":
+        x, _ = SSM.rwkv6_block(p["rwkv"], cfg, x, state_l,
+                               {"ln1": p["ln1"], "ln2": p["ln2"]})
+        return x
     x = x + L.gqa_train(p["attn"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps))
     return x + L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
 
@@ -218,23 +228,33 @@ def _layer_views(blocks: Tree, num_layers: int) -> List[Tree]:
 
 
 def _run_blocks_train(params, cfg: ModelConfig, x):
-    """All blocks in order, a Python loop over per-layer views; with
-    ``cfg.remat_blocks`` each block's activations are recomputed in the
-    backward pass (``torch.utils.checkpoint``) instead of stored.  Raises
-    for what :func:`train_supported` refuses (rwkv6)."""
+    """All blocks in order, a Python loop over per-layer views; rwkv6
+    blocks each from a zero start, as from the reference's
+    ``rwkv_state_init``: zero token-shift inputs, and the WKV state as
+    None (zero, with no final state asked for, so the WKV kernels neither
+    read nor write one).  With ``cfg.remat_blocks`` each block's
+    activations are recomputed in the backward pass
+    (``torch.utils.checkpoint``) instead of stored, so an rwkv6 layer runs
+    its WKV forward twice.  Raises for what :func:`train_supported`
+    refuses."""
     _require(train_supported(cfg), "training", cfg)
+    state_l = None
+    if cfg.block_kind == "rwkv6":
+        zero = x.new_zeros((x.shape[0], cfg.d_model))
+        state_l = {"S": None, "x_tm": zero, "x_cm": zero}
     for blk in _layer_views(params["blocks"], cfg.num_layers):
         if cfg.remat_blocks:
-            x = checkpoint(_block_train, blk, cfg, x, use_reentrant=False)
+            x = checkpoint(_block_train, blk, cfg, x, state_l,
+                           use_reentrant=False)
         else:
-            x = _block_train(blk, cfg, x)
+            x = _block_train(blk, cfg, x, state_l)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def forward_logits(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor,
                                                                torch.Tensor]:
     """Full-sequence logits (B, S, V) and the auxiliary loss (0 for the
-    dense attention models the port trains)."""
+    dense attention and rwkv6 models the port trains)."""
     x = _embed_tokens(params, cfg, batch["tokens"].long())
     x, aux = _run_blocks_train(params, cfg, x)
     return _logits(params, cfg, x), aux

@@ -7,7 +7,8 @@ modes, and for a sliding-window config whose prompt or decode overruns
 its ring.  The port's own contracts: ``generate`` equals the per-token
 ``generate_reference`` loop bitwise (greedy and sampled), sampled streams
 depend on neither batch-mates nor ``max_new_tokens``, one program is built
-per shape and reused, and training rwkv6 is refused.
+per shape and reused, and rwkv6 trains (the plain WKV backward on the CPU;
+on the card the train gate asks the backward kernel's head dims).
 """
 
 import dataclasses
@@ -25,6 +26,7 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import population as pop
 from repro_torch.core.mixing import MixingConfig
+from repro_torch.kernels import rwkv6_scan as wkv
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train as train_cli
 from repro_torch.models import transformer as TM
@@ -169,24 +171,37 @@ def test_requests_are_validated_like_the_reference():
         TM.init_cache(get_arch("hymba-1.5b").reduced(), 1, 8, device="cpu")
 
 
-def test_training_rwkv6_is_refused():
-    """No training path runs rwkv6 on the plain scan: the loss, the loop
-    and the train CLI all raise, naming the missing backward kernel."""
+def test_training_rwkv6_runs_and_the_card_gate_names_the_backward(capsys):
+    """rwkv6 trains on the CPU (the plain WKV backward): the loss, the loop
+    and the train CLI run, every grad is finite and the decay's and the
+    bonus's params get one; on the card, training asks the WKV backward
+    kernel's head dims first."""
     _, tcfg = _configs("rwkv6-3b")
     params = TM.init_params(tcfg, seed=0, device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="WKV backward kernel"):
-        TM.loss_fn(params, tcfg, batch)
-    with pytest.raises(NotImplementedError, match="WKV backward kernel"):
-        loop.train_population(
-            0, lambda s: TM.init_params(tcfg, seed=s, device="cpu"),
-            lambda p, b: TM.loss_fn(p, tcfg, b)[0], lambda m, s, k: batch,
-            TrainConfig(population=2, total_steps=1),
-            MixingConfig(kind="wash", mode="bucketed"), tcfg.num_layers,
-            device="cpu")
-    with pytest.raises(NotImplementedError, match="WKV backward kernel"):
-        train_cli.main(["--arch", "rwkv6-3b", "--reduced", "--steps", "1",
-                        "--device", "cpu"])
+    batch = {"tokens": torch.arange(8, dtype=torch.int64).reshape(1, 8)}
+    leaves = [x.requires_grad_() for x in pop.tree_leaves(params)]
+    loss, _ = TM.loss_fn(params, tcfg, batch)
+    grads = dict(zip((p for p, _ in pop.tree_paths(params)),
+                     torch.autograd.grad(loss, leaves)))
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all()
+                                        for g in grads.values())
+    for leaf in ("w0", "w_lora_a", "w_lora_b", "u"):
+        assert grads[("blocks", "rwkv", "tm", leaf)].abs().max() > 0, leaf
+    res = loop.train_population(
+        0, lambda s: TM.init_params(tcfg, seed=s, device="cpu"),
+        lambda p, b: TM.loss_fn(p, tcfg, b)[0], lambda m, s, k: batch,
+        TrainConfig(population=2, total_steps=1),
+        MixingConfig(kind="wash", mode="bucketed"), tcfg.num_layers,
+        device="cpu")
+    assert np.isfinite(res.history["loss"]).all()
+    train_cli.main(["--arch", "rwkv6-3b", "--reduced", "--steps", "1",
+                    "--batch-size", "1", "--seq-len", "8", "--device",
+                    "cpu", "--population", "2"])
+    assert "arch=rwkv6-3b-reduced" in capsys.readouterr().out
+    reason = TM.cuda_supported(dataclasses.replace(tcfg, rwkv_head_dim=16),
+                               "train")
+    assert "backward" in reason and str(wkv.BACKWARD_HEAD_DIMS) in reason
+    assert TM.cuda_supported(tcfg, "train") is None
 
 
 @pytest.mark.parametrize("arch", ARCHS)

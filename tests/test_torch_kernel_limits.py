@@ -1,12 +1,13 @@
 """The card's kernel limits, asked where a run on the card starts.
 
 ``models.transformer.cuda_supported`` names the reason a config's shapes
-do not fit the CUDA kernels (the WKV kernel's head dims, flash attention's
-head dims, the paged kernel's group and head dim), from the kernel
-modules' own constants.  ``ContinuousServer``, ``engine.generate`` and the
-serve CLI ask it for a run on the card before any weight reaches the
-card, and refuse with ``NotImplementedError``; the CPU path keeps serving
-any head dim through the plain versions.
+do not fit the CUDA kernels (the WKV kernel's and its backward's head
+dims, flash attention's head dims, the paged kernel's group and head
+dim), from the kernel modules' own constants.  ``ContinuousServer``,
+``engine.generate``, the serve CLI and the train CLI ask it for a run on
+the card before any weight reaches the card, and refuse with
+``NotImplementedError``; the CPU path keeps serving any head dim through
+the plain versions.
 
 Imports neither JAX nor the JAX package, so the ``gpu`` tests run on the
 machine with the card:
@@ -46,10 +47,23 @@ HD256 = get_arch("llama3.2-3b").reduced(head_dim=256)
     (ATTN96, "scan", str(fa.HEAD_DIMS)),
     (GROUP9, "continuous", f"at most {pa.MAX_GROUP}"),
     (HD256, "continuous", f"at most {pa.MAX_HEAD_DIM}"),
-], ids=["rwkv6-hd16", "attn-hd96", "paged-group9", "paged-hd256"])
+    (RWKV16, "train", str(wkv.BACKWARD_HEAD_DIMS)),
+], ids=["rwkv6-hd16", "attn-hd96", "paged-group9", "paged-hd256",
+        "rwkv6-hd16-train"])
 def test_refuses_what_the_kernels_cannot_take(cfg, path, limit):
     reason = M.cuda_supported(cfg, path)
     assert reason is not None and limit in reason
+
+
+@pytest.mark.parametrize("kernel,dims", [("HEAD_DIMS", (64,)),
+                                         ("BACKWARD_HEAD_DIMS", (64,))],
+                         ids=["forward", "backward"])
+def test_train_gate_asks_both_wkv_kernels(kernel, dims, monkeypatch):
+    """Training runs the WKV kernel forward and its backward kernel: a head
+    dim that either refuses is refused before the first step."""
+    monkeypatch.setattr(wkv, kernel, dims)
+    reason = M.cuda_supported(get_arch("rwkv6-3b").reduced(), "train")
+    assert reason is not None and str(dims) in reason
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-3b"])
@@ -58,6 +72,7 @@ def test_takes_the_shipped_configs(arch, reduced):
     cfg = get_arch(arch)
     cfg = cfg.reduced() if reduced else cfg
     assert M.cuda_supported(cfg, "scan") is None
+    assert M.cuda_supported(cfg, "train") is None
     if cfg.block_kind == "attn":
         assert M.cuda_supported(cfg, "continuous") is None
 
@@ -112,6 +127,17 @@ def test_serve_cli_on_the_card_refuses_before_the_weights(monkeypatch,
     argv = ["--arch", "any", "--population", "2"]
     with pytest.raises(NotImplementedError, match="kernel"):
         serve.main(argv + (["--continuous"] if continuous else []))
+
+
+def test_train_cli_on_the_card_refuses_before_the_weights(monkeypatch):
+    from repro_torch.launch import train
+
+    _on_the_card(monkeypatch, train)
+    monkeypatch.setattr(train, "get_arch", lambda name: RWKV16)
+    monkeypatch.setattr(M, "init_params",
+                        lambda *a, **k: pytest.fail("weights were made"))
+    with pytest.raises(NotImplementedError, match="backward kernel"):
+        train.main(["--arch", "any", "--population", "2", "--steps", "1"])
 
 
 def test_the_cpu_path_serves_any_head_dim():

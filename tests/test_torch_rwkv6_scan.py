@@ -19,6 +19,7 @@ atol) with bf16 inputs and outputs.
 """
 
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -55,7 +56,7 @@ def _extreme_decays(seed, B, T, H, hd):
     return w
 
 
-def _jax_scan_from(r, k, v, w, u, s0):
+def _jax_scan_from(r, k, v, w, u, s0, as_numpy=True):
     """The model's recurrence (``repro/models/ssm.py`` ``_rwkv_time_mix``'s
     step) as a ``lax.scan`` from ``s0``: (y, final state)."""
     u = jnp.asarray(u)
@@ -68,7 +69,8 @@ def _jax_scan_from(r, k, v, w, u, s0):
 
     xs = tuple(jnp.moveaxis(jnp.asarray(a), 1, 0) for a in (r, k, v, w))
     S, ys = jax.lax.scan(step, jnp.asarray(s0), xs)
-    return np.asarray(jnp.moveaxis(ys, 0, 1)), np.asarray(S)
+    y = jnp.moveaxis(ys, 0, 1)
+    return (np.asarray(y), np.asarray(S)) if as_numpy else (y, S)
 
 
 @pytest.mark.parametrize("B,T,H,hd,chunk", [(1, 32, 2, 8, 8),
@@ -208,3 +210,152 @@ def test_chunked_model_bf16_inputs():
                                rtol=3e-2, atol=3e-1)
     np.testing.assert_allclose(s.numpy(), want_s.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the backward: the plain reverse recurrence, and ops.rwkv6_scan's autograd
+# ---------------------------------------------------------------------------
+
+
+def _jax_vjp_from(r, k, v, w, u, s0, dy, ds):
+    """jax.vjp of the model's scan (``_jax_scan_from``) at the cotangents
+    (dy, ds): the grads of r, k, v, w, u and s0."""
+    _, vjp = jax.vjp(lambda *xs: _jax_scan_from(*xs, as_numpy=False),
+                     *(jnp.asarray(a) for a in (r, k, v, w, u, s0)))
+    return [np.asarray(g) for g in vjp((jnp.asarray(dy), jnp.asarray(ds)))]
+
+
+def _cotangents(seed, B, T, H, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, T, H, hd)).astype(np.float32),
+            rng.standard_normal((B, H, hd, hd)).astype(np.float32))
+
+
+BWD_NAMES = ("dr", "dk", "dv", "dw", "du", "dstate0")
+
+
+@pytest.mark.parametrize("B,T,H,hd", [(2, 1, 2, 32), (1, 15, 2, 8),
+                                      (2, 16, 2, 32), (2, 17, 3, 16),
+                                      (1, 37, 2, 32)])
+@pytest.mark.parametrize("extreme", [False, True], ids=["decays", "extreme"])
+def test_bwd_ref_matches_jax_grad_of_the_model_scan(B, T, H, hd, extreme):
+    """Every grad, from a carried state with a final-state grad, T ragged
+    against the 16-step chunk or not; extreme decays (exact 0s) included,
+    every value finite."""
+    r, k, v, w, u, s0 = _inputs(3 * T + hd, B, T, H, hd)
+    if extreme:
+        w = _extreme_decays(T + 1, B, T, H, hd)
+    dy, ds = _cotangents(T, B, T, H, hd)
+    want = _jax_vjp_from(r, k, v, w, u, s0, dy, ds)
+    got = ref.rwkv6_scan_bwd_ref(*_torch(r, k, v, w, u, s0, dy, ds))
+    for name, g, w_ in zip(BWD_NAMES, got, want):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), w_, rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "state"])
+@pytest.mark.parametrize("T", [1, 16, 23, 32, 47])
+def test_bwd_ref_matches_autograd_of_the_step_loop(T, carried):
+    """From zero with no final-state grad (the training case), and from a
+    carried state with one; T within one kept chunk, on its boundaries
+    and ragged across several."""
+    r, k, v, w, u, s0 = _inputs(T + 40, 2, T, 3, 8)
+    dy, ds = _cotangents(T + 41, 2, T, 3, 8)
+    xs = [t.requires_grad_() for t in _torch(r, k, v, w, u, s0)]
+    out = ref.rwkv6_scan_ref(*xs[:5], state=xs[5] if carried else None)
+    if carried:
+        loss = (out[0] * torch.from_numpy(dy)).sum() + \
+            (out[1] * torch.from_numpy(ds)).sum()
+    else:
+        loss = (out * torch.from_numpy(dy)).sum()
+    # (from zero, w of the last step reaches nothing: its grad is 0)
+    want = torch.autograd.grad(loss, xs if carried else xs[:5],
+                               materialize_grads=True)
+    got = ref.rwkv6_scan_bwd_ref(
+        *_torch(r, k, v, w, u), torch.from_numpy(s0) if carried else None,
+        torch.from_numpy(dy), torch.from_numpy(ds) if carried else None)
+    for name, g, w_ in zip(BWD_NAMES, got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4, msg=name)
+
+
+def test_bwd_ref_padded_steps_add_nothing():
+    """Steps with r = k = v = dy = 0 and w = 1 appended to a sequence
+    leave every grad of the real steps as it was, and get zero grads
+    but dw (G S, which the real steps' states make)."""
+    r, k, v, w, u, s0 = _inputs(12, 2, 13, 2, 8)
+    dy, ds = _cotangents(13, 2, 13, 2, 8)
+
+    def pad(x, value):
+        return np.concatenate([x, np.full((2, 3, 2, 8), value, np.float32)], 1)
+
+    got = ref.rwkv6_scan_bwd_ref(*_torch(pad(r, 0), pad(k, 0), pad(v, 0),
+                                         pad(w, 1), u, s0, pad(dy, 0), ds))
+    want = ref.rwkv6_scan_bwd_ref(*_torch(r, k, v, w, u, s0, dy, ds))
+    for name, g, w_ in zip(BWD_NAMES, got, want):
+        if g.dim() == 4 and name != "dstate0":
+            if name != "dw":
+                assert torch.equal(g[:, 13:], torch.zeros_like(g[:, 13:]))
+            g = g[:, :13]
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "state"])
+def test_ops_autograd_on_the_cpu_is_the_plain_backward(carried, monkeypatch):
+    """``ops.rwkv6_scan`` differentiates through ``rwkv6_scan_bwd_ref`` on
+    CPU tensors and never builds the kernel; the final state's grad may be
+    absent (training drops the final state)."""
+    monkeypatch.setattr(wkv, "build", lambda: pytest.fail("built"))
+    n0, b0 = wkv.launches, wkv.backward_launches
+    r, k, v, w, u, s0 = _inputs(4, 2, 21, 2, 8)
+    dy, _ = _cotangents(5, 2, 21, 2, 8)
+    xs = [t.requires_grad_() for t in _torch(r, k, v, w, u, s0)]
+    out = ops.rwkv6_scan(*xs[:5], state=xs[5] if carried else None)
+    y = out[0] if carried else out
+    assert y.grad_fn is not None
+    got = torch.autograd.grad((y * torch.from_numpy(dy)).sum(),
+                              xs if carried else xs[:5])
+    want = ref.rwkv6_scan_bwd_ref(*_torch(r, k, v, w, u),
+                                  torch.from_numpy(s0) if carried else None,
+                                  torch.from_numpy(dy))
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    assert (wkv.launches, wkv.backward_launches) == (n0, b0)
+    assert wkv._lib is None
+
+
+def test_ops_without_grad_records_nothing():
+    """Under ``no_grad``, or with no input that needs a grad, the call is
+    the forward alone (the serving paths), bf16 inputs included."""
+    r, k, v, w, u, s0 = _inputs(6, 1, 8, 2, 8)
+    xs = [t.requires_grad_() for t in _torch(r, k, v, w, u)]
+    with torch.no_grad():
+        y = ops.rwkv6_scan(*xs)
+    assert y.grad_fn is None and not y.requires_grad
+    y = ops.rwkv6_scan(*(t.detach().to(torch.bfloat16) for t in xs[:4]),
+                       xs[4].detach())
+    assert y.dtype == torch.bfloat16 and y.grad_fn is None
+
+
+def test_ops_refuses_a_bf16_input_that_needs_a_grad():
+    r, k, v, w, u, _ = _inputs(7, 1, 8, 2, 8)
+    xs = [t.to(torch.bfloat16).requires_grad_() for t in _torch(r, k, v, w)]
+    with pytest.raises(ValueError, match="float32"):
+        ops.rwkv6_scan(*xs, torch.from_numpy(u))
+
+
+def test_backward_constants_are_the_sources():
+    """``ref.WKV_BWD_CHUNK`` and ``BWD_ROWS`` size the wrapper's workspaces
+    and set the plain backward's kept states: they must be the source's
+    ``bwd::kC`` and ``bwd::kRows``; at rwkv6-3b's training shape (B=2,
+    T=256, 40 heads of 64) the kept states take 20 MiB."""
+    src = wkv.SOURCE.read_text()
+    body = src[src.index("namespace bwd {"):src.index("}  // namespace bwd")]
+    assert int(re.search(r"constexpr int kC = (\d+);", body).group(1)) \
+        == ref.WKV_BWD_CHUNK
+    assert int(re.search(r"constexpr int kRows = (\d+);", body).group(1)) \
+        == wkv.BWD_ROWS
+    states = 2 * 40 * 16 * 64 * 64 * 4
+    assert states == 20 * 2 ** 20
+    assert wkv.backward_workspace_bytes(2, 256, 40, 64) == (
+        states + 4 * (2 * 2 * 256 * 40 * 64 + 2 * 40 * 64))

@@ -1,4 +1,6 @@
-"""The CUDA RWKV-6 WKV kernel against its plain version, on the card.
+"""The CUDA RWKV-6 WKV kernels against their plain versions, on the card:
+the forward (``rwkv6_scan_cuda``) and training's backward
+(``rwkv6_scan_bwd_cuda``, held to ``rwkv6_scan_bwd_ref``, float32).
 
 Imports neither JAX nor the JAX package, so it runs on the machine with
 the card (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
@@ -14,8 +16,9 @@ exact 0s and values of 1 - 2**-24.  Tolerances, the
 ``tests/test_kernels.py`` bounds: 1e-4 in f32 (both sides keep the state
 in f32 and sum in another order; the kernel's state products are 3xTF32,
 which keeps f32 accuracy) and 3e-2 / 3e-1 (rtol / atol) with bf16 inputs
-and outputs.  The kernel walks 16-step chunks, so T = 15, 16, 17 and the
-splits at 16 and off it cover a ragged chunk, a whole one and one more.
+and outputs; the backward's grads 1e-4 (f32 sums in another order).  The
+kernels walk 16-step chunks, so T = 15, 16, 17 and the splits at 16 and
+off it cover a ragged chunk, a whole one and one more.
 """
 
 import numpy as np
@@ -24,7 +27,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import rwkv6_scan as wkv
-from repro_torch.kernels.ref import rwkv6_scan_ref
+from repro_torch.kernels.ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
 
 
 @pytest.fixture
@@ -167,3 +170,110 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
         ops.rwkv6_scan(off.view(r.shape).copy_(r), k, v, w, u)
     with pytest.raises(ValueError, match="CUDA device"):
         ops.rwkv6_scan(r, k, v, w, u.cpu())
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel (training), float32
+# ---------------------------------------------------------------------------
+
+
+def _grads_in(device, B, T, H, hd, seed, extreme=False):
+    """Inputs and upstream grads (dy, the final state's grad)."""
+    xs = _inputs(device, B, T, H, hd, torch.float32, seed=seed,
+                 extreme=extreme)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.standard_normal((B, T, H, hd)).astype(
+        np.float32)).to(device)
+    ds = torch.from_numpy(rng.standard_normal((B, H, hd, hd)).astype(
+        np.float32)).to(device)
+    return xs, dy, ds
+
+
+def _hold_grads(got, want):
+    for name, g, w_ in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got,
+                           want):
+        if w_ is None:
+            assert g is None, name
+            continue
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "state"])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 300])
+def test_backward_matches_plain_version(cuda_device, T, hd, carried):
+    """From zero with no final-state grad (training), and from a carried
+    state with one; T off, on and past the 16-step chunk."""
+    (r, k, v, w, u, s0), dy, ds = _grads_in(cuda_device, 2, T, 3, hd, T + hd)
+    state, dfinal = (s0, ds) if carried else (None, None)
+    n0 = wkv.backward_launches
+    got = wkv.rwkv6_scan_bwd_cuda(r, k, v, w, u, state, dy, dfinal)
+    torch.cuda.synchronize()
+    assert wkv.backward_launches == n0 + 1
+    _hold_grads(got, rwkv6_scan_bwd_ref(r, k, v, w, u, state, dy, dfinal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("T", [17, 300])
+def test_backward_extreme_decays(cuda_device, hd, T):
+    """Decays that underflow to 0, exact 0s and 1 - 2**-24: no division
+    and no log, so every grad is finite and equals the plain one."""
+    (r, k, v, w, u, s0), dy, ds = _grads_in(cuda_device, 2, T, 3, hd, T,
+                                            extreme=True)
+    assert float(w.min()) == 0.0
+    _hold_grads(wkv.rwkv6_scan_bwd_cuda(r, k, v, w, u, s0, dy, ds),
+                rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dy, ds))
+
+
+@pytest.mark.gpu
+def test_backward_is_the_same_from_run_to_run(cuda_device):
+    """No float atomics: two calls give the same bits."""
+    (r, k, v, w, u, s0), dy, ds = _grads_in(cuda_device, 2, 256, 8, 64, 3)
+    a = wkv.rwkv6_scan_bwd_cuda(r, k, v, w, u, s0, dy, ds)
+    b = wkv.rwkv6_scan_bwd_cuda(r, k, v, w, u, s0, dy, ds)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "state"])
+def test_autograd_on_the_card_runs_the_backward_kernel(cuda_device, carried):
+    """``ops.rwkv6_scan`` on CUDA tensors: one forward launch, one backward
+    call, and the grads of the plain reverse recurrence."""
+    (r, k, v, w, u, s0), dy, _ = _grads_in(cuda_device, 2, 40, 3, 64, 9)
+    xs = [t.clone().requires_grad_() for t in (r, k, v, w, u, s0)]
+    n0, b0 = wkv.launches, wkv.backward_launches
+    out = ops.rwkv6_scan(*xs[:5], state=xs[5] if carried else None)
+    y = out[0] if carried else out
+    got = torch.autograd.grad((y * dy).sum(), xs if carried else xs[:5])
+    torch.cuda.synchronize()
+    assert (wkv.launches - n0, wkv.backward_launches - b0) == (1, 1)
+    want = rwkv6_scan_bwd_ref(r, k, v, w, u, s0 if carried else None, dy)
+    _hold_grads(got, want[:5] + ((want[5],) if carried else ()))
+
+
+@pytest.mark.gpu
+def test_backward_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
+    (r, k, v, w, u, s0), dy, ds = _grads_in(cuda_device, 1, 4, 2, 64, 0)
+    bwd = wkv.rwkv6_scan_bwd_cuda
+    with pytest.raises(ValueError, match="head dim"):
+        cut = [x[..., :16].contiguous() for x in (r, k, v, w)]
+        bwd(*cut, u[:, :16].contiguous(), None, dy[..., :16].contiguous())
+    with pytest.raises(ValueError, match="float32"):
+        bwd(r.bfloat16(), k.bfloat16(), v.bfloat16(), w.bfloat16(), u, None,
+            dy.bfloat16())
+    with pytest.raises(ValueError, match="float32"):
+        ops.rwkv6_scan(*(x.bfloat16().requires_grad_() for x in (r, k, v, w)),
+                       u)
+    with pytest.raises(ValueError, match="must be"):
+        bwd(r, k, v, w, u, s0[:, :1].contiguous(), dy)
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(r, k, v, w, u, None, dy.transpose(1, 2).contiguous()
+            .transpose(1, 2))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        off = torch.empty(dy.numel() + 1, device=cuda_device)[1:]
+        bwd(r, k, v, w, u, None, off.view(dy.shape).copy_(dy))
+    with pytest.raises(ValueError, match="CUDA device"):
+        bwd(r, k, v, w, u, None, dy, ds.cpu())

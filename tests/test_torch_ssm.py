@@ -6,7 +6,9 @@ The block runs from a non-zero carried state (WKV state and both token
 shifts), with the decay base ``w0`` and the bonus ``u`` made non-zero (the
 reference's init leaves both at 0, which would hide them).  Outputs and
 every leaf of the new state agree within 1e-4 in float32 (matmuls and the
-recurrence sum in another order in each framework).
+recurrence sum in another order in each framework), and so do the block's
+grads (its vjp, the WKV recurrence's part by ``ops.rwkv6_scan``'s
+backward).
 """
 
 import jax
@@ -69,6 +71,43 @@ def test_block_from_a_carried_state_matches_jax(B, T):
         np.testing.assert_allclose(tstate[key].numpy(),
                                    np.asarray(jstate[key]), rtol=1e-4,
                                    atol=1e-4, err_msg=key)
+
+
+@pytest.mark.parametrize("T", [12, 37], ids=["one-chunk", "ragged"])
+def test_block_grads_match_jax_vjp(T):
+    """The block's vjp from a carried state, with cotangents on its output
+    and on every leaf of its new state (the final WKV state's grad among
+    them): the grads of every param (the decay's ``w0`` / ``w_lora_*``
+    through exp(-exp(w_dd)), the bonus ``u``), of the input and of the
+    carried state, within 1e-4 of JAX's (float32; the WKV recurrence's
+    grads through ``ops.rwkv6_scan``'s backward, where JAX differentiates
+    its scan)."""
+    jcfg, tcfg = JaxConfig(**CFG_KW), ModelConfig(**CFG_KW)
+    p, norms, state, x = _block_inputs(tcfg, T, 2, T)
+    rng = np.random.default_rng(T + 1)
+    dx = rng.standard_normal(x.shape).astype(np.float32)
+    dstate = {k: rng.standard_normal(v.shape).astype(np.float32)
+              for k, v in state.items()}
+    jtree = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
+    _, vjp = jax.vjp(lambda *a: JSSM.rwkv6_block(a[0], jcfg, a[1], a[2],
+                                                  a[3]),
+                     jtree(p), jnp.asarray(x), jtree(state), jtree(norms))
+    want = vjp((jnp.asarray(dx), jtree(dstate)))
+    tt = lambda t: params_from_numpy(t, device="cpu")  # noqa: E731
+    args = [tt(p), torch.from_numpy(x), tt(state), tt(norms)]
+    leaves = [t.requires_grad_() for t in pop.tree_leaves(args)]
+    tx, tstate = TSSM.rwkv6_block(args[0], tcfg, args[1], args[2], args[3])
+    cot = [torch.from_numpy(dx)] + [torch.from_numpy(dstate[k])
+                                    for k in tstate]
+    got = torch.autograd.grad([tx] + [tstate[k] for k in tstate], leaves,
+                              grad_outputs=cot)
+    paths = [p_ for p_, _ in pop.tree_paths(args)]
+    for path, g, w in zip(paths, got, jax.tree_util.tree_leaves(want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4, err_msg=str(path))
+    tm = dict(zip(paths, got))
+    for leaf in ("w0", "w_lora_a", "w_lora_b", "u"):
+        assert tm[(0, "tm", leaf)].abs().max() > 0, leaf
 
 
 def test_block_leaves_its_input_state_unwritten():

@@ -1,20 +1,27 @@
 """The port's training slice against the JAX package: loss and gradients,
-the data, five steps of ``train_population``, and the train CLI.
+the data, five steps of ``train_population``, and the train CLI, for
+llama3.2-3b and rwkv6-3b (whose WKV recurrence the port differentiates
+with ``ops.rwkv6_scan``'s backward, where JAX differentiates a
+``lax.scan``).
 
 Tolerances, each with its reason:
-* ``loss_fn`` and its gradients on the reduced float32 llama3.2-3b, JAX
-  weights carried across: loss within 1e-5, gradients within 1e-4
-  (float32 matmuls and softmax sums in two frameworks).
+* ``loss_fn`` and its gradients on the reduced float32 llama3.2-3b and
+  rwkv6-3b, JAX weights carried across: loss within 1e-5, gradients
+  within 1e-4 (float32 matmuls, softmax sums and the WKV state in two
+  frameworks).
 * ``train_population``, 5 steps of N=3 members on JAX's batches (fed
   through ``data_fn``) and JAX's WASH plans (through a monkeypatched
-  ``make_plan``), for every mixing kind: params within 1e-4 and recorded
+  ``make_plan``), for every mixing kind on a llama-shaped config and for
+  WASH (dense and bucketed) on the reduced rwkv6-3b: params within 1e-4
+  and recorded
   losses within 1e-5 (float32 forward/backward/optimizer arithmetic in
   another order, compounded over 5 steps); the comm totals exactly equal
   (bucketed sizes in float64 from shapes); for dense WASH, exactly the
   float64 count of JAX's masks, and within 2**-22 of the reference's sum
   of float32-rounded per-step counts.
 * The CLI's ``--ckpt-population`` file: read back by the port's serve CLI,
-  and by JAX's ``checkpoint.restore`` bitwise (float32).
+  and by JAX's ``checkpoint.restore`` bitwise (float32); for rwkv6, served
+  by the scan engine.
 """
 
 import jax
@@ -40,6 +47,7 @@ from repro_torch.core import layer_index as tli
 from repro_torch.core import mixing as mix
 from repro_torch.core import population as pop
 from repro_torch.core import shuffle as shf
+from repro_torch.core.prng import fold_in
 from repro_torch.data import make_lm_task, sample_tokens
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
@@ -63,12 +71,16 @@ def _np(tree):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("variant", [{}, {"attn_impl": "chunked", "attn_chunk": 4},
-                                     {"remat_blocks": True}],
-                         ids=["naive", "chunked", "remat"])
-def test_loss_and_grads_match_jax(variant):
-    jcfg = jget_arch("llama3.2-3b").reduced(**variant)
-    tcfg = get_arch("llama3.2-3b").reduced(**variant)
+@pytest.mark.parametrize("arch,variant", [
+    ("llama3.2-3b", {}),
+    ("llama3.2-3b", {"attn_impl": "chunked", "attn_chunk": 4}),
+    ("llama3.2-3b", {"remat_blocks": True}),
+    ("rwkv6-3b", {}),
+    ("rwkv6-3b", {"remat_blocks": True}),
+], ids=["naive", "chunked", "remat", "rwkv6", "rwkv6-remat"])
+def test_loss_and_grads_match_jax(arch, variant):
+    jcfg = jget_arch(arch).reduced(**variant)
+    tcfg = get_arch(arch).reduced(**variant)
     jparams = JM.init_params(jax.random.key(0), jcfg)
     tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size,
                                                (2, 16)).astype(np.int32)
@@ -84,6 +96,29 @@ def test_loss_and_grads_match_jax(variant):
     for g, w in zip(grads, jax.tree_util.tree_leaves(jgrads)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_rwkv6_training_runs_the_wkv_from_no_state(remat, monkeypatch):
+    """Each layer's time mix starts from a zero state passed as None, so
+    the WKV forward returns no final state and its backward writes no
+    dstate0: the variant ``chip_smoke.py`` holds and times."""
+    from repro_torch.kernels import ops
+
+    states, scan = [], ops.rwkv6_scan
+
+    def spy(*xs, state=None):
+        states.append(state)
+        return scan(*xs, state=state)
+
+    monkeypatch.setattr(ops, "rwkv6_scan", spy)
+    cfg = get_arch("rwkv6-3b").reduced(remat_blocks=remat)
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    leaves = [x.requires_grad_() for x in pop.tree_leaves(params)]
+    loss, _ = TM.loss_fn(params, cfg,
+                         {"tokens": torch.zeros((1, 8), dtype=torch.int64)})
+    torch.autograd.grad(loss, leaves)
+    assert states == [None] * cfg.num_layers * (2 if remat else 1)
 
 
 def test_chunked_attention_matches_naive():
@@ -154,11 +189,26 @@ RUNS = [("wash", "dense", "sgd"), ("wash", "bucketed", "sgd"),
         ("wash_opt", "bucketed", "adamw"), ("wash_opt", "dense", "sgd"),
         ("papa", "dense", "sgd"), ("papa_all", "dense", "sgd"),
         ("none", "dense", "sgd")]
+# the reduced rwkv6-3b: its nested ``blocks.rwkv.tm.*`` / ``cm.*`` leaves
+# and float32 ``w0`` / ``u`` through the layer depths and the plans
+RWKV_RUNS = [("wash", "dense", "sgd"), ("wash", "bucketed", "sgd")]
 
 
-@pytest.mark.parametrize("kind,mode,optimizer", RUNS)
-def test_train_population_tracks_jax_loop(kind, mode, optimizer, monkeypatch):
-    jcfg, tcfg = JaxConfig(**CFG_KW), ModelConfig(**CFG_KW)
+def _configs_of(arch):
+    if arch == "rwkv6-3b":
+        return jget_arch(arch).reduced(), get_arch(arch).reduced()
+    return JaxConfig(**CFG_KW), ModelConfig(**CFG_KW)
+
+
+@pytest.mark.parametrize(
+    "arch,kind,mode,optimizer",
+    [("llama", *run) for run in RUNS]
+    + [("rwkv6-3b", *run) for run in RWKV_RUNS],
+    ids=["-".join(run) for run in RUNS]
+    + ["rwkv6-" + "-".join(run) for run in RWKV_RUNS])
+def test_train_population_tracks_jax_loop(arch, kind, mode, optimizer,
+                                          monkeypatch):
+    jcfg, tcfg = _configs_of(arch)
     rng = np.random.default_rng(11)
     batches = {(m, s): rng.integers(0, 50, (B, S)).astype(np.int32)
                for m in range(N) for s in range(STEPS)}
@@ -309,6 +359,43 @@ def test_train_cli_round_trip_to_serve_and_jax(tmp_path, capsys):
     out = capsys.readouterr().out
     assert f"restored population <- {ckpt}" in out
     assert "continuous mode=soup requests=3" in out
+
+
+def test_train_cli_rwkv6_round_trip_to_the_scan_engine(tmp_path, capsys):
+    """rwkv6 trains through the CLI on the CPU (the plain WKV backward);
+    its population file restores in JAX bitwise and serves through the
+    serve CLI's scan engine, as the trained population does in memory."""
+    from repro_torch.serving import engine
+
+    ckpt = str(tmp_path / "pop.npz")
+    res = ttrain.main(["--arch", "rwkv6-3b", "--reduced", "--device", "cpu",
+                       "--population", "2", "--mode", "bucketed", "--steps",
+                       "2", "--batch-size", "2", "--seq-len", "8",
+                       "--record-every", "1", "--ckpt-population", ckpt])
+    out = capsys.readouterr().out
+    assert "arch=rwkv6-3b-reduced mixing=wash steps=2 engine=vmap" in out
+    assert np.isfinite(res.history["loss"]).all()
+    cfg = get_arch("rwkv6-3b").reduced()
+    shapes = TM.param_shapes(cfg)
+    assert res.history["comm"] == [k * mix.static_mix_comm(
+        shapes, mix.MixingConfig(kind="wash", base_p=0.01, mode="bucketed"),
+        tli.infer_layer_ids(shapes, 2), 4, 2) for k in (1, 2)]
+
+    jcfg = jget_arch("rwkv6-3b").reduced()
+    like = jax.eval_shape(lambda: jinit_population(
+        lambda k: JM.init_params(k, jcfg), jax.random.key(0), 2))
+    for g, w in zip(pop.tree_leaves(res.population),
+                    jax.tree_util.tree_leaves(jckpt.restore(ckpt, like))):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+    outs = tserve.main(["--arch", "rwkv6-3b", "--reduced", "--device", "cpu",
+                        "--population", "2", "--ckpt", ckpt, "--batch-size",
+                        "2", "--seq-len", "8", "--max-new", "4"])
+    assert f"restored population <- {ckpt}" in capsys.readouterr().out
+    batch = concrete_batch(cfg, fold_in(0, 2), 2, 8, device="cpu")
+    want = engine.generate(engine.serving_params(res.population, "soup"),
+                           cfg, batch, 4, device="cpu")
+    assert torch.equal(outs["soup"]["tokens"], want)
 
 
 def test_init_population_and_map_members_match_jax():
