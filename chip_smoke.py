@@ -72,14 +72,18 @@ and then, failing on the first phase that fails:
      TMA-fed; flash f32: 3xTF32 mma.sync, cp.async-fed, its TF32 mma
      counted in the library's SASS; WKV: the chunked kernel, 3xTF32
      mma.sync, TMA-fed, and the step kernel); then the WKV backward
-     (training, f32) against its plain version, every grad within 1e-4 of
-     max |plain| and finite: at rwkv6-3b's training shape (B=2, T=256, 40
-     heads of 64) from zero, at the prefill shape from a carried state with
-     a final-state grad, with extreme decays, at a ragged T=1000 and at hd
-     32; timed at both shapes beside its bound (the bytes the function
-     moves, or its operations at the f32 peak), the traffic of its kept
-     states, its plain version's time and its registers, shared memory and
-     spills;
+     (training, f32; three launches: the chunk walks, every chunk's grads,
+     du) against its plain version, every grad within 1e-4 of max |plain|
+     and finite: at rwkv6-3b's training shape (B=2, T=256, 40 heads of 64)
+     from zero, at the prefill shape from a carried state with a
+     final-state grad, with extreme decays, at a ragged T=1000 and at hd
+     32, and at the training shape also against the plain model of its
+     arithmetic (``rwkv6_scan_bwd_chunked_ref``); timed at both shapes, the
+     whole call (CUDA-graph replays) and each launch (``torch.profiler``),
+     beside its bound (the bytes the function moves, or its operations at
+     the f32 peak), the design's own traffic (the chunks' S_in and G_out,
+     the walks' second reads), its plain version's time, and each kernel's
+     registers, shared memory and spills;
   8. serves full-width rwkv6-3b (32 layers, bf16) and llama3.2-3b (28
      layers, bf16) from random N=2 populations through the serve CLI's
      scan engine (``--compare``: soup, member and ensemble, B=4, S=2048,
@@ -101,7 +105,8 @@ and then, failing on the first phase that fails:
      exactly ``static_mix_comm`` scalars a step, finite losses; serves the
      trained soup through the scan engine; trains the same 4 steps again
      without the checks for the step's split, tokens/s and peak memory, and
-     profiles one more full-width training step;
+     profiles one more full-width training step (with the WKV backward's
+     device time: ``_RWKV6ScanBackward`` and each of its kernels);
      then trains the reduced float32 rwkv6 3 steps on the kernels and on
      the plain versions (final params within 1e-5), and takes its train
      CLI ``--ckpt-population`` through the serve CLI's ``--ckpt``.
@@ -1117,6 +1122,27 @@ def profile_training_step(torch, device, cfg):
         f"{spans} device activities), idle "
         f"{100 * (1 - busy_ms / wall_ms):.1f}%; the host found the launch "
         f"queue full {full} times; device time by operator: {top}")
+    if cfg.block_kind == "rwkv6":
+        from repro_torch.kernels import rwkv6_scan as wkv
+        log(f"profiled {cfg.name} training step: the WKV backward "
+            f"{backward_profile(prof, wkv.BACKWARD_KERNELS)} (the earlier "
+            f"two-pass kernel: _RWKV6ScanBackward 28.1 ms x 64)")
+
+
+def backward_profile(prof, names) -> str:
+    """From a finished ``torch.profiler`` run: the device time of the
+    autograd ``_RWKV6ScanBackward`` operator (the WKV backward's calls) and
+    of each backward kernel by name, totals over the run."""
+    from torch.autograd import DeviceType
+
+    op = [a for a in prof.key_averages()
+          if a.device_type == DeviceType.CPU
+          and a.key == "_RWKV6ScanBackward"]
+    total = (f"_RWKV6ScanBackward {op[0].self_device_time_total / 1e3:.2f} "
+             f"ms x{op[0].count}" if op else "_RWKV6ScanBackward not seen")
+    return total + "; by kernel: " + ", ".join(
+        f"{name} {us / 1e3:.2f} ms x{n}"
+        for name, (us, n) in kernel_us(prof, names).items())
 
 
 def device_activity(prof, n_top: int = 10):
@@ -1634,6 +1660,21 @@ def check_wkv_backward(torch, wkv, ref, device):
         if n == 0:
             err_main = max(float((g - wa).abs().max())
                            for g, wa in zip(got[:5], want[:5]))
+            # and the plain model of the kernel's own arithmetic (the
+            # chunk walks and the per-chunk forms)
+            model = ref.rwkv6_scan_bwd_chunked_ref(r, k, v, w, u, state, dy,
+                                                   dfinal)
+            merrs = {name: float((g - m).abs().max() / m.abs().max())
+                     for name, g, m in zip(("dr", "dk", "dv", "dw", "du"),
+                                           got, model)}
+            log(f"rwkv6 scan backward {what}: max |kernel - chunked plain "
+                f"model| / max |model| "
+                + ", ".join(f"{k_} {e:.3e}" for k_, e in merrs.items())
+                + f" (tolerance {WKV_BWD_TOL:g})")
+            if max(merrs.values()) > WKV_BWD_TOL:
+                fail(f"rwkv6 scan backward {what} disagrees with the plain "
+                     f"model of its arithmetic: {merrs}")
+            del model
         del r, k, v, w, u, s0, dy, ds, got, want
     torch.cuda.empty_cache()
 
@@ -1653,32 +1694,43 @@ def check_wkv_backward(torch, wkv, ref, device):
         plain_ms = device_ms(torch, lambda i: ref.rwkv6_scan_bwd_ref(
             *args(i)), 1, reps=1 if key == "prefill" else 3)
         ms2 = device_ms(torch, lambda i: wkv.rwkv6_scan_bwd_cuda(*args(i)), 2)
+        each = launch_ms(torch, lambda i: wkv.rwkv6_scan_bwd_cuda(*args(i)),
+                         2, wkv.BACKWARD_KERNELS)
         wkv.backward_launches = n0  # comparison launches do not count
         nbytes, ops = wkv_bwd_work(b, t, H, hd, carried)
         bound_ms, bound_by = bound(nbytes, ops, "f32")
-        # the kept states (f32, one every WKV_BWD_CHUNK steps) written and
-        # read once: the design's traffic, beside the function's
-        ws_bytes = 2 * 4 * b * H * -(-t // ref.WKV_BWD_CHUNK) * hd * hd
+        # the design's own traffic, beside the function's: S_in and G_out
+        # of every chunk (f32) written and read once, and the walks' reads
+        # of k, w, v (forward) and r, w, dy (reverse) again
+        ws_bytes = 2 * 2 * 4 * b * H * -(-t // ref.WKV_BWD_CHUNK) * hd * hd
+        walk_bytes = 6 * 4 * b * t * H * hd
         times[key] = (ms, plain_ms, bound_ms, bound_by)
         log(f"rwkv6 scan backward f32 at the {key} shape (B={b}, T={t}, "
             f"H={H}, hd={hd}{', carried state' if carried else ', from zero'}"
             f"): {ms:.4f} ms on the device (again {ms2:.4f}; two input sets "
-            f"cycled, a call's two launches), plain {plain_ms:.4f} ms, "
+            f"cycled, a call's three launches), plain {plain_ms:.4f} ms, "
             f"library none, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} "
             f"B the function moves: {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
             f"{ops} ops at the f32 peak: "
-            f"{ops / PEAK_OPS['f32'] * 1e3:.4f} ms); the kept states add "
-            f"{ws_bytes} B written and read "
+            f"{ops / PEAK_OPS['f32'] * 1e3:.4f} ms); the chunks' S_in and "
+            f"G_out add {ws_bytes} B written and read "
             f"({ws_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate; "
             f"{wkv.backward_workspace_bytes(b, t, H, hd)} B of workspace "
-            f"allocated in all); achieved "
-            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of the function's bytes, "
-            f"{ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+            f"allocated in all), the walks' second reads of the inputs "
+            f"{walk_bytes} B ({walk_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms): "
+            f"the design's floor "
+            f"{(nbytes + ws_bytes + walk_bytes) / HBM_BYTES_PER_S * 1e3:.4f} "
+            f"ms; achieved {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of the "
+            f"function's bytes, {ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; "
+            f"each launch (device time under torch.profiler, mean of "
+            f"{LAUNCH_CALLS} calls): "
+            + ", ".join(f"{name} {v:.4f} ms" for name, v in each.items()))
         del sets
         torch.cuda.empty_cache()
     for d in wkv.BACKWARD_HEAD_DIMS:
-        log(f"rwkv6 scan backward kernel at hd {d}: "
-            f"{attributes_line(wkv.backward_attributes(d))}")
+        for name, attrs in wkv.backward_attributes(d).items():
+            log(f"rwkv6 scan backward {name} at hd {d}: "
+                f"{attributes_line(attrs)}")
     ms, plain_ms, bound_ms, bound_by = times["train"]
     return {"wkv_bwd": {
         "name": "rwkv6_scan_bwd[f32,training shape]",
@@ -1695,6 +1747,42 @@ def check_wkv_backward(torch, wkv, ref, device):
         "prefill_ms": times["prefill"][0],
         "prefill_plain_ms": times["prefill"][1],
     }}
+
+
+LAUNCH_CALLS = 10  # calls profiled for each launch's device time
+
+
+def kernel_us(prof, names):
+    """From a finished ``torch.profiler`` run: for each of ``names``, the
+    device time (us) and count of the kernels whose names hold it."""
+    from torch.autograd import DeviceType
+
+    found = {name: [0.0, 0] for name in names}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in e.name:
+                    found[name][0] += e.time_range.end - e.time_range.start
+                    found[name][1] += 1
+    return found
+
+
+def launch_ms(torch, fn, n_sets, names):
+    """Device time of each kernel whose name holds one of ``names`` in a
+    ``fn(i)`` call, ms: ``LAUNCH_CALLS`` calls (input sets cycled) under
+    ``torch.profiler``, mean per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for c in range(LAUNCH_CALLS):
+            fn(c % n_sets)
+        torch.cuda.synchronize()
+    found = kernel_us(prof, names)
+    if not all(n for _, n in found.values()):
+        fail(f"the profiler saw no launch of some of {names}: {found}")
+    return {name: us / LAUNCH_CALLS / 1e3 for name, (us, _) in found.items()}
 
 
 def wkv_ms(torch, fn, sets, reps=20):

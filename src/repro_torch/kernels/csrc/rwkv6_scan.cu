@@ -80,8 +80,9 @@
 //
 // Training's backward (the gradient of the recurrence, which the TPU side
 // leaves to XLA's autodiff of a lax.scan) is the second half of this file:
-// rwkv6_bwd_kernel and a small reduction kernel, entry point
-// repro_rwkv6_scan_bwd; its own head comment says how it works.
+// three kernels in namespace bwd (the chunk walks, every chunk's grads,
+// du), entry point repro_rwkv6_scan_bwd; its own head comment says how it
+// works.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -670,284 +671,622 @@ __global__ void __launch_bounds__(HD * HD / 16) rwkv6_step_kernel(
 //   du[i]   = sum_{b,t} r_t[i] k_t[i] (v_t . dy_t)
 //   G_{t-1} = diag(w_t) G_t + r_t^T dy_t,     dstate0 = G_{-1}
 //
-// kernels/ref.py::rwkv6_scan_bwd_ref is its plain model.
-//
 // What bounds it: at rwkv6-3b's training shape (B=2, T=256, 40 heads of
-// 64) the call moves ~50 MB (r, k, v, w, dy in, dr, dk, dv, dw out, the
-// boundary states written and read: ~0.015 ms at 3.35 TB/s) and does ~12
-// flops per state element and step (~1.0e9, 0.015 ms at the FFMA rate).
-// As in the forward, each head is a serial chain of T steps, so one chain
-// a (batch, head, row slice) sets the time, not the card's rates.
+// 64) the function moves ~47 MB (r, k, v, w, dy in, dr, dk, dv, dw out:
+// 0.014 ms at 3.35 TB/s) and does ~14 flops per state element and step
+// (0.007 ms at the 3xTF32 rate), so bytes bound it.  But the recurrence is
+// a chain over T in both directions: walked a step at a time, each head is
+// ~2T dependent steps, and the chain, not the card's rates, sets the time.
 //
-// The design (simple first; PERF.md has its times):
-//   * every element S[i][j] and G[i][j] evolves alone (w_t[i] scales a row,
-//     k v^T and r^T dy add to it), so a block takes one (batch, head) and
-//     32 rows of the state (hd / 32 blocks a head), a lane one row and a
-//     warp 16 columns (hd / 16 warps); a thread keeps its 16 elements of G
-//     in registers;
-//   * pass 1 walks forward and writes the state entering each 16-step
-//     chunk to a workspace (only the thread that wrote an element reads
-//     it back); pass 2 walks the chunks in reverse: it recomputes the
-//     chunk's states from its boundary into shared memory, then walks the
-//     chunk backwards.  The state is never walked backwards (that would
-//     divide by w, which may be 0) and nothing takes a logarithm: dw is
-//     the sum above, so a decay that underflows to 0 gives exact grads;
-//   * the sums over j (dr, dk, dw) are in-thread over the warp's 16
-//     columns, then over the warps in shared memory once a chunk; the sum
-//     over i (dv) is a butterfly of warp shuffles over the lanes' rows,
-//     then over a head's row slices by a second small kernel, which also
-//     sums du over the batch, each in a fixed order: no float atomics, so
-//     the grads are the same from run to run;
-//   * each chunk's r, k, w, v, dy arrive by cp.async into the other of two
-//     stages while the block computes the current chunk; a ragged last
-//     chunk runs only its real steps.
+// What this design does about it: the sequence is cut into chunks of C =
+// 16 steps (c0 <= t < c1; P_t = prod_{c0<=tau<t} w_tau, Q_t =
+// prod_{t<tau<c1} w_tau, Gamma = prod over the chunk, D(s,t) =
+// prod_{s<tau<t} w_tau for s < t), and the chain becomes ceil(T/16) chunk
+// hops, with every chunk's gradients computed in parallel:
+//   * launch 1 (rwkv6_bwd_walk_kernel) walks the chunks in the chunked
+//     form, S_out = diag(Gamma) S_in + (k*Q)^T v forward and G_in =
+//     diag(Gamma) G_out + (r*P)^T dy in reverse, and writes every chunk's
+//     S_in and G_out to the workspace (dstate0 is chunk 0's G_in).  The
+//     two walks are independent blocks of one launch, and each walk splits
+//     the value columns across blocks (column j of S depends on v[:, j]
+//     only, of G on dy[:, j] only), 16 a block, with no exchange; each
+//     block recomputes the chunk's decays.  The hop's (hd x C)(C x 16)
+//     product is 3xTF32 mma.sync, the next chunk arrives by cp.async while
+//     the current one computes;
+//   * launch 2 (rwkv6_bwd_chunk_kernel), one block per (batch, head,
+//     chunk), computes dr, dk, dv, dw of its steps from S_in, G_out and
+//     the chunk's inputs.  With X = dy S_in^T, Y = v G_out^T, Z = (k*Q)
+//     G_out (3xTF32 mma.sync), B2[s][t] = dy_s . v_t and the forward's
+//     pair matrix A[s][t] = sum_i r_s k_t D(t,s) (s > t), A[t][t] =
+//     sum_i r_t u k_t (CUDA cores, spread over the block):
+//       dr_t = P_t X_t + sum_{s<t} D(s,t) k_s B2[t][s] + u k_t B2[t][t]
+//       dk_t = Q_t Y_t + sum_{s>t} D(t,s) r_s B2[s][t] + r_t u B2[t][t]
+//       dv_t = Z_t + sum_{s>=t} A[s][t] dy_s
+//     dw_t = sum_j G_t S_{t-1} is built from the two ends of the chunk:
+//     with S_{t-1} = P_t S_in + sum_{s<t} D(s,t) k_s^T v_s and G_t = Q_t
+//     G_out + sum_{s>t} D(t,s) r_s^T dy_s, it is P_t Q_t (G_out . S_in) +
+//     Q_t L_t + P_t R_t + sum_{s<t<s'} D(s,t) D(t,s') k_s r_s' B2[s'][s],
+//     where L_t = sum_{s<t} D(s,t) k_s Y_s and R_t = sum_{s>t} D(t,s) r_s
+//     X_s are running sums over the chunk (16 steps each way).  Each key
+//     channel is walked by two threads, one forward over t (the dr pair
+//     sums, L), one back (the dk pair sums, R and the cross term), each a
+//     running product of w: nothing divides by w and nothing takes a
+//     logarithm, so a decay that underflows to 0 gives exact grads.  A
+//     block holds the whole head, so it writes dv directly;
+//   * launch 3 (rwkv6_bwd_du_kernel) sums the blocks' du partials over
+//     (batch, chunk) in a fixed order.  No float atomics anywhere: the
+//     grads are the same bits from run to run.
+// The workspace (S_in and G_out of every chunk, 2 B H ceil(T/16) hd^2
+// floats) is the design's own traffic, beside the function's bytes.  16
+// columns and two stages a walk block, and two chunk blocks an SM, were
+// kept on the H100 against 32 or 64 columns, four stages, warps walking
+// on their own, the chunk's loads in two groups and one persistent chunk
+// block an SM, all slower (PERF.md).
+// kernels/ref.py::rwkv6_scan_bwd_chunked_ref is a plain model of this
+// arithmetic; kernels/ref.py::rwkv6_scan_bwd_ref the reverse recurrence
+// the kernel is held to.
 
 namespace bwd {
 
-constexpr int kC = 16;     // steps a chunk (the workspace keeps each's entry)
-constexpr int kRows = 32;  // state rows a block, one a lane
-constexpr int kCols = 16;  // state columns a warp, one set a thread
+constexpr int kC = 16;     // steps a chunk
+constexpr int kCols = 16;  // state columns a walk block
+
+// ---- launch 1: the chunk walks ---------------------------------------------
 
 template <int HD>
-struct Geo {
-  static constexpr int NS = HD / kRows;  // blocks (row slices) a head
-  static constexpr int NW = HD / kCols;  // warps (column groups) a block
+struct WalkGeo {
+  static constexpr int NW = HD / 16;      // warp w: state rows [16w, +16)
   static constexpr int NT = 32 * NW;
-  // shared layout (floats): two stages of the chunk's inputs, each five
-  // [step][channel] tiles (k, w, v, then r, dy: pass 1 loads the first
-  // three); the chunk's states, a thread's 16 columns a step as 4 float4
-  // ([step][quad][thread], so a warp's accesses are conflict-free); the
-  // per-warp partial sums over j of dr, dk, dw ([q][warp][step][row]); the
-  // block's partial dv ([step][column]); v . dy and the bonus sum a step;
-  // u of the head
-  static constexpr int IN = kC * HD;
-  static constexpr int STAGE = 5 * IN;
-  static constexpr int HIST = 2 * STAGE;
-  static constexpr int RED = HIST + kC * kCols * NT;
-  static constexpr int DV = RED + 3 * NW * kC * kRows;
-  static constexpr int VDY = DV + kC * HD;
-  static constexpr int BONUS = VDY + kC;
-  static constexpr int U = BONUS + kC;
-  static constexpr int SMEM = (U + HD) * 4;
-  static_assert(NS >= 1 && NW >= 2 && NT >= 2 * kC, "block shape");
-  static_assert(HIST % 4 == 0 && STAGE % 4 == 0, "float4 alignment");
+  static constexpr int NS = HD / kCols;   // column slices a head
+  // rows padded so that the fragment loads are conflict-free: the value-side
+  // tile (floats) and the split key-side tile (uint2)
+  static constexpr int Y_ROW = kCols + 8;
+  static constexpr int XD_ROW = HD + 4;
+  // shared layout (bytes): two stages of {x [C][HD], w [C][HD], y
+  // [C][Y_ROW]} (x = k or r, y = v or dy), then x * decay split {hi, lo}
+  // [C][XD_ROW] and the chunk's Gamma [HD]
+  static constexpr int X = 0;
+  static constexpr int W = X + kC * HD * 4;
+  static constexpr int Y = W + kC * HD * 4;
+  static constexpr int STAGE = Y + kC * Y_ROW * 4;
+  static constexpr int XD = 2 * STAGE;
+  static constexpr int GAM = XD + kC * XD_ROW * 8;
+  static constexpr int SMEM = GAM + HD * 4;
+  static_assert(STAGE % 16 == 0 && W % 16 == 0 && Y % 16 == 0, "cp.async");
 };
 
-// 16 columns of one state row: global <-> registers
-__device__ __forceinline__ void load16(const float* p, float* x) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) load4(p + 4 * q, x + 4 * q);
-}
-__device__ __forceinline__ void store16(float* p, const float* x) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    *reinterpret_cast<float4*>(p + 4 * q) =
-        make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
-}
-
-// One block per (batch, head, 32-row slice); lane = row i0 + lane, warp =
-// columns [16 warp, +16).  dv_part: the block's dv over its rows, at
-// slice * (B T H hd) (dv itself when a head has one slice); du_part:
-// (B, H, hd), each batch row's du.
+// One block per (batch, head, 16-column slice, direction).  Direction 0
+// walks the state forward from state_in and writes the state entering
+// every chunk to s_in; direction 1 walks the adjoint back from
+// dstate_final and writes the adjoint leaving every chunk to g_out, then
+// (when dstate0 is not null) the adjoint entering chunk 0 to dstate0.
+// Warp w holds rows [16w, +16) of the slice as the accumulators of two
+// m16n8 tiles: st[n][e] = S[16w + g + 8(e>>1)][j0 + 8n + 2q + (e&1)].
 template <int HD>
-__global__ void __launch_bounds__(Geo<HD>::NT) rwkv6_bwd_kernel(
+__global__ void __launch_bounds__(WalkGeo<HD>::NT) rwkv6_bwd_walk_kernel(
     const float* __restrict__ r, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ w,
-    const float* __restrict__ u, const float* __restrict__ state_in,
-    const float* __restrict__ dy, const float* __restrict__ dstate_final,
-    float* __restrict__ dr, float* __restrict__ dk, float* __restrict__ dw,
-    float* __restrict__ dstate0, float* __restrict__ ws,
-    float* __restrict__ dv_part, float* __restrict__ du_part, int steps,
+    const float* __restrict__ dy, const float* __restrict__ state_in,
+    const float* __restrict__ dstate_final, float* __restrict__ s_in,
+    float* __restrict__ g_out, float* __restrict__ dstate0, int steps,
     int H) {
-  using Gm = Geo<HD>;
-  constexpr int NS = Gm::NS, NT = Gm::NT, NW = Gm::NW, IN = Gm::IN;
-  extern __shared__ __align__(16) float sm[];
-  float4* s_hist = reinterpret_cast<float4*>(sm + Gm::HIST);
-  float* s_red = sm + Gm::RED;
-  float* s_dv = sm + Gm::DV;
-  float* s_vdy = sm + Gm::VDY;
-  float* s_bonus = sm + Gm::BONUS;
-  float* s_u = sm + Gm::U;
+  using Gm = WalkGeo<HD>;
+  constexpr int NT = Gm::NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint2* s_xd = reinterpret_cast<uint2*>(smem + Gm::XD);
+  float* s_gam = reinterpret_cast<float*>(smem + Gm::GAM);
 
-  const int bh = blockIdx.x / NS, slice = blockIdx.x % NS;
+  const int dir = blockIdx.x & 1;
+  const int slice = (blockIdx.x >> 1) % Gm::NS;
+  const int bh = (blockIdx.x >> 1) / Gm::NS;
   const int b = bh / H, h = bh - b * H;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  const int i = slice * kRows + lane, j0 = wid * kCols;
+  const int g = lane >> 2, q = lane & 3;
+  const int j0 = slice * kCols, i0 = 16 * wid;
   const int chunks = (steps + kC - 1) / kC;
-  const long long n_all = (long long)gridDim.x / NS * steps * HD;  // B T H hd
-  const long long row0 = (long long)b * steps * H + h;  // (b, 0, h) row
-  const long long s_at = ((long long)bh * HD + i) * HD + j0;  // S[i][j0]
-  float* ws_row = ws + ((long long)bh * chunks * HD + i) * HD + j0;
+  const float* x = dir ? r : k;    // the key-channel factor
+  const float* y = dir ? dy : v;   // the value-column factor
+  const long long t_stride = (long long)H * HD;
+  const long long row0 = ((long long)b * steps * H + h) * HD;  // (b, 0, h)
+  const long long s_base = (long long)bh * HD * HD;
 
-  for (int a = tid; a < HD; a += NT) s_u[a] = u[h * HD + a];
-
-  // chunk ch's first `nx` inputs (k, w, v, r, dy) into stage `buf`; steps
-  // past the end arrive as zeros
-  auto stage = [&](int ch, int buf, int nx) {
-    constexpr int V4 = HD / 4;
-    float* dst = sm + buf * Gm::STAGE;
+  float st[2][4];
+  const float* init = dir ? dstate_final : state_in;
 #pragma unroll
-    for (int x = 0; x < 5; ++x) {
-      if (x < nx) {
-        const float* src =
-            x == 0 ? k : x == 1 ? w : x == 2 ? v : x == 3 ? r : dy;
-        for (int a = tid; a < kC * V4; a += NT) {
-          const int s = a / V4, q = a - s * V4, t = ch * kC + s;
-          const bool ok = t < steps;
-          sm90::cp_async16(dst + x * IN + s * HD + 4 * q,
-                           src + ((row0 + (long long)(ok ? t : 0) * H) * HD +
-                                  4 * q),
-                           ok);
-        }
-      }
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + g + 8 * (e >> 1), j = j0 + 8 * n + 2 * q + (e & 1);
+      st[n][e] = init ? init[s_base + (long long)i * HD + j] : 0.f;
+    }
+
+  // chunk ch's x, w (every channel) and y (the slice's columns) into stage
+  // `buf`; steps past the end arrive as zeros
+  auto stage = [&](int ch, int buf) {
+    constexpr int V4 = HD / 4;
+    unsigned char* dst = smem + buf * Gm::STAGE;
+    for (int a = tid; a < 2 * kC * V4; a += NT) {
+      const int m = a / (kC * V4), rem = a - m * (kC * V4);
+      const int s = rem / V4, c4 = rem - s * V4, t = ch * kC + s;
+      const bool ok = t < steps;
+      sm90::cp_async16(
+          dst + (m ? Gm::W : Gm::X) + (s * HD + 4 * c4) * 4,
+          (m ? w : x) + row0 + (long long)(ok ? t : 0) * t_stride + 4 * c4,
+          ok);
+    }
+    for (int a = tid; a < kC * (kCols / 4); a += NT) {
+      const int s = a / (kCols / 4), c4 = a % (kCols / 4), t = ch * kC + s;
+      const bool ok = t < steps;
+      sm90::cp_async16(
+          dst + Gm::Y + (s * Gm::Y_ROW + 4 * c4) * 4,
+          y + row0 + (long long)(ok ? t : 0) * t_stride + j0 + 4 * c4, ok);
     }
     sm90::cp_async_commit();
   };
-  // S[i][j0..] <- w_s[i] S + k_s[i] v_s[j0..], step s of a staged chunk
-  auto advance = [&](float* S, const float* in, int s) {
-    const float kk = in[s * HD + i], ww = in[IN + s * HD + i];
-    float vv[kCols];
-    load16(in + 2 * IN + s * HD + j0, vv);
+
+  stage(dir ? chunks - 1 : 0, 0);
+  for (int it = 0; it < chunks; ++it) {
+    const int ch = dir ? chunks - 1 - it : it;
+    // the state entering chunk ch / the adjoint leaving it
+    float* out = (dir ? g_out : s_in) + s_base * chunks +
+                 (long long)ch * HD * HD;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) S[c] = ww * S[c] + kk * vv[c];
-  };
-
-  // ---- pass 1: forward, the state entering each chunk into ws
-  {
-    float S[kCols] = {};
-    if (state_in) load16(state_in + s_at, S);
-    if (chunks > 1) stage(0, 0, 3);
-    for (int ch = 0; ch < chunks; ++ch) {
-      store16(ws_row + (long long)ch * HD * HD, S);
-      if (ch + 1 == chunks) break;  // the last chunk's steps: in pass 2
-      sm90::cp_async_wait<0>();
-      __syncthreads();  // chunk ch landed; chunk ch-1's readers are done
-      if (ch + 2 < chunks) stage(ch + 1, (ch + 1) & 1, 3);
-      const float* in = sm + (ch & 1) * Gm::STAGE;
-      for (int s = 0; s < kC; ++s) advance(S, in, s);
-    }
-  }
-  __syncthreads();  // pass 1's readers of the stages are done
-
-  // ---- pass 2: the chunks in reverse
-  float G[kCols] = {};
-  if (dstate_final) load16(dstate_final + s_at, G);
-  float du_acc = 0.f;
-  stage(chunks - 1, (chunks - 1) & 1, 5);
-  for (int ch = chunks - 1; ch >= 0; --ch) {
-    const int c0 = ch * kC, nv = min(kC, steps - c0);
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = i0 + g + 8 * hf, j = j0 + 8 * n + 2 * q;
+        *reinterpret_cast<float2*>(out + (long long)i * HD + j) =
+            make_float2(st[n][2 * hf], st[n][2 * hf + 1]);
+      }
     sm90::cp_async_wait<0>();
-    __syncthreads();  // chunk ch landed; chunk ch+1's readers are done
-    if (ch > 0) stage(ch - 1, (ch - 1) & 1, 5);
-    const float* in = sm + (ch & 1) * Gm::STAGE;
-    const float *s_k = in, *s_v = in + 2 * IN, *s_r = in + 3 * IN,
-                *s_dy = in + 4 * IN;
-    if (tid < kC) {  // v_s . dy_s
-      float acc = 0.f;
-      for (int j = 0; j < HD; ++j)
-        acc += s_v[tid * HD + j] * s_dy[tid * HD + j];
-      s_vdy[tid] = acc;
-    } else if (tid < 2 * kC) {  // sum_i r_s[i] u[i] k_s[i], over the head
-      const int s = tid - kC;
-      float acc = 0.f;
-      for (int a = 0; a < HD; ++a)
-        acc += s_r[s * HD + a] * s_u[a] * s_k[s * HD + a];
-      s_bonus[s] = acc;
-    }
-    {  // the chunk's states S_{c0+s-1}, each thread its own 16 elements
-      float S[kCols];
-      load16(ws_row + (long long)ch * HD * HD, S);
-      for (int s = 0; s < nv; ++s) {
+    // no hop after the last chunk, except the reverse walk's to dstate0
+    if (it + 1 == chunks && !(dir && dstate0)) break;
+    __syncthreads();  // chunk ch landed; the previous hop's readers done
+    if (it + 1 < chunks) stage(dir ? ch - 1 : ch + 1, (it + 1) & 1);
+    const unsigned char* raw = smem + (it & 1) * Gm::STAGE;
+    const float* sx = reinterpret_cast<const float*>(raw + Gm::X);
+    const float* sw = reinterpret_cast<const float*>(raw + Gm::W);
+    const float* sy = reinterpret_cast<const float*>(raw + Gm::Y);
+    const int nv = min(kC, steps - ch * kC);
+    if (tid < HD) {
+      // x * Q (forward: suffix products) or x * P (reverse: prefix), split
+      // once for every warp; a ragged chunk's missing steps decay by 1
+      float d = 1.f;
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          s_hist[(s * 4 + q) * NT + tid] =
-              make_float4(S[4 * q], S[4 * q + 1], S[4 * q + 2], S[4 * q + 3]);
-        if (s + 1 < nv) advance(S, in, s);
+      for (int n = 0; n < kC; ++n) {
+        const int s = dir ? n : kC - 1 - n;
+        sm90::store_split(s_xd + s * Gm::XD_ROW + tid, sx[s * HD + tid] * d);
+        if (s < nv) d *= sw[s * HD + tid];
       }
+      s_gam[tid] = d;
     }
-    __syncthreads();  // v . dy and the bonus sums
+    __syncthreads();
 
-    for (int s = nv - 1; s >= 0; --s) {
-      float sp[kCols], vv[kCols], dd[kCols], part[kCols];
+    // st <- diag(Gamma) st + (x * decay)^T y, K = the chunk's 16 steps
+    float acc[2][4] = {};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 x = s_hist[(s * 4 + q) * NT + tid];
-        sp[4 * q] = x.x, sp[4 * q + 1] = x.y, sp[4 * q + 2] = x.z,
-        sp[4 * q + 3] = x.w;
+    for (int ks = 0; ks < kC / 8; ++ks) {
+      sm90::Frag<4> a;  // A[i][s] = xd[s][i]
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint2 p =
+            s_xd[(8 * ks + q + 4 * (e >> 1)) * Gm::XD_ROW + i0 + g +
+                 8 * (e & 1)];
+        a.hi[e] = p.x;
+        a.lo[e] = p.y;
       }
-      load16(s_v + s * HD + j0, vv);
-      load16(s_dy + s * HD + j0, dd);
-      const float kk = s_k[s * HD + i], ww = in[IN + s * HD + i],
-                  rr = s_r[s * HD + i];
-      float p_dr = 0.f, p_dk = 0.f, p_dw = 0.f;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        p_dr += sp[c] * dd[c];
-        p_dk += G[c] * vv[c];
-        p_dw += G[c] * sp[c];
-        part[c] = kk * G[c];
-        G[c] = ww * G[c] + rr * dd[c];
+      for (int n = 0; n < 2; ++n) {
+        sm90::Frag<2> bb;  // B[s][j] = y[s][j]
+        bb.x[0] = sy[(8 * ks + q) * Gm::Y_ROW + 8 * n + g];
+        bb.x[1] = sy[(8 * ks + q + 4) * Gm::Y_ROW + 8 * n + g];
+        bb.split();
+        mma(acc[n], a, bb);
       }
-      // dv over the warp's 32 rows: after the butterfly, lanes 2m and 2m+1
-      // hold column j0 + m
-      float unused = 0.f;
-      fold<0, 4, kCols, 32>(part, unused, lane);
-      part[0] += __shfl_xor_sync(0xffffffffu, part[0], 1);
-      if ((lane & 1) == 0) s_dv[s * HD + j0 + (lane >> 1)] = part[0];
-      float* red = s_red + (wid * kC + s) * kRows + lane;
-      red[0] = p_dr;
-      red[NW * kC * kRows] = p_dk;
-      red[2 * NW * kC * kRows] = p_dw;
-      if (wid == 0) du_acc += rr * kk * s_vdy[s];
     }
-    __syncthreads();  // the chunk's partial sums
-
-    for (int a = tid; a < nv * kRows; a += NT) {
-      const int s = a / kRows, row = a - s * kRows, ii = slice * kRows + row;
-      float sum[3] = {0.f, 0.f, 0.f};
+    const float ga = s_gam[i0 + g], gb = s_gam[i0 + g + 8];
 #pragma unroll
-      for (int q = 0; q < 3; ++q)
+    for (int n = 0; n < 2; ++n)
 #pragma unroll
-        for (int x = 0; x < NW; ++x)
-          sum[q] += s_red[((q * NW + x) * kC + s) * kRows + row];
-      const float vd = s_vdy[s], uu = s_u[ii];
-      const long long o = (row0 + (long long)(c0 + s) * H) * HD + ii;
-      dr[o] = sum[0] + uu * s_k[s * HD + ii] * vd;
-      dk[o] = sum[1] + s_r[s * HD + ii] * uu * vd;
-      dw[o] = sum[2];
-    }
-    for (int a = tid; a < nv * HD; a += NT) {
-      const int s = a / HD, j = a - s * HD;
-      float val = s_dv[s * HD + j];
-      if (slice == 0) val += s_bonus[s] * s_dy[s * HD + j];
-      dv_part[slice * n_all + (row0 + (long long)(c0 + s) * H) * HD + j] = val;
-    }
+      for (int e = 0; e < 4; ++e)
+        st[n][e] = (e < 2 ? ga : gb) * st[n][e] + acc[n][e];
   }
-  if (dstate0) store16(dstate0 + s_at, G);
-  if (wid == 0) du_part[(long long)bh * HD + i] = du_acc;
+  if (dir && dstate0) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = i0 + g + 8 * hf, j = j0 + 8 * n + 2 * q;
+        *reinterpret_cast<float2*>(dstate0 + s_base + (long long)i * HD + j) =
+            make_float2(st[n][2 * hf], st[n][2 * hf + 1]);
+      }
+  }
 }
 
-// dv = the sum of a head's row slices' partials (when it has more than
-// one), du = the sum of du_part over the batch; each in a fixed order
-__global__ void rwkv6_bwd_reduce_kernel(const float* __restrict__ dv_part,
-                                        int ns, long long n,
-                                        float* __restrict__ dv,
-                                        const float* __restrict__ du_part,
-                                        int B, int hhd,
-                                        float* __restrict__ du) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long at = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (ns > 1)
-    for (long long e = at; e < n; e += stride) {
-      float acc = dv_part[e];
-      for (int x = 1; x < ns; ++x) acc += dv_part[x * n + e];
-      dv[e] = acc;
+// ---- launch 2: every chunk's gradients ---------------------------------
+
+template <int HD>
+struct ChunkGeo {
+  // threads [0, 2HD): the products X, Y, then Z and the pair matrix;
+  // [2HD, 4HD): k * Q, G_out . S_in and B2, then the channel walks
+  static constexpr int NT = 4 * HD;
+  static constexpr int NQ = HD / 4;  // channel quads
+  // rows padded so that the fragment loads are conflict-free
+  static constexpr int ROW = HD + 4;     // input tiles (floats)
+  static constexpr int P_ROW = HD + 8;   // X, Y, Z (floats)
+  static constexpr int KQ_ROW = HD + 8;  // split k * Q (uint2)
+  static constexpr int B_ROW = kC + 1;   // B2, A (floats)
+  // shared layout (floats): r, k, v, w, dy [C][ROW]; S_in, G_out
+  // [HD][ROW]; X, Y, Z [C][P_ROW]; k * Q split [C][KQ_ROW] uint2; B2 and A
+  // [C][B_ROW]; G_out . S_in per row, u [HD]; the two channel walks' dw
+  // parts [2][C][HD]; the pair matrix's partial sums [C][C][NQ]
+  static constexpr int IN = kC * ROW;
+  static constexpr int R = 0, K = IN, V = 2 * IN, W = 3 * IN, DY = 4 * IN;
+  static constexpr int SI = 5 * IN;
+  static constexpr int GO = SI + HD * ROW;
+  static constexpr int X = GO + HD * ROW;
+  static constexpr int Y = X + kC * P_ROW;
+  static constexpr int Z = Y + kC * P_ROW;
+  static constexpr int KQ = Z + kC * P_ROW;
+  static constexpr int B2 = KQ + 2 * kC * KQ_ROW;
+  static constexpr int AM = B2 + kC * B_ROW;
+  static constexpr int CR = AM + kC * B_ROW;
+  static constexpr int U = CR + HD;
+  static constexpr int DW = U + HD;
+  static constexpr int AP = DW + 2 * kC * HD;
+  static constexpr int SMEM = (AP + kC * kC * NQ) * 4;
+  static_assert(SI % 4 == 0 && KQ % 4 == 0 && DW % 4 == 0, "16-byte rows");
+  static_assert(NT == kC * NQ, "one (step, quad) a thread");
+};
+
+// One block per (batch, head, chunk).  du_part: (B, H, chunks, hd), each
+// block's du over its steps.
+template <int HD>
+__global__ void __launch_bounds__(ChunkGeo<HD>::NT, 2) rwkv6_bwd_chunk_kernel(
+    const float* __restrict__ r, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ w,
+    const float* __restrict__ u, const float* __restrict__ dy,
+    const float* __restrict__ s_in, const float* __restrict__ g_out,
+    float* __restrict__ dr, float* __restrict__ dk, float* __restrict__ dv,
+    float* __restrict__ dw, float* __restrict__ du_part, int steps, int H) {
+  using Gm = ChunkGeo<HD>;
+  constexpr int NT = Gm::NT, ROW = Gm::ROW, NQ = Gm::NQ, PR = Gm::P_ROW;
+  constexpr int BR = Gm::B_ROW;
+  extern __shared__ __align__(16) float sm[];
+  const float *s_r = sm + Gm::R, *s_k = sm + Gm::K, *s_v = sm + Gm::V;
+  const float *s_dy = sm + Gm::DY, *s_si = sm + Gm::SI, *s_go = sm + Gm::GO;
+  float* s_w = sm + Gm::W;
+  float* s_b2 = sm + Gm::B2;
+  uint2* s_kq = reinterpret_cast<uint2*>(sm + Gm::KQ);
+
+  const int chunks = (steps + kC - 1) / kC;
+  const int ch = blockIdx.x % chunks, bh = blockIdx.x / chunks;
+  const int b = bh / H, h = bh - b * H;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int c0 = ch * kC, nv = min(kC, steps - c0);
+  const long long t_stride = (long long)H * HD;
+  const long long row0 = ((long long)(b * (long long)steps + c0) * H + h) * HD;
+  const long long st_at = ((long long)bh * chunks + ch) * HD * HD;
+
+  // ---- the chunk's r, k, v, w, dy (steps past the end as zeros), S_in,
+  // G_out and u
+  {
+    constexpr int V4 = HD / 4;
+    for (int a = tid; a < 5 * kC * V4; a += NT) {
+      const int m = a / (kC * V4), rem = a - m * (kC * V4);
+      const int s = rem / V4, c4 = rem - s * V4;
+      const float* src = m == 0 ? r : m == 1 ? k : m == 2 ? v : m == 3 ? w : dy;
+      const bool ok = s < nv;
+      sm90::cp_async16(sm + m * Gm::IN + s * ROW + 4 * c4,
+                       src + row0 + (ok ? s : 0) * t_stride + 4 * c4, ok);
     }
-  for (long long e = at; e < hhd; e += stride) {
-    float acc = 0.f;
-    for (int bb = 0; bb < B; ++bb) acc += du_part[(long long)bb * hhd + e];
-    du[e] = acc;
+    for (int a = tid; a < 2 * HD * V4; a += NT) {
+      const int m = a / (HD * V4), rem = a - m * (HD * V4);
+      const int i = rem / V4, c4 = rem - i * V4;
+      sm90::cp_async16(sm + Gm::SI + m * HD * ROW + i * ROW + 4 * c4,
+                       (m ? g_out : s_in) + st_at + i * HD + 4 * c4, true);
+    }
+    sm90::cp_async_commit();
+    for (int a = tid; a < HD; a += NT) sm[Gm::U + a] = u[h * HD + a];
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+    if (nv < kC) {  // a ragged chunk's missing steps decay by 1
+      for (int a = tid; a < (kC - nv) * HD; a += NT)
+        s_w[(nv + a / HD) * ROW + a % HD] = 1.f;
+      __syncthreads();
+    }
   }
+
+  const bool products = tid < 2 * HD;
+  // ---- phase 1
+  if (products) {
+    // X = dy S_in^T (warps [0, HD/32)) or Y = v G_out^T (the next HD/32),
+    // [t][i]; a warp 4 n-tiles (32 channels), K = hd
+    constexpr int XW = HD / 32;
+    const int xy = wid / XW, nt0 = 4 * (wid % XW);
+    const float* sa = xy ? s_v : s_dy;
+    const float* sb = xy ? s_go : s_si;
+    float acc[4][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < HD / 8; ++ks) {
+      sm90::Frag<4> a;  // A[t][j]
+      a.x[0] = sa[g * ROW + 8 * ks + q];
+      a.x[1] = sa[(g + 8) * ROW + 8 * ks + q];
+      a.x[2] = sa[g * ROW + 8 * ks + q + 4];
+      a.x[3] = sa[(g + 8) * ROW + 8 * ks + q + 4];
+      a.split();
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        sm90::Frag<2> bb;  // B[j][i] = S[i][j]
+        const float* p = sb + (8 * (nt0 + n) + g) * ROW + 8 * ks + q;
+        bb.x[0] = p[0];
+        bb.x[1] = p[4];
+        bb.split();
+        mma(acc[n], a, bb);
+      }
+    }
+    float* out = sm + (xy ? Gm::Y : Gm::X);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int i = 8 * (nt0 + n) + 2 * q;
+      *reinterpret_cast<float2*>(out + g * PR + i) =
+          make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(out + (g + 8) * PR + i) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+  } else {
+    const int rt = tid - 2 * HD;
+    if (rt < HD) {
+      // k * Q for Z, channel rt, Q walked back from the chunk's end
+      float d = 1.f;
+#pragma unroll
+      for (int s = kC - 1; s >= 0; --s) {
+        sm90::store_split(s_kq + s * Gm::KQ_ROW + rt, s_k[s * ROW + rt] * d);
+        d *= s_w[s * ROW + rt];
+      }
+    } else {
+      // G_out . S_in of row i, the columns rotated by the row so that the
+      // lanes' loads are conflict-free
+      const int i = rt - HD;
+      float acc = 0.f;
+      for (int jj = 0; jj < HD; ++jj) {
+        const int j = (jj + i) & (HD - 1);
+        acc += s_go[i * ROW + j] * s_si[i * ROW + j];
+      }
+      sm[Gm::CR + i] = acc;
+    }
+    // B2[s][t] = dy_s . v_t, the C x C entries over the group
+    for (int e = rt; e < kC * kC; e += 2 * HD) {
+      const int s = e / kC, t = e % kC;
+      float acc = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < HD; c += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(s_dy + s * ROW + c);
+        const float4 bb = *reinterpret_cast<const float4*>(s_v + t * ROW + c);
+        acc += a.x * bb.x + a.y * bb.y + a.z * bb.z + a.w * bb.w;
+      }
+      s_b2[s * BR + t] = acc;
+    }
+  }
+  __syncthreads();
+
+  // ---- phase 2
+  if (products) {
+    {
+      // Z = (k * Q) G_out, [t][j]; warp wid the columns [16 wid, +16).  The
+      // k step takes its index k = q, q+4 from the channels 2q, 2q+1 (a
+      // permutation of the sum), so that the loads are conflict-free
+      float acc[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < HD / 8; ++ks) {
+        sm90::Frag<4> a;  // A[t][i] = (k * Q)[t][i]
+        const uint4 lo = *reinterpret_cast<const uint4*>(
+            s_kq + g * Gm::KQ_ROW + 8 * ks + 2 * q);
+        const uint4 hi = *reinterpret_cast<const uint4*>(
+            s_kq + (g + 8) * Gm::KQ_ROW + 8 * ks + 2 * q);
+        a.hi[0] = lo.x, a.lo[0] = lo.y, a.hi[2] = lo.z, a.lo[2] = lo.w;
+        a.hi[1] = hi.x, a.lo[1] = hi.y, a.hi[3] = hi.z, a.lo[3] = hi.w;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          sm90::Frag<2> bb;  // B[i][j] = G_out[i][j]
+          const float* p = s_go + (8 * ks + 2 * q) * ROW + 16 * wid + 8 * n + g;
+          bb.x[0] = p[0];
+          bb.x[1] = p[ROW];
+          bb.split();
+          mma(acc[n], a, bb);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int j = 16 * wid + 8 * n + 2 * q;
+        *reinterpret_cast<float2*>(sm + Gm::Z + g * PR + j) =
+            make_float2(acc[n][0], acc[n][1]);
+        *reinterpret_cast<float2*>(sm + Gm::Z + (g + 8) * PR + j) =
+            make_float2(acc[n][2], acc[n][3]);
+      }
+    }
+    {
+      // the pair matrix A's partial sums over channel quad cq: thread (cq,
+      // p) owns the key steps p and 15 - p (15 pairs (s, t) between them,
+      // every thread the same), A[s][t] for s > t with the running product
+      // D(t, s), and the two diagonals
+      const int cq = tid % NQ, p = tid / NQ, c = 4 * cq, p2 = kC - 1 - p;
+      float* ap = sm + Gm::AP + cq;
+      const float4 uu = *reinterpret_cast<const float4*>(sm + Gm::U + c);
+      float kd[4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int t = x ? p2 : p;
+        const float4 rr = *reinterpret_cast<const float4*>(s_r + t * ROW + c);
+        const float4 kk = *reinterpret_cast<const float4*>(s_k + t * ROW + c);
+        ap[(t * kC + t) * NQ] = rr.x * uu.x * kk.x + rr.y * uu.y * kk.y +
+                                rr.z * uu.z * kk.z + rr.w * uu.w * kk.w;
+        if (x == 0) kd[0] = kk.x, kd[1] = kk.y, kd[2] = kk.z, kd[3] = kk.w;
+      }
+      for (int n = 0; n < kC - 1; ++n) {
+        // pairs n < 15 - p: t = p, s = p + 1 + n; then t = 15 - p, s = n + 1
+        const bool second = n >= kC - 1 - p;
+        if (n == kC - 1 - p) {
+          const float4 kk = *reinterpret_cast<const float4*>(s_k + p2 * ROW + c);
+          kd[0] = kk.x, kd[1] = kk.y, kd[2] = kk.z, kd[3] = kk.w;
+        }
+        const int t = second ? p2 : p, s = second ? n + 1 : p + 1 + n;
+        const float4 rs = *reinterpret_cast<const float4*>(s_r + s * ROW + c);
+        const float4 ws = *reinterpret_cast<const float4*>(s_w + s * ROW + c);
+        ap[(s * kC + t) * NQ] =
+            rs.x * kd[0] + rs.y * kd[1] + rs.z * kd[2] + rs.w * kd[3];
+        kd[0] *= ws.x, kd[1] *= ws.y, kd[2] *= ws.z, kd[3] *= ws.w;
+      }
+    }
+  } else if (tid < 3 * HD) {
+    // channel i walked forward: the dr pair sums V_t[s] = sum_{s'<t}
+    // D(s',t) k_s' B2[s][s'] (V_t[t] is dr's), L_t, and dw's
+    // Q_t (P_t (G_out . S_in) + L_t)
+    const int i = tid - 2 * HD;
+    float ww[kC], kk[kC], qq[kC], vs[kC];
+#pragma unroll
+    for (int t = 0; t < kC; ++t) {
+      ww[t] = s_w[t * ROW + i];
+      kk[t] = s_k[t * ROW + i];
+      vs[t] = 0.f;
+    }
+    float d = 1.f;
+#pragma unroll
+    for (int t = kC - 1; t >= 0; --t) {
+      qq[t] = d;
+      d *= ww[t];
+    }
+    const float cr = sm[Gm::CR + i], ui = sm[Gm::U + i];
+    float L = 0.f, pd = 1.f;
+#pragma unroll
+    for (int t = 0; t < kC; ++t) {
+      const float bonus = s_b2[t * BR + t];
+      const float drt = pd * sm[Gm::X + t * PR + i] + vs[t] + ui * kk[t] * bonus;
+      if (t < nv) dr[row0 + t * t_stride + i] = drt;
+      sm[Gm::DW + t * HD + i] = qq[t] * (pd * cr + L);
+      L = ww[t] * L + kk[t] * sm[Gm::Y + t * PR + i];
+#pragma unroll
+      for (int s = t + 1; s < kC; ++s)
+        vs[s] = ww[t] * vs[s] + kk[t] * s_b2[s * BR + t];
+      pd *= ww[t];
+    }
+  } else {
+    // channel i walked back: the dk pair sums U_t[s] = sum_{s'>t} D(t,s')
+    // r_s' B2[s'][s] (U_t[t] is dk's), R_t, the cross term sum_{s<t}
+    // D(s,t) k_s U_t[s], dw's P_t R_t + cross, and du's partial
+    const int i = tid - 3 * HD;
+    float ww[kC], kk[kC], rr[kC], pp[kC], us[kC];
+#pragma unroll
+    for (int t = 0; t < kC; ++t) {
+      ww[t] = s_w[t * ROW + i];
+      kk[t] = s_k[t * ROW + i];
+      rr[t] = s_r[t * ROW + i];
+      us[t] = 0.f;
+    }
+    float d = 1.f;
+#pragma unroll
+    for (int t = 0; t < kC; ++t) {
+      pp[t] = d;
+      d *= ww[t];
+    }
+    const float ui = sm[Gm::U + i];
+    float R = 0.f, qd = 1.f, du = 0.f;
+#pragma unroll
+    for (int t = kC - 1; t >= 0; --t) {
+      const float bonus = s_b2[t * BR + t];
+      const float dkt = qd * sm[Gm::Y + t * PR + i] + us[t] + rr[t] * ui * bonus;
+      if (t < nv) dk[row0 + t * t_stride + i] = dkt;
+      float cross = 0.f, dd = 1.f;
+#pragma unroll
+      for (int s = t - 1; s >= 0; --s) {
+        cross += dd * kk[s] * us[s];
+        dd *= ww[s];
+      }
+      sm[Gm::DW + (kC + t) * HD + i] = pp[t] * R + cross;
+      du += rr[t] * kk[t] * bonus;
+      R = ww[t] * R + rr[t] * sm[Gm::X + t * PR + i];
+#pragma unroll
+      for (int s = 0; s < t; ++s)
+        us[s] = ww[t] * us[s] + rr[t] * s_b2[t * BR + s];
+      qd *= ww[t];
+    }
+    du_part[((long long)bh * chunks + ch) * HD + i] = du;
+  }
+  __syncthreads();
+
+  // ---- phase 3: A summed over the quads; dw; then dv
+  for (int e = tid; e < kC * kC; e += NT) {
+    const int s = e / kC, t = e % kC;
+    if (s >= t) {
+      float acc = 0.f;
+      for (int x = 0; x < NQ; ++x) acc += sm[Gm::AP + e * NQ + x];
+      sm[Gm::AM + s * BR + t] = acc;
+    }
+  }
+  const int t = tid / NQ, c = 4 * (tid % NQ);
+  const long long o = row0 + t * t_stride + c;
+  if (t < nv) {
+    const float4 f = *reinterpret_cast<const float4*>(sm + Gm::DW + t * HD + c);
+    const float4 bk =
+        *reinterpret_cast<const float4*>(sm + Gm::DW + (kC + t) * HD + c);
+    *reinterpret_cast<float4*>(dw + o) =
+        make_float4(f.x + bk.x, f.y + bk.y, f.z + bk.z, f.w + bk.w);
+  }
+  __syncthreads();
+  if (t < nv) {
+    float4 acc = *reinterpret_cast<const float4*>(sm + Gm::Z + t * PR + c);
+    for (int s = t; s < nv; ++s) {
+      const float a = sm[Gm::AM + s * BR + t];
+      const float4 y = *reinterpret_cast<const float4*>(s_dy + s * ROW + c);
+      acc.x += a * y.x, acc.y += a * y.y, acc.z += a * y.z, acc.w += a * y.w;
+    }
+    *reinterpret_cast<float4*>(dv + o) = acc;
+  }
+}
+
+// ---- launch 3: du ----------------------------------------------------------
+
+constexpr int kDuThreads = 1024;
+
+// du[h] = the sum of du_part[b][h][chunk] over (batch, chunk): one block a
+// head, thread (part, channel) a strided share of the (batch, chunk)
+// pairs in four running sums (four loads in flight), the shares added in
+// part order; a fixed order throughout
+__global__ void __launch_bounds__(kDuThreads) rwkv6_bwd_du_kernel(
+    const float* __restrict__ du_part, int B, int chunks, int H, int hd,
+    float* __restrict__ du) {
+  __shared__ float red[kDuThreads];
+  const int h = blockIdx.x, parts = kDuThreads / hd, n_all = B * chunks;
+  const int i = threadIdx.x % hd, part = threadIdx.x / hd;
+  auto at = [&](int n) {
+    const int bb = n / chunks, c = n - bb * chunks;
+    return du_part[(((long long)bb * H + h) * chunks + c) * hd + i];
+  };
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  int n = part;
+  for (; n + 3 * parts < n_all; n += 4 * parts) {
+    a0 += at(n);
+    a1 += at(n + parts);
+    a2 += at(n + 2 * parts);
+    a3 += at(n + 3 * parts);
+  }
+  for (; n < n_all; n += parts) a0 += at(n);
+  red[threadIdx.x] = (a0 + a1) + (a2 + a3);
+  __syncthreads();
+  if (part == 0) {
+    float s = 0.f;
+    for (int x = 0; x < parts; ++x) s += red[x * hd + i];
+    du[h * hd + i] = s;
+  }
+}
+
+template <typename K>
+int set_smem(K kernel, int bytes, int* configured) {
+  if (*configured < 0)
+    *configured = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  return *configured;
 }
 
 template <int HD>
@@ -955,27 +1294,26 @@ int launch_bwd(const float* r, const float* k, const float* v, const float* w,
                const float* u, const float* state_in, const float* dy,
                const float* dstate_final, float* dr, float* dk, float* dv,
                float* dw, float* du, float* dstate0, float* ws,
-               float* dv_part, float* du_part, int B, int steps, int H,
-               cudaStream_t stream) {
-  using Gm = Geo<HD>;
-  auto kernel = rwkv6_bwd_kernel<HD>;
-  static int configured = -1;  // cudaFuncSetAttribute's result, once
-  if (configured < 0)
-    configured = static_cast<int>(cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Gm::SMEM));
-  if (configured != 0) return configured;
-  float* part = Gm::NS == 1 ? dv : dv_part;
-  kernel<<<B * H * Gm::NS, Gm::NT, Gm::SMEM, stream>>>(
-      r, k, v, w, u, state_in, dy, dstate_final, dr, dk, dw, dstate0, ws,
-      part, du_part, steps, H);
-  int rc = static_cast<int>(cudaGetLastError());
+               float* du_part, int B, int steps, int H, cudaStream_t stream) {
+  using Wg = WalkGeo<HD>;
+  using Cg = ChunkGeo<HD>;
+  static int walk_ok = -1, chunk_ok = -1;  // cudaFuncSetAttribute, once
+  int rc = set_smem(rwkv6_bwd_walk_kernel<HD>, Wg::SMEM, &walk_ok);
+  if (rc == 0) rc = set_smem(rwkv6_bwd_chunk_kernel<HD>, Cg::SMEM, &chunk_ok);
   if (rc != 0) return rc;
-  const long long n = (long long)B * steps * H * HD;
-  const long long work = Gm::NS > 1 ? n : (long long)H * HD;
-  const long long want = (work + 255) / 256;
-  const int blocks = static_cast<int>(want < 1024 ? want : 1024);
-  rwkv6_bwd_reduce_kernel<<<blocks, 256, 0, stream>>>(
-      dv_part, Gm::NS, n, dv, du_part, B, H * HD, du);
+  const int chunks = (steps + kC - 1) / kC;
+  float* s_in = ws;
+  float* g_out = ws + (long long)B * H * chunks * HD * HD;
+  rwkv6_bwd_walk_kernel<HD><<<B * H * Wg::NS * 2, Wg::NT, Wg::SMEM, stream>>>(
+      r, k, v, w, dy, state_in, dstate_final, s_in, g_out, dstate0, steps, H);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  rwkv6_bwd_chunk_kernel<HD><<<B * H * chunks, Cg::NT, Cg::SMEM, stream>>>(
+      r, k, v, w, u, dy, s_in, g_out, dr, dk, dv, dw, du_part, steps, H);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  rwkv6_bwd_du_kernel<<<H, kDuThreads, 0, stream>>>(du_part, B, chunks, H, HD,
+                                                    du);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1145,18 +1483,17 @@ extern "C" int repro_rwkv6_scan_attributes(int dtype, int hd, int steps,
 // The backward, float32: the grads of r, k, v, w (B, T, H, hd), u (H, hd)
 // and, when dstate0 is not null, of the initial state (B, H, hd, hd), for
 // the upstream grads dy (B, T, H, hd) and dstate_final (the final state's;
-// null: zero).  state_in null: a zero initial state.  Workspaces, all
-// float32 and written before they are read: ws (B, H, ceil(T / 16), hd,
-// hd), the state entering each 16-step chunk; dv_part (hd / 32, B, T, H,
-// hd), each row slice's dv (unused at hd = 32: dv is written directly);
-// du_part (B, H, hd).  Two launches; returns cudaGetLastError() after
-// them (0 on success).
+// null: zero).  state_in null: a zero initial state.  Workspaces, float32
+// and written before they are read: ws (2, B, H, ceil(T / 16), hd, hd),
+// the state entering and the adjoint leaving each 16-step chunk; du_part
+// (B, H, ceil(T / 16), hd), each chunk's du.  Three launches (the chunk
+// walks, every chunk's grads, du); returns cudaGetLastError() after them
+// (0 on success).
 extern "C" int repro_rwkv6_scan_bwd(
     const void* r, const void* k, const void* v, const void* w, const void* u,
     const void* state_in, const void* dy, const void* dstate_final, void* dr,
     void* dk, void* dv, void* dw, void* du, void* dstate0, void* ws,
-    void* dv_part, void* du_part, int B, int steps, int H, int hd,
-    void* stream) {
+    void* du_part, int B, int steps, int H, int hd, void* stream) {
   if (B <= 0 || steps <= 0 || H <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -1166,33 +1503,47 @@ extern "C" int repro_rwkv6_scan_bwd(
     case 32:
       return bwd::launch_bwd<32>(f(r), f(k), f(v), f(w), f(u), f(state_in),
                                  f(dy), f(dstate_final), m(dr), m(dk), m(dv),
-                                 m(dw), m(du), m(dstate0), m(ws), m(dv_part),
-                                 m(du_part), B, steps, H, st);
+                                 m(dw), m(du), m(dstate0), m(ws), m(du_part),
+                                 B, steps, H, st);
     case 64:
       return bwd::launch_bwd<64>(f(r), f(k), f(v), f(w), f(u), f(state_in),
                                  f(dy), f(dstate_final), m(dr), m(dk), m(dv),
-                                 m(dw), m(du), m(dstate0), m(ws), m(dv_part),
-                                 m(du_part), B, steps, H, st);
+                                 m(dw), m(du), m(dstate0), m(ws), m(du_part),
+                                 B, steps, H, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// What the compiler gave the backward's main kernel at head dim hd, as
-// repro_rwkv6_scan_attributes reports the forward's.
-extern "C" int repro_rwkv6_scan_bwd_attributes(int hd, int* out) {
+namespace {
+template <typename K>
+int bwd_attributes(K kernel, int smem, int* out) {
   cudaFuncAttributes attr;
-  int rc = static_cast<int>(cudaErrorInvalidValue), smem = 0;
-  if (hd == 32) {
-    rc = cudaFuncGetAttributes(&attr, bwd::rwkv6_bwd_kernel<32>);
-    smem = bwd::Geo<32>::SMEM;
-  } else if (hd == 64) {
-    rc = cudaFuncGetAttributes(&attr, bwd::rwkv6_bwd_kernel<64>);
-    smem = bwd::Geo<64>::SMEM;
-  }
+  const int rc = static_cast<int>(cudaFuncGetAttributes(&attr, kernel));
   if (rc != 0) return rc;
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.sharedSizeBytes);
   out[2] = static_cast<int>(attr.localSizeBytes);
   out[3] = smem;
   return 0;
+}
+}  // namespace
+
+// What the compiler gave launch `which` of the backward at head dim hd (0
+// the chunk walks, 1 the chunks' grads, 2 du), as
+// repro_rwkv6_scan_attributes reports the forward's.
+extern "C" int repro_rwkv6_scan_bwd_attributes(int hd, int which, int* out) {
+  if (which == 2) return bwd_attributes(bwd::rwkv6_bwd_du_kernel, 0, out);
+  if (hd == 32 && which == 0)
+    return bwd_attributes(bwd::rwkv6_bwd_walk_kernel<32>,
+                          bwd::WalkGeo<32>::SMEM, out);
+  if (hd == 64 && which == 0)
+    return bwd_attributes(bwd::rwkv6_bwd_walk_kernel<64>,
+                          bwd::WalkGeo<64>::SMEM, out);
+  if (hd == 32 && which == 1)
+    return bwd_attributes(bwd::rwkv6_bwd_chunk_kernel<32>,
+                          bwd::ChunkGeo<32>::SMEM, out);
+  if (hd == 64 && which == 1)
+    return bwd_attributes(bwd::rwkv6_bwd_chunk_kernel<64>,
+                          bwd::ChunkGeo<64>::SMEM, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,7 +8,9 @@ splits a slot's context (``paged_attention_partials_ref``,
 ``merge_partials_ref``) and one of the CUDA WKV kernel's chunked form of
 the recurrence (``rwkv6_scan_chunked_ref``; nothing on a main path runs
 it), and the WKV recurrence's gradient as its reverse recurrence
-(``rwkv6_scan_bwd_ref``, which the JAX package leaves to autodiff).  The
+(``rwkv6_scan_bwd_ref``, which the JAX package leaves to autodiff) and as
+the CUDA backward computes it (``rwkv6_scan_bwd_chunked_ref``; nothing on
+a main path runs it).  The
 CPU paths of :mod:`repro_torch.kernels.ops` run these, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
@@ -22,8 +24,7 @@ import torch
 NEG_INF = -1e30
 # keys a tile of the float32 flash kernel (``kBK`` in csrc/flash_attention.cu)
 FLASH_F32_BK = 64
-# steps between the states the WKV backward keeps (``bwd::kC`` in
-# csrc/rwkv6_scan.cu)
+# steps a chunk of the WKV backward (``bwd::kC`` in csrc/rwkv6_scan.cu)
 WKV_BWD_CHUNK = 16
 
 
@@ -201,11 +202,12 @@ def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         du[h,i] = sum_{b,t} r_t[i] k_t[i] (v_t . dy_t)
         G_{t-1} = diag(w_t) G_t + r_t^T dy_t,   dstate0 = G_{-1}
 
-    As the kernel does, a forward walk keeps the state entering every
-    :data:`WKV_BWD_CHUNK` steps, and the backward walk recomputes each
-    chunk's states from that boundary: the state is never walked backwards
-    (that would divide by w, which may be 0), and nothing divides or takes
-    a log."""
+    A forward walk keeps the state entering every :data:`WKV_BWD_CHUNK`
+    steps, and the backward walk recomputes each chunk's states from that
+    boundary: the state is never walked backwards (that would divide by w,
+    which may be 0), and nothing divides or takes a log.  The CPU path of
+    ``ops.rwkv6_scan`` runs this; :func:`rwkv6_scan_bwd_chunked_ref`
+    models the CUDA kernel's arithmetic."""
     B, T, H, hd = r.shape
     chunk = WKV_BWD_CHUNK
     r_, k_, v_, w_, dy_ = (x.float() for x in (r, k, v, w, dy))
@@ -239,6 +241,147 @@ def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             du += (rt * kt * vdy).sum(0)
             G = wt[..., None] * G + rt[..., None] * dyt[..., None, :]
     return dr, dk, dv, dw, du, None if state is None else G
+
+
+def _chunk_decays(w: torch.Tensor):
+    """``w`` (..., C, hd) -> (P, Q, Gamma): the exclusive prefix products
+    ``P_t = prod_{tau<t} w_tau``, the exclusive suffix products ``Q_t =
+    prod_{tau>t} w_tau`` (both (..., C, hd)) and the chunk's whole product
+    (..., hd), each a running product of w."""
+    C = w.shape[-2]
+    p, q = torch.ones_like(w[..., 0, :]), torch.ones_like(w[..., 0, :])
+    P, Q = [None] * C, [None] * C
+    for t in range(C):
+        P[t] = p
+        p = p * w[..., t, :]
+        Q[C - 1 - t] = q
+        q = q * w[..., C - 1 - t, :]
+    return torch.stack(P, -2), torch.stack(Q, -2), p
+
+
+def rwkv6_scan_bwd_chunked_ref(r: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, w: torch.Tensor,
+                               u: torch.Tensor,
+                               state: Optional[torch.Tensor],
+                               dy: torch.Tensor,
+                               dstate_final: Optional[torch.Tensor] = None):
+    """The gradient of :func:`rwkv6_scan_ref` computed as the CUDA backward
+    kernel computes it: a plain model of its arithmetic, same contract as
+    :func:`rwkv6_scan_bwd_ref`.
+
+    The sequence is cut into chunks of :data:`WKV_BWD_CHUNK` steps (the
+    last padded with r = k = v = dy = 0 and w = 1).  Within a chunk (local steps t,
+    ``P``, ``Q``, ``Gamma`` as in :func:`_chunk_decays`, and ``D(s, t) =
+    prod_{s<tau<t} w_tau`` for s < t)::
+
+        S_out = diag(Gamma) S_in  + (k * Q)^T v      (forward walk)
+        G_in  = diag(Gamma) G_out + (r * P)^T dy     (reverse walk)
+
+    The two walks keep every chunk's entering state S_in and leaving
+    adjoint G_out; dstate0 is chunk 0's G_in.  Then, for every chunk at
+    once, with X = dy S_in^T, Y = v G_out^T, Z = (k * Q) G_out, the pair
+    matrix B2[s][t] = dy_s . v_t and c = sum_j G_out * S_in (per row)::
+
+        dr_t = P_t X_t + V_t[t]          + u k_t B2[t][t]
+        dk_t = Q_t Y_t + U_t[t]          + r_t u B2[t][t]
+        dv_t = Z_t + sum_{s>=t} A[s][t] dy_s
+        dw_t = P_t Q_t c + Q_t L_t + P_t R_t + sum_{s<t} D(s,t) k_s U_t[s]
+        du   = sum over batch and chunks of sum_t r_t k_t B2[t][t]
+
+    where, per key channel, V_t[s] = sum_{s'<t} D(s',t) k_s' B2[s][s'] and
+    L_t = sum_{s<t} D(s,t) k_s Y_s walk forward (V_{t+1} = w_t V_t + k_t
+    B2[:, t], L_{t+1} = w_t L_t + k_t Y_t), U_t[s] = sum_{s'>t} D(t,s')
+    r_s' B2[s'][s] and R_t = sum_{s>t} D(t,s) r_s X_s walk back (U_{t-1} =
+    w_t U_t + r_t B2[t], R_{t-1} = w_t R_t + r_t X_t), and A[s][t] =
+    sum_i r_s k_t D(t,s) (s > t), A[t][t] = sum_i r_t u k_t is the
+    forward's pair matrix.  Every factor is a running product of w: nothing
+    divides or takes a logarithm, so a decay that underflows to 0 gives
+    exact grads."""
+    B, T, H, hd = r.shape
+    C = WKV_BWD_CHUNK
+    pad = -T % C
+    n = (T + pad) // C
+
+    def chunks(x, fill):
+        x = x.float().permute(0, 2, 1, 3)                     # (B, H, T, hd)
+        if pad:
+            x = torch.cat([x, x.new_full((B, H, pad, hd), fill)], 2)
+        return x.reshape(B, H, n, C, hd)
+
+    r_, k_, v_, dy_ = (chunks(x, 0.0) for x in (r, k, v, dy))
+    w_ = chunks(w, 1.0)
+    uf = u.float()[None, :, None, :]                          # (1, H, 1, hd)
+    P, Q, gamma = _chunk_decays(w_)
+    kq, rp = k_ * Q, r_ * P
+
+    # the two chunk walks
+    S = (r_.new_zeros((B, H, hd, hd)) if state is None
+         else state.float().clone())
+    G = (r_.new_zeros((B, H, hd, hd)) if dstate_final is None
+         else dstate_final.float().clone())
+    s_in, g_out = [None] * n, [None] * n
+    for c in range(n):
+        s_in[c] = S
+        S = gamma[:, :, c, :, None] * S + kq[:, :, c].mT @ v_[:, :, c]
+        g_out[n - 1 - c] = G
+        G = (gamma[:, :, n - 1 - c, :, None] * G
+             + rp[:, :, n - 1 - c].mT @ dy_[:, :, n - 1 - c])
+    s_in, g_out = torch.stack(s_in, 2), torch.stack(g_out, 2)
+
+    # every chunk at once: (B, H, n, C, hd) per step and key channel
+    X = dy_ @ s_in.mT
+    Y = v_ @ g_out.mT
+    Z = kq @ g_out
+    B2 = dy_ @ v_.mT                                          # [.., s, t]
+    c_row = (g_out * s_in).sum(-1)                            # (B, H, n, hd)
+    dr, dk, dw_f, dw_b = ([None] * C for _ in range(4))
+    # forward over t: V (V[s] for s >= t), L, P
+    V = [torch.zeros_like(c_row) for _ in range(C)]
+    L = torch.zeros_like(c_row)
+    for t in range(C):
+        bonus = B2[..., t, t, None]
+        dr[t] = P[..., t, :] * X[..., t, :] + V[t] + uf * \
+            k_[..., t, :] * bonus
+        dw_f[t] = Q[..., t, :] * (P[..., t, :] * c_row + L)
+        L = w_[..., t, :] * L + k_[..., t, :] * Y[..., t, :]
+        for s in range(t + 1, C):
+            V[s] = w_[..., t, :] * V[s] + k_[..., t, :] * B2[..., s, t, None]
+    # back over t: U (U[s] for s <= t), R
+    U = [torch.zeros_like(c_row) for _ in range(C)]
+    R = torch.zeros_like(c_row)
+    du = torch.zeros_like(c_row)
+    for t in reversed(range(C)):
+        bonus = B2[..., t, t, None]
+        dk[t] = Q[..., t, :] * Y[..., t, :] + U[t] + r_[..., t, :] * \
+            uf * bonus
+        cross, d = torch.zeros_like(c_row), torch.ones_like(c_row)
+        for s in reversed(range(t)):
+            cross = cross + d * k_[..., s, :] * U[s]
+            d = d * w_[..., s, :]
+        dw_b[t] = P[..., t, :] * R + cross
+        du = du + r_[..., t, :] * k_[..., t, :] * bonus
+        R = w_[..., t, :] * R + r_[..., t, :] * X[..., t, :]
+        for s in range(t):
+            U[s] = w_[..., t, :] * U[s] + r_[..., t, :] * B2[..., t, s, None]
+    # the pair matrix A, M[t][s] = A[s][t] for s >= t
+    M = r_.new_zeros((B, H, n, C, C))
+    for t in range(C):
+        M[..., t, t] = (r_[..., t, :] * uf * k_[..., t, :]).sum(-1)
+        kd = k_[..., t, :]
+        for s in range(t + 1, C):
+            M[..., t, s] = (r_[..., s, :] * kd).sum(-1)
+            kd = kd * w_[..., s, :]
+    dv = Z + M @ dy_
+
+    def steps(x):                      # (B, H, n, C, hd) -> (B, T, H, hd)
+        return x.reshape(B, H, n * C, hd)[:, :, :T].permute(0, 2, 1, 3)
+
+    def stacked(xs):
+        return steps(torch.stack(xs, -2))
+
+    dw = [a + b for a, b in zip(dw_f, dw_b)]
+    return (stacked(dr), stacked(dk), steps(dv), stacked(dw),
+            du.sum((0, 2)), None if state is None else G)
 
 
 def rwkv6_scan_chunked_ref(r: torch.Tensor, k: torch.Tensor,
@@ -282,14 +425,7 @@ def rwkv6_scan_chunked_ref(r: torch.Tensor, k: torch.Tensor,
         for i0 in range(0, hd, keys):
             ch = slice(i0, i0 + keys)
             rc, kc, wc = (x[:, :, c0:c0 + chunk, ch] for x in (r_, k_, w_))
-            p, P = torch.ones_like(wc[:, :, 0]), []
-            for t in range(chunk):
-                P.append(p)
-                p = p * wc[:, :, t]
-            G, q, Q = p, torch.ones_like(p), [None] * chunk
-            for s in reversed(range(chunk)):
-                Q[s] = q
-                q = q * wc[:, :, s]
+            P, Q, G = _chunk_decays(wc)
             A = r_.new_zeros((B, H, chunk, chunk))
             for s in range(chunk):
                 A[:, :, s, s] = (rc[:, :, s] * uf[..., ch] * kc[:, :, s]).sum(-1)
@@ -298,9 +434,9 @@ def rwkv6_scan_chunked_ref(r: torch.Tensor, k: torch.Tensor,
                     A[:, :, t, s] = (rc[:, :, t] * kd).sum(-1)
                     kd = kd * wc[:, :, t]
             S_in = S[:, :, ch]
-            y[:, :, c0:c0 + chunk] += rc * torch.stack(P, 2) @ S_in + A @ vc
+            y[:, :, c0:c0 + chunk] += rc * P @ S_in + A @ vc
             S[:, :, ch] = (G[..., None] * S_in
-                           + (kc * torch.stack(Q, 2)).transpose(-1, -2) @ vc)
+                           + (kc * Q).transpose(-1, -2) @ vc)
     y = y[:, :, :T].permute(0, 2, 1, 3).to(r.dtype)
     return y if state is None else (y, S)
 

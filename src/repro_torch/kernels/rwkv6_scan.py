@@ -18,12 +18,14 @@ way one call is one launch.
 
 :func:`rwkv6_scan_bwd_cuda` is training's backward, float32 only, from
 the same library (the TPU side has no such kernel: XLA differentiates the
-reference's scan): a forward walk keeps the state entering every
-``kernels.ref.WKV_BWD_CHUNK`` steps in a workspace of the call, then the
-chunks are walked in reverse, each chunk's states recomputed from its
-boundary; ``kernels.ref.rwkv6_scan_bwd_ref`` is its plain model.  It
-counts its calls in :data:`backward_launches` (a call is the main kernel
-and a small reduction kernel).
+reference's scan), in three launches: the chunk walks (the state
+entering and the adjoint leaving every ``kernels.ref.WKV_BWD_CHUNK``
+steps, into a workspace of the call, on the tensor cores), every chunk's
+grads in parallel from those two ends, and du summed over the chunks.
+``kernels.ref.rwkv6_scan_bwd_chunked_ref`` is a plain model of that
+arithmetic, ``kernels.ref.rwkv6_scan_bwd_ref`` the reverse recurrence it
+is held to.  It counts its calls in :data:`backward_launches` (one a
+call, whatever it launches).
 
 :func:`rwkv6_scan_cuda` and :func:`rwkv6_scan_bwd_cuda` take CUDA tensors
 only; the CPU path of ``kernels.ops.rwkv6_scan`` never reaches this
@@ -59,8 +61,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu"
 HEAD_DIMS = (32, 64)  # the instantiations in the source
 BACKWARD_HEAD_DIMS = (32, 64)  # the backward's instantiations
 
-#: state rows a block of the backward takes (``bwd::kRows``)
-BWD_ROWS = 32
+#: the backward's launches, in order (``which`` of its attributes entry)
+BACKWARD_KERNELS = ("rwkv6_bwd_walk_kernel", "rwkv6_bwd_chunk_kernel",
+                    "rwkv6_bwd_du_kernel")
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -81,9 +84,10 @@ def build() -> ctypes.CDLL:
     lib.repro_rwkv6_scan_attributes.argtypes = [ci, ci, ci,
                                                 ctypes.POINTER(ci)]
     lib.repro_rwkv6_scan_bwd.restype = ci
-    lib.repro_rwkv6_scan_bwd.argtypes = [vp] * 17 + [ci, ci, ci, ci, vp]
+    lib.repro_rwkv6_scan_bwd.argtypes = [vp] * 16 + [ci, ci, ci, ci, vp]
     lib.repro_rwkv6_scan_bwd_attributes.restype = ci
-    lib.repro_rwkv6_scan_bwd_attributes.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.repro_rwkv6_scan_bwd_attributes.argtypes = [ci, ci,
+                                                    ctypes.POINTER(ci)]
     _lib = lib
     return lib
 
@@ -103,30 +107,32 @@ def kernel_attributes(dtype: torch.dtype, hd: int, steps: int) -> dict:
 
 
 def backward_attributes(hd: int) -> dict:
-    """:func:`kernel_attributes` of the backward's main kernel at head
-    dim ``hd``."""
-    out = (ctypes.c_int * 4)()
-    rc = build().repro_rwkv6_scan_bwd_attributes(hd, out)
-    if rc != 0:
-        raise RuntimeError(f"rwkv6 scan backward attributes: CUDA error {rc}")
-    return {"registers": out[0], "shared_bytes": out[1],
-            "local_bytes": out[2], "dynamic_shared_bytes": out[3]}
+    """:func:`kernel_attributes` of each of the backward's kernels at head
+    dim ``hd``, by name (:data:`BACKWARD_KERNELS`)."""
+    found = {}
+    for which, name in enumerate(BACKWARD_KERNELS):
+        out = (ctypes.c_int * 4)()
+        rc = build().repro_rwkv6_scan_bwd_attributes(hd, which, out)
+        if rc != 0:
+            raise RuntimeError(f"rwkv6 scan backward attributes ({name}): "
+                               f"CUDA error {rc}")
+        found[name] = {"registers": out[0], "shared_bytes": out[1],
+                       "local_bytes": out[2], "dynamic_shared_bytes": out[3]}
+    return found
 
 
 def _workspace_shapes(B: int, T: int, H: int, hd: int):
     """The float32 workspaces of one backward call: the state entering
-    every ``WKV_BWD_CHUNK`` steps, the row slices' dv partials (None when
-    a head is one slice: dv is written directly) and each batch row's
-    du."""
-    slices = hd // BWD_ROWS
-    return ((B, H, -(-T // WKV_BWD_CHUNK), hd, hd),
-            (slices, B, T, H, hd) if slices > 1 else None, (B, H, hd))
+    and the adjoint leaving every ``WKV_BWD_CHUNK``-step chunk, and each
+    chunk's du."""
+    chunks = -(-T // WKV_BWD_CHUNK)
+    return (2, B, H, chunks, hd, hd), (B, H, chunks, hd)
 
 
 def backward_workspace_bytes(B: int, T: int, H: int, hd: int) -> int:
     """Bytes of workspace one backward call allocates."""
-    return 4 * sum(math.prod(shape) for shape in _workspace_shapes(B, T, H, hd)
-                   if shape is not None)
+    return 4 * sum(math.prod(shape)
+                   for shape in _workspace_shapes(B, T, H, hd))
 
 
 def _check(cond: bool, msg: str, what: str = "rwkv6_scan_cuda") -> None:
@@ -230,17 +236,15 @@ def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty_like(u)
     dstate0 = None if state is None else torch.empty_like(state)
-    ws, dv_part, du_part = (
-        None if shape is None
-        else torch.empty(shape, dtype=torch.float32, device=r.device)
-        for shape in _workspace_shapes(B, T, H, hd))
+    ws, du_part = (torch.empty(shape, dtype=torch.float32, device=r.device)
+                   for shape in _workspace_shapes(B, T, H, hd))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     rc = build().repro_rwkv6_scan_bwd(
         *(ptr(t) for t in (r, k, v, w, u, state, dy, dstate_final, dr, dk,
-                           dv, dw, du, dstate0, ws, dv_part, du_part)),
+                           dv, dw, du, dstate0, ws, du_part)),
         B, T, H, hd, torch.cuda.current_stream(r.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rwkv6 scan backward launch failed: CUDA error "

@@ -12,6 +12,11 @@ plain model of the kernel's algorithm, ``ref.rwkv6_scan_chunked_ref``
 (chunks, key-channel tiles, running products of the decays), is held here to
 the step loop, to the Pallas kernel and to the model's scan, with chunk
 lengths that leave a ragged last chunk, a single step and whole chunks.
+The backward's reverse recurrence (``ref.rwkv6_scan_bwd_ref``, the CPU
+path of the autograd Function) and the plain model of the CUDA backward's
+arithmetic (``ref.rwkv6_scan_bwd_chunked_ref``: the chunk walks and the
+per-chunk forms) are held to ``jax.vjp`` of the model's scan, to autograd
+of the step loop and to each other.
 
 Tolerances, the ``tests/test_kernels.py`` bounds: 1e-4 in f32 (both sides
 keep the state in f32 and sum in another order), 3e-2 / 3e-1 (rtol /
@@ -345,17 +350,98 @@ def test_ops_refuses_a_bf16_input_that_needs_a_grad():
 
 
 def test_backward_constants_are_the_sources():
-    """``ref.WKV_BWD_CHUNK`` and ``BWD_ROWS`` size the wrapper's workspaces
-    and set the plain backward's kept states: they must be the source's
-    ``bwd::kC`` and ``bwd::kRows``; at rwkv6-3b's training shape (B=2,
-    T=256, 40 heads of 64) the kept states take 20 MiB."""
+    """``ref.WKV_BWD_CHUNK`` sets the chunks of the plain models and sizes
+    the wrapper's workspaces: it must be the source's ``bwd::kC``; the
+    wrapper's ``BACKWARD_KERNELS`` are the source's backward kernels, in
+    launch order.  At rwkv6-3b's training shape (B=2, T=256, 40 heads of
+    64) the chunks' S_in and G_out take 40 MiB, beside each chunk's du."""
     src = wkv.SOURCE.read_text()
     body = src[src.index("namespace bwd {"):src.index("}  // namespace bwd")]
     assert int(re.search(r"constexpr int kC = (\d+);", body).group(1)) \
         == ref.WKV_BWD_CHUNK
-    assert int(re.search(r"constexpr int kRows = (\d+);", body).group(1)) \
-        == wkv.BWD_ROWS
-    states = 2 * 40 * 16 * 64 * 64 * 4
-    assert states == 20 * 2 ** 20
+    launch = body[body.index("int launch_bwd("):]
+    at = [launch.index(name + "<") for name in wkv.BACKWARD_KERNELS]
+    assert at == sorted(at)
+    for name in wkv.BACKWARD_KERNELS:
+        assert re.search(r"__global__ void __launch_bounds__\([^)]*\)\)?\s*"
+                         + name + r"\(", body), name
+    chunks = 256 // ref.WKV_BWD_CHUNK
+    states = 2 * 2 * 40 * chunks * 64 * 64 * 4
+    assert states == 40 * 2 ** 20
     assert wkv.backward_workspace_bytes(2, 256, 40, 64) == (
-        states + 4 * (2 * 2 * 256 * 40 * 64 + 2 * 40 * 64))
+        states + 4 * 2 * 40 * chunks * 64)
+
+
+# ---------------------------------------------------------------------------
+# the plain model of the backward kernel's arithmetic
+# ---------------------------------------------------------------------------
+
+# the plain model against the reverse recurrence and jax.vjp: 1e-4 (rtol
+# and atol), the f32 bound of the backward (both sides sum the f32 state's
+# products in another order; measured <= 7e-7 of max |grad| here)
+CHUNKED_T = [1, 15, 16, 17, 300]
+
+
+def _bwd_case(T, hd, carried, extreme):
+    r, k, v, w, u, s0 = _inputs(T + 2 * hd, 2, T, 2, hd)
+    if extreme:
+        w = _extreme_decays(T + 3, 2, T, 2, hd)
+        assert w.min() == 0.0
+    dy, ds = _cotangents(T + 4, 2, T, 2, hd)
+    if not carried:
+        s0, ds = np.zeros_like(s0), np.zeros_like(ds)
+    return r, k, v, w, u, s0, dy, ds
+
+
+@pytest.mark.parametrize("extreme", [False, True], ids=["decays", "extreme"])
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "state"])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("T", CHUNKED_T)
+def test_bwd_chunked_model_matches_the_reverse_recurrence(T, hd, carried,
+                                                          extreme):
+    """From zero with no final-state grad (training) and from a carried
+    state with one; T ragged against the 16-step chunk, whole, one step
+    past, and 19 chunks; extreme decays (exact 0s, 1 - 2**-24) give finite
+    grads equal to the recurrence's."""
+    r, k, v, w, u, s0, dy, ds = _bwd_case(T, hd, carried, extreme)
+    xs = _torch(r, k, v, w, u)
+    state, dfinal = ((torch.from_numpy(s0), torch.from_numpy(ds)) if carried
+                     else (None, None))
+    got = ref.rwkv6_scan_bwd_chunked_ref(*xs, state, torch.from_numpy(dy),
+                                         dfinal)
+    want = ref.rwkv6_scan_bwd_ref(*xs, state, torch.from_numpy(dy), dfinal)
+    for name, g, w_ in zip(BWD_NAMES, got, want):
+        if w_ is None:
+            assert g is None, name
+            continue
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("extreme", [False, True], ids=["decays", "extreme"])
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "state"])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("T", CHUNKED_T)
+def test_bwd_chunked_model_matches_jax_grad_of_the_model_scan(T, hd, carried,
+                                                              extreme):
+    """Every grad against ``jax.vjp`` of the model's scan; "zero" is the
+    training case (a zero initial state and no final-state grad, whose
+    dstate0 is then the scan's grad of its zero start)."""
+    r, k, v, w, u, s0, dy, ds = _bwd_case(T, hd, carried, extreme)
+    want = _jax_vjp_from(r, k, v, w, u, s0, dy, ds)
+    got = ref.rwkv6_scan_bwd_chunked_ref(*_torch(r, k, v, w, u, s0, dy, ds))
+    for name, g, w_ in zip(BWD_NAMES, got, want):
+        assert torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), w_, rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
+def test_backward_source_has_no_atomics_and_no_logarithms():
+    """The backward's grads are the same bits from run to run (no atomics:
+    every sum in a fixed order) and exact where a decay underflows to 0
+    (no logarithm: every decay factor is a running product of w).  The
+    code of namespace ``bwd``, comments stripped, names neither."""
+    src = wkv.SOURCE.read_text()
+    body = src[src.index("namespace bwd {"):src.index("}  // namespace bwd")]
+    code = re.sub(r"//[^\n]*", "", body)
+    assert not re.search(r"atomic|\blogf?\b|__logf|log2|log1p", code)

@@ -16,9 +16,11 @@ exact 0s and values of 1 - 2**-24.  Tolerances, the
 ``tests/test_kernels.py`` bounds: 1e-4 in f32 (both sides keep the state
 in f32 and sum in another order; the kernel's state products are 3xTF32,
 which keeps f32 accuracy) and 3e-2 / 3e-1 (rtol / atol) with bf16 inputs
-and outputs; the backward's grads 1e-4 (f32 sums in another order).  The
-kernels walk 16-step chunks, so T = 15, 16, 17 and the splits at 16 and
-off it cover a ragged chunk, a whole one and one more.
+and outputs; the backward's grads 1e-4 (f32 sums in another order; its
+products are 3xTF32 too).  The kernels cut the sequence into 16-step
+chunks, so T = 15, 16, 17 and the splits at 16 and off it cover a ragged
+chunk, a whole one and one more; the backward's chunk walks also run 128
+hops at T = 2048.
 """
 
 import numpy as np
@@ -213,6 +215,17 @@ def test_backward_matches_plain_version(cuda_device, T, hd, carried):
     torch.cuda.synchronize()
     assert wkv.backward_launches == n0 + 1
     _hold_grads(got, rwkv6_scan_bwd_ref(r, k, v, w, u, state, dy, dfinal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 64])
+def test_backward_long_chunk_walks(cuda_device, hd):
+    """T = 2048 from a carried state with a final-state grad: 128 chunks,
+    so each walk hops 128 times before the chunks' grads are taken."""
+    (r, k, v, w, u, s0), dy, ds = _grads_in(cuda_device, 1, 2048, 2, hd,
+                                            2048 + hd)
+    _hold_grads(wkv.rwkv6_scan_bwd_cuda(r, k, v, w, u, s0, dy, ds),
+                rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dy, ds))
 
 
 @pytest.mark.gpu
