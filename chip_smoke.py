@@ -109,7 +109,27 @@ and then, failing on the first phase that fails:
      device time: ``_RWKV6ScanBackward`` and each of its kernels);
      then trains the reduced float32 rwkv6 3 steps on the kernels and on
      the plain versions (final params within 1e-5), and takes its train
-     CLI ``--ckpt-population`` through the serve CLI's ``--ckpt``.
+     CLI ``--ckpt-population`` through the serve CLI's ``--ckpt``;
+ 10. runs the image-classification slice: the quickstart
+     (``launch.quickstart.main``: mlp 64 x 3 on 12 x 12 images, N = 4,
+     400 steps, baseline and dense WASH p = 0.05), whose pattern must hold
+     (the WASH soup within 0.08 of its ensemble, the ensemble above 0.5,
+     WASH's consensus below the baseline's), every shuffle through the
+     dense kernel (launches == 8 planned leaves x 400); then a ResNet at
+     ResNet-18's stage widths (64-512) on 32 x 32 x 3 images (one residual
+     block a stage, 4.9 M float32 params a member), N = 3, batch 128 a
+     member, heterogeneous augmentation, dense WASH p = 0.05 and a
+     baseline, 300 steps: every shuffle through the dense kernel
+     (launches == 30 planned leaves x 300), held bitwise against its plain
+     version, the comm recorded equal to the float64 count of the masks
+     applied, finite losses, WASH's ensemble above twice chance and its
+     consensus below the baseline's; the ensemble, uniform-soup,
+     greedy-soup, best and worst member accuracies of both; a VGG at the
+     same widths, 3 steps of bucketed WASH+Opt under SGD momentum on the
+     kernels and on the plain versions (cuDNN deterministic): every
+     shuffle bitwise, the final params within 1e-5; and the ResNet's step
+     split, images/s and peak memory, one step profiled (the plan draw's
+     and the dense shuffle kernel's shares of mixing).
 
 Kernels are built from the sources in the checkout, each ``nvcc`` started
 at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
@@ -1148,14 +1168,18 @@ def backward_profile(prof, names) -> str:
 def device_activity(prof, n_top: int = 10):
     """From a finished ``torch.profiler`` run: the device's busy time (ms,
     the union of its activity intervals; the launch queue's "Command
-    Buffer Full" markers are the host waiting, not device work), the
-    number of activities, how often the host found the queue full, and
-    the device time of the top operators."""
+    Buffer Full" markers are the host waiting, and the device-side copies
+    of annotations, the profiler's ``ProfilerStep#`` and any
+    ``record_function`` range, span idle time: neither is device work),
+    the number of activities, how often the host found the queue full,
+    and the device time of the top operators."""
     from torch.autograd import DeviceType
 
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and e.name != "Command Buffer Full")
+                   and e.name != "Command Buffer Full"
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith("ProfilerStep"))
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
         busy_us += max(0.0, b - max(a, end))
@@ -2150,6 +2174,426 @@ def train_rwkv6_reduced(torch, device):
     wkv.launches = wkv.backward_launches = 0
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the image-classification slice (classifier populations, soup
+# against ensemble)
+# ---------------------------------------------------------------------------
+
+# ResNet-18's stage widths (64-512) on CIFAR's 32 x 32 x 3 geometry, one
+# residual block a stage (the repo's resnet): 4.9 M float32 params a member
+CNN_FULL = dict(width=64, depth=4, image_hw=32, num_classes=10)
+CNN_N, CNN_BATCH, CNN_STEPS = 3, 128, 300   # members, images a member, steps
+CNN_TIMED_STEPS = 30                        # the unchecked timing run
+# the image task's default pixel noise (``make_image_task``): at the
+# quickstart's 1.6, tuned for its MLP, a ResNet that pools globally stays
+# near chance for hundreds of steps (the reference's as well)
+CNN_NOISE = 0.35
+CNN_P = 0.05                                # dense WASH base p, as the quickstart
+
+
+def dense_planned_leaves(params, num_blocks: int, base_p: float) -> int:
+    """Leaves of a member tree that a dense WASH plan covers: those whose
+    layer gets p_l > 0 (decreasing schedule: the head gets none)."""
+    from repro_torch.core import layer_index as tli
+    from repro_torch.core.population import tree_leaves
+    from repro_torch.core.schedules import layer_probability
+
+    total = tli.total_layers(num_blocks)
+    return sum(layer_probability(base_p, int(lid), total) > 0 for lid in
+               tree_leaves(tli.infer_layer_ids(params, num_blocks)))
+
+
+@contextlib.contextmanager
+def tally_dense_masks(ops, tally):
+    """Keep each dense shuffle's mask count (a device tensor, read after
+    the run); the shuffle runs as it would."""
+    route = ops.wash_shuffle
+
+    def tallied(x, perm, mask):
+        tally.append(mask.sum())
+        return route(x, perm, mask)
+
+    ops.wash_shuffle = tallied
+    try:
+        yield
+    finally:
+        ops.wash_shuffle = route
+
+
+def cnn_quickstart(torch, device):
+    """The quickstart (``launch.quickstart.main``) on the card, at its own
+    configuration: its pattern must hold.  Returns its dense launches."""
+    from repro_torch.kernels import wash_shuffle as ws
+    from repro_torch.launch import quickstart
+    from repro_torch.models.cnn import ClassifierConfig, init_classifier
+
+    cfg = ClassifierConfig(kind="mlp", width=64, depth=3, num_classes=10,
+                           image_hw=12)
+    planned = dense_planned_leaves(init_classifier(0, cfg, device),
+                                   cfg.num_blocks, 0.05)
+    torch.cuda.synchronize()
+    ws.wash_launches = ws.bucketed_launches = 0
+    t0 = time.perf_counter()
+    rows = quickstart.main(["--device", str(device)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ws.wash_launches
+    base, wash = {r["method"]: r for r in rows}.values()
+    log(f"quickstart on the card (mlp 64 x 3, hw 12, N=4, 400 steps, batch "
+        f"48, two populations): {wall:.2f} s; dense shuffle launches "
+        f"{launches} (expected {planned} planned leaves x 400 steps), "
+        f"bucketed {ws.bucketed_launches}; WASH ensemble "
+        f"{wash['ensemble']:.4f}, soup {wash['averaged']:.4f}, consensus "
+        f"{wash['consensus']:.6g}; baseline ensemble {base['ensemble']:.4f}, "
+        f"soup {base['averaged']:.4f} (the collapse: "
+        f"{base['averaged'] - base['ensemble']:+.4f}), consensus "
+        f"{base['consensus']:.6g}")
+    if launches != planned * 400 or ws.bucketed_launches:
+        fail(f"quickstart: {launches} dense launches, expected "
+             f"{planned * 400}")
+    if not (wash["averaged"] >= wash["ensemble"] - 0.08
+            and wash["ensemble"] > 0.5
+            and wash["consensus"] < base["consensus"]):
+        fail(f"quickstart: the pattern does not hold: {rows}")
+    return launches
+
+
+def _cnn_setup(torch, device, kind):
+    """The full-width classifier of ``kind``, its image task (32 x 32,
+    CNN_NOISE), heterogeneous member policies, ``data_fn``, ``loss_fn``
+    and a 512-image eval set."""
+    from repro_torch.core.prng import fold_in
+    from repro_torch.data import (apply_policy, eval_images, make_image_task,
+                                  member_policies, sample_images,
+                                  soft_cross_entropy)
+    from repro_torch.models.cnn import ClassifierConfig, apply_classifier
+
+    cfg = ClassifierConfig(kind=kind, **CNN_FULL)
+    seed = 19
+    task = make_image_task(fold_in(seed, 1), cfg.num_classes, cfg.image_hw,
+                           noise=CNN_NOISE, device=device)
+    pols = member_policies(fold_in(seed, 7), CNN_N, True)
+
+    def data_fn(m, step, s):
+        images, labels = sample_images(task, s, CNN_BATCH)
+        x, y = apply_policy(fold_in(s, 1), images, labels, cfg.num_classes,
+                            pols[m])
+        return {"x": x, "y": y}
+
+    def loss_fn(params, batch):
+        return soft_cross_entropy(apply_classifier(params, cfg, batch["x"]),
+                                  batch["y"])
+
+    return cfg, pols, data_fn, loss_fn, eval_images(task, fold_in(seed, 99),
+                                                    512)
+
+
+def _cnn_train(device, cfg, data_fn, loss_fn, mcfg, steps, optimizer="sgd",
+               record_fn=None):
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.cnn import init_classifier
+    from repro_torch.train.loop import train_population
+
+    tcfg = TrainConfig(population=CNN_N, optimizer=optimizer, lr=0.05,
+                       total_steps=steps, batch_size=CNN_BATCH)
+    return train_population(
+        0, lambda s: init_classifier(s, cfg, device), loss_fn, data_fn, tcfg,
+        mcfg, cfg.num_blocks, record_every=1 if record_fn else steps,
+        record_fn=record_fn, device=device)
+
+
+def cnn_evaluate(torch, cfg, population, ex, ey) -> dict:
+    """Ensemble, uniform soup, greedy soup (and the members it kept), best
+    and worst member accuracies on the eval set."""
+    from repro_torch.core import averaging as avg
+    from repro_torch.models.cnn import apply_classifier
+
+    def apply_fn(p, x):
+        return apply_classifier(p, cfg, x)
+
+    with torch.no_grad():
+        members = avg.member_accuracies(apply_fn, population, ex, ey).tolist()
+        chosen = avg.greedy_soup_members(apply_fn, population, ex, ey)
+        return {
+            "ensemble": float(avg.ensemble_accuracy(apply_fn, population,
+                                                    ex, ey)),
+            "soup": float(avg.model_accuracy(
+                apply_fn, avg.uniform_soup(population), ex, ey)),
+            "greedy": float(avg.model_accuracy(
+                apply_fn, avg.soup_of(population, chosen), ex, ey)),
+            "greedy_members": chosen, "best": max(members),
+            "worst": min(members)}
+
+
+def cnn_full_width(torch, device):
+    """The full-width ResNet population, dense WASH and baseline, CNN_STEPS
+    steps: every shuffle through the dense kernel and bitwise equal to its
+    plain version, launches == planned leaves x steps, comm == the float64
+    count of the masks applied, finite losses; then the accuracies and
+    the pattern.  Returns the run's dense launches."""
+    from repro_torch.core.mixing import MixingConfig
+    from repro_torch.core.population import num_params
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wash_shuffle as ws
+    from repro_torch.models.cnn import init_classifier
+
+    cfg, pols, data_fn, loss_fn, (ex, ey) = _cnn_setup(torch, device,
+                                                        "resnet")
+    member = init_classifier(0, cfg, device)
+    planned = dense_planned_leaves(member, cfg.num_blocks, CNN_P)
+    n_params = num_params(member)
+    del member
+    steps, n = CNN_STEPS, CNN_N
+    wash_cfg = MixingConfig(kind="wash", base_p=CNN_P, mode="dense")
+    counts, tally = {"dense": 0, "bucketed": 0}, []
+    torch.cuda.synchronize()
+    ws.wash_launches = ws.bucketed_launches = 0
+    t0 = time.perf_counter()
+    with checked_shuffles(ops, ref, torch, counts), \
+            tally_dense_masks(ops, tally):
+        wash = _cnn_train(device, cfg, data_fn, loss_fn, wash_cfg, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ws.wash_launches
+    per_step = torch.stack(tally).view(steps, planned).sum(1).tolist() \
+        if len(tally) == steps * planned else []
+    applied = 0.0
+    for sel in per_step:  # the loop's own sum: a float64 step at a time
+        applied += float(sel) * (n - 1) / n
+    log(f"resnet (stage widths {cfg.width}-{cfg.width * 2 ** (cfg.depth - 1)}"
+        f" on {cfg.image_hw} x {cfg.image_hw} x 3, one residual block a "
+        f"stage, {n_params} float32 params a member), N={n}, batch "
+        f"{CNN_BATCH} a member, heterogeneous policies "
+        f"{[dataclasses.astuple(p) for p in pols]} (mixup, smooth, cutmix, "
+        f"erase), SGD lr 0.05, dense WASH p={CNN_P}, {steps} steps, every "
+        f"shuffle held against its plain version: {wall:.2f} s; dense "
+        f"launches {launches} (expected {planned} planned leaves x {steps}), "
+        f"{counts['dense']} bitwise equal to the plain version; comm of the "
+        f"masks applied {applied!r}, recorded {wash.history['comm'][-1]!r}; "
+        f"losses {wash.history['loss']}")
+    if (launches != planned * steps or counts["dense"] != launches
+            or ws.bucketed_launches):
+        fail(f"resnet WASH: {launches} dense launches ({counts['dense']} "
+             f"checked, {ws.bucketed_launches} bucketed), expected "
+             f"{planned * steps}")
+    if applied != wash.history["comm"][-1] or applied <= 0:
+        fail(f"resnet WASH: comm {wash.history['comm'][-1]} recorded, the "
+             f"masks applied give {applied}")
+    if not np.isfinite(wash.history["loss"]).all():
+        fail(f"resnet WASH: losses {wash.history['loss']} are not finite")
+    del tally
+    ws.wash_launches = 0
+    base = _cnn_train(device, cfg, data_fn, loss_fn, MixingConfig(kind="none"),
+                      steps)
+    if ws.wash_launches or ws.bucketed_launches:
+        fail("resnet baseline: a shuffle ran without mixing")
+    result = {}
+    for name, res in (("WASH", wash), ("baseline", base)):
+        acc = cnn_evaluate(torch, cfg, res.population, ex, ey)
+        acc["consensus"] = res.history["consensus"][-1]
+        result[name] = acc
+        log(f"resnet {name}, {steps} steps, 512 eval images: ensemble "
+            f"{acc['ensemble']:.4f}, uniform soup {acc['soup']:.4f} (soup - "
+            f"ensemble {acc['soup'] - acc['ensemble']:+.4f}), greedy soup "
+            f"{acc['greedy']:.4f} (members {acc['greedy_members']}), best "
+            f"member {acc['best']:.4f}, worst {acc['worst']:.4f}; final "
+            f"consensus distance {acc['consensus']:.6g}; last loss "
+            f"{res.history['loss'][-1]:.4f}")
+    del wash, base
+    torch.cuda.empty_cache()
+    chance = 1.0 / cfg.num_classes
+    if result["WASH"]["ensemble"] <= 2 * chance:
+        fail(f"resnet WASH did not learn: ensemble "
+             f"{result['WASH']['ensemble']}")
+    if result["WASH"]["consensus"] >= result["baseline"]["consensus"]:
+        fail(f"resnet: WASH consensus {result['WASH']['consensus']} not "
+             f"below the baseline's {result['baseline']['consensus']}")
+    return launches
+
+
+def cnn_vgg_bucketed(torch, device):
+    """The full-width VGG, 3 steps of bucketed WASH+Opt under SGD momentum,
+    on the kernels (every shuffle held bitwise) and on the plain versions,
+    cuDNN deterministic: the final params within PARAM_TOL.  Returns the
+    kernel run's bucketed launches."""
+    from repro_torch.core import layer_index as tli
+    from repro_torch.core import population as pop
+    from repro_torch.core import shuffle as shf
+    from repro_torch.core.mixing import MixingConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wash_shuffle as ws
+    from repro_torch.models.cnn import init_classifier
+
+    cfg, _, data_fn, loss_fn, _ = _cnn_setup(torch, device, "vgg")
+    steps = REDUCED_STEPS
+    mcfg = MixingConfig(kind="wash_opt", base_p=CNN_P, mode="bucketed")
+    member = init_classifier(0, cfg, device)
+    sizes = shf.bucketed_plan_sizes(
+        member, tli.infer_layer_ids(member, cfg.num_blocks),
+        tli.total_layers(cfg.num_blocks), CNN_P, "decreasing", CNN_N)
+    planned = sum(k is not None for k in sizes)
+    del member
+    expected = planned * 2 * steps  # params and the momentum
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        counts = {"dense": 0, "bucketed": 0}
+        torch.cuda.synchronize()
+        ws.wash_launches = ws.bucketed_launches = 0
+        with checked_shuffles(ops, ref, torch, counts):
+            res = _cnn_train(device, cfg, data_fn, loss_fn, mcfg, steps)
+        torch.cuda.synchronize()
+        launches = ws.bucketed_launches
+        kept = pop.tree_map(torch.clone, res.population)
+        losses = res.history["loss"]
+        del res
+        with plain_shuffles(ops, ref):
+            plain = _cnn_train(device, cfg, data_fn, loss_fn, mcfg, steps)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        pop.tree_leaves(kept), pop.tree_leaves(plain.population)))
+    log(f"vgg (widths {cfg.width}-{cfg.width * 2 ** (cfg.depth - 1)}, "
+        f"{cfg.image_hw} x {cfg.image_hw}), N={CNN_N}, bucketed WASH+Opt "
+        f"p={CNN_P}, SGD momentum, {steps} steps, cuDNN deterministic: "
+        f"bucketed launches {launches} (expected {planned} planned leaves x 2 "
+        f"x {steps}; plans (N, k_per) k_per {sizes}), {counts['bucketed']} "
+        f"bitwise equal to the plain version, dense {ws.wash_launches}; max "
+        f"|param kernel run - plain run| = {diff:.3e} (tolerance "
+        f"{PARAM_TOL:g}); losses {losses} vs {plain.history['loss']}")
+    if (launches != expected or counts["bucketed"] != launches
+            or ws.wash_launches):
+        fail(f"vgg WASH+Opt: {launches} bucketed launches ({counts} checked), "
+             f"expected {expected}")
+    if diff > PARAM_TOL or not np.isfinite(losses).all():
+        fail(f"vgg WASH+Opt: kernel and plain runs differ by {diff}")
+    del kept, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def mixing_spans(torch):
+    """``torch.profiler`` ranges around each mixing op (``wash.mix``), each
+    plan draw (``wash.plan_draw``) and each dense shuffle
+    (``wash.shuffle``), for one profiled step (observation only)."""
+    from repro_torch.core import shuffle as shf
+    from repro_torch.kernels import ops
+    from repro_torch.train import loop
+
+    saved = (loop.mix_once, shf.make_plan, ops.wash_shuffle)
+
+    def spanned(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    loop.mix_once = spanned("wash.mix", saved[0])
+    shf.make_plan = spanned("wash.plan_draw", saved[1])
+    ops.wash_shuffle = spanned("wash.shuffle", saved[2])
+    try:
+        yield
+    finally:
+        loop.mix_once, shf.make_plan, ops.wash_shuffle = saved
+
+
+def cnn_timing(torch, device, card):
+    """The full-width ResNet WASH run again, CNN_TIMED_STEPS steps without
+    checks: the step split, images/s and peak memory; then one step
+    profiled: device time by operator, and the plan draw's and the dense
+    shuffle's shares of mixing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.core.mixing import MixingConfig
+    from repro_torch.models.cnn import init_classifier
+
+    cfg, _, data_fn, loss_fn, _ = _cnn_setup(torch, device, "resnet")
+    mcfg = MixingConfig(kind="wash", base_p=CNN_P, mode="dense")
+    steps = CNN_TIMED_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = _cnn_train(device, cfg, data_fn, loss_fn, mcfg, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    images = CNN_N * CNN_BATCH * steps
+    ph = {p: res.phase_ms[p][1:] for p in ("fwd_bwd", "opt", "mix")}
+    mean = {p: sum(v) / len(v) for p, v in ph.items()}
+    step_ms = sum(mean.values())
+    log(f"resnet WASH step split on {card}, the same run without checks, "
+        f"{steps} steps (CUDA events, ms a step, all {CNN_N} members, steps "
+        f"2..): forward+backward {mean['fwd_bwd']:.3f} "
+        f"({100 * mean['fwd_bwd'] / step_ms:.1f}%), optimizer "
+        f"{mean['opt']:.3f} ({100 * mean['opt'] / step_ms:.1f}%), mixing "
+        f"{mean['mix']:.3f} ({100 * mean['mix'] / step_ms:.1f}%); first step "
+        f"{[round(res.phase_ms[p][0], 3) for p in ('fwd_bwd', 'opt', 'mix')]}"
+        f"; {images} images in {wall:.2f} s = {images / wall:.1f} images/s "
+        f"(population built and first step included); peak device memory "
+        f"{peak:.3f} GiB")
+    del res
+    torch.cuda.empty_cache()
+
+    marks = []
+    with mixing_spans(torch), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+        def record(step, population):
+            marks.append(time.perf_counter())
+            prof.step()
+            return {}
+
+        _cnn_train(device, cfg, data_fn, loss_fn, mcfg, 3, record_fn=record)
+    wall_ms = (marks[2] - marks[1]) * 1e3
+    busy_ms, spans, full, top = device_activity(prof)
+    spans_ms = {a.key: (a.device_time_total / 1e3, a.cpu_time_total / 1e3)
+                for a in prof.key_averages()
+                if a.device_type == DeviceType.CPU and a.key.startswith("wash.")}
+    if set(spans_ms) != {"wash.mix", "wash.plan_draw", "wash.shuffle"}:
+        fail(f"profiled resnet step: mixing spans {sorted(spans_ms)}")
+    # the shuffle kernel is launched through ctypes, outside any aten op,
+    # so the profiler links its device time to no range: taken by name
+    shuffle_us, launched = kernel_us(prof, ["wash_shuffle_kernel"])[
+        "wash_shuffle_kernel"]
+    planned = dense_planned_leaves(init_classifier(0, cfg, device),
+                                   cfg.num_blocks, CNN_P)
+    if launched != planned:
+        fail(f"profiled resnet step: {launched} dense shuffle kernels seen, "
+             f"{planned} planned leaves")
+    mix_dev = spans_ms["wash.mix"][0] + shuffle_us / 1e3
+    plan_dev = spans_ms["wash.plan_draw"][0]
+    log(f"profiled resnet WASH step (full width, N={CNN_N}, under "
+        f"torch.profiler): wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%, {spans} device "
+        f"activities), idle {100 * (1 - busy_ms / wall_ms):.1f}%; the host "
+        f"found the launch queue full {full} times; mixing: device "
+        f"{mix_dev:.3f} ms, host {spans_ms['wash.mix'][1]:.3f} ms; the plan "
+        f"draw device {plan_dev:.3f} ms ({100 * plan_dev / mix_dev:.1f}% of "
+        f"mixing's device time), host {spans_ms['wash.plan_draw'][1]:.3f} ms;"
+        f" the dense shuffle kernel {shuffle_us / 1e3:.3f} ms x{launched} "
+        f"({100 * shuffle_us / 1e3 / mix_dev:.1f}%), its calls' host time "
+        f"{spans_ms['wash.shuffle'][1]:.3f} ms; device time by operator: "
+        f"{top}")
+
+
+def image_classification(torch, device, kernels, card):
+    """Phase 10.  Adds its launches to the two shuffle kernels' entries of
+    the JSON line: the quickstart's and the ResNet's dense launches, the
+    VGG's bucketed ones."""
+    t0 = time.perf_counter()
+    dense = cnn_quickstart(torch, device)
+    dense += cnn_full_width(torch, device)
+    bucketed = cnn_vgg_bucketed(torch, device)
+    cnn_timing(torch, device, card)
+    kernels["dense"]["launches"] += dense
+    kernels["bucketed"]["launches"] += bucketed
+    log(f"phase 10 (image classification): {time.perf_counter() - t0:.1f} s; "
+        f"dense launches {dense}, bucketed {bucketed}")
+
+
 def build_kernels(*mods):
     """Every library, each nvcc started at once."""
     t0 = time.perf_counter()
@@ -2207,6 +2651,7 @@ def main() -> int:
     scan_engine(torch, device, kernels, card)
     train_full_width(torch, device, "rwkv6-3b", kernels)
     train_rwkv6_reduced(torch, device)
+    image_classification(torch, device, kernels, card)
     for entry in kernels.values():
         if entry["launches"] == 0:
             fail(f"kernel {entry['name']} was never launched on its path")

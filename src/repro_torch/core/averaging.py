@@ -1,19 +1,31 @@
-"""Weight soups and ensemble logit averaging.
+"""End-of-training evaluation strategies (paper §4 'Evaluation strategy').
 
-Port of ``repro/core/averaging.py`` (``balanced_mean`` and
-``uniform_soup``).  Both use the reference's fixed pairwise-sum tree
-followed by one divide, so in float32 the result is bitwise the JAX one.
+Port of ``repro/core/averaging.py``:
+
+  Ensemble   : average the *predictions* (softmax probs) of all members.
+  Averaged   : uniform weight soup θ̄ = (1/N) Σ θ_n.
+  GreedySoup : add members in decreasing val-accuracy order, keep a member
+               only if it does not lower the running soup's val accuracy.
+
+``balanced_mean`` and ``uniform_soup`` use the reference's fixed
+pairwise-sum tree followed by one divide, so in float32 the result is
+bitwise the JAX one.  Where the reference vmaps a model over the stacked
+members, the port loops over them: one member's activations exist at a
+time.  Accuracies are 0-d (or, per member, 1-d) float32 tensors on the
+parameters' device.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, List, Sequence
 
 import torch
 
-from repro_torch.core.population import tree_map
+from repro_torch.core.population import (member, population_size, tree_leaves,
+                                         tree_map)
 
 Tree = Any
+ApplyFn = Callable[[Tree, Any], torch.Tensor]
 
 
 def balanced_mean(x: torch.Tensor) -> torch.Tensor:
@@ -35,3 +47,85 @@ def balanced_mean(x: torch.Tensor) -> torch.Tensor:
 def uniform_soup(stacked: Tree) -> Tree:
     """Uniform weight soup θ̄ = (1/N) Σ θ_n, leafwise :func:`balanced_mean`."""
     return tree_map(balanced_mean, stacked)
+
+
+def soup_of(stacked: Tree, indices: Sequence[int]) -> Tree:
+    """The mean of the members ``indices`` (``torch.mean`` over them; the
+    reference's ``jnp.mean`` sums in its own order)."""
+    return tree_map(lambda x: torch.mean(torch.stack([x[i] for i in indices]),
+                                         dim=0), stacked)
+
+
+def _member_logits(apply_fn: ApplyFn, stacked: Tree, batch):
+    for m in range(population_size(stacked)):
+        yield apply_fn(member(stacked, m), batch)
+
+
+def ensemble_logprobs(apply_fn: ApplyFn, stacked: Tree, batch) -> torch.Tensor:
+    """log of the member-averaged softmax (the paper's Ensemble), (B, C)."""
+    total = None
+    for logits in _member_logits(apply_fn, stacked, batch):
+        probs = torch.softmax(logits, dim=-1)
+        total = probs if total is None else total + probs
+    return torch.log(total / population_size(stacked) + 1e-9)
+
+
+def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.mean((torch.argmax(logits, dim=-1) == labels).float())
+
+
+def ensemble_accuracy(apply_fn: ApplyFn, stacked: Tree, batch,
+                      labels: torch.Tensor) -> torch.Tensor:
+    return _accuracy(ensemble_logprobs(apply_fn, stacked, batch), labels)
+
+
+def member_accuracies(apply_fn: ApplyFn, stacked: Tree, batch,
+                      labels: torch.Tensor) -> torch.Tensor:
+    """(N,) accuracy of each member."""
+    return torch.stack([_accuracy(logits, labels) for logits in
+                        _member_logits(apply_fn, stacked, batch)])
+
+
+def model_accuracy(apply_fn: ApplyFn, params: Tree, batch,
+                   labels: torch.Tensor) -> torch.Tensor:
+    return _accuracy(apply_fn(params, batch), labels)
+
+
+def greedy_soup_members(apply_fn: ApplyFn, stacked: Tree, val_batch,
+                        val_labels: torch.Tensor) -> List[int]:
+    """The members GreedySoup keeps, in the order it took them: the best
+    member first (a stable descending sort of the accuracies: ties keep
+    member order), then each next one whose addition leaves the soup's
+    accuracy at least as high (``>=``)."""
+    accs = member_accuracies(apply_fn, stacked, val_batch, val_labels)
+    order = torch.argsort(-accs, stable=True).tolist()
+    chosen = [order[0]]
+    best = float(model_accuracy(apply_fn, soup_of(stacked, chosen), val_batch,
+                                val_labels))
+    for i in order[1:]:
+        trial = chosen + [i]
+        acc = float(model_accuracy(apply_fn, soup_of(stacked, trial),
+                                   val_batch, val_labels))
+        if acc >= best:
+            chosen, best = trial, acc
+    return chosen
+
+
+def greedy_soup(apply_fn: ApplyFn, stacked: Tree, val_batch,
+                val_labels: torch.Tensor) -> Tree:
+    """GreedySoup of Wortsman et al. (51), as evaluated in the paper."""
+    return soup_of(stacked, greedy_soup_members(apply_fn, stacked, val_batch,
+                                                val_labels))
+
+
+def interpolate(stacked: Tree, weights) -> Tree:
+    """Arbitrary convex combination Σ w_n θ_n / Σ w_n (Fig. 6
+    interpolation heatmaps); ``weights`` has one entry a member."""
+    leaves = tree_leaves(stacked)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=leaves[0].device)
+    n = population_size(stacked)
+    if w.shape != (n,):
+        raise ValueError(f"{tuple(w.shape)} weights for {n} members")
+    w = w / torch.sum(w)
+    return tree_map(lambda x: torch.tensordot(
+        w, x.to(torch.promote_types(w.dtype, x.dtype)), dims=1), stacked)

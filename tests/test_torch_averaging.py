@@ -50,3 +50,103 @@ def test_population_helpers_round_trip():
                                                     members[1]["a"])
     rep["a"][0, 0] = 9.0  # replicate copies: members stay independent
     assert float(rep["a"][1, 0]) == 1.0
+
+
+# ---------------------------------------------------------------------------
+# the evaluation strategies on classifier populations
+#
+# Tolerances: ensemble log-probs, ``soup_of`` and ``interpolate`` within
+# 1e-6 (float32 softmax sums and means in another order); accuracies
+# within 1e-6, i.e. the same count of right answers (argmax of logits
+# that agree to ~1e-7; the count over B is divided in float32 in either
+# package's own way); GreedySoup the same members, so the same soup
+# within 1e-6.
+# ---------------------------------------------------------------------------
+
+from repro.core.population import init_population as jinit_population
+from repro.models import cnn as JC
+from repro_torch.models import cnn as TC
+from repro_torch.train.interop import params_from_numpy
+
+CCFG = dict(kind="mlp", width=16, depth=2, image_hw=6)
+
+
+def _classifier_population(n, seed=3, dup=None):
+    """n independently initialized JAX members (member ``dup[1]`` a copy
+    of ``dup[0]`` when given), a batch, and labels that member 0 gets
+    right on half the batch and the rest get right by chance."""
+    jcfg = JC.ClassifierConfig(**CCFG)
+    jpop = jinit_population(lambda k: JC.init_classifier(k, jcfg),
+                            jax.random.key(seed), n, same_init=False)
+    jpop = jax.tree_util.tree_map(np.array, jpop)
+    if dup is not None:
+        for leaf in jax.tree_util.tree_leaves(jpop):
+            leaf[dup[1]] = leaf[dup[0]]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((96, 6, 6, 3)).astype(np.float32)
+    teacher = np.asarray(JC.apply_classifier(
+        jax.tree_util.tree_map(lambda a: a[0], jpop), jcfg, x)).argmax(-1)
+    labels = np.where(rng.random(96) < 0.5, teacher,
+                      rng.integers(0, 10, 96)).astype(np.int32)
+    jfn = lambda p, b: JC.apply_classifier(p, jcfg, b)
+    tcfg = TC.ClassifierConfig(**CCFG)
+    tfn = lambda p, b: TC.apply_classifier(p, tcfg, b)
+    return (jpop, params_from_numpy(jpop, "cpu"), x, labels, jfn, tfn)
+
+
+def _assert_trees_close(got, want, tol):
+    for g, w in zip(pop.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4])
+def test_ensemble_and_accuracies_match_jax(n):
+    jpop, tpop, x, y, jfn, tfn = _classifier_population(n)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    np.testing.assert_allclose(
+        TA.ensemble_logprobs(tfn, tpop, tx).numpy(),
+        np.asarray(JA.ensemble_logprobs(jfn, jpop, x)), rtol=1e-6, atol=1e-6)
+    same_count = dict(rtol=1e-6, atol=0)
+    np.testing.assert_allclose(
+        float(TA.ensemble_accuracy(tfn, tpop, tx, ty)),
+        float(JA.ensemble_accuracy(jfn, jpop, x, y)), **same_count)
+    accs = TA.member_accuracies(tfn, tpop, tx, ty)
+    assert accs.shape == (n,) and accs.dtype == torch.float32
+    np.testing.assert_allclose(accs.numpy(), np.asarray(
+        JA.member_accuracies(jfn, jpop, x, y)), **same_count)
+    soup = TA.uniform_soup(tpop)
+    np.testing.assert_allclose(
+        float(TA.model_accuracy(tfn, soup, tx, ty)),
+        float(JA.model_accuracy(jfn, JA.uniform_soup(jpop), x, y)),
+        **same_count)
+
+
+@pytest.mark.parametrize("indices", [[0], [2, 0], [1, 2, 3], [3, 3, 1]])
+def test_soup_of_and_interpolate_match_jax(indices):
+    jpop, tpop, *_ = _classifier_population(4)
+    _assert_trees_close(TA.soup_of(tpop, indices), JA.soup_of(jpop, indices),
+                        1e-6)
+    weights = [1.0 + i * (k + 1) for k, i in enumerate(range(4))]
+    weights = [w if k in indices else 0.0 for k, w in enumerate(weights)]
+    _assert_trees_close(TA.interpolate(tpop, weights),
+                        JA.interpolate(jpop, weights), 1e-6)
+    with pytest.raises(ValueError, match="weights"):
+        TA.interpolate(tpop, [1.0, 2.0])
+
+
+@pytest.mark.parametrize("n,seed,dup", [(3, 3, None), (4, 5, None),
+                                        (4, 3, (0, 2)), (5, 7, (1, 4))])
+def test_greedy_soup_chooses_the_members_jax_chooses(n, seed, dup):
+    """The same members in the same order: a stable descending sort of
+    the accuracies (a duplicated member ties and keeps its place) and
+    ``>=`` to take one."""
+    jpop, tpop, x, y, jfn, tfn = _classifier_population(n, seed, dup)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    chosen = TA.greedy_soup_members(tfn, tpop, tx, ty)
+    accs = np.asarray(JA.member_accuracies(jfn, jpop, x, y))
+    order = list(np.argsort(-accs, kind="stable"))
+    assert chosen[0] == order[0] and len(set(chosen)) == len(chosen)
+    assert [i for i in order if i in chosen] == chosen
+    want = JA.greedy_soup(jfn, jpop, x, y)
+    _assert_trees_close(TA.greedy_soup(tfn, tpop, tx, ty), want, 1e-6)
+    _assert_trees_close(TA.soup_of(tpop, chosen), want, 1e-6)

@@ -45,7 +45,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     for name in ("train.loop", "launch.train", "kernels.wash_shuffle",
                  "kernels.build", "core.shuffle", "core.mixing", "optim",
                  "data.synthetic", "kernels.flash_attention",
-                 "kernels.rwkv6_scan", "models.ssm", "serving.engine"):
+                 "kernels.rwkv6_scan", "models.ssm", "serving.engine",
+                 "models.cnn", "data.augment", "core.averaging",
+                 "launch.quickstart"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -153,3 +155,20 @@ def test_plan_and_data_helpers_default_to_the_card(no_card):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert shf.bucketed_plan(0, 64, 2, 0.5, device="cpu").device.type == "cpu"
+
+
+def test_image_path_defaults_to_the_card(no_card):
+    from repro_torch.core.population import tree_leaves
+    from repro_torch.data import make_image_task
+    from repro_torch.launch import quickstart
+    from repro_torch.models import cnn
+
+    cfg = cnn.ClassifierConfig(kind="resnet", width=4, depth=2, image_hw=6)
+    for call in (lambda: cnn.init_classifier(0, cfg),
+                 lambda: make_image_task(0, hw=6),
+                 lambda: quickstart.main([])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    params = cnn.init_classifier(0, cfg, device="cpu")
+    assert all(x.device.type == "cpu" for x in tree_leaves(params))
+    assert make_image_task(0, hw=6, device="cpu").prototypes.device.type == "cpu"
