@@ -129,7 +129,30 @@ and then, failing on the first phase that fails:
      kernels and on the plain versions (cuDNN deterministic): every
      shuffle bitwise, the final params within 1e-5; and the ResNet's step
      split, images/s and peak memory, one step profiled (the plan draw's
-     and the dense shuffle kernel's shares of mixing).
+     and the dense shuffle kernel's shares of mixing);
+ 11. serves under live traffic at full width (llama3.2-3b, bf16, a random
+     N = 2 population): 24 requests (prompts of 256-2048 tokens, every
+     other on one 512-token prefix, 16-48 new) arriving as a Poisson
+     stream at 2 a second through ``serving.driver.RequestDriver`` over a
+     soup ``ContinuousServer`` (8 slots, 2048 pages, retained), once with
+     whole-prompt prefill and once in 256-token chunks: every request
+     finishes, admission is FIFO, paged launches == 28 x decode steps,
+     and ``summarize`` gives TTFT p50/p99, inter-token p99, latency p99
+     and tokens/s; speculative decoding (k = 4) of 8 requests of 512
+     tokens, the ensemble drafted by the soup and the soup drafting for
+     itself, each beside its plain server (paged launches == 28 x (k +
+     members) x calls; accept ratios and tok/s reported, none asserted);
+     the whole-prompt admit of a chunked-attention llama3.2-3b (flash
+     launches == 28 x admissions); then at the reduced float32 size,
+     tokens identical per request: the driver against ``server.run`` on
+     the plain path, speculative (k in 1, 3, 8; soup and ensemble; greedy
+     and temperature 0.8) against plain decode and plain decode against
+     the plain path, the whole-prompt admit on the kernels against the
+     plain path, int8 speculative against int8 plain; finally the serve
+     CLI (``--driver --speculative --metrics-out``) at full width, the
+     train CLI (``--metrics-out``) at the reduced size, both streams
+     through ``tools/check_metrics_schema.py`` (the train stream with
+     ``--require-comm``), and a ``--profile-dir`` Chrome trace.
 
 Kernels are built from the sources in the checkout, each ``nvcc`` started
 at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
@@ -2594,6 +2617,596 @@ def image_classification(torch, device, kernels, card):
         f"dense launches {dense}, bucketed {bucketed}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: serving under live traffic (the request driver, population
+# speculative decoding, the whole-prompt admit, telemetry)
+# ---------------------------------------------------------------------------
+
+TRAFFIC_N, TRAFFIC_RATE = 24, 2.0     # requests, Poisson arrivals a second
+TRAFFIC_PREFIX = 512                  # tokens shared by every other prompt
+TRAFFIC_S, TRAFFIC_NEW = (256, 2048), (16, 48)   # prompt, new-token ranges
+SPEC_K = 4                            # full-width draft length
+SPEC_REQS, SPEC_S, SPEC_NEW = 8, 512, 32
+PHASE11_DIR = ROOT / "build" / "phase11"
+
+
+def traffic_stream(B, cfg, n, seed):
+    """``n`` requests with prompts of 256-2048 tokens and 16-48 new tokens
+    drawn from ``seed``; every even-numbered prompt starts with one shared
+    512-token prefix.  A smoke mix with no source, not a serving cell."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, TRAFFIC_PREFIX)
+    reqs = []
+    for i in range(n):
+        S = int(rng.integers(TRAFFIC_S[0], TRAFFIC_S[1] + 1))
+        new = int(rng.integers(TRAFFIC_NEW[0], TRAFFIC_NEW[1] + 1))
+        prompt = rng.integers(0, cfg.vocab_size, S)
+        if i % 2 == 0:
+            S = max(S, TRAFFIC_PREFIX + 64)
+            prompt = np.concatenate([prefix, rng.integers(
+                0, cfg.vocab_size, S - TRAFFIC_PREFIX)])
+        reqs.append(B.Request(i, prompt.astype(np.int32), new))
+    return reqs
+
+
+def fixed_stream(B, cfg, n, S, new, seed, uid=""):
+    rng = np.random.default_rng(seed)
+    return [B.Request(f"{uid}{i}" if uid else i,
+                      rng.integers(0, cfg.vocab_size, S).astype(np.int32),
+                      new) for i in range(n)]
+
+
+def warm_up(B, cfg, server) -> None:
+    """Two short requests (cuBLAS handles, the allocator), not measured;
+    their uids are not the stream's, whose retirements the server reports
+    by uid."""
+    server.run(fixed_stream(B, cfg, 2, 32, 4, seed=99, uid="warm-up "))
+
+
+def check_metrics(metrics, reqs, vocab, what):
+    """Every request finished with its prompt kept, in-vocabulary tokens,
+    a first token and per-token times."""
+    for r in reqs:
+        m = metrics.get(r.uid)
+        if m is None or m.cancelled or m.tokens is None:
+            fail(f"{what}: request {r.uid} did not finish")
+        if m.tokens.shape != (len(r.tokens) + r.max_new,):
+            fail(f"{what}: request {r.uid} has {m.tokens.shape} tokens")
+        if (m.tokens[:len(r.tokens)] != r.tokens).any():
+            fail(f"{what}: request {r.uid} lost its prompt")
+        if m.tokens.min() < 0 or m.tokens.max() >= vocab:
+            fail(f"{what}: request {r.uid} sampled out of the vocabulary")
+        if m.first_token is None or len(m.token_times) != r.max_new:
+            fail(f"{what}: request {r.uid} streamed {len(m.token_times)} "
+                 f"of {r.max_new} tokens")
+
+
+def slo_line(s) -> str:
+    def ms(key):
+        return "n/a" if s[key] is None else f"{s[key]:.1f} ms"
+    return (f"{s['tokens_per_s']:.2f} tok/s, TTFT p50 {ms('ttft_p50_ms')} "
+            f"p99 {ms('ttft_p99_ms')}, inter-token p99 "
+            f"{ms('intertoken_p99_ms')}, latency p99 {ms('latency_p99_ms')}")
+
+
+def driver_full_width(torch, device, soup, cfg, card):
+    """The request driver over a soup server at full width, 24 requests
+    at 2 a second, whole-prompt prefill then 256-token chunks.  Returns
+    the paged kernel's launches."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving import batching as B
+    from repro_torch.serving.driver import (RequestDriver, poisson_arrivals,
+                                            summarize)
+
+    total = 0
+    reqs = traffic_stream(B, cfg, TRAFFIC_N, seed=0)
+    max_pages = -(-(TRAFFIC_S[1] + TRAFFIC_NEW[1]) // 16)
+    for chunk in (None, 256):
+        server = B.ContinuousServer(soup, cfg, mode="soup", max_slots=8,
+                                    page_size=16, num_pages=2048,
+                                    max_pages_per_slot=max_pages,
+                                    retain_pages=True, device=device)
+        warm_up(B, cfg, server)
+        driver = RequestDriver(server, prefill_chunk=chunk)
+        arrivals = poisson_arrivals(reqs, TRAFFIC_RATE, seed=0)
+        steps0 = server.stats["decode_steps"]
+        torch.cuda.synchronize()
+        pa.launches = 0
+        t0 = time.perf_counter()
+        metrics = driver.run(arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = pa.launches
+        steps = server.stats["decode_steps"] - steps0
+        what = f"driver (full width, prefill_chunk={chunk})"
+        check_metrics(metrics, reqs, cfg.vocab_size, what)
+        if driver.admitted_order != [r.uid for r in reqs]:
+            fail(f"{what}: admission order {driver.admitted_order} is not "
+                 "FIFO")
+        if steps == 0 or launches != cfg.num_layers * steps:
+            fail(f"{what}: {launches} paged launches for {steps} decode "
+                 f"steps of {cfg.num_layers} layers")
+        if server._pool.used_count:
+            fail(f"{what}: {server._pool.used_count} pages still held")
+        s = summarize(metrics)
+        st = server.stats
+        log(f"{what}: {TRAFFIC_N} requests at {TRAFFIC_RATE} req/s (Poisson, "
+            f"seed 0), prompts {TRAFFIC_S[0]}-{TRAFFIC_S[1]} tokens (every "
+            f"other on a {TRAFFIC_PREFIX}-token prefix), {TRAFFIC_NEW[0]}-"
+            f"{TRAFFIC_NEW[1]} new; {slo_line(s)}; {s['generated_tokens']} "
+            f"tokens, {wall:.2f} s wall; decode steps {steps}, paged launches "
+            f"{launches} (expected {cfg.num_layers}x{steps}); prompt tokens "
+            f"prefilled {st['prefill_tokens']} (prefix reused "
+            f"{st['prefix_tokens_reused']}), FIFO admission; on {card}")
+        log("driver summary " + json.dumps({"prefill_chunk": chunk, **s}))
+        total += launches
+        del server, driver
+        torch.cuda.empty_cache()
+    return total
+
+
+def speculative_full_width(torch, device, popn, soup, cfg, card):
+    """Ensemble with the soup drafting, then the soup drafting for itself,
+    each beside its non-speculative server on the same stream.  Returns
+    the paged kernel's launches."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving import batching as B
+
+    reqs = fixed_stream(B, cfg, SPEC_REQS, SPEC_S, SPEC_NEW, seed=11)
+    geo = dict(max_slots=8, page_size=16, num_pages=320,
+               max_pages_per_slot=-(-(SPEC_S + SPEC_NEW) // 16),
+               device=device)
+    total, rates = 0, {}
+    for mode, members in (("ensemble", 2), ("soup", 1)):
+        params = popn if mode == "ensemble" else soup
+        for spec in (False, True):
+            server = B.ContinuousServer(params, cfg, mode=mode,
+                                        speculative=spec, draft_k=SPEC_K,
+                                        **geo)
+            warm_up(B, cfg, server)
+            st0 = dict(server.stats)
+            torch.cuda.synchronize()
+            pa.launches = 0
+            t0 = time.perf_counter()
+            out = server.run(reqs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = pa.launches
+            out = {r.uid: out[r.uid] for r in reqs if r.uid in out}
+            steps = server.stats["decode_steps"] - st0["decode_steps"]
+            what = (f"{mode} {'speculative k=' + str(SPEC_K) if spec else 'plain'}"
+                    f" (full width)")
+            check_results(out, reqs, cfg.vocab_size, what)
+            per_step = (SPEC_K + members) if spec else members
+            if steps == 0 or launches != cfg.num_layers * per_step * steps:
+                fail(f"{what}: {launches} paged launches for {steps} decode "
+                     f"steps, expected {cfg.num_layers}x{per_step}x{steps}")
+            if server._pool.used_count:
+                fail(f"{what}: {server._pool.used_count} pages still held")
+            drafted = server.stats["spec_drafted"] - st0["spec_drafted"]
+            accepted = server.stats["spec_accepted"] - st0["spec_accepted"]
+            new = SPEC_REQS * SPEC_NEW
+            rates[(mode, spec)] = new / dt
+            ratio = f"{accepted / drafted:.4f}" if drafted else "n/a"
+            log(f"{what}: {SPEC_REQS} requests of {SPEC_S} tokens, "
+                f"{SPEC_NEW} new: {new / dt:.2f} tok/s ({dt:.3f} s); decode "
+                f"calls {steps}, paged launches {launches} (expected "
+                f"{cfg.num_layers}x{per_step}x{steps}); drafted {drafted}, "
+                f"accepted {accepted}, accept ratio {ratio}; on {card}")
+            total += launches
+            del server
+            torch.cuda.empty_cache()
+    log(f"speculative at full width: ensemble {rates[('ensemble', True)]:.2f}"
+        f" tok/s against {rates[('ensemble', False)]:.2f} plain; soup "
+        f"drafting for itself {rates[('soup', True)]:.2f} against "
+        f"{rates[('soup', False)]:.2f} (no ratio asserted at bf16)")
+    return total
+
+
+def whole_prompt_full_width(torch, device, soup, cfg):
+    """A chunked-attention llama3.2-3b: admissions prefill the whole prompt
+    through ``M.prefill`` (the flash kernel), decode through the paged
+    kernel.  Returns (paged launches, flash launches)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import mixed_stream
+    from repro_torch.serving import batching as B
+
+    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    server = B.ContinuousServer(soup, chunked, mode="soup", max_slots=8,
+                                page_size=16, num_pages=320,
+                                max_pages_per_slot=-(-(512 + 32) // 16),
+                                device=device)
+    if server.suffix_prefill:
+        fail("a chunked-attention config took the suffix-prefill path")
+    reqs = mixed_stream(chunked, 8, 512, 32, seed=5, share_prefix_every=4)
+    admitted0 = server.stats["admitted"]
+    fa.launches = 0
+    _, paged = serve_stream(torch, pa, server, reqs,
+                            "whole-prompt admit (full width, attn chunked)",
+                            cfg.num_layers)
+    flash = fa.launches
+    admitted = server.stats["admitted"] - admitted0
+    log(f"whole-prompt admit: {admitted} admissions, flash launches {flash} "
+        f"(expected {admitted}x{cfg.num_layers}), pages shared "
+        f"{server.stats['pages_shared']}")
+    if flash != admitted * cfg.num_layers:
+        fail(f"whole-prompt admit: {flash} flash launches for {admitted} "
+             f"admissions")
+    del server
+    torch.cuda.empty_cache()
+    return paged, flash
+
+
+@contextlib.contextmanager
+def held_against_plain(torch, ops, ref, name, tol, note, seen):
+    """Let ``ops.<name>`` launch its kernel as the path does, and hold
+    each call's output against the plain version on the same inputs,
+    before the pools change again; the phase fails past ``tol``.
+    ``note(args)`` describes a call's inputs, and ``seen`` collects
+    ``(note with the plain output's max |value|, error)`` per call."""
+    kernel, plain = getattr(ops, name), getattr(ref, f"{name}_ref")
+
+    def checked(*args, **kw):
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        if not torch.isfinite(got.float()).all():
+            fail(f"{name} at {note(args)}: kernel output is not finite")
+        err = float((got.float() - want.float()).abs().max())
+        where = {**note(args), "max_plain": float(want.float().abs().max())}
+        if err > tol:
+            fail(f"{name} at {where} disagrees with its plain version: "
+                 f"{err} > {tol}")
+        seen.append((where, err))
+        return got
+
+    setattr(ops, name, checked)
+    try:
+        yield
+    finally:
+        setattr(ops, name, kernel)
+
+
+LONG_S, LONG_NEW = (1990, 2040), (2, 9)  # the verify check's prompts, budgets
+
+
+def kernels_at_traffic_shapes(torch, device, popn, soup, cfg):
+    """The kernels at the shapes this phase gives them, full width in
+    bf16, each call held against its plain version on untimed runs whose
+    launches do not count: the speculative verify (8 slots x k rows
+    through ``repeat_interleave``d tables; rows past a budget and an empty
+    slot's rows pointed at scratch page 0) and the draft steps at
+    contexts near 2048; then the whole-prompt admit's flash prefill and
+    its decode at the traffic stream's shortest and longest prompts."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving import batching as B
+
+    n0 = (pa.launches, fa.launches)
+
+    def paged_note(args):
+        q, table, lengths = args[0], args[3], args[4]
+        return {"rows": q.shape[0], "max_len": int(lengths.max()),
+                "scratch_rows": int((table == 0).all(dim=1).sum())}
+
+    def flash_note(args):
+        return {"S": args[0].shape[1]}
+
+    # 7 requests on 8 slots, budgets 2..8 new tokens against k = 4
+    rng = np.random.default_rng(31)
+    reqs = [B.Request(i, rng.integers(0, cfg.vocab_size, int(rng.integers(
+        LONG_S[0], LONG_S[1] + 1))).astype(np.int32), new)
+        for i, new in enumerate(range(*LONG_NEW))]
+    max_pages = -(-(LONG_S[1] + LONG_NEW[1] + SPEC_K) // 16)
+    server = B.ContinuousServer(popn, cfg, mode="ensemble", speculative=True,
+                                draft_k=SPEC_K, max_slots=8, page_size=16,
+                                num_pages=8 * max_pages + 8,
+                                max_pages_per_slot=max_pages, device=device)
+    seen = []
+    tol = KERNEL_TOL["bf16"]
+    with held_against_plain(torch, ops, ref, "paged_attention", tol,
+                            paged_note, seen):
+        check_results(server.run(reqs), reqs, cfg.vocab_size,
+                      "speculative verify check")
+    verify = [(n, e) for n, e in seen if n["rows"] == 8 * SPEC_K]
+    draft = [(n, e) for n, e in seen if n["rows"] == 8]
+    mixed = [n for n, _ in verify if 0 < n["scratch_rows"] < n["rows"]]
+    longest = max(n["max_len"] for n, _ in verify) if verify else 0
+    scratch = max((n["scratch_rows"] for n in mixed), default=0)
+    log(f"paged bf16 at the speculative shapes (ensemble of 2, k={SPEC_K}, "
+        f"8 slots, prompts {LONG_S[0]}-{LONG_S[1]}): {len(verify)} verify "
+        f"calls of {8 * SPEC_K} rows (up to {scratch} on scratch page 0; "
+        f"contexts up to {longest}), max |kernel - "
+        f"plain| = {max((e for _, e in verify), default=float('nan')):.3e}; "
+        f"{len(draft)} draft calls of 8 rows, max |kernel - plain| = "
+        f"{max((e for _, e in draft), default=float('nan')):.3e} "
+        f"(tolerance {tol:g}; outputs up to "
+        f"{max((n['max_plain'] for n, _ in seen), default=0):.3g})")
+    if not mixed or longest < LONG_S[0] or not draft:
+        fail(f"speculative verify check: {len(verify)} verify calls, "
+             f"{len(mixed)} with scratch rows, contexts up to {longest}, "
+             f"{len(draft)} draft calls")
+    del server
+    torch.cuda.empty_cache()
+
+    # the whole-prompt admit at the traffic's shortest and longest prompts
+    traffic = traffic_stream(B, cfg, TRAFFIC_N, seed=0)
+    lens = [len(r.tokens) for r in traffic]
+    reqs = [B.Request(i, traffic[lens.index(f(lens))].tokens, 4)
+            for i, f in enumerate((min, max))]
+    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    max_pages = -(-(max(lens) + 4) // 16)
+    server = B.ContinuousServer(soup, chunked, mode="soup", max_slots=2,
+                                page_size=16, num_pages=2 * max_pages + 2,
+                                max_pages_per_slot=max_pages, device=device)
+    flash, paged = [], []
+    with held_against_plain(torch, ops, ref, "flash_attention",
+                            FLASH_TOL["bf16"], flash_note, flash), \
+            held_against_plain(torch, ops, ref, "paged_attention", tol,
+                               paged_note, paged):
+        check_results(server.run(reqs), reqs, cfg.vocab_size,
+                      "whole-prompt admit check")
+    sizes = sorted({n["S"] for n, _ in flash})
+    log(f"flash bf16 in the whole-prompt admit at prompts {sizes}: "
+        f"{len(flash)} calls, max |kernel - plain| = "
+        f"{max(e for _, e in flash):.3e} (tolerance {FLASH_TOL['bf16']:g}; "
+        f"outputs up to {max(n['max_plain'] for n, _ in flash):.3g}); its "
+        f"decode: {len(paged)} paged calls, max |kernel - plain| = "
+        f"{max(e for _, e in paged):.3e}")
+    if sizes != sorted({min(lens), max(lens)}) or not paged:
+        fail(f"whole-prompt admit check: flash ran at {sizes}, {len(paged)} "
+             "paged calls")
+    del server
+    torch.cuda.empty_cache()
+    pa.launches, fa.launches = n0  # comparison launches do not count
+
+
+def logit_margin(torch, M, averaging, members, cfg, tokens) -> float:
+    """The top-2 margin of the (member-averaged) next-token logits after
+    ``tokens``, on the plain path: how close a differing token was."""
+    batch = {"tokens": torch.as_tensor(tokens[None]).to(
+        members[0]["embed"]["tok"].device)}
+    lgs = torch.stack([M.prefill(p, cfg, batch)[0][0, -1] for p in members])
+    top = averaging.balanced_mean(lgs).float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def same_tokens(torch, got, want, reqs, what, margin_of=None):
+    """Per request, the tokens must be identical; on a difference, the
+    first differing position and the plain logits' top-2 margin there are
+    reported before the phase fails."""
+    for r in reqs:
+        a, b = np.asarray(got[r.uid]), np.asarray(want[r.uid])
+        if a.shape != b.shape or (a != b).any():
+            pos = (int(np.argmax(a != b)) if a.shape == b.shape
+                   else min(len(a), len(b)))
+            margin = (margin_of(b[:pos]) if margin_of is not None
+                      and pos > 0 else float("nan"))
+            fail(f"{what}: request {r.uid} differs at token {pos} (the "
+                 f"reference's logits' top-2 margin there {margin:.3e})")
+
+
+def reduced_traffic(torch, device):
+    """Reduced float32 on the card (TF32 off): the driver against
+    ``server.run`` on the plain path; speculative (k in 1, 3, 8, soup and
+    ensemble, greedy and temperature 0.8) against plain decode, both on
+    the kernels, and plain decode on the kernels against the plain path;
+    the whole-prompt admit on the kernels against the plain path; int8
+    speculative against int8 plain.  Returns the kernels' launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import averaging
+    from repro_torch.core import population as pop
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import init_population, mixed_stream
+    from repro_torch.models import transformer as M
+    from repro_torch.serving import batching as B
+    from repro_torch.serving.driver import RequestDriver
+
+    cfg = get_arch("llama3.2-3b").reduced()
+    popn = init_population(cfg, 2, seed=21, device=device)
+    soup = B.serving_params(popn, "soup")
+    geo = dict(page_size=8, max_slots=4, num_pages=192, device=device)
+    counts = {"f32": 0, "int8": 0, "flash_f32": 0}
+
+    def tokens(out):
+        return {u: r.tokens for u, r in out.items()}
+
+    def serve(params, mode, reqs, temperature=0.0, **kw):
+        server = B.ContinuousServer(params, cfg, mode=mode,
+                                    temperature=temperature, **geo, **kw)
+        return tokens(server.run(reqs)), server
+
+    def margin_for(params, mode):
+        members = ([pop.member(params, i) for i in range(2)]
+                   if mode == "ensemble" else [params])
+        return lambda toks: logit_margin(torch, M, averaging, members, cfg,
+                                         toks)
+
+    # the driver (chunked prefill, interleaved) against server.run
+    reqs = mixed_stream(cfg, 12, 48, 12, seed=23, share_prefix_every=3)
+    server = B.ContinuousServer(soup, cfg, retain_pages=True, **geo)
+    pa.launches = 0
+    driver = RequestDriver(server, prefill_chunk=16)
+    for r in reqs:
+        driver.submit(r)
+    metrics = driver.drain()
+    counts["f32"] += pa.launches
+    with plain_routes(ops, ref, "paged_attention"):
+        want, _ = serve(soup, "soup", reqs)
+    same_tokens(torch, {u: m.tokens for u, m in metrics.items()}, want, reqs,
+                "reduced f32 driver (kernels) against server.run (plain)",
+                margin_for(soup, "soup"))
+    log(f"reduced f32: the driver's tokens (prefill chunk 16, kernels) == "
+        f"server.run's (plain path) for {len(reqs)} requests")
+
+    # speculative against plain
+    results = []
+    for mode in ("soup", "ensemble"):
+        params = popn if mode == "ensemble" else soup
+        for temperature in (0.0, 0.8):
+            reqs = [B.Request(r.uid, r.tokens, r.max_new, seed=500 + r.uid)
+                    for r in mixed_stream(cfg, 8, 40, 10, seed=24)]
+            pa.launches = 0
+            plain_k, _ = serve(params, mode, reqs, temperature)
+            counts["f32"] += pa.launches
+            with plain_routes(ops, ref, "paged_attention"):
+                plain_p, _ = serve(params, mode, reqs, temperature)
+            what = f"reduced f32 {mode} T={temperature}"
+            same_tokens(torch, plain_k, plain_p, reqs,
+                        f"{what}: plain decode, kernels against plain path",
+                        margin_for(params, mode))
+            for k in (1, 3, 8):
+                pa.launches = 0
+                spec, server = serve(params, mode, reqs, temperature,
+                                     speculative=True, draft_k=k)
+                counts["f32"] += pa.launches
+                same_tokens(torch, spec, plain_k, reqs,
+                            f"{what} speculative k={k} against plain decode",
+                            margin_for(params, mode))
+                st = server.stats
+                results.append(f"{mode} T={temperature} k={k}: accepted "
+                               f"{st['spec_accepted']}/{st['spec_drafted']}")
+    log("reduced f32 speculative == plain decode, tokens identical per "
+        "request, on the kernels: " + "; ".join(results))
+
+    # the whole-prompt admit: flash f32 and paged kernels against plain
+    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    reqs = mixed_stream(chunked, 8, 48, 10, seed=25, share_prefix_every=3)
+    for mode in ("soup", "ensemble"):
+        params = popn if mode == "ensemble" else soup
+        pa.launches = fa.launches = 0
+        server = B.ContinuousServer(params, chunked, mode=mode, **geo)
+        got = tokens(server.run(reqs))
+        counts["f32"] += pa.launches
+        counts["flash_f32"] += fa.launches
+        expect = server.stats["admitted"] * cfg.num_layers * (
+            2 if mode == "ensemble" else 1)
+        if fa.launches != expect:
+            fail(f"reduced whole-prompt admit {mode}: {fa.launches} flash "
+                 f"launches, expected {expect}")
+        with plain_routes(ops, ref, "paged_attention", "flash_attention"):
+            want = tokens(B.ContinuousServer(params, chunked, mode=mode,
+                                             **geo).run(reqs))
+        same_tokens(torch, got, want, reqs,
+                    f"reduced f32 whole-prompt admit {mode}, kernels "
+                    "against plain")
+    log("reduced f32 whole-prompt admit (attn chunked): tokens on the flash "
+        "and paged kernels == plain path, soup and ensemble")
+
+    # int8 speculative against int8 plain, on the kernels
+    reqs = mixed_stream(cfg, 8, 40, 10, seed=26)
+    pa.launches = 0
+    plain8, _ = serve(soup, "soup", reqs, kv_dtype="int8")
+    spec8, server = serve(soup, "soup", reqs, kv_dtype="int8",
+                          speculative=True, draft_k=4)
+    counts["int8"] += pa.launches
+    same_tokens(torch, spec8, plain8, reqs,
+                "reduced int8 speculative k=4 against int8 plain")
+    log(f"reduced int8 KV: speculative k=4 tokens == plain int8 tokens "
+        f"(accepted {server.stats['spec_accepted']}/"
+        f"{server.stats['spec_drafted']}); {counts['int8']} launches with "
+        f"f32 queries on int8 pools (a variant outside the kernels line)")
+    del popn, soup
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_schema_check(path, *flags) -> None:
+    out = subprocess.run([sys.executable, str(ROOT / "tools" /
+                                              "check_metrics_schema.py"),
+                          *flags, str(path)], capture_output=True,
+                         text=True, timeout=120)
+    log(f"schema check {' '.join(flags)} {path.name}: "
+        f"{(out.stdout + out.stderr).strip()}")
+    if out.returncode != 0:
+        fail(f"{path}: the telemetry stream fails the schema check")
+
+
+def traffic_clis(torch, device):
+    """The serve CLI with the driver, speculative decoding and telemetry
+    at full width; the train CLI with telemetry at the reduced size; both
+    streams through ``tools/check_metrics_schema.py``; a profile window's
+    Chrome trace.  Returns the paged kernel's bf16 launches."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+
+    PHASE11_DIR.mkdir(parents=True, exist_ok=True)
+    serve_out = PHASE11_DIR / "serve.jsonl"
+    train_out = PHASE11_DIR / "train.jsonl"
+    prof_dir = PHASE11_DIR / "profile"
+    for p in (serve_out, train_out, prof_dir / "trace.json"):
+        if p.exists():
+            p.unlink()
+    torch.cuda.synchronize()
+    pa.launches = 0
+    _, s = serve_cli.main([
+        "--arch", "llama3.2-3b", "--population", "2", "--continuous",
+        "--driver", "--arrival-rate", "2", "--prefill-chunk", "256",
+        "--retain-pages", "--speculative", "--requests", "8", "--seq-len",
+        "512", "--max-new", "32", "--max-slots", "8", "--num-pages", "400",
+        "--metrics-out", str(serve_out)])
+    torch.cuda.synchronize()
+    launches = pa.launches
+    log(f"serve CLI (full width, --driver --speculative, 8 requests at 2/s): "
+        f"{slo_line(s)}; paged launches {launches}")
+    if s["requests"] != 8 or launches == 0:
+        fail(f"serve CLI: {s['requests']} requests, {launches} launches")
+    torch.cuda.empty_cache()
+    train_cli.main(["--arch", "llama3.2-3b", "--reduced", "--population",
+                    "2", "--mode", "bucketed", "--steps", "4",
+                    "--batch-size", "2", "--seq-len", "16", "--metrics-out",
+                    str(train_out)])
+    run_schema_check(serve_out)
+    run_schema_check(train_out, "--require-comm")
+    serve_cli.main(["--arch", "llama3.2-3b", "--reduced", "--population",
+                    "2", "--continuous", "--requests", "6", "--max-new",
+                    "8", "--seq-len", "32", "--profile-dir", str(prof_dir)])
+    trace = prof_dir / "trace.json"
+    if not trace.exists():
+        fail("--profile-dir wrote no trace")
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = sum(1 for ev in events if ev.get("cat") == "kernel")
+    log(f"--profile-dir: {trace.stat().st_size} B Chrome trace, "
+        f"{len(events)} events, {kernels} device kernels")
+    if not kernels:
+        fail("the profile trace holds no device kernel")
+    return launches
+
+
+def live_traffic(torch, device, kernels, card):
+    """Phase 11.  Adds its launches to the paged (bf16, f32) and flash
+    (bf16, f32) entries of the JSON line."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import init_population
+    from repro_torch.serving.engine import averaged_params
+
+    t0 = time.perf_counter()
+    cfg = get_arch("llama3.2-3b")
+    popn = init_population(cfg, 2, seed=0, device=device)
+    soup = averaged_params(popn)
+    bf16 = driver_full_width(torch, device, soup, cfg, card)
+    bf16 += speculative_full_width(torch, device, popn, soup, cfg, card)
+    paged, flash = whole_prompt_full_width(torch, device, soup, cfg)
+    bf16 += paged
+    kernels_at_traffic_shapes(torch, device, popn, soup, cfg)
+    del popn, soup
+    torch.cuda.empty_cache()
+    reduced = reduced_traffic(torch, device)
+    bf16 += traffic_clis(torch, device)
+    kernels["bf16"]["launches"] += bf16
+    kernels["flash_bf16"]["launches"] += flash
+    kernels["f32"]["launches"] += reduced["f32"]
+    kernels["flash_f32"]["launches"] += reduced["flash_f32"]
+    log(f"phase 11 (serving under live traffic): "
+        f"{time.perf_counter() - t0:.1f} s; paged bf16 launches {bf16}, "
+        f"flash bf16 {flash}, paged f32 {reduced['f32']}, flash f32 "
+        f"{reduced['flash_f32']}")
+
+
 def build_kernels(*mods):
     """Every library, each nvcc started at once."""
     t0 = time.perf_counter()
@@ -2652,6 +3265,7 @@ def main() -> int:
     train_full_width(torch, device, "rwkv6-3b", kernels)
     train_rwkv6_reduced(torch, device)
     image_classification(torch, device, kernels, card)
+    live_traffic(torch, device, kernels, card)
     for entry in kernels.values():
         if entry["launches"] == 0:
             fail(f"kernel {entry['name']} was never launched on its path")

@@ -1,11 +1,12 @@
 """CLI launcher: serve a WASH population (scan engine or continuous batching).
 
-Port of ``repro/launch/serve.py`` without the mesh, pipeline, quick-train,
-timed-arrival and telemetry options.  Loads a population (random-init
-from ``--seed``, or ``--ckpt``, a stacked population ``.npz`` written by
-either package's ``train.checkpoint.save``, for example the JAX train
-CLI's ``--ckpt-population``), turns it into the ``--mode``'s serving
-params, and serves it through one of two runtimes:
+Port of ``repro/launch/serve.py`` without the mesh and pipeline options
+(``--mesh``, ``--pp-stages``).  Loads a population (random-init from
+``--seed``, ``--ckpt``, a stacked population ``.npz`` written by either
+package's ``train.checkpoint.save``, for example the JAX train CLI's
+``--ckpt-population``, or quick-trained ``--train-steps`` steps), turns it
+into the ``--mode``'s serving params, and serves it through one of three
+runtimes:
 
   * default — the scan engine (``serving.engine.generate``): a
     shape-uniform batch of ``--batch-size`` prompts of ``--seq-len``
@@ -16,7 +17,18 @@ params, and serves it through one of two runtimes:
   * ``--continuous`` — a mixed-length request stream through
     ``serving.batching.ContinuousServer`` over a paged KV cache, reporting
     tokens/s and the runtime's page accounting; every decode attend runs
-    the hand-written paged-attention kernel.
+    the hand-written paged-attention kernel (``--speculative``: the soup
+    drafts ``--draft-k`` tokens, the ensemble verifies them in one step);
+  * ``--driver`` — the request driver (``serving.driver``) over the same
+    runtime: Poisson arrivals (``--arrival-rate``), chunked prefill
+    interleaved with decode (``--prefill-chunk``), LRU page retention
+    (``--retain-pages``), reporting TTFT p50/p99, inter-token p99, latency
+    p99 and tokens/s.
+
+``--metrics-out`` writes the telemetry event stream (``repro_torch.obs``)
+as JSONL, which ``tools/check_metrics_schema.py`` checks;
+``--metrics-summary`` prints the metrics at exit; ``--profile-dir`` writes
+a Chrome trace of the first instrumented spans.
 
   python -m repro_torch.launch.serve --arch rwkv6-3b --population 2 \\
       --batch-size 4 --seq-len 2048 --max-new 32 --compare
@@ -26,6 +38,10 @@ params, and serves it through one of two runtimes:
 
   python -m repro_torch.launch.serve --arch llama3.2-3b --continuous \\
       --population 2 --requests 16 --max-slots 8 --seq-len 512 --max-new 32
+
+  python -m repro_torch.launch.serve --arch llama3.2-3b --driver \\
+      --population 2 --arrival-rate 2 --prefill-chunk 256 --retain-pages \\
+      --speculative --seq-len 512 --metrics-out build/serve.jsonl
 """
 
 from __future__ import annotations
@@ -36,16 +52,22 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_arch
+from repro_torch.configs.base import TrainConfig
 from repro_torch.core import population as pop
 from repro_torch.core.device import resolve_device
+from repro_torch.core.mixing import MixingConfig
 from repro_torch.core.prng import fold_in
 from repro_torch.kernels import flash_attention, paged_attention, rwkv6_scan
 from repro_torch.launch.specs import concrete_batch
 from repro_torch.models import transformer as M
 from repro_torch.serving import batching
 from repro_torch.serving import engine as serving
+from repro_torch.serving.driver import (RequestDriver, poisson_arrivals,
+                                        summarize)
 from repro_torch.train import checkpoint
+from repro_torch.train.loop import train_population
 
 
 def init_population(cfg, n: int, seed: int, device):
@@ -63,7 +85,39 @@ def _population(args, cfg, device):
         popn = checkpoint.restore(args.ckpt, like, device=device)
         print(f"restored population <- {args.ckpt}")
         return popn
+    if args.train_steps > 0:
+        return _quick_train(cfg, args, device)
     return init_population(cfg, args.population, args.seed, device)
+
+
+def _quick_train(cfg, args, device):
+    """``--train-steps`` steps of bucketed WASH (p = 0.05, SGD, 8 x 32
+    tokens a member on the synthetic LM task), the JAX CLI's quick-train."""
+    from repro_torch.data import make_lm_task, sample_tokens
+
+    task = make_lm_task(fold_in(args.seed, 1),
+                        vocab=min(cfg.vocab_size, 512), device=device)
+
+    def data_fn(m, step, seed):
+        b = concrete_batch(cfg, fold_in(seed, 10), 8, 32, device=device)
+        b["tokens"] = sample_tokens(task, seed, 8, 32) % cfg.vocab_size
+        return b
+
+    def loss_fn(params, batch):
+        loss, _ = M.loss_fn(params, cfg, batch)
+        return loss
+
+    res = train_population(
+        args.seed, lambda s: M.init_params(cfg, seed=s, device=device),
+        loss_fn, data_fn,
+        TrainConfig(population=args.population, optimizer="sgd", lr=0.05,
+                    total_steps=args.train_steps),
+        MixingConfig(kind="wash", base_p=0.05, mode="bucketed"),
+        cfg.num_layers, record_every=max(args.train_steps // 2, 1),
+        device=device)
+    print(f"quick-trained {args.train_steps} steps: loss "
+          f"{res.history['loss'][-1]:.4f}")
+    return res.population
 
 
 def _sync(device) -> None:
@@ -159,10 +213,12 @@ def _serve_continuous(popn, cfg, args, device):
         popn, cfg, mode=args.mode, member=args.member,
         temperature=args.temperature, page_size=args.page_size,
         max_slots=args.max_slots, num_pages=args.num_pages,
-        max_pages_per_slot=max_pages, kv_dtype=args.kv_dtype, device=device,
+        max_pages_per_slot=max_pages, speculative=args.speculative,
+        draft_k=args.draft_k, kv_dtype=args.kv_dtype, device=device,
     )
     reqs = mixed_stream(cfg, args.requests, args.seq_len, args.max_new,
                         args.seed, args.temperature)
+    batching.reset_trace_counts()
     launches0 = paged_attention.launches
     _sync(device)
     t0 = time.perf_counter()
@@ -179,10 +235,77 @@ def _serve_continuous(popn, cfg, args, device):
           f"{st['decode_steps']} decode steps, kernel launches "
           f"{paged_attention.launches - launches0})")
     print(f"  pages: allocated {st['pages_allocated']}, "
-          f"shared {st['pages_shared']}, peak {st['peak_pages_in_use']}")
+          f"shared {st['pages_shared']}, peak {st['peak_pages_in_use']}; "
+          f"decode programs {batching.decode_trace_count()}, prefill "
+          f"programs {batching.prefill_trace_count()}")
+    _print_speculative(args, st)
     if len(out) != len(reqs):
         raise RuntimeError(f"served {len(out)} of {len(reqs)} requests")
     return out
+
+
+def _print_speculative(args, st) -> None:
+    if args.speculative:
+        drafted = max(st["spec_drafted"], 1)
+        print(f"  speculative draft_k={args.draft_k}: accepted "
+              f"{st['spec_accepted']}/{st['spec_drafted']} drafts "
+              f"({st['spec_accepted'] / drafted:.0%})")
+
+
+def _serve_driver(popn, cfg, args, device):
+    """Serve the mixed stream (every 4th request on a shared prefix)
+    through the request driver: Poisson (or back-to-back) arrivals,
+    chunked prefill interleaved with decode, and the SLO view of the run
+    (``driver.summarize``).  Returns ``(metrics, summary)``."""
+    max_pages = -(-(args.seq_len + args.max_new) // args.page_size)
+    server = batching.ContinuousServer.from_trained(
+        popn, cfg, mode=args.mode, member=args.member,
+        temperature=args.temperature, page_size=args.page_size,
+        max_slots=args.max_slots, num_pages=args.num_pages,
+        max_pages_per_slot=max_pages, retain_pages=args.retain_pages,
+        speculative=args.speculative, draft_k=args.draft_k,
+        kv_dtype=args.kv_dtype, device=device,
+    )
+    reqs = mixed_stream(cfg, args.requests, args.seq_len, args.max_new,
+                        args.seed, args.temperature, share_prefix_every=4)
+    chunk = args.prefill_chunk if args.prefill_chunk > 0 else None
+    driver = RequestDriver(server, prefill_chunk=chunk)
+    arrivals = (poisson_arrivals(reqs, args.arrival_rate, seed=args.seed)
+                if args.arrival_rate > 0 else reqs)
+    batching.reset_trace_counts()
+    launches0 = paged_attention.launches
+    metrics = driver.run(arrivals)
+    _sync(device)
+    s = summarize(metrics)
+    st = server.stats
+
+    def ms(v, digits):
+        return "n/a" if v is None else f"{v:.{digits}f}ms"
+
+    print(f"driver mode={args.mode} requests={s['requests']} "
+          f"slots={args.max_slots} chunk={chunk} "
+          f"arrival_rate={args.arrival_rate or 'back-to-back'} "
+          f"device={device}")
+    print(f"  {s['tokens_per_s'] or 0.0:9.1f} tok/s  "
+          f"ttft p50 {ms(s['ttft_p50_ms'], 1)} "
+          f"p99 {ms(s['ttft_p99_ms'], 1)}  "
+          f"intertoken p99 {ms(s['intertoken_p99_ms'], 2)}  "
+          f"latency p99 {ms(s['latency_p99_ms'], 1)}")
+    print(f"  decode programs {batching.decode_trace_count()}, prefill "
+          f"programs {batching.prefill_trace_count()}, prefill tokens "
+          f"{st['prefill_tokens']} (prefix reused "
+          f"{st['prefix_tokens_reused']}), lru hits {st['lru_hits']} "
+          f"evictions {st['lru_evictions']}, decode steps "
+          f"{st['decode_steps']}, kernel launches "
+          f"{paged_attention.launches - launches0}")
+    _print_speculative(args, st)
+    if s["requests"] != len(reqs):
+        raise RuntimeError(f"served {s['requests']} of {len(reqs)} requests")
+    # one decode program serves the whole stream
+    if batching.decode_trace_count() > 1:
+        raise RuntimeError(f"{batching.decode_trace_count()} decode programs "
+                           "for one pool geometry")
+    return metrics, s
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -218,6 +341,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt", default=None,
                     help="restore a stacked-population .npz (for example "
                          "from the JAX train CLI's --ckpt-population)")
+    ap.add_argument("--train-steps", type=int, default=0,
+                    help="quick-train the population this many steps first "
+                         "(bucketed WASH; ignored with --ckpt)")
     ap.add_argument("--compare", action="store_true",
                     help="scan engine: serve the same batch in every mode "
                          "and report the soup/ensemble token agreement")
@@ -235,9 +361,41 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--num-pages", type=int, default=256,
                     help="continuous: KV page-pool size shared by all slots")
     ap.add_argument("--kv-dtype", default=None, choices=["int8"],
-                    help="continuous: quantize the paged KV pools to int8, "
-                         "one scale per (layer, page) (default: the model's "
-                         "param dtype)")
+                    help="continuous/driver: quantize the paged KV pools to "
+                         "int8, one scale per (layer, page) (default: the "
+                         "model's param dtype)")
+    ap.add_argument("--driver", action="store_true",
+                    help="serve the stream through the request driver "
+                         "(timed arrivals, chunked prefill interleaved with "
+                         "decode, TTFT/latency percentiles)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="driver: Poisson arrival rate in requests/s "
+                         "(0 = submit the whole stream back-to-back)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="driver: prefill at most this many prompt tokens "
+                         "per tick, interleaved with decode steps "
+                         "(0 = the whole remaining suffix at once)")
+    ap.add_argument("--retain-pages", action="store_true",
+                    help="driver: keep refcount-0 prefix pages on an LRU "
+                         "list (evicted only under pool pressure) so "
+                         "recurring prompts skip their prefill")
+    ap.add_argument("--speculative", action="store_true",
+                    help="continuous/driver: the soup drafts --draft-k "
+                         "tokens per step, the ensemble verifies them in "
+                         "one step (the plain path's tokens at float32 KV)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="speculative draft length (tokens proposed per "
+                         "decode call)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the telemetry event stream (spans, program "
+                         "builds, SLO histograms, final metric snapshots) "
+                         "as JSONL here; check it with "
+                         "tools/check_metrics_schema.py")
+    ap.add_argument("--metrics-summary", action="store_true",
+                    help="print a telemetry metric summary on exit")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler Chrome trace of the first "
+                         "instrumented spans into this directory")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on: cuda (the default; "
                          "raises without a card) or cpu")
@@ -246,28 +404,48 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     """Serve as the flags say.  Returns what the runtime served: the
-    continuous server's results, or per mode the scan engine's tokens and
-    timings."""
+    driver's ``(metrics, summary)``, the continuous server's results, or
+    per mode the scan engine's tokens and timings."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.continuous and args.compare:
-        ap.error("--compare is a scan-engine option; drop --continuous")
-    if args.kv_dtype and not args.continuous:
-        ap.error("--kv-dtype is a continuous-runtime option; add --continuous")
+    paged = args.continuous or args.driver
+    if paged and args.compare:
+        ap.error("--compare is a scan-engine option; drop "
+                 "--continuous/--driver")
+    if (args.speculative or args.kv_dtype) and not paged:
+        ap.error("--speculative/--kv-dtype are continuous-runtime knobs; "
+                 "add --continuous or --driver")
+    if args.draft_k < 1:
+        ap.error("--draft-k must be >= 1")
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if device.type == "cuda":  # before any weight reaches the card
-        path = "continuous" if args.continuous else "scan"
+        path = "continuous" if paged else "scan"
         reason = M.cuda_supported(cfg, path)
         if reason is not None:
             raise NotImplementedError(f"serving {cfg.name} on the card "
                                       f"({path}): {reason}")
-    popn = _population(args, cfg, device)
-    if args.continuous:
-        return _serve_continuous(popn, cfg, args, device)
-    return _serve_scan(popn, cfg, args, device)
+        if args.train_steps > 0 and not args.ckpt:
+            reason = M.cuda_supported(cfg, "train")
+            if reason is not None:
+                raise NotImplementedError(
+                    f"quick-training {cfg.name} on the card: {reason}")
+    tel = obs.configure(jsonl=args.metrics_out,
+                        console=args.metrics_summary,
+                        profile_dir=args.profile_dir)
+    try:
+        popn = _population(args, cfg, device)
+        if args.driver:
+            return _serve_driver(popn, cfg, args, device)
+        if args.continuous:
+            return _serve_continuous(popn, cfg, args, device)
+        return _serve_scan(popn, cfg, args, device)
+    finally:
+        tel.finalize()
+        if args.metrics_out:
+            print(f"wrote telemetry stream -> {args.metrics_out}")
 
 
 if __name__ == "__main__":

@@ -23,11 +23,16 @@ any weight moves there (``models/transformer.py::cuda_supported``).
       --mode bucketed --steps 4 --batch-size 2 --seq-len 256 \\
       --ckpt-population build/pop.npz
 
+``--metrics-out`` writes the telemetry event stream (``repro_torch.obs``:
+the ``train.step`` spans, one ``train.comm_volume`` event a mixing step,
+the final metric snapshots) as JSONL, which
+``tools/check_metrics_schema.py --require-comm`` checks; ``--profile-dir``
+writes a Chrome trace of the first steps.
+
 Every flag is documented with its default: ``--help``.  The multi-device
 engine and its flags (``--engine shard_map``, ``--mesh*``,
 ``--pp-stages``, ``--microbatches``, ``--sync-staging``,
-``--no-gate-split``) and telemetry (``--metrics-*``, ``--profile-dir``)
-are not ported yet.
+``--no-gate-split``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import os
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.device import resolve_device
@@ -101,6 +107,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on: cuda (the default; "
                          "raises without a card) or cpu")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the telemetry event stream (spans, "
+                         "comm-volume checkpoints, final metric snapshots) "
+                         "as JSONL here; check it with "
+                         "tools/check_metrics_schema.py --require-comm")
+    ap.add_argument("--metrics-summary", action="store_true",
+                    help="print a telemetry metric summary on exit")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler Chrome trace of the first "
+                         "instrumented spans into this directory")
     return ap
 
 
@@ -147,11 +163,19 @@ def main(argv=None):
                     else max(args.steps // 10, 1))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    res = train_population(
-        args.seed, lambda s: M.init_params(cfg, seed=s, device=device),
-        loss_fn, data_fn, tcfg, mcfg, cfg.num_layers,
-        record_every=record_every, device=device,
-    )
+    tel = obs.configure(jsonl=args.metrics_out,
+                        console=args.metrics_summary,
+                        profile_dir=args.profile_dir)
+    try:
+        res = train_population(
+            args.seed, lambda s: M.init_params(cfg, seed=s, device=device),
+            loss_fn, data_fn, tcfg, mcfg, cfg.num_layers,
+            record_every=record_every, device=device,
+        )
+    finally:
+        tel.finalize()
+    if args.metrics_out:
+        print(f"wrote telemetry stream -> {args.metrics_out}")
 
     soup = averaged_params(res)
     print(f"arch={cfg.name} mixing={args.mixing} steps={args.steps} "

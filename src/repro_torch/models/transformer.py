@@ -100,6 +100,12 @@ def cuda_supported(cfg: ModelConfig, path: str) -> Optional[str]:
         if cfg.resolved_head_dim > _pa.MAX_HEAD_DIM:
             return (f"head_dim={cfg.resolved_head_dim}: the paged-attention "
                     f"kernel takes at most {_pa.MAX_HEAD_DIM}")
+        if (paged_prefill_supported(cfg) is not None
+                and cfg.resolved_head_dim not in _fa.HEAD_DIMS):
+            # the whole-prompt admit prefills through the flash kernel
+            return (f"head_dim={cfg.resolved_head_dim}: the whole-prompt "
+                    f"admit's flash-attention kernel takes head dims "
+                    f"{_fa.HEAD_DIMS}")
         return None
     raise ValueError(f"unknown path {path!r}; expected 'scan', "
                      "'continuous' or 'train'")

@@ -1,7 +1,7 @@
 """Continuous-batching serving runtime over a paged KV cache.
 
-Port of the suffix-prefill path of ``repro/serving/batching.py``
-(``ContinuousServer``).  A stream of mixed-length requests is admitted
+Port of ``repro/serving/batching.py`` (``ContinuousServer``).  A stream
+of mixed-length requests is admitted
 into ``max_slots`` serving slots; one decode step runs the whole in-flight
 set per token, and finished slots retire.  KV lives in a shared pool of
 fixed-size pages (``models.layers.paged_pools_init``), each slot holding a
@@ -15,7 +15,16 @@ page table of pool indices:
     refcount drops to zero park on an LRU list and are evicted only under
     pool pressure;
   * **chunked prefill** (``prefill_chunk``) — each admission's prompt runs
-    in chunks of at most that many tokens;
+    in chunks of at most that many tokens; ``serving.driver`` interleaves
+    them with decode steps under live traffic;
+  * **whole-prompt admit** — a config whose prefill numerics the paged
+    attend cannot reproduce (``attn_impl != "naive"``) admits through
+    ``models.transformer.prefill`` over the whole prompt (on the card the
+    hand-written flash-attention kernel), then commits the pages under a
+    write mask that skips shared prefix pages;
+  * **speculative decoding** (``speculative=True``) — the soup drafts
+    ``draft_k`` tokens, the ensemble verifies them in one step
+    (``serving.speculative``);
   * **paged attention** — on the card every decode attend runs the
     hand-written Hopper kernel (``kernels.paged_attention``); on the CPU
     the plain version.  The pools' device decides; nothing switches the
@@ -23,7 +32,12 @@ page table of pool indices:
 
 Where the reference compiles a chunk program and a decode program and
 donates the pools to them, the port runs the same steps as plain methods
-that write the preallocated pool tensors **in place**.
+that write the preallocated pool tensors **in place**.  It counts the
+programs the reference would compile, one per program key (chunk length,
+prompt length, pool geometry, draft length), in :func:`decode_trace_count`
+and :func:`prefill_trace_count`, and reports each first build as a
+``compile`` event to ``repro_torch.obs``, with the ``serve.decode_step``
+span, the pool gauges and the speculative histograms.
 
 Per-request contract (``tests/test_batching.py``): a request served
 through a busy batch yields the tokens it would yield alone.  Greedy
@@ -31,9 +45,6 @@ decoding is held to the JAX package token for token.  With temperature
 > 0 the port draws from a ``torch.Generator`` seeded per (request seed,
 step), so a request's tokens do not depend on its batch-mates; JAX's
 ``fold_in``/``categorical`` stream cannot be reproduced in PyTorch.
-
-Not ported yet: speculative decoding, the legacy whole-prompt admit path
-(``attn_impl != "naive"`` raises), and telemetry.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import averaging
 from repro_torch.core import population as pop
@@ -53,13 +65,64 @@ from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.prng import stream_seed
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as M
-from repro_torch.serving.engine import MODES, serving_params
+from repro_torch.serving import speculative as spec_mod
+from repro_torch.serving.engine import MODES, averaged_params, serving_params
 
 Tree = Any
 
 #: pool page 0 is never allocated: inactive slots' page tables point here,
 #: so their (masked, garbage) writes can't corrupt live pages.
 SCRATCH_PAGE = 0
+
+#: bucket edges for the per-step speculative rollback histogram (tokens
+#: drafted but rejected across the in-flight set)
+SPEC_ROLLBACK_EDGES = (0.5, 1.5, 2.5, 4.5, 8.5, 16.5, 32.5)
+
+
+# ---------------------------------------------------------------------------
+# program counters (the reference's trace counters)
+# ---------------------------------------------------------------------------
+
+_DECODE_TRACES = [0]
+_PREFILL_TRACES = [0]
+#: keys of the programs counted so far: the reference's jit-cache keys,
+#: with the config by its hash.  Nothing is built or cached under them.
+_COUNTED: set = set()
+
+
+def reset_trace_counts() -> None:
+    _DECODE_TRACES[0] = 0
+    _PREFILL_TRACES[0] = 0
+
+
+def decode_trace_count() -> int:
+    """Decode programs built (one per pool geometry, mode, sampling and
+    draft length), as the reference counts decode traces."""
+    return _DECODE_TRACES[0]
+
+
+def prefill_trace_count() -> int:
+    """Prefill programs built: one per distinct chunk length, or per
+    prompt length on the whole-prompt admit path."""
+    return _PREFILL_TRACES[0]
+
+
+def clear_executable_cache() -> None:
+    """Forget the counted keys, as clearing the reference's jit caches
+    would make it trace again."""
+    _COUNTED.clear()
+
+
+def _program(key, counter, kind: str, **attrs) -> None:
+    """Count ``key``'s program the first time it runs and emit the
+    ``compile`` event the reference's trace would.  Nothing is compiled:
+    the port runs the steps eagerly, and the count and events only mirror
+    the reference's trace counts."""
+    if key in _COUNTED:
+        return
+    _COUNTED.add(key)
+    counter[0] += 1
+    obs.get().record_compile(kind, **attrs)
 
 
 # ---------------------------------------------------------------------------
@@ -244,22 +307,30 @@ def _chain_hashes(tokens: np.ndarray, page_size: int) -> List[bytes]:
 # ---------------------------------------------------------------------------
 
 
-def _sample_steps(last: torch.Tensor, seeds, steps, temperature: float,
-                  greedy: bool) -> np.ndarray:
-    """Next-token ids (B,) int32 on the host from last-position logits (B, V).
+def _sample_rows(last: torch.Tensor, seeds, steps, temperature: float,
+                 greedy: bool) -> torch.Tensor:
+    """Next-token ids (B,) int32 on the logits' device from last-position
+    logits (B, V).
 
     Greedy is argmax (first index on ties, as ``jnp.argmax``).  Otherwise
     row b draws from softmax(logits / temperature) with a generator seeded
     by ``(seeds[b], steps[b])``."""
     if greedy:
-        return last.argmax(dim=-1).to(torch.int32).cpu().numpy()
-    out = np.empty((last.shape[0],), np.int32)
+        return last.argmax(dim=-1).to(torch.int32)
     probs = torch.softmax(last.float() / temperature, dim=-1)
+    out = []
     for b in range(last.shape[0]):
         gen = torch.Generator(device=last.device)
         gen.manual_seed(stream_seed(seeds[b], steps[b]))
-        out[b] = int(torch.multinomial(probs[b], 1, generator=gen))
-    return out
+        out.append(torch.multinomial(probs[b], 1, generator=gen))
+    return torch.cat(out).to(torch.int32)
+
+
+def _sample_steps(last: torch.Tensor, seeds, steps, temperature: float,
+                  greedy: bool) -> np.ndarray:
+    """:func:`_sample_rows` as int32 ids on the host."""
+    return _sample_rows(last, seeds, steps, temperature,
+                        greedy).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -285,8 +356,15 @@ class ContinuousServer:
         tokens (None = the whole suffix at once).
     retain_pages : park refcount-0 hashed pages on an LRU list (evicted
         under pressure) instead of freeing them.
+    speculative / draft_k : draft ``draft_k`` tokens per decode call with
+        the population soup and verify them in one ensemble step
+        (``serving.speculative``): up to ``draft_k`` tokens a call, the
+        plain path's tokens at float32 KV.  Needs the suffix-prefill path
+        and a dense config.  In ``soup``/``member`` mode the model drafts
+        for itself.
     kv_dtype : ``None`` stores KV pages in the param dtype; ``"int8"``
-        quantizes every page with a per-(layer, page) float32 scale.
+        quantizes every page with a per-(layer, page) float32 scale (the
+        suffix-prefill path only).
     device : where pools live and steps run; ``"cuda"`` unless the caller
         asks for ``"cpu"``.  Without a card the default raises.
     """
@@ -298,6 +376,7 @@ class ContinuousServer:
                  max_pages_per_slot: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  retain_pages: bool = False,
+                 speculative: bool = False, draft_k: int = 4,
                  kv_dtype: Optional[str] = None,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
@@ -312,11 +391,6 @@ class ContinuousServer:
         reason = M.paged_decode_supported(cfg)
         if reason is not None:
             raise NotImplementedError(f"continuous batching: {reason}")
-        reason = M.paged_prefill_supported(cfg)
-        if reason is not None:
-            raise NotImplementedError(
-                f"continuous batching: {reason}; the whole-prompt admit "
-                "path is not ported")
         if page_size < 1 or max_slots < 1 or num_pages < 2:
             raise ValueError("need page_size >= 1, max_slots >= 1, "
                              "num_pages >= 2 (page 0 is scratch)")
@@ -339,17 +413,39 @@ class ContinuousServer:
         self.max_pages = (max_pages_per_slot if max_pages_per_slot is not None
                           else num_pages - 1)
         self.prefill_chunk = prefill_chunk
+        # suffix/chunk prefill needs paged numerics equal to the prefill's;
+        # otherwise admissions take the whole-prompt path (no chunking,
+        # prefix pages shared but their rows recomputed)
+        self.suffix_prefill = M.paged_prefill_supported(cfg) is None
         self.kv_dtype = kv_dtype
+        if kv_dtype is not None and not self.suffix_prefill:
+            # the whole-prompt admit writes raw rows into the pools: it has
+            # no quantization path
+            raise NotImplementedError(
+                f"kv_dtype={kv_dtype!r} needs the suffix-prefill path, "
+                f"but {M.paged_prefill_supported(cfg)}")
+        self.speculative = bool(speculative)
+        self.draft_k = int(draft_k)
+        if self.speculative:
+            if self.draft_k < 1:
+                raise ValueError(f"draft_k must be >= 1, got {draft_k}")
+            reason = spec_mod.speculative_supported(cfg)
+            if reason is not None:
+                raise NotImplementedError(f"speculative decode: {reason}")
 
         # one pool pair per member in ensemble mode, each member's params
         # as views into the stacked population
         n = leaves[0].shape[0] if self.ensemble else 1
         self._members = ([pop.member(params, i) for i in range(n)]
                          if self.ensemble else [params])
-        self._pools = [L.paged_pools_init(cfg, num_pages, page_size,
-                                          cfg.num_layers, kv_dtype=kv_dtype,
-                                          device=self.device)
-                       for _ in range(n)]
+        self._pools = [self._new_pools() for _ in range(n)]
+        # the draft side: the soup drafts for the ensemble, a soup/member
+        # server for itself; its pools share the verify pools' page tables
+        self._draft_params = self._draft_pools = None
+        if self.speculative:
+            self._draft_params = (averaged_params(params) if self.ensemble
+                                  else params)
+            self._draft_pools = self._new_pools()
 
         self._pool = _PagePool(num_pages, retain=retain_pages)
         self._slots: List[Optional[_Slot]] = [None] * max_slots
@@ -361,7 +457,8 @@ class ContinuousServer:
                       "decode_steps": 0, "pages_allocated": 0,
                       "pages_shared": 0, "peak_pages_in_use": 0,
                       "prefill_tokens": 0, "prefix_tokens_reused": 0,
-                      "lru_hits": 0, "lru_evictions": 0}
+                      "lru_hits": 0, "lru_evictions": 0,
+                      "spec_drafted": 0, "spec_accepted": 0}
 
     @classmethod
     def from_trained(cls, trained: Any, cfg: ModelConfig, *,
@@ -371,27 +468,85 @@ class ContinuousServer:
         return cls(serving_params(trained, mode, member), cfg, mode=mode,
                    **kwargs)
 
-    # -- the two device programs -----------------------------------------
+    def _new_pools(self):
+        return L.paged_pools_init(self.cfg, self.num_pages, self.page_size,
+                                  self.cfg.num_layers, kv_dtype=self.kv_dtype,
+                                  device=self.device)
 
-    def _chunk_program(self, tokens: torch.Tensor, pos0: int,
-                       table: torch.Tensor) -> torch.Tensor:
-        """One prompt chunk through ``M.prefill_paged`` for every member;
-        returns the last position's (member-averaged) logits (1, V)."""
-        lgs = [M.prefill_paged(p, self.cfg, tokens, pos0, pools, table)[0]
-               for p, pools in zip(self._members, self._pools)]
+    def _geometry(self):
+        return (hash(self.cfg), self.ensemble, self.max_slots,
+                self.max_pages, self.page_size, self.num_pages, self.greedy,
+                self.kv_dtype, self.device.type)
+
+    def _last(self, lgs: List[torch.Tensor]) -> torch.Tensor:
+        """The members' last-position logits (B, V), averaged with the
+        balanced tree in ensemble mode."""
         if self.ensemble:
             return averaging.balanced_mean(torch.stack(lgs))[:, -1]
         return lgs[0][:, -1]
+
+    # -- the device programs ---------------------------------------------
+
+    def _chunk_program(self, tokens: torch.Tensor, pos0: int,
+                       table: torch.Tensor) -> torch.Tensor:
+        """One prompt chunk through ``M.prefill_paged`` for every member
+        (and the draft model of a speculative server, into its own pools
+        under the same table); returns the last position's
+        (member-averaged) logits (1, V)."""
+        T = int(tokens.shape[0])
+        _program(("cont_chunk", T) + self._geometry() + (self.speculative,),
+                 _PREFILL_TRACES, "cont_prefill_chunk", T=T)
+        lgs = [M.prefill_paged(p, self.cfg, tokens, pos0, pools, table)[0]
+               for p, pools in zip(self._members, self._pools)]
+        if self.speculative:
+            M.prefill_paged(self._draft_params, self.cfg, tokens, pos0,
+                            self._draft_pools, table)
+        return self._last(lgs)
+
+    def _admit_program(self, tokens: torch.Tensor, pages: torch.Tensor,
+                       write_mask: torch.Tensor) -> torch.Tensor:
+        """The whole prompt (S,) through ``M.prefill`` for every member,
+        then its K/V committed page by page into ``pages`` where
+        ``write_mask`` is set (shared prefix pages already hold the same
+        rows: same tokens, same params, same prefill).  Returns the last
+        position's (member-averaged) logits (1, V)."""
+        S, n_pages, ps = tokens.shape[0], pages.shape[0], self.page_size
+        _program(("cont_admit", S, n_pages) + self._geometry(),
+                 _PREFILL_TRACES, "cont_prefill_admit", S=S)
+        sel = pages[write_mask]
+        lgs = []
+        for p, pools in zip(self._members, self._pools):
+            lg, cache = M.prefill(p, self.cfg, {"tokens": tokens[None]},
+                                  capacity=S)
+            lgs.append(lg)
+            for name in ("k", "v"):
+                rows = cache["kv"][name][:, 0]          # (L, S, KV, hd)
+                paged = rows.new_zeros((rows.shape[0], n_pages * ps)
+                                       + rows.shape[2:])
+                paged[:, :S] = rows
+                paged = paged.reshape((rows.shape[0], n_pages, ps)
+                                      + rows.shape[2:])
+                pools[name][:, sel] = paged[:, write_mask]
+        return self._last(lgs)
 
     def _decode_program(self, tokens: torch.Tensor, positions: torch.Tensor,
                         tables: torch.Tensor) -> torch.Tensor:
         """One decode token for every slot; returns (B, V) logits."""
-        lgs = [M.decode_step_paged(p, self.cfg, tokens, positions, pools,
-                                   tables)[0]
-               for p, pools in zip(self._members, self._pools)]
-        if self.ensemble:
-            return averaging.balanced_mean(torch.stack(lgs))[:, -1]
-        return lgs[0][:, -1]
+        _program(("continuous",) + self._geometry() + (None,),
+                 _DECODE_TRACES, "cont_decode", slots=int(tokens.shape[0]))
+        return self._last([
+            M.decode_step_paged(p, self.cfg, tokens, positions, pools,
+                                tables)[0]
+            for p, pools in zip(self._members, self._pools)])
+
+    def _spec_program(self, *host_args):
+        """The speculative decode call (``serving.speculative``)."""
+        _program(("continuous",) + self._geometry() + (self.draft_k,),
+                 _DECODE_TRACES, "cont_spec_decode", draft_k=self.draft_k)
+        return spec_mod.speculative_step(
+            self.cfg, self._members, self._pools, self._draft_params,
+            self._draft_pools, *host_args, self.temperature, self.greedy,
+            self.draft_k, self.device)
 
     # -- queue API -------------------------------------------------------
 
@@ -452,6 +607,23 @@ class ContinuousServer:
         self.stats["lru_evictions"] = self._pool.lru_evictions
         self.stats["peak_pages_in_use"] = max(
             self.stats["peak_pages_in_use"], self._pool.used_count)
+        tel = obs.get()
+        if tel.enabled:
+            reg = tel.registry
+            reg.gauge("serve.pages_free").set(self._pool.free_count)
+            reg.gauge("serve.pages_retained").set(self._pool.retained_count)
+            reg.gauge("serve.pages_refcounted").set(self._pool.used_count)
+            reg.gauge("serve.pages_peak").set(
+                self.stats["peak_pages_in_use"])
+            # prefix-dedup hit rate: the share of prompt tokens served from
+            # cached prefix pages instead of a prefill
+            seen = (self.stats["prefill_tokens"]
+                    + self.stats["prefix_tokens_reused"])
+            if seen:
+                reg.gauge("serve.prefix_dedup_hit_rate").set(
+                    self.stats["prefix_tokens_reused"] / seen)
+                reg.gauge("serve.prefix_tokens_reused").set(
+                    self.stats["prefix_tokens_reused"])
 
     def _begin_admit(self, req: Request) -> Optional[_Prefill]:
         """Reserve a slot and every prompt page for ``req`` — no compute.
@@ -542,9 +714,66 @@ class ContinuousServer:
             self._slots[pf.slot_index] = slot
         return True
 
+    def _try_admit_legacy(self, req: Request) -> bool:
+        """Whole-prompt admission through ``M.prefill`` and write-mask
+        dedup: the path of a config ``M.paged_prefill_supported`` rejects
+        (``attn_impl != "naive"``).  Shared prefix pages are skipped at
+        write time, but their rows are still computed."""
+        S = int(req.tokens.shape[0])
+        n_prompt = max(-(-S // self.page_size), 1)
+        total = _total_pages(S, req.max_new, self.page_size)
+        slot_i = self._free_slot()
+        if slot_i is None:
+            return False
+
+        digests = _chain_hashes(req.tokens, self.page_size)
+        shared_pages = [self._pool.prefix.get(d) for d in digests]
+        revived = sum(1 for p in shared_pages
+                      if p is not None and p in self._pool.lru)
+        new_now = n_prompt - sum(p is not None for p in shared_pages)
+        need = new_now + revived + (total - n_prompt)
+        if self._pool.available_count - self._reserved_pages() < need:
+            return False
+
+        pages: List[int] = []
+        write_mask = np.ones((n_prompt,), bool)
+        for j in range(n_prompt):
+            page = self._pool.share(digests[j]) if j < len(digests) else None
+            if page is not None:
+                write_mask[j] = False
+                self.stats["pages_shared"] += 1
+            else:
+                page = self._pool.alloc()
+                self.stats["pages_allocated"] += 1
+                if j < len(digests) and digests[j] not in self._pool.prefix:
+                    self._pool.register(page, digests[j])
+            pages.append(page)
+        self._sync_pool_stats()
+        self.stats["prefill_tokens"] += S
+
+        seed = 0 if req.seed is None else int(req.seed)
+        dev = self.device
+        last = self._admit_program(
+            torch.from_numpy(req.tokens).to(dev),
+            torch.tensor(pages, dtype=torch.long, device=dev),
+            torch.from_numpy(write_mask).to(dev))
+        token0 = int(_sample_steps(last, [seed], [0], self.temperature,
+                                   self.greedy)[0])
+        slot = _Slot(uid=req.uid, prompt=req.tokens, max_new=req.max_new,
+                     seed=seed, pages=pages, total_pages=total, out=[token0])
+        self.stats["admitted"] += 1
+        if req.max_new == 1:  # prefill-only request: retire immediately
+            self._retire(slot)
+            return True
+        self._slots[slot_i] = slot
+        return True
+
     def _try_admit(self, req: Request) -> bool:
         """Fully admit ``req``: its prefill runs to completion here, in
-        ``prefill_chunk``-sized chunks if set."""
+        ``prefill_chunk``-sized chunks if set (never interleaved with
+        decode; the driver interleaves)."""
+        if not self.suffix_prefill:
+            return self._try_admit_legacy(req)
         pf = self._begin_admit(req)
         if pf is None:
             return False
@@ -583,13 +812,26 @@ class ContinuousServer:
                 break  # head-of-line blocks until pages free up
             self._queue.popleft()
 
-    def _grow(self, slot: _Slot) -> None:
-        """Lazy page growth: allocate the write page just before it is
-        needed.  Cannot fail — admission reserved the worst case."""
-        need_pages = slot.write_pos // self.page_size + 1
+    def _grow(self, slot: _Slot, extra: int = 0) -> None:
+        """Lazy page growth: allocate the write page(s) just before they
+        are needed (``extra`` covers a speculative step's lookahead,
+        bounded by the budget, so never past the admission-time worst
+        case).  Cannot fail — admission reserved that worst case."""
+        need_pages = (slot.write_pos + extra) // self.page_size + 1
         while len(slot.pages) < need_pages:
             slot.pages.append(self._pool.alloc())
             self.stats["pages_allocated"] += 1
+        self._sync_pool_stats()
+
+    def _shrink(self, slot: _Slot) -> None:
+        """Roll a speculative step's page-table cursor back: release the
+        trailing pages past the (possibly rolled-back) write position.
+        Trailing decode pages are never chain-hash registered, so release
+        frees them, and the pool's free / retained / refcounted partition
+        survives every rollback."""
+        keep = slot.write_pos // self.page_size + 1
+        while len(slot.pages) > keep:
+            self._pool.release(slot.pages.pop())
         self._sync_pool_stats()
 
     def _retire(self, slot: _Slot) -> None:
@@ -620,10 +862,14 @@ class ContinuousServer:
         seeds = np.zeros((B,), np.int64)
         # inactive slots read and write scratch page 0 at offset 0
         tables = np.full((B, Pmax), SCRATCH_PAGE, np.int32)
+        n_spec = np.zeros((B,), np.int32)  # proposals per slot this call
         for i, slot in enumerate(self._slots):
             if slot is None:
                 continue
-            self._grow(slot)
+            if self.speculative:
+                n_spec[i] = max(min(self.draft_k,
+                                    slot.max_new - len(slot.out)), 1)
+            self._grow(slot, extra=max(int(n_spec[i]) - 1, 0))
             tokens[i] = slot.out[-1]
             positions[i] = slot.write_pos
             steps[i] = len(slot.out)
@@ -633,22 +879,58 @@ class ContinuousServer:
             tables[i, :len(slot.pages)] = slot.pages
 
         dev = self.device
-        logits = self._decode_program(torch.from_numpy(tokens).to(dev),
-                                      torch.from_numpy(positions).to(dev),
-                                      torch.from_numpy(tables).to(dev))
-        sampled = _sample_steps(logits, seeds, steps, self.temperature,
-                                self.greedy)
-        sampled = np.where(active, sampled, 0)
-        done = active & (steps + 1 >= budgets)
+        tel = obs.get()
+        with tel.span("serve.decode_step", slots=self.active_slots):
+            if self.speculative:
+                sampled, counts, done = self._spec_program(
+                    tokens, positions, steps, budgets, active, tables, seeds)
+            else:
+                logits = self._decode_program(
+                    torch.from_numpy(tokens).to(dev),
+                    torch.from_numpy(positions).to(dev),
+                    torch.from_numpy(tables).to(dev))
+                sampled = _sample_steps(logits, seeds, steps,
+                                        self.temperature, self.greedy)
+                sampled = np.where(active, sampled, 0)
+                done = active & (steps + 1 >= budgets)
         self.stats["decode_steps"] += 1
+        if tel.enabled:
+            tel.registry.counter("serve.decode_steps").inc()
+            tel.registry.histogram(
+                "serve.slot_occupancy", obs.RATIO_EDGES
+            ).observe(self.active_slots / self.max_slots)
 
+        drafted = accepted = 0
         for i, slot in enumerate(self._slots):
             if slot is None:
                 continue
-            slot.out.append(int(sampled[i]))
+            if self.speculative:
+                m = int(counts[i])
+                slot.out.extend(int(t) for t in sampled[i, :m])
+                drafted += int(n_spec[i]) - 1
+                accepted += m - 1
+                if not done[i]:
+                    # roll the page-table cursor back over rejected tokens
+                    self._shrink(slot)
+            else:
+                slot.out.append(int(sampled[i]))
             if done[i]:
                 self._retire(slot)
                 self._slots[i] = None
+        if self.speculative:
+            self.stats["spec_drafted"] += drafted
+            self.stats["spec_accepted"] += accepted
+            if tel.enabled:
+                reg = tel.registry
+                reg.counter("serve.spec_drafted").inc(drafted)
+                reg.counter("serve.spec_accepted").inc(accepted)
+                if drafted:
+                    reg.histogram(
+                        "serve.spec_accept_ratio", obs.RATIO_EDGES
+                    ).observe(accepted / drafted)
+                reg.histogram(
+                    "serve.spec_rollback", SPEC_ROLLBACK_EDGES
+                ).observe(drafted - accepted)
         return [u for u in self._results if u not in before]
 
     def run(self, requests: Optional[List[Request]] = None

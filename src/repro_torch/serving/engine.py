@@ -16,7 +16,9 @@ and reused.  The counters (:func:`decode_trace_count`,
 :func:`prefill_trace_count`) count programs built, one per shape, as the
 reference's count traces.  Programs run eagerly, so every kernel launch
 is counted by its wrapper; capturing the decode step as a CUDA graph is
-later work.
+later work.  Each program built is reported to ``repro_torch.obs`` as a
+``compile`` event, and :func:`generate` times its prefill and its decode
+in the ``serve.prefill`` and ``serve.decode`` spans.
 
 Sampling is greedy (argmax) or, at ``temperature > 0``, a draw per
 (request, step) from a ``torch.Generator`` seeded by
@@ -40,6 +42,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import averaging
 from repro_torch.core import population as pop
@@ -163,6 +166,7 @@ def _ensemble_step(cfg: ModelConfig):
 
 def _build_prefill(cfg: ModelConfig, ensemble: bool, capacity: int):
     _PREFILL_TRACES[0] += 1
+    obs.get().record_compile("serve_prefill", capacity=capacity)
 
     def program(params, batch):
         if not ensemble:
@@ -178,6 +182,7 @@ def _build_prefill(cfg: ModelConfig, ensemble: bool, capacity: int):
 def _build_decode(cfg: ModelConfig, ensemble: bool, S: int, max_new: int,
                   greedy: bool):
     _DECODE_TRACES[0] += 1
+    obs.get().record_compile("serve_decode", S=S, max_new=max_new)
     prefix = internal_prefix(cfg)
     step_fn = _ensemble_step(cfg) if ensemble else None
 
@@ -279,10 +284,13 @@ def generate(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     seeds = _request_seeds(seed, B, temperature)
     prefill_fn, decode_fn = _programs(cfg, ensemble, B, S, max_new_tokens,
                                       capacity, greedy)
+    tel = obs.get()
     with torch.no_grad():
-        logits, cache = prefill_fn(params, batch)
-        out, _ = decode_fn(params, tokens, cache, logits, seeds,
-                           max(temperature, 1e-6))
+        with tel.span("serve.prefill", S=S, B=B):
+            logits, cache = prefill_fn(params, batch)
+        with tel.span("serve.decode", S=S, max_new=max_new_tokens):
+            out, _ = decode_fn(params, tokens, cache, logits, seeds,
+                               max(temperature, 1e-6))
     return out
 
 

@@ -9,7 +9,12 @@ Where the reference vmaps ``value_and_grad`` over the stacked members,
 the port loops over them: member m's parameters are views ``leaf[m]`` of
 the stacked leaves, so one member's activations and gradients exist at a
 time, and the optimizer and the shuffle write the stacked ``(N, ...)``
-leaves in place.  The loop works for any model: the caller supplies
+leaves in place.  Telemetry (``repro_torch.obs``) times each step's
+member updates in the ``train.step`` span, mirrors the exact float64 comm
+total in the ``train.comm_scalars`` counter and one ``train.comm_volume``
+event per mixing step (what ``tools/check_metrics_schema.py
+--require-comm`` replays), and sets the loss, steps/s and record gauges.
+The loop works for any model: the caller supplies
 ``init_fn(seed) -> params``, ``loss_fn(params, batch) -> scalar`` and
 ``data_fn(member, step, seed) -> batch``.  Seeds play the role of the
 reference's keys (``core.prng``).
@@ -23,6 +28,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import population as pop
 from repro_torch.core.consensus import avg_distance_to_consensus
@@ -138,6 +144,11 @@ def train_population(seed: int, init_fn: Callable[[int], Tree],
     base_seed = fold_in(seed, 1234)
     data_seed = fold_in(seed, 5678)
     clock = _PhaseClock(dev)
+    tel = obs.get()
+    # mirrors comm_total add for add, so the counter equals the exact
+    # host-side accounting bit for bit
+    comm_counter = (tel.registry.counter("train.comm_scalars")
+                    if tel.enabled else None)
 
     t0 = time.time()
     for step in range(tcfg.total_steps):
@@ -145,19 +156,21 @@ def train_population(seed: int, init_fn: Callable[[int], Tree],
                        tcfg.warmup_steps)
         ds = fold_in(data_seed, step)
         losses = []
-        for m in range(n):
-            batch = data_fn(m, step, fold_in(ds, m))
-            a = clock.mark()
-            loss, grads = _grad_step(loss_fn, pop.member(population, m), batch)
-            b = clock.mark()
-            opt_update(pop.member(population, m), grads,
-                       pop.member(opt_state, m), lr)
-            c = clock.mark()
-            clock.add("fwd_bwd", step, a, b)
-            clock.add("opt", step, b, c)
-            losses.append(loss)
-            del grads
-        loss = torch.mean(torch.stack(losses).float())
+        with tel.span("train.step", step=step):
+            for m in range(n):
+                batch = data_fn(m, step, fold_in(ds, m))
+                a = clock.mark()
+                loss, grads = _grad_step(loss_fn, pop.member(population, m),
+                                         batch)
+                b = clock.mark()
+                opt_update(pop.member(population, m), grads,
+                           pop.member(opt_state, m), lr)
+                c = clock.mark()
+                clock.add("fwd_bwd", step, a, b)
+                clock.add("opt", step, b, c)
+                losses.append(loss)
+                del grads
+            loss = torch.mean(torch.stack(losses).float())
 
         if mixing_due(step, mcfg):
             a = clock.mark()
@@ -171,6 +184,10 @@ def train_population(seed: int, init_fn: Callable[[int], Tree],
                     f"member, the shapes give {static_comm}")
             comm_step = float(comm) if static_comm is None else static_comm
             comm_total += comm_step
+            if comm_counter is not None:
+                comm_counter.inc(comm_step)
+                tel.event("train.comm_volume", comm_per_mix_step=comm_step,
+                          mix_steps=1, comm_total=comm_total)
 
         if step % record_every == 0 or step == tcfg.total_steps - 1:
             history["step"].append(step)
@@ -178,10 +195,26 @@ def train_population(seed: int, init_fn: Callable[[int], Tree],
             history["consensus"].append(
                 float(avg_distance_to_consensus(population)))
             history["comm"].append(comm_total)
+            extras = {}
             if record_fn is not None:
                 for k_, v in record_fn(step, population).items():
                     history.setdefault(k_, []).append(v)
+                    extras[k_] = v
+            if tel.enabled:
+                tel.registry.gauge("train.loss").set(history["loss"][-1])
+                wall = time.time() - t0
+                if wall > 0:
+                    tel.registry.gauge("train.steps_per_s").set(
+                        (step + 1) / wall)
+                for k_, v in extras.items():
+                    tel.registry.gauge(f"train.record.{k_}").set(v)
+                tel.event("train.record", step=step,
+                          loss=history["loss"][-1],
+                          consensus=history["consensus"][-1],
+                          comm=comm_total, **extras)
 
     phase_ms = clock.per_step(tcfg.total_steps)
     history["wall_s"] = [time.time() - t0]
+    if tel.enabled:
+        tel.registry.gauge("train.wall_s").set(history["wall_s"][0])
     return TrainResult(population, opt_state, history, comm_total, phase_ms)

@@ -14,7 +14,13 @@ across by ``params_from_numpy``:
   * after a stream drains, the pool holds no pages, and free + retained +
     refcounted pages add up to ``num_pages - 1`` after every step;
   * with temperature > 0 a request's tokens do not depend on its
-    batch-mates (per-(request seed, step) generators).
+    batch-mates (per-(request seed, step) generators);
+  * the whole-prompt admit path (``attn_impl="chunked"``, whose prefill
+    ``M.prefill`` computes: on the card the flash-attention kernel) gives
+    JAX's greedy tokens and page accounting, shared prefix pages skipped
+    by the write mask, in soup and ensemble modes, with and without
+    retained pages (soup freeing its pages, the ensemble retaining them);
+    it builds one admit program per prompt length, and it refuses int8 KV.
 """
 
 import jax
@@ -41,6 +47,16 @@ JCFG, TCFG = JaxConfig(**CFG_KW), ModelConfig(**CFG_KW)
 KEY = jax.random.key(0)
 MIXED = [(5, 6), (9, 3), (3, 8), (12, 1), (7, 5), (4, 4)]
 SERVER = dict(page_size=4, max_slots=3, num_pages=32)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Tiny eager ops: one intra-op thread each (several test processes
+    share the cores, and spinning thread pools slow them a hundredfold)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -214,8 +230,49 @@ def test_requests_are_validated_like_the_reference(population):
     with pytest.raises(ValueError, match="duplicate"):
         server.submit(TB.Request("x", np.ones((3,), np.int32), 2))
     assert server.cancel("x") and not server.cancel("x")
-    with pytest.raises(NotImplementedError):
-        TB.ContinuousServer(soup, TCFG.reduced(attn_impl="chunked"),
-                            device="cpu")
+    # a chunked-attention config admits through the whole-prompt path,
+    # which has no int8 store (as in the reference)
+    chunked = TCFG.reduced(attn_impl="chunked")
+    assert not TB.ContinuousServer(soup, chunked, device="cpu").suffix_prefill
+    with pytest.raises(NotImplementedError, match="suffix-prefill"):
+        TB.ContinuousServer(soup, chunked, kv_dtype="int8", device="cpu")
     with pytest.raises(ValueError, match="mode"):
         TB.ContinuousServer(soup, TCFG, mode="best", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the whole-prompt admit path
+# ---------------------------------------------------------------------------
+
+# one-token attention chunks: the reference's chunked prefill takes any
+# prompt length then
+CHUNKED_KW = dict(CFG_KW, attn_impl="chunked", attn_chunk=1)
+
+
+@pytest.mark.parametrize("mode,retain", [("soup", False), ("ensemble", True)],
+                         ids=["soup-freed", "ensemble-retained"])
+def test_whole_prompt_admit_matches_jax(population, mode, retain):
+    """The shared-prefix stream (its prefix pages deduped while the first
+    holder is live, so the write mask skips them) and then the mixed one,
+    through one server: tokens, stats and the pool's state equal JAX's."""
+    jpop, tpop = population
+    jcfg, tcfg = JaxConfig(**CHUNKED_KW), ModelConfig(**CHUNKED_KW)
+    kw = dict(SERVER, mode=mode, member=0, retain_pages=retain)
+    jserver = JB.ContinuousServer.from_trained(jpop, jcfg, **kw)
+    TB.clear_executable_cache()
+    TB.reset_trace_counts()
+    tserver = TB.ContinuousServer.from_trained(tpop, tcfg, **kw,
+                                               device="cpu")
+    assert not tserver.suffix_prefill
+    for stream in (_shared_prefix(), _mixed(7)):
+        jout = jserver.run([JB.Request(u, p, m) for u, p, m in stream])
+        tout = tserver.run([TB.Request(u, p, m) for u, p, m in stream])
+        _assert_same_tokens(jout, tout)
+        assert tserver.stats == {k: jserver.stats[k] for k in tserver.stats}
+    assert tserver.stats["pages_shared"] >= 2
+    assert (tserver._pool.free_count, tserver._pool.retained_count) == (
+        jserver._pool.free_count, jserver._pool.retained_count)
+    _assert_drained(tserver)
+    lengths = {len(p) for _, p, _ in _shared_prefix() + _mixed(7)}
+    assert TB.prefill_trace_count() == len(lengths)
+    assert TB.decode_trace_count() == 1

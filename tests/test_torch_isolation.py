@@ -47,7 +47,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "data.synthetic", "kernels.flash_attention",
                  "kernels.rwkv6_scan", "models.ssm", "serving.engine",
                  "models.cnn", "data.augment", "core.averaging",
-                 "launch.quickstart"):
+                 "launch.quickstart", "serving.driver",
+                 "serving.speculative", "obs", "obs.metrics", "obs.events",
+                 "obs.profiler"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -77,6 +79,9 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "llama3.2-3b", "--reduced", "--continuous",
                     "--population", "1", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "llama3.2-3b", "--reduced", "--driver",
+                    "--speculative", "--population", "1", "--requests", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(["--arch", "llama3.2-3b", "--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
