@@ -153,6 +153,27 @@ and then, failing on the first phase that fails:
      train CLI (``--metrics-out``) at the reduced size, both streams
      through ``tools/check_metrics_schema.py`` (the train stream with
      ``--require-comm``), and a ``--profile-dir`` Chrome trace.
+ 12. MoE and MLA: holds the flash kernel's (192, 128) instantiation (MLA's
+     192-wide queries and keys, 128-wide values) against its plain
+     version at DeepSeek-V2-Lite's prefill shape (B=4, S=2048, 16 heads,
+     causal; bf16 and f32) and at a ragged non-causal S=1000, and times
+     it beside its bound, its plain version and the first fused SDPA
+     backend that takes v narrower than q/k (none: null); serves
+     full-width deepseek-v2-lite-16b (27 layers, bf16, a random N=2
+     population, 60.4 GiB) through the serve CLI's scan engine
+     (``--compare``: member, ensemble, then the soup made in place; B=4,
+     S=2048, 32 new), checking that every prefill attention went through
+     the kernel (launches == 2 requests x 27 x 4 member-runs) and that
+     peak allocated memory stays under 80 GB, with prefill s, decode-step
+     ms (beside the floor of reading every expert a step) and tok/s per
+     mode; one teacher-forced prefill + decode step on the kernel path
+     against the plain path; then reduced float32 on the kernels against
+     plain, greedy tokens identical: DeepSeek at the full model's MLA
+     widths through the scan engine (its own reduced widths refused on
+     the card), kimi-k2 (MoE, GQA) through ``ContinuousServer`` (paged
+     launches == layers x members x decode steps); finally a full-width
+     2-layer teacher-forced prefill + decode step of qwen3-4b, qwen1.5-4b
+     and minitron-8b on the kernels against plain.
 
 Kernels are built from the sources in the checkout, each ``nvcc`` started
 at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
@@ -1372,16 +1393,20 @@ def _gen(torch, device, seed):
     return gen
 
 
-def flash_inputs(torch, B, S, H, KV, hd, dt, device, seed):
+def flash_inputs(torch, B, S, H, KV, hd, dt, device, seed, hv=None):
+    """q (B, S, H, hd), k (B, S, KV, hd), v (B, S, KV, hv), hv = hd unless
+    given."""
     gen = _gen(torch, device, seed)
     dtype = getattr(torch, _DTYPES[dt])
-    return tuple(torch.randn(B, S, n, hd, generator=gen, device=device)
-                 .to(dtype) for n in (H, KV, KV))
+    return tuple(torch.randn(B, S, n, d, generator=gen, device=device)
+                 .to(dtype) for n, d in ((H, hd), (KV, hd),
+                                         (KV, hd if hv is None else hv)))
 
 
-def flash_work(B, S, H, KV, hd, dt, causal, window=None):
+def flash_work(B, S, H, KV, hd, dt, causal, window=None, hv=None):
     """Bytes (q, k, v read once, out written once) and operations (QK^T
-    and PV, a multiply and an add each, over the visible pairs only)."""
+    over hd and PV over hv = hd unless given, a multiply and an add each,
+    over the visible pairs only)."""
     i = np.arange(S)[:, None]
     j = np.arange(S)[None, :]
     visible = np.ones((S, S), bool)
@@ -1390,8 +1415,9 @@ def flash_work(B, S, H, KV, hd, dt, causal, window=None):
     if window is not None:
         visible &= j > i - window
     elt = 2 if dt == "bf16" else 4
-    nbytes = elt * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-    ops = 4 * B * H * hd * int(visible.sum())
+    hv = hd if hv is None else hv
+    nbytes = elt * (B * S * H * (hd + hv) + B * S * KV * (hd + hv))
+    ops = 2 * B * H * (hd + hv) * int(visible.sum())
     return nbytes, ops
 
 
@@ -1915,21 +1941,53 @@ def _forced_layers(torch, M, ops, ref, route, params, cfg, x, caches, pos,
     """Every layer once on the kernel route and once on the plain route,
     both on the same input (the plain route's output of the layer before)
     and each into its own cache; records each layer's max |kernel - plain|
-    over max |plain| in ``worst``.  Returns the last layer's two outputs."""
+    over max |plain| in ``worst``.  Returns the last layer's two outputs.
+
+    An attention block's attention half (what the kernel computes) is
+    compared on its own too.  In an MoE block the router picks each
+    token's experts discretely and a capacity-full expert drops tokens,
+    so a rounding difference that moves a token across a top-k boundary
+    changes its whole MLP output: there the block's output is reported
+    (``moe layer output``, with the tokens whose expert set changed) but
+    not held to the tolerance; its attention half is."""
+    from repro_torch.models import layers as L
+
     cache_k, cache_p = caches
     for l in range(cfg.num_layers):
         blk = M._block(params, l)
-        xk, new_k = M._block_serve(blk, cfg, x, M._cache_layer(cache_k, l),
-                                   pos)
-        M._store_layer(cache_k, l, new_k)
-        with plain_routes(ops, ref, route):
-            xp, new_p = M._block_serve(blk, cfg, x,
-                                       M._cache_layer(cache_p, l), pos)
-        M._store_layer(cache_p, l, new_p)
-        pairs = [("layer output", xk, xp)]
-        if "state" in new_k:
+        pairs = []
+        if cfg.block_kind == "rwkv6":
+            xk, new_k = M._block_serve(blk, cfg, x,
+                                       M._cache_layer(cache_k, l), pos)
+            with plain_routes(ops, ref, route):
+                xp, new_p = M._block_serve(blk, cfg, x,
+                                           M._cache_layer(cache_p, l), pos)
             pairs += [(f"state {leaf}", new_k["state"][leaf],
                        new_p["state"][leaf]) for leaf in ("S", "x_tm", "x_cm")]
+        else:
+            hk, kv_k = M._attn_serve(blk, cfg, x, M._cache_layer(cache_k, l),
+                                     pos)
+            with plain_routes(ops, ref, route):
+                hp, kv_p = M._attn_serve(blk, cfg, x,
+                                         M._cache_layer(cache_p, l), pos)
+            new_k, new_p = {"kv": kv_k}, {"kv": kv_p}
+            mk = L.rmsnorm(blk["ln2"], hk, cfg.norm_eps)
+            mp = L.rmsnorm(blk["ln2"], hp, cfg.norm_eps)
+            xk = hk + M._mlp_apply(blk["mlp"], cfg, mk)[0]
+            xp = hp + M._mlp_apply(blk["mlp"], cfg, mp)[0]
+            pairs.append(("attention output", hk, hp))
+            if cfg.moe:
+                def experts(m):
+                    logits = m.float() @ blk["mlp"]["router"]
+                    return torch.topk(logits, cfg.top_k, dim=-1).indices.sort(
+                        dim=-1).values
+                moved = int((experts(mk) != experts(mp)).any(-1).sum())
+                worst["tokens whose experts changed"] = max(
+                    worst.get("tokens whose experts changed", 0), moved)
+        M._store_layer(cache_k, l, new_k)
+        M._store_layer(cache_p, l, new_p)
+        pairs.append(("moe layer output" if cfg.moe else "layer output",
+                      xk, xp))
         for name, a, b in pairs:
             rel = float((a.float() - b.float()).abs().max()
                         / b.float().abs().max().clamp(min=1e-30))
@@ -1972,9 +2030,11 @@ def profile_serving(torch, params, cfg, tokens, cap, arch):
             f"launch queue full {full} times; device time by operator: {top}")
 
 
-def teacher_forced(torch, device, arch):
+def teacher_forced(torch, device, arch, cfg=None, profile=True):
     """Phase 8's kernel path against its plain path on member 0 (the CLI's
-    seed), at the phase's request shape: a prefill and one decode step.
+    seed), at the phase's request shape: a prefill and one decode step
+    (of ``cfg``, when given, else ``arch``'s config; ``profile`` adds one
+    profiled prefill and decode step).
 
     Teacher-forced, layer by layer (the gate): every layer gets the same
     input on both paths (the plain path's output of the layer before; for
@@ -1993,7 +2053,7 @@ def teacher_forced(torch, device, arch):
     from repro_torch.launch.specs import concrete_batch
     from repro_torch.models import transformer as M
 
-    cfg = get_arch(arch)
+    cfg = get_arch(arch) if cfg is None else cfg
     route = "rwkv6_scan" if cfg.block_kind == "rwkv6" else "flash_attention"
     key = "wkv" if route == "rwkv6_scan" else "flash"
     params = M.init_params(cfg, seed=0, device=device)
@@ -2019,13 +2079,15 @@ def teacher_forced(torch, device, arch):
         counts = _counts(fa, wkv, pa)
         del lg, cache
         expect = cfg.num_layers * (2 if route == "rwkv6_scan" else 1)
-        log(f"{arch} (full width, member 0, B={SCAN_B}): prefill of {SCAN_S} "
+        log(f"{arch} (full width, {cfg.num_layers} layers, member 0, "
+            f"B={SCAN_B}): prefill of {SCAN_S} "
             f"tokens {t_pre:.3f} s, one decode step {t_dec * 1e3:.1f} ms on the "
             f"kernel path (eager, host included; {counts[key]} {key} "
             f"launches, expected {expect})")
         if counts[key] != expect:
             fail(f"{arch}: {counts[key]} launches for a prefill and a step")
-        profile_serving(torch, params, cfg, tokens, cap, arch)
+        if profile:
+            profile_serving(torch, params, cfg, tokens, cap, arch)
 
         worst = {}
         caches = (M.init_cache(cfg, SCAN_B, cap, device=device),
@@ -2047,9 +2109,12 @@ def teacher_forced(torch, device, arch):
             [M._logits(params, cfg, xk2)], [M._logits(params, cfg, xp2)])
     log(f"teacher-forced {arch}, layer by layer ({cfg.num_layers} layers, "
         f"prefill and decode step): worst max |kernel - plain| / max |plain| "
-        + ", ".join(f"{name} {v:.4e}" for name, v in worst.items())
+        + ", ".join(f"{name} {v}" if isinstance(v, int) else
+                    f"{name} {v:.4e}" for name, v in worst.items())
         + f" (tolerance {LOGIT_REL_TOL:g})")
-    bad = {name: v for name, v in worst.items() if not v <= LOGIT_REL_TOL}
+    gated = {name: v for name, v in worst.items()
+             if name not in ("moe layer output", "tokens whose experts changed")}
+    bad = {name: v for name, v in gated.items() if not v <= LOGIT_REL_TOL}
     if bad:
         fail(f"teacher-forced {arch}: kernel path differs from plain: {bad}")
     _zero(fa, wkv, pa)
@@ -3207,6 +3272,288 @@ def live_traffic(torch, device, kernels, card):
         f"{reduced['flash_f32']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: MoE and MLA (DeepSeek-V2-Lite at full width, kimi-k2 reduced),
+# and the dense configs
+# ---------------------------------------------------------------------------
+
+DEEPSEEK = "deepseek-v2-lite-16b"
+KIMI = "kimi-k2-1t-a32b"
+# DeepSeek-V2-Lite's prefill attention: B, S, H, KV, q/k width, v width
+MLA_SHAPE = (4, 2048, 16, 16, 192, 128)
+# the reduced DeepSeek at the full model's MLA widths (its own reduced
+# widths, 32 + 16 and 32, have no flash instantiation)
+MLA_WIDTHS = dict(qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128)
+DENSE_ARCHS = ("qwen3-4b", "qwen1.5-4b", "minitron-8b")
+DENSE_LAYERS = 2  # depth of their full-width teacher-forced runs
+CARD_BYTES = 80e9
+
+
+def library_backend(torch, F, q, k, v):
+    """The first fused SDPA backend that takes these (B, H, S, d) inputs,
+    v narrower than q and k, or None (the math backend is not counted)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            torch.cuda.synchronize()
+            return backend
+        except RuntimeError:
+            continue
+    return None
+
+
+def check_flash_mla(torch, fa, ref, F, device):
+    """Phase 12, the kernel alone: the (192, 128) instantiation against its
+    plain version at DeepSeek-V2-Lite's prefill shape, bf16 and f32,
+    causal, and a ragged non-causal S=1000; then timed beside its bound,
+    its plain version and the first fused SDPA backend that takes v
+    narrower than q/k.  Returns the JSON line's entries (launches filled
+    in by the main path)."""
+    B, S, H, KV, hd, hv = MLA_SHAPE
+    errs = {}
+    for n, (dt, s, causal) in enumerate([("bf16", S, True), ("f32", S, True),
+                                         ("bf16", 1000, False),
+                                         ("f32", 1000, False)]):
+        q, k, v = flash_inputs(torch, B, s, H, KV, hd, dt, device, 120 + n,
+                               hv=hv)
+        got = fa.flash_attention_cuda(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if got.shape != (B, s, H, hv) or not torch.isfinite(got.float()).all():
+            fail(f"flash {dt} {hd}x{hv} S={s}: output {tuple(got.shape)} "
+                 "not finite or of the wrong shape")
+        err = float((got.float() - want.float()).abs().max())
+        what = (f"flash attention {dt} ({hd}, {hv}) B={B} S={s} H={H} KV={KV} "
+                f"{'causal' if causal else 'non-causal'}")
+        log(f"{what}: max |kernel - plain| = {err:.3e} (tolerance "
+            f"{FLASH_TOL[dt]:g})")
+        if err > FLASH_TOL[dt]:
+            fail(f"{what} disagrees with its plain version: {err}")
+        if s == S:
+            errs[dt] = err
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    from torch.nn.attention import sdpa_kernel
+
+    entries = {}
+    for dt in ("bf16", "f32"):
+        sets = [flash_inputs(torch, B, S, H, KV, hd, dt, device, 130 + i,
+                             hv=hv) for i in range(2)]
+        lib = [tuple(x.transpose(1, 2).contiguous() for x in xs)
+               for xs in sets]
+        n0 = fa.launches
+        ms = device_ms(torch, lambda i: fa.flash_attention_cuda(*sets[i]), 2)
+        plain_ms = device_ms(torch,
+                             lambda i: ref.flash_attention_ref(*sets[i]), 2,
+                             reps=5)
+        backend = library_backend(torch, F, *lib[0])
+        library_ms = None
+        if backend is not None:
+            def sdpa(i):
+                with sdpa_kernel([backend]):
+                    return F.scaled_dot_product_attention(*lib[i],
+                                                          is_causal=True)
+            library_ms = device_ms(torch, sdpa, 2)
+        fa.launches = n0  # comparison launches do not count
+        nbytes, ops = flash_work(B, S, H, KV, hd, dt, True, hv=hv)
+        bound_ms, bound_by = bound(nbytes, ops, dt)
+        rate = ops / (ms * 1e-3)
+        lib_text = ("none (no fused SDPA backend takes v narrower than q/k "
+                    f"in {dt})" if backend is None else
+                    f"{library_ms:.4f} ms ({backend.name})")
+        log(f"flash attention {dt} causal ({hd}, {hv}) at the "
+            f"DeepSeek-V2-Lite prefill shape: {ms:.4f} ms on the device, "
+            f"plain {plain_ms:.4f} ms, library (SDPA) {lib_text}, bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {ops} ops); "
+            f"achieved {rate / 1e12:.2f} TFLOP/s, "
+            f"{rate / PEAK_OPS[dt]:.1%} of the {dt} rate; "
+            f"{attributes_line(fa.kernel_attributes(sets[0][0].dtype, hd, hv))}")
+        entries[f"flash_{dt}_mla"] = {
+            "name": f"flash_attention[{dt},causal,{hd}x{hv}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:77",
+            "launches": 0,
+            "max_abs_err": errs[dt],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+        }
+        del sets, lib
+        torch.cuda.empty_cache()
+    return entries
+
+
+def serve_deepseek(torch, device, card):
+    """The serve CLI's scan engine (``--compare``: member, ensemble, then
+    the soup made in place from the population's memory) on a random N=2
+    full-width DeepSeek-V2-Lite (bf16) from seed 0, B=4 prompts of 2048
+    tokens, 32 new.  Every prefill attention goes through the (192, 128)
+    flash kernel: launches == 2 requests x 27 layers x 4 member-runs.
+    Returns the launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.prng import fold_in
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.core.population import tree_leaves
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models import transformer as M
+
+    cfg = get_arch(DEEPSEEK)
+    expect = {"flash": REQUESTS_PER_MODE * cfg.num_layers
+              * sum(MODE_MEMBERS.values()), "paged": 0, "wkv": 0}
+    one_model = sum(x.numel() * x.element_size()
+                    for x in tree_leaves(M.param_shapes(cfg)))
+    floor_ms = one_model / HBM_BYTES_PER_S * 1e3
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(fa, wkv, pa)
+    t0 = time.perf_counter()
+    outs = serve_cli.main(["--arch", DEEPSEEK, "--population", "2", "--seed",
+                           "0", "--batch-size", str(SCAN_B), "--seq-len",
+                           str(SCAN_S), "--max-new", str(SCAN_NEW),
+                           "--compare"])
+    torch.cuda.synchronize()
+    counts = _counts(fa, wkv, pa)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"scan engine {DEEPSEEK} (full width, {cfg.num_layers} layers, bf16, "
+        f"N=2 = {2 * one_model / 2**30:.2f} GiB of weights, B={SCAN_B}, "
+        f"S={SCAN_S}, max_new {SCAN_NEW}; member, ensemble, then the soup "
+        f"in place, each twice): {dt:.2f} s with the population's init; "
+        f"kernel launches {counts} (expected {expect}); peak allocated "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB of the card's 80)")
+    if counts != expect:
+        fail(f"{DEEPSEEK}: kernel launches {counts}, expected {expect}")
+    if peak >= CARD_BYTES:
+        fail(f"{DEEPSEEK}: peak allocated {peak} B")
+    if list(outs) != ["member", "ensemble", "soup"]:
+        fail(f"{DEEPSEEK}: served modes {list(outs)}")
+    prompts = concrete_batch(cfg, fold_in(0, 2), SCAN_B, SCAN_S,
+                             device=device)["tokens"]
+    for mode, res in outs.items():
+        toks = res["tokens"]
+        if toks.shape != (SCAN_B, SCAN_S + SCAN_NEW):
+            fail(f"{DEEPSEEK} {mode}: tokens of shape {tuple(toks.shape)}")
+        if not torch.equal(toks[:, :SCAN_S].long(), prompts.long()):
+            fail(f"{DEEPSEEK} {mode}: the prompt was not kept")
+        if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+            fail(f"{DEEPSEEK} {mode}: sampled out of the vocabulary")
+        floor = floor_ms * MODE_MEMBERS[mode]
+        log(f"scan engine {DEEPSEEK} {mode}: {res['tok_s']:.2f} tok/s (B="
+            f"{SCAN_B} x {SCAN_NEW} new tokens in {res['steady_s']:.3f} s); "
+            f"prefill {res['prefill_s']:.3f} s, decode step "
+            f"{res['decode_step_ms']:.2f} ms (floor {floor:.2f} ms: "
+            f"{MODE_MEMBERS[mode]} x {one_model / 2**30:.2f} GiB read at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, every expert a step); first "
+            f"request {res['first_s']:.2f} s; on {card}")
+    return counts["flash"]
+
+
+def moe_reduced_f32(torch, device):
+    """Reduced float32 on the card (TF32 off), kernels against the plain
+    path, greedy tokens identical: DeepSeek at the full model's MLA widths
+    through the scan engine (soup and ensemble; flash launches == layers
+    x members), kimi-k2 through ``ContinuousServer`` (soup and ensemble;
+    paged launches == layers x members x decode steps).  The reduced
+    DeepSeek at its own MLA widths is refused on the card.  Returns the
+    launches: ``{"flash_f32_mla": n, "f32": n}``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import averaging
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.launch.serve import init_population, mixed_stream
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.serving import batching as B
+    from repro_torch.serving import engine
+
+    launches = {"flash_f32_mla": 0, "f32": 0}
+    cfg = get_arch(DEEPSEEK).reduced(**MLA_WIDTHS)
+    popn = init_population(cfg, 2, seed=5, device=device)
+    batch = concrete_batch(cfg, 9, 4, 64, device=device)
+    for mode in ("soup", "ensemble"):
+        params = engine.serving_params(popn, mode)
+        torch.cuda.synchronize()
+        _zero(fa, wkv, pa)
+        out_k = engine.generate(params, cfg, batch, 16, mode=mode,
+                                device=device)
+        torch.cuda.synchronize()
+        n = fa.launches
+        with plain_routes(ops, ref, "flash_attention"):
+            out_p = engine.generate(params, cfg, batch, 16, mode=mode,
+                                    device=device)
+        expect = cfg.num_layers * MODE_MEMBERS[mode]
+        same = torch.equal(out_k, out_p)
+        log(f"reduced f32 {DEEPSEEK} at MLA widths (192, 128) {mode} (B=4, "
+            f"S=64, 16 new): greedy tokens kernel path == plain path: "
+            f"{same}; flash launches {n} (expected {expect})")
+        if not same:
+            fail(f"reduced f32 {DEEPSEEK} {mode}: greedy tokens differ")
+        if n != expect:
+            fail(f"reduced f32 {DEEPSEEK} {mode}: {n} flash launches")
+        launches["flash_f32_mla"] += n
+    own = get_arch(DEEPSEEK).reduced()
+    refused(f"engine.generate of the reduced {DEEPSEEK} at its own MLA "
+            f"widths {own.qk_nope_dim + own.qk_rope_dim, own.v_head_dim}",
+            lambda: engine.generate(params, own, batch, 4, device=device),
+            str(fa.HEAD_DIMS))
+    del popn, params
+
+    cfg = get_arch(KIMI).reduced()
+    popn = init_population(cfg, 2, seed=6, device=device)
+    soup = averaging.uniform_soup(popn)
+    geo = dict(page_size=8, max_slots=4, num_pages=128, device=device)
+    reqs = mixed_stream(cfg, 8, 48, 12, seed=7)
+    for mode, params in (("soup", soup), ("ensemble", popn)):
+        what = f"reduced f32 {KIMI} {mode} (MoE, GQA), kernel path"
+        out_k, n = serve_stream(
+            torch, pa, B.ContinuousServer(params, cfg, mode=mode, **geo),
+            reqs, what, cfg.num_layers, MODE_MEMBERS[mode])
+        with plain_routes(ops, ref, "paged_attention"):
+            out_p = B.ContinuousServer(params, cfg, mode=mode, **geo).run(reqs)
+        same_tokens(torch, {u: r.tokens for u, r in out_k.items()},
+                    {u: r.tokens for u, r in out_p.items()}, reqs,
+                    f"reduced f32 {KIMI} {mode}: kernels against plain")
+        log(f"reduced f32 {KIMI} {mode}: greedy tokens kernel path == plain "
+            f"path for {len(reqs)} requests")
+        launches["f32"] += n
+    del popn, soup
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_and_mla(torch, device, kernels, card):
+    """Phase 12 after ``check_flash_mla``: full-width DeepSeek-V2-Lite
+    through the serve CLI, its teacher-forced prefill and decode step,
+    the reduced f32 MoE runs, and each dense config's full-width
+    2-layer teacher-forced prefill and decode step."""
+    from repro_torch.configs import get_arch
+
+    t0 = time.perf_counter()
+    kernels["flash_bf16_mla"]["launches"] += serve_deepseek(torch, device,
+                                                            card)
+    teacher_forced(torch, device, DEEPSEEK)
+    reduced = moe_reduced_f32(torch, device)
+    kernels["flash_f32_mla"]["launches"] += reduced["flash_f32_mla"]
+    kernels["f32"]["launches"] += reduced["f32"]
+    for arch in DENSE_ARCHS:
+        cfg = dataclasses.replace(get_arch(arch), num_layers=DENSE_LAYERS)
+        teacher_forced(torch, device, arch, cfg=cfg, profile=False)
+    log(f"phase 12 (MoE and MLA): {time.perf_counter() - t0:.1f} s")
+
+
 def build_kernels(*mods):
     """Every library, each nvcc started at once."""
     t0 = time.perf_counter()
@@ -3266,6 +3613,8 @@ def main() -> int:
     train_rwkv6_reduced(torch, device)
     image_classification(torch, device, kernels, card)
     live_traffic(torch, device, kernels, card)
+    kernels.update(check_flash_mla(torch, fa, ref, F, device))
+    moe_and_mla(torch, device, kernels, card)
     for entry in kernels.values():
         if entry["launches"] == 0:
             fail(f"kernel {entry['name']} was never launched on its path")

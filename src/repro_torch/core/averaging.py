@@ -49,6 +49,33 @@ def uniform_soup(stacked: Tree) -> Tree:
     return tree_map(balanced_mean, stacked)
 
 
+#: bytes of one member's slice of a leaf that :func:`uniform_soup_` averages
+#: at once; a larger leaf is averaged a slice of its second axis at a time
+SOUP_SLICE_BYTES = 1 << 28
+
+
+def uniform_soup_(stacked: Tree) -> Tree:
+    """:func:`uniform_soup` computed in place: each leaf's soup is written
+    into member 0's slot of the stacked leaf, and member 0's views are
+    returned.  A leaf whose member slice passes :data:`SOUP_SLICE_BYTES` is
+    averaged in slices of its second axis (the layer axis of a stacked
+    block leaf), so no more than such a slice is ever held twice; the
+    result is bitwise :func:`uniform_soup`'s (``balanced_mean`` is
+    elementwise).  The population is spent: its other members are left as
+    they were, member 0 becomes the soup."""
+    def soup(x: torch.Tensor) -> torch.Tensor:
+        row = x[0].numel() * x.element_size()
+        if x.dim() < 2 or row <= SOUP_SLICE_BYTES:
+            x[0] = balanced_mean(x)
+            return x[0]
+        step = max(1, SOUP_SLICE_BYTES * x.shape[1] // row)
+        for i in range(0, x.shape[1], step):
+            x[0, i:i + step] = balanced_mean(x[:, i:i + step])
+        return x[0]
+
+    return tree_map(soup, stacked)
+
+
 def soup_of(stacked: Tree, indices: Sequence[int]) -> Tree:
     """The mean of the members ``indices`` (``torch.mean`` over them; the
     reference's ``jnp.mean`` sums in its own order)."""

@@ -95,6 +95,23 @@
 // then read twice the shared bytes to save a few ALU instructions.
 // Packing the query heads of a kv head into one block was slower at
 // hd 128 (6 warps of 32 rows a head: fewer warps an SM).
+//
+// Head widths.  Both kernels are templates on the q/k width HD and the v
+// width HDV (the output's); the instantiations are REPRO_FLASH_HEAD_DIMS:
+// the square 32, 64 and 128, and (192, 128) for DeepSeek-V2's multi-head
+// latent attention (q and k are 128 latent-expanded dims and 64 rope dims,
+// v is 128 wide; the scale is 192**-0.5).  At (192, 128) the bf16 block's
+// Q tile is three 64-column TMA boxes (48 KB), S = Q K^T takes 12 k-steps,
+// and a K tile is 48 KB beside V's 32 KB: Q, two stages and a staged output
+// of its own would be 243 KB, past the 227 KB a block may have, so the
+// output is staged in Q's room (209 KB in all) once both warpgroups have
+// passed a named barrier after their last product; the square
+// instantiations keep their own output buffer and are unchanged.  The f32
+// block at (192, 128) takes four warps (64 query rows) instead of eight:
+// the Q tile and two stages of 64 keys are 216 KB so, 266 KB with eight.
+// Its bound at DeepSeek-V2-Lite's prefill (B=4, S=2048, 16 heads,
+// causal): ~8.6e10 flops, ~0.087 ms at the bf16 tensor-core rate, against
+// ~168 MB, ~0.05 ms at the memory rate.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -121,21 +138,26 @@ __device__ __forceinline__ bool visible(int row, int key, int S, int causal,
 
 namespace f32 {
 
-constexpr int kWarps = 8;             // 16 query rows each
-constexpr int kBQ = 16 * kWarps;      // query rows per block
 constexpr int kBK = 64;               // keys per tile
-constexpr int kThreads = 32 * kWarps;
 
-template <int HD>
+// HD: the q/k width, HDV: the v width (the output's)
+template <int HD, int HDV>
 struct Geo {
+  // eight warps of 16 query rows; four where the Q tile and two stages of
+  // eight warps' rows would not fit (MLA's 192 / 128: 266 KB, 216 KB so)
+  static constexpr int kWarps = HD + HDV > 256 ? 4 : 8;
+  static constexpr int kBQ = 16 * kWarps;  // query rows per block
+  static constexpr int kThreads = 32 * kWarps;
   // row strides of the K and V tiles in floats: a K fragment (an 8-byte
   // load of dims 2q, 2q+1 of key g) and a V fragment (rows 2q and 2q+1,
   // column g) each hit distinct banks
   static constexpr int kKLd = HD + 8;  // Q's rows too (its A fragments)
-  static constexpr int kVLd = HD + 4;
+  static constexpr int kVLd = HDV + 4;
   static constexpr int kQ = kBQ * kKLd;               // floats of the Q tile
   static constexpr int kStage = kBK * (kKLd + kVLd);  // floats of K + V
   static constexpr int kSmem = (kQ + 2 * kStage) * 4;  // Q, two stages
+  // below hd 128 the Q tile and two stages fit twice in an SM
+  static constexpr int kMinBlocks = HD >= 128 ? 1 : 2;
 };
 
 // cp.async: the helpers of sm90.cuh
@@ -144,14 +166,14 @@ using sm90::cp_async_commit;
 using sm90::cp_async_wait;
 
 // rows [r0, r0 + ROWS) of a (B, S, heads, HD) tensor's head at `base` into
-// shared memory rows of LD floats, rows past S as zeros; every thread
-// issues its share
-template <int HD, int ROWS, int LD>
+// shared memory rows of LD floats, rows past S as zeros; each of the
+// block's THREADS threads issues its share
+template <int HD, int ROWS, int LD, int THREADS>
 __device__ __forceinline__ void load_rows(float* dst, const float* base,
                                           long long row_stride, int r0,
                                           int S) {
   constexpr int kPieces = HD / 4;  // 16-byte pieces a row
-  for (int idx = threadIdx.x; idx < ROWS * kPieces; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * kPieces; idx += THREADS) {
     const int row = idx / kPieces;
     const int c = 4 * (idx - row * kPieces);
     const bool ok = r0 + row < S;
@@ -161,26 +183,29 @@ __device__ __forceinline__ void load_rows(float* dst, const float* base,
 }
 
 // the K and V rows [k0, k0 + kBK) of one kv head into a stage
-template <int HD>
+template <int HD, int HDV>
 __device__ __forceinline__ void load_tile(float* ks, const float* kb,
-                                          const float* vb, long long kv_row,
-                                          int k0, int S) {
-  using G = Geo<HD>;
-  load_rows<HD, kBK, G::kKLd>(ks, kb, kv_row, k0, S);
-  load_rows<HD, kBK, G::kVLd>(ks + kBK * G::kKLd, vb, kv_row, k0, S);
+                                          const float* vb, long long k_row,
+                                          long long v_row, int k0, int S) {
+  using G = Geo<HD, HDV>;
+  load_rows<HD, kBK, G::kKLd, G::kThreads>(ks, kb, k_row, k0, S);
+  load_rows<HDV, kBK, G::kVLd, G::kThreads>(ks + kBK * G::kKLd, vb, v_row,
+                                            k0, S);
 }
 
 // Below hd 128 the Q tile and two stages fit twice in an SM, so two blocks
 // an SM are asked for; at hd 64 that caps a thread at 128 registers and
 // spills 44 bytes, and was still faster at S = 2048 on the H100 than one
 // block an SM without the spill.
-template <int HD>
-__global__ void __launch_bounds__(kThreads, HD == 128 ? 1 : 2)
+template <int HD, int HDV>
+__global__ void __launch_bounds__(Geo<HD, HDV>::kThreads,
+                                  Geo<HD, HDV>::kMinBlocks)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      int S, int H, int KV, int causal, int window,
                      float scale_log2) {
-  using G = Geo<HD>;
+  using G = Geo<HD, HDV>;
+  constexpr int kBQ = G::kBQ;
   using sm90::Frag;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // the Q tile
@@ -200,13 +225,15 @@ __global__ void __launch_bounds__(kThreads, HD == 128 ? 1 : 2)
   const int kt_end =
       causal ? min(n_kt, (min(q0 + kBQ, S) - 1) / kBK + 1) : n_kt;
 
-  const long long q_row = (long long)H * HD;   // stride of s in q / out
-  const long long kv_row = (long long)KV * HD;  // stride of s in k / v
-  const float* kb = k + (long long)b * S * kv_row + (long long)kvh * HD;
-  const float* vb = v + (long long)b * S * kv_row + (long long)kvh * HD;
-  load_rows<HD, kBQ, G::kKLd>(
+  const long long q_row = (long long)H * HD;    // stride of s in q
+  const long long o_row = (long long)H * HDV;   // stride of s in out
+  const long long k_row = (long long)KV * HD;   // stride of s in k
+  const long long v_row = (long long)KV * HDV;  // stride of s in v
+  const float* kb = k + (long long)b * S * k_row + (long long)kvh * HD;
+  const float* vb = v + (long long)b * S * v_row + (long long)kvh * HDV;
+  load_rows<HD, kBQ, G::kKLd, G::kThreads>(
       qs, q + (long long)b * S * q_row + (long long)h * HD, q_row, q0, S);
-  load_tile<HD>(smem, kb, vb, kv_row, kt_begin * kBK, S);
+  load_tile<HD, HDV>(smem, kb, vb, k_row, v_row, kt_begin * kBK, S);
   cp_async_commit();
 
   // this warp's 16 rows from r0w; the thread's rows a and b = a + 8 and
@@ -233,9 +260,9 @@ __global__ void __launch_bounds__(kThreads, HD == 128 ? 1 : 2)
 
   float m_a = kNegInf, m_b = kNegInf;  // running max, log2 units
   float l_a = 0.f, l_b = 0.f;          // running sum of this thread's columns
-  float o[HD / 8][4];
+  float o[HDV / 8][4];
 #pragma unroll
-  for (int t = 0; t < HD / 8; ++t)
+  for (int t = 0; t < HDV / 8; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
 
@@ -243,8 +270,8 @@ __global__ void __launch_bounds__(kThreads, HD == 128 ? 1 : 2)
     const float* ks = smem + ((kt - kt_begin) & 1) * G::kStage;
     const float* vs = ks + kBK * G::kKLd;
     if (kt + 1 < kt_end) {  // the next tile streams in under this one
-      load_tile<HD>(smem + ((kt + 1 - kt_begin) & 1) * G::kStage, kb, vb,
-                    kv_row, (kt + 1) * kBK, S);
+      load_tile<HD, HDV>(smem + ((kt + 1 - kt_begin) & 1) * G::kStage, kb,
+                         vb, k_row, v_row, (kt + 1) * kBK, S);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -329,14 +356,14 @@ __global__ void __launch_bounds__(kThreads, HD == 128 ? 1 : 2)
       l_b = l_b * alpha_b + sum_b;
       if (alpha_a != 1.f) {  // O rescaled only where the max moved
 #pragma unroll
-        for (int t = 0; t < HD / 8; ++t) {
+        for (int t = 0; t < HDV / 8; ++t) {
           o[t][0] *= alpha_a;
           o[t][1] *= alpha_a;
         }
       }
       if (alpha_b != 1.f) {
 #pragma unroll
-        for (int t = 0; t < HD / 8; ++t) {
+        for (int t = 0; t < HDV / 8; ++t) {
           o[t][2] *= alpha_b;
           o[t][3] *= alpha_b;
         }
@@ -355,7 +382,7 @@ __global__ void __launch_bounds__(kThreads, HD == 128 ? 1 : 2)
         a.split();
         const float* v0 = vs + (8 * j + 2 * c) * G::kVLd + g;
 #pragma unroll
-        for (int t = 0; t < HD / 8; ++t) {
+        for (int t = 0; t < HDV / 8; ++t) {
           Frag<2> bf;
           bf.x[0] = v0[8 * t];
           bf.x[1] = v0[G::kVLd + 8 * t];
@@ -375,10 +402,10 @@ __global__ void __launch_bounds__(kThreads, HD == 128 ? 1 : 2)
   }
   const float inv_a = 1.f / fmaxf(l_a, 1e-20f);
   const float inv_b = 1.f / fmaxf(l_b, 1e-20f);
-  float* oa = out + ((long long)b * S + row_a) * q_row + h * HD + 2 * c;
-  float* ob = oa + 8 * q_row;
+  float* oa = out + ((long long)b * S + row_a) * o_row + h * HDV + 2 * c;
+  float* ob = oa + 8 * o_row;
 #pragma unroll
-  for (int t = 0; t < HD / 8; ++t) {
+  for (int t = 0; t < HDV / 8; ++t) {
     if (row_a < S)
       *reinterpret_cast<float2*>(oa + 8 * t) =
           make_float2(o[t][0] * inv_a, o[t][1] * inv_a);
@@ -388,16 +415,17 @@ __global__ void __launch_bounds__(kThreads, HD == 128 ? 1 : 2)
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int H, int KV, int causal, int window, float scale,
            cudaStream_t stream) {
-  auto kernel = flash_f32_kernel<HD>;
+  using G = Geo<HD, HDV>;
+  auto kernel = flash_f32_kernel<HD, HDV>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<HD>::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (long long)B * H * ((S + kBQ - 1) / kBQ);
-  kernel<<<(unsigned)blocks, kThreads, Geo<HD>::kSmem, stream>>>(
+  const long long blocks = (long long)B * H * ((S + G::kBQ - 1) / G::kBQ);
+  kernel<<<(unsigned)blocks, G::kThreads, G::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, H, KV,
       causal, window, scale * kLog2e);
@@ -405,27 +433,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 // the kernel's attributes and its dynamic shared memory
-template <int HD>
+template <int HD, int HDV>
 int attributes(cudaFuncAttributes* attr, int* dynamic_smem) {
-  *dynamic_smem = Geo<HD>::kSmem;
-  return static_cast<int>(cudaFuncGetAttributes(attr, flash_f32_kernel<HD>));
-}
-
-int launch_hd(int hd, const void* q, const void* k, const void* v, void* out,
-              int B, int S, int H, int KV, int causal, int window,
-              float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 32:
-      return launch<32>(q, k, v, out, B, S, H, KV, causal, window, scale,
-                        stream);
-    case 64:
-      return launch<64>(q, k, v, out, B, S, H, KV, causal, window, scale,
-                        stream);
-    case 128:
-      return launch<128>(q, k, v, out, B, S, H, KV, causal, window, scale,
-                         stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  *dynamic_smem = Geo<HD, HDV>::kSmem;
+  return static_cast<int>(
+      cudaFuncGetAttributes(attr, flash_f32_kernel<HD, HDV>));
 }
 
 }  // namespace f32
@@ -442,29 +454,41 @@ constexpr int kBQ = kRowsWg * kConsumers;   // query rows per block
 constexpr int kBK = 128;                    // keys per tile
 constexpr int kStages = 2;                  // K/V ring depth
 constexpr int kThreads = 128 * kConsumers + 32;  // + the producer warp
-template <int HD>
+constexpr int kMaxSmem = 227 * 1024;  // dynamic shared memory a block may have
+// HD: the q/k width, HDV: the v width (the output's)
+template <int HD, int HDV>
 struct Geo {
   static constexpr int kSw = HD >= 64 ? 128 : 64;  // swizzle = chunk row bytes
+  static_assert(kSw == (HDV >= 64 ? 128 : 64), "one swizzle for Q, K and V");
   static constexpr int kCw = kSw / 2;              // bf16 columns per chunk
-  static constexpr int kChunks = HD / kCw;         // 1, or 2 at hd = 128
+  static constexpr int kChunks = HD / kCw;   // of Q and K: 1, 2 or 3 (hd 192)
+  static constexpr int kChunksV = HDV / kCw;       // of V
   static constexpr int kKPerChunk = kCw / 16;      // k16 steps per chunk
   static constexpr uint32_t kLayout =
       kSw == 128 ? sm90::kSwizzle128 : sm90::kSwizzle64;
   static constexpr int kQBytes = kBQ * HD * 2;
-  static constexpr int kTileBytes = kBK * HD * 2;  // one K or one V tile
-  static constexpr int kEpiLd = HD + 8;            // staged output row, bf16
+  static constexpr int kKTileBytes = kBK * HD * 2;   // one K tile
+  static constexpr int kVTileBytes = kBK * HDV * 2;  // one V tile
+  static constexpr int kEpiLd = HDV + 8;             // staged output row, bf16
   static constexpr int kEpiBytes = kConsumers * kRowsWg * kEpiLd * 2;
+  static constexpr int kRing = kStages * (kKTileBytes + kVTileBytes);
+  // the output is staged in a buffer of its own, or, where that would not
+  // fit (192 / 128: 243 KB), in Q's once both warpgroups are done with Q
+  static constexpr bool kEpiInQ =
+      kQBytes + kRing + kEpiBytes + 1024 > kMaxSmem;
+  static_assert(!kEpiInQ || kEpiBytes <= kQBytes, "the output fits Q's room");
   // + 1024: the dynamic shared memory is re-aligned to the swizzle repeat
   static constexpr int kSmem =
-      kQBytes + 2 * kStages * kTileBytes + kEpiBytes + 1024;
+      kQBytes + kRing + (kEpiInQ ? 0 : kEpiBytes) + 1024;
+  static_assert(kSmem <= kMaxSmem, "shared memory of a block");
 };
 
 // S = Q K^T for one warpgroup's 64 rows and a key tile (issued, not
 // waited for): hd / 16 k-steps, both operands K-major in shared memory
-template <int HD>
+template <int HD, int HDV>
 __device__ __forceinline__ void qk_wgmma(float* s, uint32_t q_base,
                                          uint32_t k_base) {
-  using G = Geo<HD>;
+  using G = Geo<HD, HDV>;
 #pragma unroll
   for (int k = 0; k < HD / 16; ++k) {
     const int c = k / G::kKPerChunk;
@@ -479,18 +503,18 @@ __device__ __forceinline__ void qk_wgmma(float* s, uint32_t q_base,
 
 // O += P V (issued, not waited for): P from registers, 16 keys a step; V
 // is MN-major (hd contiguous), so the transpose bit is set
-template <int HD>
+template <int HD, int HDV>
 __device__ __forceinline__ void pv_wgmma(float* o,
                                          const uint32_t (&p)[kBK / 16][4],
                                          uint32_t v_base) {
-  using G = Geo<HD>;
+  using G = Geo<HD, HDV>;
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
     const uint64_t db = sm90::make_desc(v_base + kk * 16 * G::kSw,
                                         kBK * G::kSw, 8 * G::kSw, G::kLayout);
-    if constexpr (HD == 32) {
+    if constexpr (HDV == 32) {
       sm90::wgmma_m64n32k16_rs(o, p[kk], db);
-    } else if constexpr (HD == 64) {
+    } else if constexpr (HDV == 64) {
       sm90::wgmma_m64n64k16_rs(o, p[kk], db);
     } else {
       sm90::wgmma_m64n128k16_rs(o, p[kk], db);
@@ -584,23 +608,23 @@ __device__ __forceinline__ void rescale(float* o, float alpha_a,
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads, 1) flash_bf16_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map,
     __nv_bfloat16* __restrict__ out, int B, int S, int H, int KV, int causal,
     int window, float scale_log2) {
-  using G = Geo<HD>;
+  using G = Geo<HD, HDV>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full_bar[kStages], empty_bar[kStages], q_bar;
   uint8_t* smem =
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* q_sm = smem;                              // [chunk][128 rows][sw]
-  uint8_t* k_sm = q_sm + G::kQBytes;                 // [stage][chunk][64][sw]
-  uint8_t* v_sm = k_sm + kStages * G::kTileBytes;    // the same
-  __nv_bfloat16* epi =
-      reinterpret_cast<__nv_bfloat16*>(v_sm + kStages * G::kTileBytes);
+  uint8_t* k_sm = q_sm + G::kQBytes;                 // [stage][chunk][128][sw]
+  uint8_t* v_sm = k_sm + kStages * G::kKTileBytes;   // the same
+  __nv_bfloat16* epi = reinterpret_cast<__nv_bfloat16*>(
+      G::kEpiInQ ? q_sm : v_sm + kStages * G::kVTileBytes);
 
   const int BH = B * H;
   const int n_qt = (S + kBQ - 1) / kBQ;
@@ -643,16 +667,17 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bf16_kernel(
         const int st = i % kStages;
         if (i >= kStages)  // wait for both warpgroups to release the stage
           sm90::mbar_wait(&empty_bar[st], ((i / kStages) - 1) & 1);
-        sm90::mbar_arrive_expect_tx(&full_bar[st], 2 * G::kTileBytes);
+        sm90::mbar_arrive_expect_tx(&full_bar[st],
+                                    G::kKTileBytes + G::kVTileBytes);
         const int k0 = (kt_begin + i) * kBK;
 #pragma unroll
-        for (int c = 0; c < G::kChunks; ++c) {
-          const int off = st * G::kTileBytes + c * kBK * G::kSw;
-          sm90::tma_load_4d(k_sm + off, &k_map, &full_bar[st], c * G::kCw,
-                            kvh, k0, b);
-          sm90::tma_load_4d(v_sm + off, &v_map, &full_bar[st], c * G::kCw,
-                            kvh, k0, b);
-        }
+        for (int c = 0; c < G::kChunks; ++c)
+          sm90::tma_load_4d(k_sm + st * G::kKTileBytes + c * kBK * G::kSw,
+                            &k_map, &full_bar[st], c * G::kCw, kvh, k0, b);
+#pragma unroll
+        for (int c = 0; c < G::kChunksV; ++c)
+          sm90::tma_load_4d(v_sm + st * G::kVTileBytes + c * kBK * G::kSw,
+                            &v_map, &full_bar[st], c * G::kCw, kvh, k0, b);
       }
     }
     return;
@@ -690,12 +715,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bf16_kernel(
   };
 
   float s[kBK / 2];  // scores, 64 x kBK over the warpgroup
-  float o[HD / 2];  // output accumulator, 64 x HD over the warpgroup
+  float o[HDV / 2];  // output accumulator, 64 x HDV over the warpgroup
   uint32_t p[kBK / 16][4];  // P of the tile, bf16 A fragments of P V
 #pragma unroll
   for (int i = 0; i < kBK / 2; ++i) s[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HDV / 2; ++i) o[i] = 0.f;
 
   const uint32_t q_base = sm90::smem_u32(q_sm) + wg * kRowsWg * G::kSw;
   const uint32_t k_base = sm90::smem_u32(k_sm);
@@ -708,7 +733,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bf16_kernel(
   for (int i = i_lo; i < i_hi; ++i) {
     stage_full(i);
     sm90::wgmma_fence();
-    qk_wgmma<HD>(s, q_base, k_base + (i % kStages) * G::kTileBytes);
+    qk_wgmma<HD, HDV>(s, q_base, k_base + (i % kStages) * G::kKTileBytes);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
@@ -717,13 +742,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bf16_kernel(
     float alpha_a, alpha_b;
     softmax_tile(s, p, rs, need_mask(k0), k0, S, causal, window, scale_log2,
                  alpha_a, alpha_b);
-    rescale<HD>(o, alpha_a, alpha_b);
+    rescale<HDV>(o, alpha_a, alpha_b);
     sm90::wgmma_fence();
-    pv_wgmma<HD>(o, p, v_base + (i % kStages) * G::kTileBytes);
+    pv_wgmma<HD, HDV>(o, p, v_base + (i % kStages) * G::kVTileBytes);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
-    for (int j = 0; j < HD / 2; ++j) sm90::fence_operand(o[j]);
+    for (int j = 0; j < HDV / 2; ++j) sm90::fence_operand(o[j]);
 #pragma unroll
     for (int j = 0; j < kBK / 4; ++j) sm90::fence_operand(p[j / 4][j % 4]);
     release(i);  // this warp is done with the stage
@@ -742,24 +767,26 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bf16_kernel(
   }
   const float inv_a = 1.f / fmaxf(rs.l_a, 1e-20f);
   const float inv_b = 1.f / fmaxf(rs.l_b, 1e-20f);
+  // staged in Q's room: both warpgroups' products have read their last Q
+  if constexpr (G::kEpiInQ) sm90::named_sync(3, 128 * kConsumers);
   __nv_bfloat16* e = epi + wg * kRowsWg * G::kEpiLd;
   const int ra = wl * 16 + lane / 4;
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
+  for (int j = 0; j < HDV / 8; ++j) {
     *reinterpret_cast<uint32_t*>(e + ra * G::kEpiLd + 8 * j + rs.col) =
         sm90::pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
     *reinterpret_cast<uint32_t*>(e + (ra + 8) * G::kEpiLd + 8 * j + rs.col) =
         sm90::pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
   }
   sm90::named_sync(1 + wg, 128);
-  constexpr int kVecs = HD / 8;  // 16-byte pieces of a row
+  constexpr int kVecs = HDV / 8;  // 16-byte pieces of a row
   for (int idx = threadIdx.x % 128; idx < kRowsWg * kVecs; idx += 128) {
     const int row = idx / kVecs;
     const int piece = idx - row * kVecs;
     const int srow = r0w + row;
     if (srow < S)
       *reinterpret_cast<uint4*>(
-          out + (((long long)b * S + srow) * H + h) * HD + piece * 8) =
+          out + (((long long)b * S + srow) * H + h) * HDV + piece * 8) =
           *reinterpret_cast<const uint4*>(e + row * G::kEpiLd + piece * 8);
   }
 }
@@ -807,17 +834,17 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int H, int KV, int causal, int window, float scale,
            cudaStream_t stream) {
-  using G = Geo<HD>;
+  using G = Geo<HD, HDV>;
   CUtensorMap q_map, k_map, v_map;
   if (!make_map(&q_map, q, B, S, H, HD, G::kCw, kBQ, G::kSw) ||
       !make_map(&k_map, k, B, S, KV, HD, G::kCw, kBK, G::kSw) ||
-      !make_map(&v_map, v, B, S, KV, HD, G::kCw, kBK, G::kSw))
+      !make_map(&v_map, v, B, S, KV, HDV, G::kCw, kBK, G::kSw))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_bf16_kernel<HD>;
+  auto kernel = flash_bf16_kernel<HD, HDV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -829,73 +856,65 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 // the kernel's attributes and its dynamic shared memory
-template <int HD>
+template <int HD, int HDV>
 int attributes(cudaFuncAttributes* attr, int* dynamic_smem) {
-  *dynamic_smem = Geo<HD>::kSmem;
-  return static_cast<int>(cudaFuncGetAttributes(attr, flash_bf16_kernel<HD>));
-}
-
-int launch_hd(int hd, const void* q, const void* k, const void* v, void* out,
-              int B, int S, int H, int KV, int causal, int window,
-              float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 32:
-      return launch<32>(q, k, v, out, B, S, H, KV, causal, window, scale,
-                        stream);
-    case 64:
-      return launch<64>(q, k, v, out, B, S, H, KV, causal, window, scale,
-                        stream);
-    case 128:
-      return launch<128>(q, k, v, out, B, S, H, KV, causal, window, scale,
-                         stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  *dynamic_smem = Geo<HD, HDV>::kSmem;
+  return static_cast<int>(
+      cudaFuncGetAttributes(attr, flash_bf16_kernel<HD, HDV>));
 }
 
 }  // namespace tc
+
+// the (q/k, v) head widths instantiated: F(HD, HDV) for each
+#define REPRO_FLASH_HEAD_DIMS(F) F(32, 32) F(64, 64) F(128, 128) F(192, 128)
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  dtype: 0 float32 (3xTF32
 // mma.sync, cp.async-fed), 1 bfloat16 (wgmma, TMA-fed); q, k, v and out
 // share the dtype and are 16-byte aligned (cp.async and TMA copy 16-byte
-// pieces); q/out (B,S,H,hd) and k/v (B,S,KV,hd), all contiguous; window
-// <= 0 means none.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// pieces); q (B,S,H,hd), k (B,S,KV,hd), v (B,S,KV,hd_v) and out
+// (B,S,H,hd_v), all contiguous, (hd, hd_v) one of REPRO_FLASH_HEAD_DIMS;
+// window <= 0 means none.  Returns cudaGetLastError() after the launch (0
+// on success).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* out, int B, int S,
-                                     int H, int KV, int hd, int causal,
-                                     int window, float scale, void* stream) {
+                                     int H, int KV, int hd, int hd_v,
+                                     int causal, int window, float scale,
+                                     void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return f32::launch_hd(hd, q, k, v, out, B, S, H, KV, causal, window,
-                            scale, st);
-    case 1:
-      return tc::launch_hd(hd, q, k, v, out, B, S, H, KV, causal, window,
-                           scale, st);
+#define REPRO_FLASH_LAUNCH(HD, HDV)                                         \
+  if (hd == HD && hd_v == HDV) {                                           \
+    if (dtype == 0)                                                        \
+      return f32::launch<HD, HDV>(q, k, v, out, B, S, H, KV, causal,       \
+                                  window, scale, st);                      \
+    if (dtype == 1)                                                        \
+      return tc::launch<HD, HDV>(q, k, v, out, B, S, H, KV, causal,        \
+                                 window, scale, st);                       \
   }
+  REPRO_FLASH_HEAD_DIMS(REPRO_FLASH_LAUNCH)
+#undef REPRO_FLASH_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// What the compiler gave the kernel a call with this dtype and head dim
-// launches: out = {registers a thread, static shared bytes, local (stack
-// and spill) bytes a thread, dynamic shared bytes}.  Launches nothing.
-extern "C" int repro_flash_attention_attributes(int dtype, int hd, int* out) {
+// What the compiler gave the kernel a call with this dtype and (q/k, v)
+// head widths launches: out = {registers a thread, static shared bytes,
+// local (stack and spill) bytes a thread, dynamic shared bytes}.
+// Launches nothing.
+extern "C" int repro_flash_attention_attributes(int dtype, int hd, int hd_v,
+                                                int* out) {
   cudaFuncAttributes attr;
   int dynamic_smem = 0;
   int rc = static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) {
-    if (hd == 32) rc = f32::attributes<32>(&attr, &dynamic_smem);
-    if (hd == 64) rc = f32::attributes<64>(&attr, &dynamic_smem);
-    if (hd == 128) rc = f32::attributes<128>(&attr, &dynamic_smem);
-  } else if (dtype == 1) {
-    if (hd == 32) rc = tc::attributes<32>(&attr, &dynamic_smem);
-    if (hd == 64) rc = tc::attributes<64>(&attr, &dynamic_smem);
-    if (hd == 128) rc = tc::attributes<128>(&attr, &dynamic_smem);
+#define REPRO_FLASH_ATTRIBUTES(HD, HDV)                                     \
+  if (hd == HD && hd_v == HDV) {                                           \
+    if (dtype == 0) rc = f32::attributes<HD, HDV>(&attr, &dynamic_smem);   \
+    if (dtype == 1) rc = tc::attributes<HD, HDV>(&attr, &dynamic_smem);    \
   }
+  REPRO_FLASH_HEAD_DIMS(REPRO_FLASH_ATTRIBUTES)
+#undef REPRO_FLASH_ATTRIBUTES
   if (rc != 0) return rc;
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.sharedSizeBytes);

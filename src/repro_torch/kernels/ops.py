@@ -77,8 +77,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """Whole-sequence GQA self-attention: q (B,S,H,hd), k/v (B,S,KV,hd)
-    -> (B,S,H,hd) in q's dtype; causal and/or a sliding ``window``."""
+    """Whole-sequence GQA self-attention: q (B,S,H,hd), k (B,S,KV,hd), v
+    (B,S,KV,hd_v) -> (B,S,H,hd_v) in q's dtype, scaled by ``hd**-0.5``;
+    causal and/or a sliding ``window``."""
     if _route(q, "flash_attention") == "cuda":
         return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
     return flash_attention_ref(q, k, v, causal=causal, window=window)

@@ -62,9 +62,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: Optional[int] = None) -> torch.Tensor:
     """Self-attention over a whole sequence, as one masked softmax.
 
-    q: (B,S,H,hd); k/v: (B,S,KV,hd), H a multiple of KV (query head h reads
-    kv head ``h // (H // KV)``) -> (B,S,H,hd) in q's dtype.  Scores are
-    divided by sqrt(hd) in float32; key j is visible to query i where
+    q: (B,S,H,hd); k: (B,S,KV,hd); v: (B,S,KV,hd_v), H a multiple of KV
+    (query head h reads kv head ``h // (H // KV)``) -> (B,S,H,hd_v) in q's
+    dtype; v may be narrower than q and k (MLA).  Scores are divided by
+    sqrt(hd) in float32; key j is visible to query i where
     ``j <= i`` (when ``causal``) and ``j > i - window`` (when a window is
     given); masked scores are ``NEG_INF``, so no row is all -inf."""
     B, S, H, hd = q.shape
@@ -81,7 +82,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = scores.masked_fill(~mask, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgts,bskh->btkgh", w, v.float())
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
 def _tf32_split(x: torch.Tensor):
@@ -132,7 +133,7 @@ def flash_attention_3xtf32_ref(q: torch.Tensor, k: torch.Tensor,
     i = torch.arange(S, device=q.device)[:, None]
     m = qh.new_full((B, H, S, 1), NEG_INF)
     l = qh.new_zeros((B, H, S, 1))
-    acc = qh.new_zeros((B, H, S, hd))
+    acc = qh.new_zeros((B, H, S, vh.shape[-1]))
     bk = FLASH_F32_BK
     for k0 in range(0, S, bk):
         j = torch.arange(k0, min(k0 + bk, S), device=q.device)[None, :]

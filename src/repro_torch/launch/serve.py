@@ -33,6 +33,13 @@ a Chrome trace of the first instrumented spans.
   python -m repro_torch.launch.serve --arch rwkv6-3b --population 2 \\
       --batch-size 4 --seq-len 2048 --max-new 32 --compare
 
+  python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
+      --population 2 --batch-size 4 --seq-len 2048 --max-new 32 --compare
+
+(``--compare`` serves member and ensemble first and the soup last, made
+in place from the population's memory, so a 16B N=2 population fits one
+80 GB card.)
+
   python -m repro_torch.launch.serve --arch llama3.2-3b --reduced \\
       --device cpu --mode ensemble --temperature 0.7 --seed 3
 
@@ -55,6 +62,7 @@ import torch
 from repro_torch import obs
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core import averaging
 from repro_torch.core import population as pop
 from repro_torch.core.device import resolve_device
 from repro_torch.core.mixing import MixingConfig
@@ -71,10 +79,17 @@ from repro_torch.train.loop import train_population
 
 
 def init_population(cfg, n: int, seed: int, device):
-    """N independently initialized members, stacked (member i draws from
-    seed ``seed * 1000 + i``)."""
-    return pop.stack([M.init_params(cfg, seed=seed * 1000 + i, device=device)
-                      for i in range(n)])
+    """N independently initialized members, stacked: member i is
+    ``M.init_params(cfg, seed=seed * 1000 + i)``, drawn straight into its
+    slot of the stacked leaves (no member is built whole beside them)."""
+    dev = resolve_device(device)
+    popn = pop.tree_map(
+        lambda m: torch.empty((n,) + tuple(m.shape), dtype=m.dtype,
+                              device=dev), M.param_shapes(cfg))
+    for i in range(n):
+        M.init_params(cfg, seed=seed * 1000 + i, device=dev,
+                      out=pop.member(popn, i))
+    return popn
 
 
 def _population(args, cfg, device):
@@ -129,31 +144,41 @@ def _serve_once(popn, cfg, batch, args, mode, sample_seed, device):
     """Serve ``batch`` in ``mode`` through the scan engine twice: the first
     request builds the programs (and the kernels, on a fresh card), the
     second is timed.  Resolves the mode's params once (soup averaging and
-    member slicing are per-deployment work).  Returns
-    ``{"tokens", "tok_s", "first_s", "steady_s"}``."""
-    params = serving.serving_params(popn, mode, args.member)
+    member slicing are per-deployment work); the soup is made in place
+    (``averaging.uniform_soup_``), so it spends the population.  Returns
+    ``{"tokens", "tok_s", "first_s", "steady_s", "prefill_s",
+    "decode_step_ms"}``: the timed request's tokens, tok/s and seconds,
+    the first request's seconds, and the timed request's prefill seconds
+    and mean decode-step milliseconds (``serving.generate``'s
+    ``timings``, each timed to the device's end)."""
+    params = (averaging.uniform_soup_(popn) if mode == "soup" else
+              serving.serving_params(popn, mode, args.member))
     gen_mode = "ensemble" if mode == "ensemble" else "soup"
 
-    def request():
+    def request(timings=None):
         out = serving.generate(params, cfg, batch, args.max_new,
                                temperature=args.temperature, seed=sample_seed,
-                               mode=gen_mode, device=device)
+                               mode=gen_mode, device=device, timings=timings)
         _sync(device)
         return out
 
     t0 = time.perf_counter()
     request()
     first = time.perf_counter() - t0
+    split = {}
     t0 = time.perf_counter()
-    out = request()
+    out = request(split)
     dt = max(time.perf_counter() - t0, 1e-9)
     toks = args.batch_size * args.max_new
+    step_ms = split["decode_s"] * 1e3 / max(args.max_new - 1, 1)
     print(f"mode={mode:9s} {toks / dt:9.1f} tok/s  (first request "
-          f"{first:.2f}s, steady {dt:.3f}s/req, decode programs "
-          f"{serving.decode_trace_count()}, programs cached "
+          f"{first:.2f}s, steady {dt:.3f}s/req: prefill "
+          f"{split['prefill_s']:.3f}s, decode step {step_ms:.1f}ms; decode "
+          f"programs {serving.decode_trace_count()}, programs cached "
           f"{serving.executable_cache_size()}, device={device})")
     return {"tokens": out, "tok_s": toks / dt, "first_s": first,
-            "steady_s": dt}
+            "steady_s": dt, "prefill_s": split["prefill_s"],
+            "decode_step_ms": step_ms}
 
 
 def _serve_scan(popn, cfg, args, device):
@@ -166,7 +191,8 @@ def _serve_scan(popn, cfg, args, device):
           f"B={args.batch_size} S={args.seq_len} new={args.max_new} "
           f"temperature={args.temperature}")
     serving.reset_trace_counts()
-    modes = list(serving.MODES) if args.compare else [args.mode]
+    # the soup last: it is made in place, from the population's memory
+    modes = ["member", "ensemble", "soup"] if args.compare else [args.mode]
     launches0 = (flash_attention.launches, rwkv6_scan.launches)
     outs = {m: _serve_once(popn, cfg, batch, args, m, sample_seed, device)
             for m in modes}

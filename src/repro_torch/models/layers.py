@@ -1,10 +1,10 @@
-"""Shared layers: norms, rope, SwiGLU, GQA for training and serving.
+"""Shared layers: norms, rope, SwiGLU, GQA and MLA for training and serving.
 
 Port of the parts of ``repro/models/layers.py`` that training, the scan
-engine (the contiguous ring KV cache) and continuous batching (the paged
-KV cache) run.  Plain functions over explicit parameter
-dicts, in the reference's layout (linear weights ``(d_in, d_out)`` used as
-``x @ w``).
+engine (the contiguous ring KV cache and MLA's latent cache) and
+continuous batching (the paged KV cache) run.  Plain functions over
+explicit parameter dicts, in the reference's layout (linear weights
+``(d_in, d_out)`` used as ``x @ w``).
 Compute-sensitive reductions run in float32.
 
 Where the reference returns new caches and pools (JAX donates them), the
@@ -303,6 +303,133 @@ def gqa_decode(p, cfg: ModelConfig, x, cache_l, pos: int):
     if cfg.window is not None:
         valid = valid & (cpos > pos - cfg.window)
     out = sdpa(q, ck, cv, valid[None, :], cfg.num_kv_heads)
+    return out.reshape(B, 1, -1) @ p["wo"], cache_l
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V2, arXiv:2405.04434)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen, cfg: ModelConfig, lead=()):
+    dtype = param_dtype(cfg)
+    H, D, r = cfg.num_heads, cfg.d_model, cfg.kv_lora_rank
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "wq": dense_init(gen, (D, H * qd), dtype, lead=lead),
+        "w_dkv": dense_init(gen, (D, r), dtype, lead=lead),
+        "w_krope": dense_init(gen, (D, cfg.qk_rope_dim), dtype, lead=lead),
+        "w_uk": dense_init(gen, (r, H * cfg.qk_nope_dim), dtype, lead=lead),
+        "w_uv": dense_init(gen, (r, H * cfg.v_head_dim), dtype, lead=lead),
+        "wo": dense_init(gen, (H * cfg.v_head_dim, D), dtype, lead=lead),
+    }
+
+
+def _mla_q(p, cfg: ModelConfig, x, positions):
+    B, T, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, T, cfg.num_heads,
+                              cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], -1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latents(p, cfg: ModelConfig, x, positions):
+    """The latent ``ckv`` (B, T, r) and the shared rope key ``krope``
+    (B, T, rope), as the cache holds them."""
+    ckv = x @ p["w_dkv"]
+    krope = apply_rope((x @ p["w_krope"])[:, :, None, :], positions,
+                       cfg.rope_theta)[:, :, 0]
+    return ckv, krope
+
+
+def _mla_prefill_attend(p, cfg: ModelConfig, x):
+    """Whole-sequence MLA over ``x`` (B, T, D) at positions 0..T-1, the
+    latents expanded to per-head keys and values.  The attention is
+    ``ops.flash_attention`` (causal): q = [q_nope, q_rope] and k = [k_nope,
+    krope on every head], both ``qk_nope_dim + qk_rope_dim`` wide, v
+    ``v_head_dim`` wide; its ``hd**-0.5`` on the q/k width is the
+    reference's scale.  Returns ``(out (B, T, D), ckv, krope)``."""
+    B, T, _ = x.shape
+    H = cfg.num_heads
+    positions = torch.arange(T, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    ckv, krope = _mla_latents(p, cfg, x, positions)
+    k_nope = (ckv @ p["w_uk"]).reshape(B, T, H, cfg.qk_nope_dim)
+    v = (ckv @ p["w_uv"]).reshape(B, T, H, cfg.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        B, T, H, cfg.qk_rope_dim)], dim=-1)
+    out = ops.flash_attention(q, k, v.contiguous(), causal=True)
+    return out.reshape(B, T, -1) @ p["wo"], ckv, krope
+
+
+def mla_train(p, cfg: ModelConfig, x):
+    """Training / prefill form of MLA over ``x`` (B, T, D)."""
+    return _mla_prefill_attend(p, cfg, x)[0]
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, capacity: int,
+                   num_layers: int, device="cuda"):
+    """The latent cache: ``ckv`` (L, B, capacity, kv_lora_rank) and
+    ``krope`` (L, B, capacity, qk_rope_dim) in the param dtype, and
+    ``pos_ids`` (L, capacity) int32, -1 where empty."""
+    device = resolve_device(device)
+    dtype = param_dtype(cfg)
+    return {
+        "ckv": torch.zeros((num_layers, batch, capacity, cfg.kv_lora_rank),
+                           dtype=dtype, device=device),
+        "krope": torch.zeros((num_layers, batch, capacity, cfg.qk_rope_dim),
+                             dtype=dtype, device=device),
+        "pos_ids": torch.full((num_layers, capacity), -1, dtype=torch.int32,
+                              device=device),
+    }
+
+
+def mla_prefill(p, cfg: ModelConfig, x, cache_l):
+    """Whole-prompt MLA (:func:`mla_train`) that also writes the prompt's
+    latents into this layer's cache (views, written in place) from slot 0.
+    Returns ``(out, cache_l)``."""
+    T = x.shape[1]
+    out, ckv, krope = _mla_prefill_attend(p, cfg, x)
+    cache_l["ckv"][:, :T] = ckv
+    cache_l["krope"][:, :T] = krope
+    cache_l["pos_ids"][:T] = torch.arange(T, dtype=torch.int32,
+                                          device=x.device)
+    return out, cache_l
+
+
+def mla_decode(p, cfg: ModelConfig, x, cache_l, pos: int):
+    """Absorbed one-token decode of ``x`` (B, 1, D) at position ``pos``:
+    q_nope is taken through ``w_uk`` into latent space, scored against the
+    latent cache, and the attention read out of it through ``w_uv``, in
+    float32, as the reference computes it outside any Pallas kernel.  The
+    token's latents go to slot ``pos % capacity`` first.  Returns
+    ``(out, cache_l)``."""
+    B, T, _ = x.shape
+    assert T == 1
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    positions = torch.full((1,), pos, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    ckv_t, krope_t = _mla_latents(p, cfg, x, positions)
+    ckv, krope, cpos = cache_l["ckv"], cache_l["krope"], cache_l["pos_ids"]
+    slot = pos % ckv.shape[1]
+    ckv[:, slot] = ckv_t[:, 0]
+    krope[:, slot] = krope_t[:, 0]
+    cpos[slot] = pos
+    wk = p["w_uk"].reshape(r, H, cfg.qk_nope_dim).float()
+    q_abs = torch.einsum("bthd,rhd->bthr", q_nope.float(), wk)
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    ckv_f = ckv.float()
+    scores = (torch.einsum("bthr,bsr->bhts", q_abs, ckv_f)
+              + torch.einsum("bthd,bsd->bhts", q_rope.float(),
+                             krope.float())) * scale
+    scores = torch.where((cpos >= 0)[None, None, None, :], scores,
+                         torch.tensor(NEG_INF, dtype=scores.dtype,
+                                      device=scores.device))
+    w = torch.softmax(scores, dim=-1)
+    lat = torch.einsum("bhts,bsr->bthr", w, ckv_f)
+    wv = p["w_uv"].reshape(r, H, cfg.v_head_dim).float()
+    out = torch.einsum("bthr,rhd->bthd", lat, wv).to(x.dtype)
     return out.reshape(B, 1, -1) @ p["wo"], cache_l
 
 

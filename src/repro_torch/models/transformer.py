@@ -1,14 +1,16 @@
 """Model assembly for training and the two serving paths.
 
 Port of the parts of ``repro/models/transformer.py`` that training, the
-scan engine and continuous batching run: ``init_params`` (attention and
-rwkv6 blocks), the training forward and loss, the embedding and LM head,
-the contiguous-cache ``prefill`` / ``decode_step`` / ``decode_scan``, and
-the paged decode and prefill steps.  Parameters keep the reference's tree:
-every block leaf is stacked along a leading ``num_layers`` axis under
-``params["blocks"]``.  Where the reference runs ``lax.scan`` over the
-stacked blocks, the port loops over layers in Python on per-layer views
-(``leaf[l]``, ``cache[l]``), which copy nothing.
+scan engine and continuous batching run: ``init_params`` (attention
+blocks, GQA or MLA, with a dense or MoE MLP, and rwkv6 blocks), the
+training forward and loss (with the MoE router's aux loss), the embedding
+and LM head, the contiguous-cache ``prefill`` / ``decode_step`` /
+``decode_scan``, and the paged decode and prefill steps.  Parameters
+keep the reference's tree: every block leaf is stacked along a leading
+``num_layers`` axis under ``params["blocks"]``.  Where the reference
+runs ``lax.scan`` over the stacked blocks, the port loops over layers in
+Python on per-layer views (``leaf[l]``, ``cache[l]``), which copy
+nothing.
 
 Which path takes which config, one gate each:
 :func:`scan_supported` (init, the scan engine), :func:`train_supported`
@@ -31,6 +33,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rwkv6_scan as _wkv
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 Tree = Any
@@ -43,14 +46,11 @@ Tree = Any
 
 def scan_supported(cfg: ModelConfig) -> Optional[str]:
     """None if the port can build this config and serve it through the
-    scan engine (``prefill`` / ``decode_step``), else the reason: plain
-    GQA attention blocks (sliding windows included) and rwkv6 blocks."""
+    scan engine (``prefill`` / ``decode_step``), else the reason: attention
+    blocks, GQA (sliding windows included) or MLA, with a dense or MoE
+    MLP, and rwkv6 blocks."""
     if cfg.block_kind not in ("attn", "rwkv6"):
         return f"block_kind={cfg.block_kind!r} is not ported yet"
-    if cfg.moe:
-        return "MoE layers are not ported to PyTorch yet"
-    if cfg.mla:
-        return "MLA attention is not ported to PyTorch yet"
     if cfg.is_encdec:
         return "encoder-decoder models are not ported to PyTorch yet"
     if cfg.frontend is not None:
@@ -74,8 +74,11 @@ def cuda_supported(cfg: ModelConfig, path: str) -> Optional[str]:
     The CPU path has no such limit (the plain versions take any head dim),
     so only a run on the card asks."""
     if path == "train":
-        # attention trains through plain sdpa, as the reference does; rwkv6
-        # through the WKV kernel forward and its backward kernel
+        # GQA attention trains through plain sdpa, as the reference does;
+        # rwkv6 through the WKV kernel forward and its backward kernel
+        if cfg.mla and cfg.block_kind == "attn":
+            return ("MLA attends through the flash-attention kernel, which "
+                    "has no backward kernel")
         hd = cfg.rwkv_head_dim
         if cfg.block_kind == "rwkv6" and (
                 hd not in _wkv.HEAD_DIMS or hd not in _wkv.BACKWARD_HEAD_DIMS):
@@ -88,9 +91,9 @@ def cuda_supported(cfg: ModelConfig, path: str) -> Optional[str]:
             if cfg.rwkv_head_dim not in _wkv.HEAD_DIMS:
                 return (f"rwkv_head_dim={cfg.rwkv_head_dim}: the WKV kernel "
                         f"takes head dims {_wkv.HEAD_DIMS}")
-        elif cfg.resolved_head_dim not in _fa.HEAD_DIMS:
-            return (f"head_dim={cfg.resolved_head_dim}: the flash-attention "
-                    f"kernel takes head dims {_fa.HEAD_DIMS}")
+        elif attention_dims(cfg) not in _fa.HEAD_DIMS:
+            return (f"(q/k, v) head dims {attention_dims(cfg)}: the "
+                    f"flash-attention kernel takes {_fa.HEAD_DIMS}")
         return None
     if path == "continuous":
         group = cfg.num_heads // cfg.num_kv_heads
@@ -101,14 +104,23 @@ def cuda_supported(cfg: ModelConfig, path: str) -> Optional[str]:
             return (f"head_dim={cfg.resolved_head_dim}: the paged-attention "
                     f"kernel takes at most {_pa.MAX_HEAD_DIM}")
         if (paged_prefill_supported(cfg) is not None
-                and cfg.resolved_head_dim not in _fa.HEAD_DIMS):
+                and attention_dims(cfg) not in _fa.HEAD_DIMS):
             # the whole-prompt admit prefills through the flash kernel
-            return (f"head_dim={cfg.resolved_head_dim}: the whole-prompt "
-                    f"admit's flash-attention kernel takes head dims "
+            return (f"(q/k, v) head dims {attention_dims(cfg)}: the "
+                    f"whole-prompt admit's flash-attention kernel takes "
                     f"{_fa.HEAD_DIMS}")
         return None
     raise ValueError(f"unknown path {path!r}; expected 'scan', "
                      "'continuous' or 'train'")
+
+
+def attention_dims(cfg: ModelConfig) -> Tuple[int, int]:
+    """The (q/k, v) head widths the prefill attention hands the flash
+    kernel: MLA's ``(qk_nope_dim + qk_rope_dim, v_head_dim)``, else
+    ``(head_dim, head_dim)``."""
+    if cfg.mla:
+        return cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    return cfg.resolved_head_dim, cfg.resolved_head_dim
 
 
 def _require(reason: Optional[str], what: str, cfg: ModelConfig) -> None:
@@ -116,40 +128,59 @@ def _require(reason: Optional[str], what: str, cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{what} {cfg.name}: {reason}")
 
 
+def _fill(dst: Tree, src: Tree) -> None:
+    """Copy ``src``'s leaves into ``dst``'s (a leaf drawn in place is
+    skipped)."""
+    tree_map(lambda d, s: None if d.data_ptr() == s.data_ptr()
+             else d.copy_(s), dst, src)
+
+
 def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device: DeviceLike = "cuda") -> Tree:
+                device: DeviceLike = "cuda", out: Optional[Tree] = None
+                ) -> Tree:
     """Random parameters in the reference's layout, drawn on ``device``
     from a ``torch.Generator`` seeded with ``seed`` (the numbers differ
     from ``jax.random``; carry JAX weights across with
-    ``train.interop.params_from_numpy`` to compare the two)."""
+    ``train.interop.params_from_numpy`` to compare the two).
+
+    ``out``, when given, is a tree of :func:`param_shapes`' shapes and
+    dtypes on ``device`` (a member's views of a stacked population, for
+    instance) that the draw fills in place, module by module; the numbers
+    are the same either way.  MoE expert weights are drawn a layer at a
+    time straight into their leaves."""
     _require(scan_supported(cfg), "init", cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    if out is None:
+        out = tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype,
+                                             device=dev), param_shapes(cfg))
     dtype = L.param_dtype(cfg)
     D, V, NL = cfg.d_model, cfg.vocab_size, cfg.num_layers
-    ones = lambda *s: torch.ones(s, dtype=dtype, device=dev)  # noqa: E731
-    params: Dict[str, Any] = {
-        "embed": {"tok": L.dense_init(gen, (V, D), dtype, scale=0.02)},
-        "final_norm": {"scale": ones(D)},
-    }
+    out["embed"]["tok"].copy_(L.dense_init(gen, (V, D), dtype, scale=0.02))
+    out["final_norm"]["scale"].fill_(1)
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": L.dense_init(gen, (D, V), dtype)}
+        out["lm_head"]["w"].copy_(L.dense_init(gen, (D, V), dtype))
     if cfg.pos_kind == "learned":
-        params["embed"]["pos"] = L.dense_init(
-            gen, (cfg.max_position, D), dtype, scale=0.02)
+        out["embed"]["pos"].copy_(L.dense_init(
+            gen, (cfg.max_position, D), dtype, scale=0.02))
     lead = (NL,)
-    params["blocks"] = {
-        "ln1": {"scale": ones(NL, D)},
-        "ln2": {"scale": ones(NL, D)},
-    }
+    blocks = out["blocks"]
+    blocks["ln1"]["scale"].fill_(1)
+    blocks["ln2"]["scale"].fill_(1)
     if cfg.block_kind == "rwkv6":
-        params["blocks"]["rwkv"] = SSM.rwkv6_init(gen, cfg, lead=lead)
+        _fill(blocks["rwkv"], SSM.rwkv6_init(gen, cfg, lead=lead))
+        return out
+    attn = (L.mla_init if cfg.mla else L.gqa_init)(gen, cfg, lead=lead)
+    _fill(blocks["attn"], attn)
+    del attn
+    if cfg.moe:
+        _fill(blocks["mlp"], MOE.moe_init(gen, cfg, lead=lead,
+                                          experts=blocks["mlp"]["experts"]))
     else:
-        params["blocks"]["attn"] = L.gqa_init(gen, cfg, lead=lead)
-        params["blocks"]["mlp"] = L.swiglu_init(gen, D, cfg.d_ff, dtype,
-                                                lead=lead)
-    return params
+        _fill(blocks["mlp"], L.swiglu_init(gen, D, cfg.d_ff, dtype,
+                                           lead=lead))
+    return out
 
 
 def param_shapes(cfg: ModelConfig) -> Tree:
@@ -172,17 +203,27 @@ def param_shapes(cfg: ModelConfig) -> Tree:
                             "ln2": {"scale": m(NL, D)},
                             "rwkv": SSM.rwkv6_shapes(cfg, NL)}
         return params
-    attn = {"wq": m(NL, D, H * hd), "wk": m(NL, D, KV * hd),
-            "wv": m(NL, D, KV * hd), "wo": m(NL, H * hd, D)}
-    if cfg.qkv_bias:
-        attn.update(bq=m(NL, H * hd), bk=m(NL, KV * hd), bv=m(NL, KV * hd))
-    if cfg.qk_norm:
-        attn.update(q_norm={"scale": m(NL, hd)}, k_norm={"scale": m(NL, hd)})
-    params["blocks"] = {
-        "ln1": {"scale": m(NL, D)}, "ln2": {"scale": m(NL, D)},
-        "attn": attn,
-        "mlp": {"w1": m(NL, D, F), "w3": m(NL, D, F), "w2": m(NL, F, D)},
-    }
+    if cfg.mla:
+        r, qd = cfg.kv_lora_rank, cfg.qk_nope_dim + cfg.qk_rope_dim
+        attn = {"wq": m(NL, D, H * qd), "w_dkv": m(NL, D, r),
+                "w_krope": m(NL, D, cfg.qk_rope_dim),
+                "w_uk": m(NL, r, H * cfg.qk_nope_dim),
+                "w_uv": m(NL, r, H * cfg.v_head_dim),
+                "wo": m(NL, H * cfg.v_head_dim, D)}
+    else:
+        attn = {"wq": m(NL, D, H * hd), "wk": m(NL, D, KV * hd),
+                "wv": m(NL, D, KV * hd), "wo": m(NL, H * hd, D)}
+        if cfg.qkv_bias:
+            attn.update(bq=m(NL, H * hd), bk=m(NL, KV * hd),
+                        bv=m(NL, KV * hd))
+        if cfg.qk_norm:
+            attn.update(q_norm={"scale": m(NL, hd)},
+                        k_norm={"scale": m(NL, hd)})
+    mlp = (MOE.moe_shapes(cfg, NL) if cfg.moe else
+           {"w1": m(NL, D, F), "w3": m(NL, D, F), "w2": m(NL, F, D)})
+    params["blocks"] = {"ln1": {"scale": m(NL, D)},
+                        "ln2": {"scale": m(NL, D)},
+                        "attn": attn, "mlp": mlp}
     return params
 
 
@@ -211,16 +252,27 @@ def _logits(params, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 
 
+def _mlp_apply(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's MLP: ``(y, router aux loss)``, the aux 0 for a dense
+    SwiGLU."""
+    if cfg.moe:
+        return MOE.moe_apply(p, cfg, x)
+    return L.swiglu(p, x), torch.zeros((), dtype=torch.float32,
+                                       device=x.device)
+
+
 def _block_train(p, cfg: ModelConfig, x, state_l=None):
-    """One block over the full sequence; an rwkv6 block starts from
-    ``state_l`` (a zero start) and its new state is dropped, as the
-    reference's ``_run_blocks_train`` drops it."""
+    """One block over the full sequence: ``(x, aux)``.  An rwkv6 block
+    starts from ``state_l`` (a zero start) and its new state is dropped,
+    as the reference's ``_run_blocks_train`` drops it."""
     if cfg.block_kind == "rwkv6":
         x, _ = SSM.rwkv6_block(p["rwkv"], cfg, x, state_l,
                                {"ln1": p["ln1"], "ln2": p["ln2"]})
-        return x
-    x = x + L.gqa_train(p["attn"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps))
-    return x + L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    attend = L.mla_train if cfg.mla else L.gqa_train
+    x = x + attend(p["attn"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps))
+    y, aux = _mlp_apply(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + y, aux
 
 
 def _layer_views(blocks: Tree, num_layers: int) -> List[Tree]:
@@ -241,26 +293,28 @@ def _run_blocks_train(params, cfg: ModelConfig, x):
     read nor write one).  With ``cfg.remat_blocks`` each block's
     activations are recomputed in the backward pass
     (``torch.utils.checkpoint``) instead of stored, so an rwkv6 layer runs
-    its WKV forward twice.  Raises for what :func:`train_supported`
-    refuses."""
+    its WKV forward twice.  Returns ``(x, the router aux loss summed over
+    the layers)``.  Raises for what :func:`train_supported` refuses."""
     _require(train_supported(cfg), "training", cfg)
     state_l = None
     if cfg.block_kind == "rwkv6":
         zero = x.new_zeros((x.shape[0], cfg.d_model))
         state_l = {"S": None, "x_tm": zero, "x_cm": zero}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in _layer_views(params["blocks"], cfg.num_layers):
         if cfg.remat_blocks:
-            x = checkpoint(_block_train, blk, cfg, x, state_l,
-                           use_reentrant=False)
+            x, aux_l = checkpoint(_block_train, blk, cfg, x, state_l,
+                                  use_reentrant=False)
         else:
-            x = _block_train(blk, cfg, x, state_l)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux_l = _block_train(blk, cfg, x, state_l)
+        aux = aux + aux_l
+    return x, aux
 
 
 def forward_logits(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor,
                                                                torch.Tensor]:
-    """Full-sequence logits (B, S, V) and the auxiliary loss (0 for the
-    dense attention and rwkv6 models the port trains)."""
+    """Full-sequence logits (B, S, V) and the auxiliary loss (the MoE
+    router's, summed over the layers; 0 without MoE)."""
     x = _embed_tokens(params, cfg, batch["tokens"].long())
     x, aux = _run_blocks_train(params, cfg, x)
     return _logits(params, cfg, x), aux
@@ -268,8 +322,8 @@ def forward_logits(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor,
 
 def loss_fn(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor,
                                                         Dict[str, torch.Tensor]]:
-    """Next-token cross entropy (+ the router aux loss, 0 here), computed
-    in float32."""
+    """Next-token cross entropy (+ ``router_aux_coef`` x the MoE router's
+    aux loss), computed in float32."""
     logits, aux = forward_logits(params, cfg, batch)
     targets = batch["tokens"][:, 1:].long()
     lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
@@ -288,15 +342,17 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     """Decode state of every layer, on ``device`` (the card unless the
     caller asks for the CPU).  ``capacity`` is the logical context;
     sliding-window configs keep only ``min(window, capacity)`` ring slots.
-    rwkv6 keeps ``{"state": {"S", "x_tm", "x_cm"}}``, attention
-    ``{"kv": {"k", "v", "pos_ids"}}``, each leaf led by the layer axis."""
+    rwkv6 keeps ``{"state": {"S", "x_tm", "x_cm"}}``, GQA attention
+    ``{"kv": {"k", "v", "pos_ids"}}``, MLA its latent cache
+    ``{"kv": {"ckv", "krope", "pos_ids"}}``, each leaf led by the layer
+    axis."""
     _require(scan_supported(cfg), "scan-engine serving of", cfg)
     if cfg.block_kind == "rwkv6":
         return {"state": SSM.rwkv_state_init(cfg, batch, cfg.num_layers,
                                              device=device)}
     cap = capacity if cfg.window is None else min(cfg.window, capacity)
-    return {"kv": L.gqa_cache_init(cfg, batch, cap, cfg.num_layers,
-                                   device=device)}
+    init = L.mla_cache_init if cfg.mla else L.gqa_cache_init
+    return {"kv": init(cfg, batch, cap, cfg.num_layers, device=device)}
 
 
 def _cache_layer(cache: Tree, l: int) -> Tree:
@@ -323,15 +379,23 @@ def _block_serve(block_l, cfg: ModelConfig, x, cache_l, pos: Optional[int]):
             block_l["rwkv"], cfg, x, cache_l["state"],
             {"ln1": block_l["ln1"], "ln2": block_l["ln2"]})
         return x, {"state": state}
+    x, kv = _attn_serve(block_l, cfg, x, cache_l, pos)
+    y, _ = _mlp_apply(block_l["mlp"], cfg, L.rmsnorm(block_l["ln2"], x,
+                                                     cfg.norm_eps))
+    return x + y, {"kv": kv}
+
+
+def _attn_serve(block_l, cfg: ModelConfig, x, cache_l, pos: Optional[int]):
+    """The attention half of an attention block in :func:`_block_serve`:
+    ``(x + attention, this layer's new kv cache)``."""
     h = L.rmsnorm(block_l["ln1"], x, cfg.norm_eps)
     if pos is None:
-        a, kv = L.gqa_prefill(block_l["attn"], cfg, h, cache_l["kv"])
+        prefill_fn = L.mla_prefill if cfg.mla else L.gqa_prefill
+        a, kv = prefill_fn(block_l["attn"], cfg, h, cache_l["kv"])
     else:
-        a, kv = L.gqa_decode(block_l["attn"], cfg, h, cache_l["kv"], pos)
-    x = x + a
-    x = x + L.swiglu(block_l["mlp"], L.rmsnorm(block_l["ln2"], x,
-                                               cfg.norm_eps))
-    return x, {"kv": kv}
+        decode_fn = L.mla_decode if cfg.mla else L.gqa_decode
+        a, kv = decode_fn(block_l["attn"], cfg, h, cache_l["kv"], pos)
+    return x + a, kv
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, pos: int):
@@ -396,10 +460,8 @@ def prefill(params, cfg: ModelConfig, batch, capacity: Optional[int] = None):
 
 
 def paged_decode_supported(cfg: ModelConfig) -> Optional[str]:
-    """None if ``decode_step_paged`` can serve this config, else the reason.
-
-    The reference's reasons, plus MoE, whose layers the port does not
-    have yet."""
+    """None if ``decode_step_paged`` can serve this config, else the reason
+    (the reference's reasons): GQA decoder-only families, dense and MoE."""
     if cfg.block_kind != "attn":
         return f"block_kind={cfg.block_kind!r} state is not paged"
     if cfg.mla:
@@ -410,8 +472,6 @@ def paged_decode_supported(cfg: ModelConfig) -> Optional[str]:
         return f"frontend={cfg.frontend!r} prefixes are not paged"
     if cfg.window is not None:
         return "sliding-window ring eviction is not paged"
-    if cfg.moe:
-        return "MoE layers are not ported to PyTorch yet"
     return None
 
 
@@ -464,7 +524,9 @@ def decode_step_paged(params, cfg: ModelConfig, tokens, positions, pools,
             blk["attn"], cfg, a_in, _layer_pool(pools["k"], l),
             _layer_pool(pools["v"], l), page_tables, pos)
         x = x + a
-        x = x + L.swiglu(blk["mlp"], L.rmsnorm(blk["ln2"], x, cfg.norm_eps))
+        y, _ = _mlp_apply(blk["mlp"], cfg, L.rmsnorm(blk["ln2"], x,
+                                                     cfg.norm_eps))
+        x = x + y
     return _logits(params, cfg, x), pools
 
 
@@ -491,5 +553,7 @@ def prefill_paged(params, cfg: ModelConfig, tokens, pos0, pools, page_table):
             blk["attn"], cfg, a_in, _layer_pool(pools["k"], l),
             _layer_pool(pools["v"], l), page_table, positions)
         x = x + a
-        x = x + L.swiglu(blk["mlp"], L.rmsnorm(blk["ln2"], x, cfg.norm_eps))
+        y, _ = _mlp_apply(blk["mlp"], cfg, L.rmsnorm(blk["ln2"], x,
+                                                     cfg.norm_eps))
+        x = x + y
     return _logits(params, cfg, x[:, -1:]), pools

@@ -453,6 +453,7 @@ class ContinuousServer:
         self._reserved_slots: set = set()
         self._queue: deque = deque()
         self._results: Dict[Any, Result] = {}
+        self._retired: List[Any] = []  # uids retired since step() began
         self.stats = {"admitted": 0, "retired": 0, "cancelled": 0,
                       "decode_steps": 0, "pages_allocated": 0,
                       "pages_shared": 0, "peak_pages_in_use": 0,
@@ -838,6 +839,7 @@ class ContinuousServer:
         for page in slot.pages:
             self._pool.release(page)
         self.stats["retired"] += 1
+        self._retired.append(slot.uid)
         self._results[slot.uid] = Result(
             uid=slot.uid,
             tokens=np.concatenate([slot.prompt,
@@ -847,11 +849,12 @@ class ContinuousServer:
 
     def step(self) -> List[Any]:
         """Admit what fits, run ONE decode step for the in-flight set,
-        retire whatever finished.  Returns retired uids."""
-        before = set(self._results)
+        retire whatever finished.  Returns the uids retired in this step,
+        a uid that a finished request used before among them."""
+        self._retired = []
         self._admit()
         if self.active_slots == 0:
-            return [u for u in self._results if u not in before]
+            return list(self._retired)
 
         B, Pmax = self.max_slots, self.max_pages
         tokens = np.zeros((B,), np.int32)
@@ -931,7 +934,7 @@ class ContinuousServer:
                 reg.histogram(
                     "serve.spec_rollback", SPEC_ROLLBACK_EDGES
                 ).observe(drafted - accepted)
-        return [u for u in self._results if u not in before]
+        return list(self._retired)
 
     def run(self, requests: Optional[List[Request]] = None
             ) -> Dict[Any, Result]:
@@ -940,10 +943,8 @@ class ContinuousServer:
         for req in requests or []:
             self.submit(req)
         while self._queue or self.active_slots:
-            n_results = len(self._results)
-            self.step()
-            if (self.active_slots == 0 and self._queue
-                    and len(self._results) == n_results):
+            if (not self.step() and self.active_slots == 0
+                    and self._queue):
                 raise RuntimeError(
                     f"scheduler stalled with {len(self._queue)} queued "
                     f"requests and {self._pool.available_count} "

@@ -38,6 +38,7 @@ Serving modes:
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -260,10 +261,16 @@ def serving_params(trained: Any, mode: str = "soup", member: int = 0) -> Tree:
 def generate(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
              max_new_tokens: int, temperature: float = 0.0,
              seed: Seeds = None, mode: str = "soup",
-             device: DeviceLike = "cuda") -> torch.Tensor:
+             device: DeviceLike = "cuda",
+             timings: Optional[Dict[str, float]] = None) -> torch.Tensor:
     """batch ``{"tokens": (B, S)}`` -> (B, S + max_new_tokens) int32 on
     ``device`` (the card unless the caller asks for the CPU; ``params``
     must live there).
+
+    ``timings``, when given, receives ``prefill_s`` and ``decode_s``: the
+    seconds of the prefill and of the decode, each timed to the device's
+    end (one synchronization after each, which a call without
+    ``timings`` does not make).
 
     ``mode="soup"``/``"member"`` serve ``params`` as a single model (the
     two differ only in how the caller picked the params); ``"ensemble"``
@@ -285,12 +292,26 @@ def generate(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     prefill_fn, decode_fn = _programs(cfg, ensemble, B, S, max_new_tokens,
                                       capacity, greedy)
     tel = obs.get()
+
+    def mark(key, t0):
+        if timings is None:
+            return t0
+        if tokens.device.type == "cuda":
+            torch.cuda.synchronize(tokens.device)
+        now = time.perf_counter()
+        if key is not None:
+            timings[key] = now - t0
+        return now
+
     with torch.no_grad():
+        t0 = mark(None, 0.0)
         with tel.span("serve.prefill", S=S, B=B):
             logits, cache = prefill_fn(params, batch)
+        t0 = mark("prefill_s", t0)
         with tel.span("serve.decode", S=S, max_new=max_new_tokens):
             out, _ = decode_fn(params, tokens, cache, logits, seeds,
                                max(temperature, 1e-6))
+        mark("decode_s", t0)
     return out
 
 

@@ -49,12 +49,12 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_numpy(tree: Tree, device: DeviceLike = "cuda",
-                      dtype: Optional[torch.dtype] = None) -> Tree:
+def params_from_numpy(tree: Tree, device: DeviceLike = "cuda") -> Tree:
     """A tree of numpy arrays (any of JAX's leaf dtypes) as tensors on
-    ``device``; ``dtype`` casts every leaf when given."""
+    ``device``, each leaf in its own dtype (a bf16 model's float32 leaves,
+    such as the MoE router, stay float32)."""
     dev = resolve_device(device)
-    return tree_map(lambda a: tensor_from_numpy(a, dev, dtype), tree)
+    return tree_map(lambda a: tensor_from_numpy(a, dev), tree)
 
 
 def params_to_numpy(tree: Tree) -> Tree:

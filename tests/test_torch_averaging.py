@@ -150,3 +150,81 @@ def test_greedy_soup_chooses_the_members_jax_chooses(n, seed, dup):
     want = JA.greedy_soup(jfn, jpop, x, y)
     _assert_trees_close(TA.greedy_soup(tfn, tpop, tx, ty), want, 1e-6)
     _assert_trees_close(TA.soup_of(tpop, chosen), want, 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the population drawn in place and the soup made in place (the serve
+# CLI's route at full width, where neither a second model nor a whole
+# member beside the population fits the card)
+# ---------------------------------------------------------------------------
+
+
+def _bitwise(a, b):
+    return a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("arch,dtype", [
+    ("deepseek-v2-lite-16b", "bfloat16"), ("kimi-k2-1t-a32b", "float32"),
+    ("llama3.2-3b", "bfloat16"), ("rwkv6-3b", "float32")])
+def test_population_is_drawn_in_place_as_members_are(arch, dtype):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import init_population
+    from repro_torch.models import transformer as TM
+
+    cfg = get_arch(arch).reduced(dtype=dtype)
+    popn = init_population(cfg, 3, seed=2, device="cpu")
+    for i in range(3):
+        want = TM.init_params(cfg, seed=2 * 1000 + i, device="cpu")
+        got = pop.member(popn, i)
+        assert [p for p, _ in pop.tree_paths(got)] == \
+            [p for p, _ in pop.tree_paths(want)]
+        assert all(_bitwise(a, b) for a, b in zip(pop.tree_leaves(got),
+                                                  pop.tree_leaves(want)))
+    if cfg.moe:
+        assert popn["blocks"]["mlp"]["router"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_in_place_soup_is_bitwise_the_soup(n, dtype, monkeypatch):
+    """Leaves above the slice size are averaged a slice of their second
+    axis at a time; every leaf comes out bitwise ``uniform_soup``'s."""
+    monkeypatch.setattr(TA, "SOUP_SLICE_BYTES", 64)
+    gen = torch.Generator().manual_seed(n)
+    tree = {"embed": torch.randn(n, 30, 4, generator=gen).to(dtype),
+            "blocks": {"w": torch.randn(n, 5, 3, 4, generator=gen).to(dtype),
+                       "v": torch.randn(n, 5, generator=gen).to(dtype)},
+            "head": (torch.randn(n, 4, generator=gen) * 1e3).to(dtype)}
+    want = TA.uniform_soup(tree)
+    got = TA.uniform_soup_(tree)
+    for g, w, x in zip(pop.tree_leaves(got), pop.tree_leaves(want),
+                       pop.tree_leaves(tree)):
+        assert _bitwise(g, w)
+        assert g.data_ptr() == x.data_ptr()  # member 0's slot of the leaf
+
+
+def test_serve_cli_soup_in_place_serves_the_soups_tokens(capsys):
+    """``--compare`` serves member, ensemble, then the soup made in place
+    from the population's memory: its tokens are those of the soup made
+    beside it, for the reduced DeepSeek-V2-Lite on the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.prng import fold_in
+    from repro_torch.launch import serve
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.serving import engine
+
+    cfg = get_arch("deepseek-v2-lite-16b").reduced()
+    outs = serve.main(["--arch", cfg.name.replace("-reduced", ""),
+                       "--reduced", "--device", "cpu", "--population", "2",
+                       "--batch-size", "2", "--seq-len", "8", "--max-new",
+                       "4", "--compare"])
+    assert list(outs) == ["member", "ensemble", "soup"]
+    popn = serve.init_population(cfg, 2, seed=0, device="cpu")
+    batch = concrete_batch(cfg, fold_in(0, 2), 2, 8, device="cpu")
+    want = engine.generate(TA.uniform_soup(popn), cfg, batch, 4,
+                           device="cpu")
+    assert torch.equal(outs["soup"]["tokens"], want)
+    text = capsys.readouterr().out
+    assert "prefill" in text and "decode step" in text

@@ -101,3 +101,37 @@ def test_restore_checks_shapes_and_needs_a_device_for_meta(tmp_path):
     bad = pop.tree_map(lambda x: x[:2], like)
     with pytest.raises(ValueError, match="!="):
         TC.restore(path, bad, device="cpu")
+
+
+def test_jax_deepseek_population_restores_with_mixed_dtypes(tmp_path):
+    """A JAX-written bf16 population of the reduced DeepSeek-V2-Lite (MLA
+    attention, MoE MLP, a float32 router in a bf16 model) restores into
+    the port bitwise, every leaf in the reference's dtype, and serves
+    through the scan engine; ``params_from_numpy`` keeps the same
+    dtypes."""
+    from repro.configs import get_arch as jax_arch
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import engine
+
+    jcfg = jax_arch("deepseek-v2-lite-16b").reduced(dtype="bfloat16")
+    tcfg = get_arch("deepseek-v2-lite-16b").reduced(dtype="bfloat16")
+    jpop = jax.vmap(lambda k: JM.init_params(k, jcfg))(
+        jax.random.split(jax.random.key(4), 2))
+    path = JC.save(str(tmp_path / "deepseek"), jpop)
+    like = pop.tree_map(lambda x: x.unsqueeze(0).expand((2,) + x.shape),
+                        TM.param_shapes(tcfg))
+    tpop = TC.restore(path, like, device="cpu")
+    _assert_tree_bitwise(tpop, jpop)
+    router = tpop["blocks"]["mlp"]["router"]
+    assert router.dtype == torch.float32
+    assert tpop["blocks"]["mlp"]["experts"]["w1"].dtype == torch.bfloat16
+    assert tpop["blocks"]["attn"]["w_dkv"].dtype == torch.bfloat16
+    cast = params_from_numpy(jax.tree_util.tree_map(np.asarray, jpop),
+                             device="cpu")
+    assert ([x.dtype for x in pop.tree_leaves(cast)]
+            == [x.dtype for x in pop.tree_leaves(tpop)])
+    prompts = torch.randint(0, tcfg.vocab_size, (2, 6),
+                            generator=torch.Generator().manual_seed(0))
+    out = engine.generate_from_population(tpop, tcfg, {"tokens": prompts},
+                                          3, mode="ensemble", device="cpu")
+    assert out.shape == (2, 9) and torch.equal(out[:, :6], prompts.int())

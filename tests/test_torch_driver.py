@@ -400,3 +400,76 @@ def test_pump_thread_failure_reaches_astream_and_stop():
         driver.stop()
     assert "launch failed" in str(info.value.__cause__)
     assert driver._pump is None and not driver._waiters
+
+
+# ---------------------------------------------------------------------------
+# a request that reuses a finished request's uid
+# ---------------------------------------------------------------------------
+
+
+def _server(chunk):
+    return TB.ContinuousServer(TPARAMS, TCFG, page_size=PAGE_SIZE,
+                               max_slots=MAX_SLOTS, num_pages=NUM_PAGES,
+                               prefill_chunk=chunk, device="cpu")
+
+
+def _reused_pair():
+    first, second = _make_prompts(109, 2, prefix_family=False)
+    return (TB.Request(7, first, 3), TB.Request(7, second, 3))
+
+
+@pytest.mark.parametrize("chunk", [None, 4], ids=["whole", "chunk4"])
+def test_step_returns_the_uids_retired_in_that_step(chunk):
+    """``step()`` reports a uid when its request retires in that step,
+    also when a finished request used the uid before."""
+    server = _server(chunk)
+    for req in _reused_pair():
+        server.submit(req)
+        seen = []
+        while server._queue or server.active_slots:
+            seen.append(server.step())
+        assert [u for uids in seen for u in uids] == [7]
+        assert seen[-1] == [7]
+        np.testing.assert_array_equal(server._results[7].tokens,
+                                      _solo(req.tokens, 3))
+    assert server.stats["retired"] == 2
+
+
+@pytest.mark.parametrize("chunk", [None, 4], ids=["whole", "chunk4"])
+def test_reused_uid_finishes_through_run_and_the_driver(chunk):
+    first, second = _reused_pair()
+    server = _server(chunk)
+    assert 7 in server.run([first])
+    out = server.run([second])
+    np.testing.assert_array_equal(out[7].tokens, _solo(second.tokens, 3))
+
+    finished = []
+    driver = TD.RequestDriver(_server(chunk), prefill_chunk=chunk)
+    for req in (first, second):
+        driver.submit(req, on_finish=lambda uid, res: finished.append(
+            (uid, res.tokens.copy())))
+        driver.drain()
+    assert [u for u, _ in finished] == [7, 7]
+    for (_, toks), req in zip(finished, (first, second)):
+        np.testing.assert_array_equal(toks, _solo(req.tokens, 3))
+    assert not driver.has_work
+
+
+@pytest.mark.parametrize("chunk", [None, 4], ids=["whole", "chunk4"])
+def test_reused_uid_finishes_through_astream(chunk):
+    first, second = _reused_pair()
+    driver = TD.RequestDriver(_server(chunk), prefill_chunk=chunk)
+
+    async def consume():
+        out = []
+        for req in (first, second):
+            out.append([t async for t in driver.astream(req)])
+        return out
+
+    driver.start()
+    try:
+        got = asyncio.run(asyncio.wait_for(consume(), timeout=60))
+    finally:
+        driver.stop()
+    for toks, req in zip(got, (first, second)):
+        assert toks == list(_solo(req.tokens, 3)[len(req.tokens):])

@@ -159,3 +159,43 @@ def test_f32_wrapper_refuses_a_misaligned_view(cuda_device):
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
     with pytest.raises(ValueError, match="16-byte"):
         ops.flash_attention(shifted, k, v)
+
+
+# MLA's widths, (192, 128): q and k 192 wide (three 64-column TMA boxes in
+# bf16), v and the output 128 wide; the bf16 output staged in Q's room, the
+# f32 block of four warps (64 query rows)
+MLA_CASES = [
+    # B, S, H, KV, causal
+    (1, 1, 2, 2, True),
+    (1, 63, 2, 2, True),
+    (2, 129, 4, 4, True),   # ragged past a q tile and a key tile
+    (1, 300, 4, 1, True),   # GQA, several key tiles
+    (1, 200, 2, 2, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,causal", MLA_CASES)
+def test_mla_widths_match_plain_version(cuda_device, dtype, B, S, H, KV,
+                                        causal):
+    q, k, _ = _inputs(cuda_device, B, S, H, KV, 192, dtype, seed=S + H)
+    v = _inputs(cuda_device, B, S, H, KV, 128, dtype, seed=S + 1)[2]
+    n0 = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == (B, S, H, 128)
+    assert torch.isfinite(got.float()).all()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_wrapper_refuses_an_unported_width_pair(cuda_device):
+    q, k, _ = _inputs(cuda_device, 1, 16, 2, 2, 192, torch.bfloat16)
+    v = _inputs(cuda_device, 1, 16, 2, 2, 64, torch.bfloat16)[2]
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q, k, v)

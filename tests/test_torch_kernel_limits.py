@@ -40,6 +40,11 @@ ATTN96 = get_arch("llama3.2-3b").reduced(head_dim=96)
 GROUP9 = get_arch("llama3.2-3b").reduced(num_heads=9, num_kv_heads=1,
                                          head_dim=64)
 HD256 = get_arch("llama3.2-3b").reduced(head_dim=256)
+DEEPSEEK = get_arch("deepseek-v2-lite-16b")
+# the reduced MLA widths, (32 + 16, 32): no flash instantiation
+MLA48 = DEEPSEEK.reduced()
+# the reduced model at the full model's MLA widths, (128 + 64, 128)
+MLA192 = DEEPSEEK.reduced(qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128)
 
 
 @pytest.mark.parametrize("cfg,path,limit", [
@@ -48,8 +53,10 @@ HD256 = get_arch("llama3.2-3b").reduced(head_dim=256)
     (GROUP9, "continuous", f"at most {pa.MAX_GROUP}"),
     (HD256, "continuous", f"at most {pa.MAX_HEAD_DIM}"),
     (RWKV16, "train", str(wkv.BACKWARD_HEAD_DIMS)),
+    (MLA48, "scan", str(fa.HEAD_DIMS)),
+    (DEEPSEEK, "train", "no backward kernel"),
 ], ids=["rwkv6-hd16", "attn-hd96", "paged-group9", "paged-hd256",
-        "rwkv6-hd16-train"])
+        "rwkv6-hd16-train", "mla-48x32", "mla-train"])
 def test_refuses_what_the_kernels_cannot_take(cfg, path, limit):
     reason = M.cuda_supported(cfg, path)
     assert reason is not None and limit in reason
@@ -75,6 +82,21 @@ def test_takes_the_shipped_configs(arch, reduced):
     assert M.cuda_supported(cfg, "train") is None
     if cfg.block_kind == "attn":
         assert M.cuda_supported(cfg, "continuous") is None
+
+
+@pytest.mark.parametrize("cfg", [DEEPSEEK, MLA192,
+                                 get_arch("kimi-k2-1t-a32b"),
+                                 get_arch("kimi-k2-1t-a32b").reduced()],
+                         ids=["deepseek", "deepseek-reduced-192x128",
+                              "kimi-k2", "kimi-k2-reduced"])
+def test_takes_the_moe_configs(cfg):
+    """DeepSeek-V2-Lite's MLA widths (192, 128) are an instantiation of
+    the flash kernel; kimi-k2 is GQA with group 8 and head dim 128."""
+    assert M.attention_dims(cfg) in fa.HEAD_DIMS
+    assert M.cuda_supported(cfg, "scan") is None
+    if not cfg.mla:
+        assert M.cuda_supported(cfg, "continuous") is None
+        assert M.cuda_supported(cfg, "train") is None
 
 
 def test_unknown_path_raises():
