@@ -174,6 +174,37 @@ and then, failing on the first phase that fails:
      launches == layers x members x decode steps); finally a full-width
      2-layer teacher-forced prefill + decode step of qwen3-4b, qwen1.5-4b
      and minitron-8b on the kernels against plain.
+ 13. the hybrid family: holds the selective-scan (Mamba) forward kernel
+     against its plain version at hymba-1.5b's prefill shape (B=4,
+     T=2048, DI=3200, 16 states) from zero and from a carried state (y
+     and the final state), at T=1, at a ragged T=1000 and with extreme dt
+     (log-uniform over [1e-4, 30]: exp(dt A) down to an exact 0), and its
+     backward at the training shape (B=2, T=256; from zero, and from a
+     carried state with a final-state grad and extreme dt) and at the
+     prefill shape (carried state, final-state grad), every value finite
+     and within 1e-4 of max |plain|, two backward calls bitwise equal;
+     times each (CUDA-graph replays) beside its bound, its plain version
+     and its registers, shared memory and spills; holds the flash kernel at
+     hymba's prefill attention (bf16, 25 heads over 5 kv heads, head dim
+     64, causal, window 1024) and times it beside SDPA with the window
+     as a mask; serves full-width hymba-1.5b (32 layers, bf16, a random
+     N=2 population) through the serve CLI's scan engine (``--compare``,
+     B=4, S=2048, 32 new): selective-scan launches == 2 requests x 32
+     layers x 4 member-runs x (1 prefill + 31 decode steps), flash
+     launches == 2 x 32 x 4; a teacher-forced prefill + decode step on
+     the kernel path against the plain path (logits, every layer's output
+     and Mamba ``h`` and ``conv``), profiled; trains it through the train
+     CLI (bf16, N=2, SGD, bucketed WASH at p=0.01, 2 x 256 tokens a
+     member, 4 steps): every Mamba forward and backward through the
+     kernels (launches == 32 x 2 x 4, + 32 for the averaged model's
+     loss), every shuffle bitwise, the comm exactly ``static_mix_comm``
+     (4,155,400.0 scalars a member a step), finite losses, the trained
+     soup served, the step split, tokens/s, peak memory and a profiled
+     step; then the reduced float32 hymba (window 64) trained 3 steps at
+     128 tokens on the kernels and on the plain versions (params within
+     1e-5), and served through ``engine.generate`` (soup, ensemble;
+     greedy tokens identical); a state size the scan kernel lacks is
+     refused on the card.
 
 Kernels are built from the sources in the checkout, each ``nvcc`` started
 at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
@@ -221,7 +252,8 @@ LOGIT_REL_TOL = 5e-2
 HBM_BYTES_PER_S = 3.35e12
 TF32_OPS = 494.7e12
 FFMA_OPS = 67e12
-PEAK_OPS = {"bf16": 989e12, "f32": TF32_OPS / 3, "int8": 1979e12}
+PEAK_OPS = {"bf16": 989e12, "f32": TF32_OPS / 3, "int8": 1979e12,
+            "f32 FFMA": FFMA_OPS}  # a float32 kernel off the tensor cores
 
 
 def log(msg: str) -> None:
@@ -457,8 +489,9 @@ def check_kernel(torch, pa, ref, F, device):
 @contextlib.contextmanager
 def plain_routes(ops, ref, *names):
     """Route each named op of ``kernels.ops`` (``paged_attention``,
-    ``flash_attention``, ``rwkv6_scan``) through its plain version for the
-    block (the comparison path; the kernels' counters do not move)."""
+    ``flash_attention``, ``rwkv6_scan``, ``selective_scan``) through its
+    plain version for the block (the comparison path; the kernels'
+    counters do not move)."""
     kernel_routes = {name: getattr(ops, name) for name in names}
     for name in names:
         setattr(ops, name, getattr(ref, f"{name}_ref"))
@@ -905,7 +938,8 @@ def check_shuffle_kernels(torch, device):
 TRAIN_STEPS, TRAIN_SEQ = 4, 256    # phases 5, 9: steps, tokens a sequence
 # per arch trained at full width: the leaves that get a plan, and the
 # scalars sent per member a mixing step (also its static_mix_comm)
-TRAIN_PLANS = {"llama3.2-3b": (10, 9016867.0), "rwkv6-3b": (18, 7670170.0)}
+TRAIN_PLANS = {"llama3.2-3b": (10, 9016867.0), "rwkv6-3b": (18, 7670170.0),
+               "hymba-1.5b": (19, 4155400.0)}
 
 
 @contextlib.contextmanager
@@ -1003,24 +1037,29 @@ def timed_training_run(torch, train_cli, argv, what: str) -> None:
 
 
 def train_full_width(torch, device, arch, kernels):
-    """Phases 5 (llama3.2-3b) and 9 (rwkv6-3b): the arch at full width
-    through the train CLI's ``main`` (``training_argv``), every shuffle
-    held bitwise against its plain version.  Checks the bucketed launches
-    (``TRAIN_PLANS`` leaves a step), the comm the applied plans send a
-    step (``TRAIN_PLANS`` and ``static_mix_comm``), finite losses, and
-    the WKV kernels' launches (rwkv6: a forward and a backward a layer,
-    member and step; none for llama); for llama one leaf's coordinate
-    multisets across a shuffle.  Then the trained soup is served (llama:
-    ``ContinuousServer``; rwkv6: the scan engine), the same run made again
-    unchecked for the step's split, tokens/s and peak memory, and one more
-    step profiled.  Sets the launches of the kernel the phase owns in
-    ``kernels`` (llama: the bucketed shuffle; rwkv6: the WKV backward)."""
+    """Phases 5 (llama3.2-3b), 9 (rwkv6-3b) and 13 (hymba-1.5b): the arch
+    at full width through the train CLI's ``main`` (``training_argv``),
+    every shuffle held bitwise against its plain version.  Checks the
+    bucketed launches (``TRAIN_PLANS`` leaves a step), the comm the
+    applied plans send a step (``TRAIN_PLANS`` and ``static_mix_comm``),
+    finite losses, and the recurrence kernels' launches (rwkv6's WKV,
+    hymba's selective scan: a forward and a backward a layer, member and
+    step, with ``remat_blocks`` a second forward; none for llama); for
+    the attention archs one leaf's coordinate multisets across a shuffle.
+    Then the trained soup is served (llama: ``ContinuousServer``; rwkv6
+    and hymba: the scan engine), the same run made again unchecked for
+    the step's split, tokens/s and peak memory, and one more step
+    profiled.  Sets the launches of the kernels the phase owns in
+    ``kernels`` (llama: the bucketed shuffle; rwkv6: the WKV backward;
+    hymba: the selective-scan backward, and its forward's are added)."""
     from repro_torch.configs import get_arch
     from repro_torch.core import layer_index as tli
     from repro_torch.core.mixing import MixingConfig, static_mix_comm
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.kernels import selective_scan as ssk
     from repro_torch.kernels import wash_shuffle as ws
     from repro_torch.launch import train as train_cli
     from repro_torch.models import transformer as M
@@ -1028,6 +1067,9 @@ def train_full_width(torch, device, arch, kernels):
 
     cfg = get_arch(arch)
     rwkv = cfg.block_kind == "rwkv6"
+    scan = {"rwkv6": wkv, "hybrid": ssk}.get(cfg.block_kind)
+    scan_name = {"rwkv6": "WKV", "hybrid": "selective-scan"}.get(
+        cfg.block_kind, "recurrence")
     steps, seq, n = TRAIN_STEPS, TRAIN_SEQ, 2
     leaves, step_comm = TRAIN_PLANS[arch]
     argv = training_argv(arch, device)
@@ -1036,18 +1078,22 @@ def train_full_width(torch, device, arch, kernels):
         shapes, MixingConfig(kind="wash", base_p=0.01, mode="bucketed"),
         tli.infer_layer_ids(shapes, cfg.num_layers),
         tli.total_layers(cfg.num_layers), n)
-    # llama: the stacked blocks.attn.wk is copied across its first shuffle
-    # (width 0: no leaf is copied, only the applied plans' shapes kept)
+    # llama, hymba: the stacked blocks.attn.wk (or its twin attn.wv) is
+    # copied across its first shuffle (width 0: no leaf is copied, only
+    # the applied plans' shapes kept)
     wk = 0 if rwkv else (cfg.num_layers * cfg.d_model * cfg.num_kv_heads
                          * cfg.resolved_head_dim)
-    # rwkv6: a WKV forward and backward a layer, member and step; the CLI
-    # then evaluates the averaged model's loss, a forward a layer
-    expect = cfg.num_layers * n * steps if rwkv else 0
-    expect_fwd = expect + cfg.num_layers if rwkv else 0
+    # rwkv6, hymba: a recurrence forward and backward a layer, member and
+    # step (with remat_blocks, the forward twice); the CLI then evaluates
+    # the averaged model's loss, a forward a layer
+    expect = cfg.num_layers * n * steps if scan else 0
+    expect_fwd = (expect * (2 if cfg.remat_blocks else 1) + cfg.num_layers
+                  if scan else 0)
     seen, counts = {"plans": []}, {"dense": 0, "bucketed": 0}
     torch.cuda.synchronize()
     ws.bucketed_launches = ws.wash_launches = pa.launches = 0
-    wkv.launches = wkv.backward_launches = 0
+    _zero(fa, wkv, pa)
+    wkv.backward_launches = ssk.backward_launches = 0
     t0 = time.perf_counter()
     with checked_shuffles(ops, ref, torch, counts), \
             watch_bucketed_shuffles(ops, wk, seen):
@@ -1055,27 +1101,32 @@ def train_full_width(torch, device, arch, kernels):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ws.bucketed_launches
-    fwd, bwd = wkv.launches, wkv.backward_launches
+    fwd, bwd = ((scan.launches, scan.backward_launches) if scan
+                else (0, 0))
+    other = _counts(fa, wkv, pa)
+    other.pop({"rwkv6": "wkv", "hybrid": "ssm"}.get(cfg.block_kind), None)
     log(f"training ({cfg.name}, {cfg.num_layers} layers, {cfg.dtype}, "
         f"N={n}, SGD, bucketed WASH p=0.01, 2 x {seq} tokens per member, "
         f"{steps} steps) through launch.train.main, every shuffle held "
         f"against its plain version: {wall:.2f} s; bucketed shuffle "
         f"launches {launches} (expected {leaves} x {steps}), "
         f"{counts['bucketed']} of them bitwise equal to the plain version "
-        f"on the same inputs, dense {ws.wash_launches}; WKV forward "
-        f"launches {fwd} (expected {expect_fwd}"
+        f"on the same inputs, dense {ws.wash_launches}; {scan_name} "
+        f"forward launches {fwd} (expected {expect_fwd}"
         + (f": {cfg.num_layers} layers x {n} members x {steps} steps, + "
-           f"{cfg.num_layers} for the averaged model's loss" if rwkv else "")
-        + f"), backward calls {bwd} (expected {expect}); losses "
+           f"{cfg.num_layers} for the averaged model's loss" if scan else "")
+        + f"), backward calls {bwd} (expected {expect}); other kernels' "
+        f"launches {other} (expected none); losses "
         f"{res.history['loss']}; comm {res.history['comm']}")
     if (launches != leaves * steps or ws.wash_launches
             or counts["bucketed"] != launches):
         fail(f"{arch} training: {launches} bucketed launches "
              f"({counts['bucketed']} checked) for {steps} steps of {leaves} "
              f"planned leaves ({ws.wash_launches} dense)")
-    if (fwd, bwd) != (expect_fwd, expect):
-        fail(f"{arch} training: {fwd} WKV forward launches and {bwd} "
-             f"backward calls, expected {expect_fwd} and {expect}")
+    if (fwd, bwd) != (expect_fwd, expect) or any(other.values()):
+        fail(f"{arch} training: {fwd} {scan_name} forward launches and "
+             f"{bwd} backward calls, expected {expect_fwd} and {expect}; "
+             f"other kernels {other}")
     applied, recorded = comm_per_step(seen, res.history, n, leaves)
     log(f"{arch} comm per step of the plans applied {applied}, recorded "
         f"{recorded} (expected {step_comm}, static_mix_comm {static})")
@@ -1102,6 +1153,9 @@ def train_full_width(torch, device, arch, kernels):
     del seen
     if rwkv:
         kernels["wkv_bwd"]["launches"] = bwd
+    elif scan:
+        kernels["ssm"]["launches"] += fwd
+        kernels["ssm_bwd"]["launches"] += bwd
     else:
         kernels["bucketed"]["launches"] = launches
 
@@ -1115,24 +1169,28 @@ def train_full_width(torch, device, arch, kernels):
     timed_training_run(torch, train_cli, argv, f"{arch} training")
     torch.cuda.empty_cache()
     profile_training_step(torch, device, cfg)
-    pa.launches = wkv.launches = wkv.backward_launches = 0
+    _zero(fa, wkv, pa)
+    wkv.backward_launches = ssk.backward_launches = 0
     torch.cuda.empty_cache()
 
 
 def serve_trained_soup(torch, device, cfg, soup):
-    """llama: 4 requests through ``ContinuousServer``; rwkv6: 2 prompts of
-    TRAIN_SEQ tokens and 8 new tokens through the scan engine (a WKV
-    launch a layer for the prefill and each of the 7 decode steps, no
-    backward)."""
+    """llama: 4 requests through ``ContinuousServer``; rwkv6 and hymba: 2
+    prompts of TRAIN_SEQ tokens and 8 new tokens through the scan engine
+    (a WKV or selective-scan launch a layer for the prefill and each of
+    the 7 decode steps, no backward; hymba's flash kernel once a layer in
+    the prefill)."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.kernels import selective_scan as ssk
     from repro_torch.launch.serve import mixed_stream
     from repro_torch.launch.specs import concrete_batch
     from repro_torch.serving import batching as B
     from repro_torch.serving import engine
 
     seq = TRAIN_SEQ
-    if cfg.block_kind != "rwkv6":
+    if cfg.block_kind == "attn":
         server = B.ContinuousServer(soup, cfg, mode="soup", page_size=16,
                                     max_slots=4, num_pages=128,
                                     max_pages_per_slot=-(-(seq + 16) // 16),
@@ -1142,19 +1200,26 @@ def serve_trained_soup(torch, device, cfg, soup):
                      "trained soup stream (full width)", cfg.num_layers)
         return
     batch = concrete_batch(cfg, 21, 2, seq, device=device)
-    wkv.launches = wkv.backward_launches = 0
+    hybrid = cfg.block_kind == "hybrid"
+    expect = {"flash": cfg.num_layers if hybrid else 0, "paged": 0,
+              "wkv": 0 if hybrid else cfg.num_layers * 8,
+              "ssm": cfg.num_layers * 8 if hybrid else 0}
+    _zero(fa, wkv, pa)
+    wkv.backward_launches = ssk.backward_launches = 0
     with torch.no_grad():
         toks = engine.generate(soup, cfg, batch, 8, device=device)
     torch.cuda.synchronize()
-    log(f"trained rwkv6 soup through the scan engine (B=2, S={seq}, 8 new "
-        f"tokens): WKV launches {wkv.launches} (expected "
-        f"{cfg.num_layers * 8}), backward calls {wkv.backward_launches}")
+    counts = _counts(fa, wkv, pa)
+    backward = wkv.backward_launches + ssk.backward_launches
+    log(f"trained {cfg.name} soup through the scan engine (B=2, S={seq}, "
+        f"8 new tokens): launches {counts} (expected {expect}), backward "
+        f"calls {backward}")
     if (toks.shape != (2, seq + 8) or int(toks.min()) < 0
             or int(toks.max()) >= cfg.vocab_size
             or not torch.equal(toks[:, :seq], batch["tokens"].to(toks.dtype))):
-        fail(f"trained rwkv6 soup: tokens of shape {tuple(toks.shape)}")
-    if wkv.launches != cfg.num_layers * 8 or wkv.backward_launches:
-        fail("trained rwkv6 soup: the scan engine's WKV launches are off")
+        fail(f"trained {cfg.name} soup: tokens of shape {tuple(toks.shape)}")
+    if counts != expect or backward:
+        fail(f"trained {cfg.name} soup: the scan engine's launches are off")
 
 
 def profile_training_step(torch, device, cfg):
@@ -1188,22 +1253,26 @@ def profile_training_step(torch, device, cfg):
         f"queue full {full} times; device time by operator: {top}")
     if cfg.block_kind == "rwkv6":
         from repro_torch.kernels import rwkv6_scan as wkv
-        log(f"profiled {cfg.name} training step: the WKV backward "
-            f"{backward_profile(prof, wkv.BACKWARD_KERNELS)} (the earlier "
-            f"two-pass kernel: _RWKV6ScanBackward 28.1 ms x 64)")
+        bwd = backward_profile(prof, "_RWKV6ScanBackward",
+                               wkv.BACKWARD_KERNELS)
+        log(f"profiled {cfg.name} training step: the WKV backward {bwd} "
+            f"(the earlier two-pass kernel: _RWKV6ScanBackward 28.1 ms x 64)")
+    if cfg.block_kind == "hybrid":
+        from repro_torch.kernels import selective_scan as ssk
+        bwd = backward_profile(prof, "_SelectiveScanBackward", ssk.KERNELS)
+        log(f"profiled {cfg.name} training step: the selective scan {bwd}")
 
 
-def backward_profile(prof, names) -> str:
+def backward_profile(prof, op_name, names) -> str:
     """From a finished ``torch.profiler`` run: the device time of the
-    autograd ``_RWKV6ScanBackward`` operator (the WKV backward's calls) and
-    of each backward kernel by name, totals over the run."""
+    autograd operator ``op_name`` (a recurrence backward's calls) and of
+    each of the kernels ``names`` by name, totals over the run."""
     from torch.autograd import DeviceType
 
     op = [a for a in prof.key_averages()
-          if a.device_type == DeviceType.CPU
-          and a.key == "_RWKV6ScanBackward"]
-    total = (f"_RWKV6ScanBackward {op[0].self_device_time_total / 1e3:.2f} "
-             f"ms x{op[0].count}" if op else "_RWKV6ScanBackward not seen")
+          if a.device_type == DeviceType.CPU and a.key == op_name]
+    total = (f"{op_name} {op[0].self_device_time_total / 1e3:.2f} "
+             f"ms x{op[0].count}" if op else f"{op_name} not seen")
     return total + "; by kernel: " + ", ".join(
         f"{name} {us / 1e3:.2f} ms x{n}"
         for name, (us, n) in kernel_us(prof, names).items())
@@ -1874,11 +1943,16 @@ MODE_MEMBERS = {"soup": 1, "member": 1, "ensemble": 2}  # with N = 2
 REQUESTS_PER_MODE = 2  # the serve CLI's first request and its timed one
 
 def _counts(fa, wkv, pa):
-    return {"flash": fa.launches, "wkv": wkv.launches, "paged": pa.launches}
+    from repro_torch.kernels import selective_scan as ssk
+
+    return {"flash": fa.launches, "wkv": wkv.launches, "paged": pa.launches,
+            "ssm": ssk.launches}
 
 
 def _zero(fa, wkv, pa):
-    fa.launches = wkv.launches = pa.launches = 0
+    from repro_torch.kernels import selective_scan as ssk
+
+    fa.launches = wkv.launches = pa.launches = ssk.launches = 0
 
 
 def serve_full_width(torch, device, arch, card):
@@ -1890,17 +1964,24 @@ def serve_full_width(torch, device, arch, card):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.core.population import tree_leaves
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models import transformer as M
 
     cfg = get_arch(arch)
     members = sum(MODE_MEMBERS.values())
+    shapes = tree_leaves(M.param_shapes(cfg))
+    one_model = sum(x.numel() * x.element_size() for x in shapes)
+    # a member-run's layer calls: its prefill and SCAN_NEW - 1 decode steps
+    runs = REQUESTS_PER_MODE * cfg.num_layers * members
     if cfg.block_kind == "rwkv6":  # every time mix, prefill and decode
-        expect = {"flash": 0, "paged": 0, "wkv": REQUESTS_PER_MODE
-                  * cfg.num_layers * members * (1 + SCAN_NEW - 1)}
-    else:  # every prefill attention; decode attends with plain sdpa
-        expect = {"flash": REQUESTS_PER_MODE * cfg.num_layers * members,
-                  "paged": 0, "wkv": 0}
+        expect = {"flash": 0, "paged": 0, "wkv": runs * SCAN_NEW, "ssm": 0}
+    else:  # every prefill attention (decode attends with plain sdpa), and
+        # a hybrid layer's Mamba recurrence in prefill and every decode step
+        expect = {"flash": runs, "paged": 0, "wkv": 0,
+                  "ssm": runs * SCAN_NEW if cfg.block_kind == "hybrid"
+                  else 0}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero(fa, wkv, pa)
@@ -1915,8 +1996,15 @@ def serve_full_width(torch, device, arch, card):
     log(f"scan engine {arch} (full width, {cfg.num_layers} layers, "
         f"{cfg.dtype}, N=2, B={SCAN_B}, S={SCAN_S}, max_new {SCAN_NEW}, "
         f"every mode twice): {dt:.2f} s with the population's init; kernel "
-        f"launches {counts} (expected {expect}); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"launches {counts} (expected {expect}: {REQUESTS_PER_MODE} requests "
+        f"x {cfg.num_layers} layers x {members} member-runs"
+        + (f" x (1 prefill + {SCAN_NEW - 1} decode steps) for the "
+           f"recurrence" if cfg.block_kind != "attn" else "")
+        + f"); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{sum(x.numel() for x in shapes)} parameters, {one_model} B a "
+        f"member ({one_model / 2**30:.2f} GiB): a decode step's floor "
+        f"{one_model / HBM_BYTES_PER_S * 1e3:.3f} ms a model")
     if counts != expect:
         fail(f"{arch}: kernel launches {counts}, expected {expect}")
     prompts = concrete_batch(cfg, fold_in(0, 2), SCAN_B, SCAN_S,
@@ -1931,12 +2019,14 @@ def serve_full_width(torch, device, arch, card):
             fail(f"{arch} {mode}: sampled out of the vocabulary")
         log(f"scan engine {arch} {mode}: {res['tok_s']:.2f} tok/s (B="
             f"{SCAN_B} x {SCAN_NEW} new tokens in {res['steady_s']:.3f} s, "
-            f"prefill of {SCAN_S} tokens included; first request "
+            f"prefill of {SCAN_S} tokens included: prefill "
+            f"{res['prefill_s']:.3f} s, decode step "
+            f"{res['decode_step_ms']:.2f} ms; first request "
             f"{res['first_s']:.2f} s) on {card}")
     return counts
 
 
-def _forced_layers(torch, M, ops, ref, route, params, cfg, x, caches, pos,
+def _forced_layers(torch, M, ops, ref, routes, params, cfg, x, caches, pos,
                    worst):
     """Every layer once on the kernel route and once on the plain route,
     both on the same input (the plain route's output of the layer before)
@@ -1944,7 +2034,8 @@ def _forced_layers(torch, M, ops, ref, route, params, cfg, x, caches, pos,
     over max |plain| in ``worst``.  Returns the last layer's two outputs.
 
     An attention block's attention half (what the kernel computes) is
-    compared on its own too.  In an MoE block the router picks each
+    compared on its own too (a hybrid block's attention and Mamba paths
+    fused, and its new Mamba state ``h`` and ``conv``).  In an MoE block the router picks each
     token's experts discretely and a capacity-full expert drops tokens,
     so a rounding difference that moves a token across a top-k boundary
     changes its whole MLP output: there the block's output is reported
@@ -1959,18 +2050,20 @@ def _forced_layers(torch, M, ops, ref, route, params, cfg, x, caches, pos,
         if cfg.block_kind == "rwkv6":
             xk, new_k = M._block_serve(blk, cfg, x,
                                        M._cache_layer(cache_k, l), pos)
-            with plain_routes(ops, ref, route):
+            with plain_routes(ops, ref, *routes):
                 xp, new_p = M._block_serve(blk, cfg, x,
                                            M._cache_layer(cache_p, l), pos)
             pairs += [(f"state {leaf}", new_k["state"][leaf],
                        new_p["state"][leaf]) for leaf in ("S", "x_tm", "x_cm")]
         else:
-            hk, kv_k = M._attn_serve(blk, cfg, x, M._cache_layer(cache_k, l),
-                                     pos)
-            with plain_routes(ops, ref, route):
-                hp, kv_p = M._attn_serve(blk, cfg, x,
-                                         M._cache_layer(cache_p, l), pos)
-            new_k, new_p = {"kv": kv_k}, {"kv": kv_p}
+            hk, new_k = M._attn_serve(blk, cfg, x,
+                                      M._cache_layer(cache_k, l), pos)
+            with plain_routes(ops, ref, *routes):
+                hp, new_p = M._attn_serve(blk, cfg, x,
+                                          M._cache_layer(cache_p, l), pos)
+            if "ssm" in new_k:
+                pairs += [(f"mamba state {leaf}", new_k["ssm"][leaf],
+                           new_p["ssm"][leaf]) for leaf in ("h", "conv")]
             mk = L.rmsnorm(blk["ln2"], hk, cfg.norm_eps)
             mp = L.rmsnorm(blk["ln2"], hp, cfg.norm_eps)
             xk = hk + M._mlp_apply(blk["mlp"], cfg, mk)[0]
@@ -2039,10 +2132,12 @@ def teacher_forced(torch, device, arch, cfg=None, profile=True):
     Teacher-forced, layer by layer (the gate): every layer gets the same
     input on both paths (the plain path's output of the layer before; for
     the decode step, the plain path's cache too), and its output, rwkv6's
-    new state, and the logits of the last layer's two outputs must agree
+    and Mamba's new state, and the logits of the last layer's two outputs must agree
     within bf16 tolerance (``LOGIT_REL_TOL`` x the plain side's max).
     Before it, one timed prefill and decode step on the kernel path alone,
-    which must launch the path's kernel once a layer each."""
+    which must launch the path's kernels exactly: flash once a layer in
+    the prefill, the WKV and selective-scan kernels once a layer in each
+    of the two, and nothing else."""
     from repro_torch.configs import get_arch
     from repro_torch.core import population as pop
     from repro_torch.core.prng import fold_in
@@ -2054,8 +2149,14 @@ def teacher_forced(torch, device, arch, cfg=None, profile=True):
     from repro_torch.models import transformer as M
 
     cfg = get_arch(arch) if cfg is None else cfg
-    route = "rwkv6_scan" if cfg.block_kind == "rwkv6" else "flash_attention"
-    key = "wkv" if route == "rwkv6_scan" else "flash"
+    routes = {"rwkv6": ("rwkv6_scan",),
+              "hybrid": ("flash_attention", "selective_scan")}.get(
+                  cfg.block_kind, ("flash_attention",))
+    n_layers = cfg.num_layers
+    expect = {"flash": 0 if cfg.block_kind == "rwkv6" else n_layers,
+              "paged": 0,
+              "wkv": 2 * n_layers if cfg.block_kind == "rwkv6" else 0,
+              "ssm": 2 * n_layers if cfg.block_kind == "hybrid" else 0}
     params = M.init_params(cfg, seed=0, device=device)
     tokens = concrete_batch(cfg, fold_in(0, 2), SCAN_B, SCAN_S,
                             device=device)["tokens"]
@@ -2078,14 +2179,14 @@ def teacher_forced(torch, device, arch, cfg=None, profile=True):
         t_pre, t_dec = t1 - t0, time.perf_counter() - t1
         counts = _counts(fa, wkv, pa)
         del lg, cache
-        expect = cfg.num_layers * (2 if route == "rwkv6_scan" else 1)
         log(f"{arch} (full width, {cfg.num_layers} layers, member 0, "
             f"B={SCAN_B}): prefill of {SCAN_S} "
             f"tokens {t_pre:.3f} s, one decode step {t_dec * 1e3:.1f} ms on the "
-            f"kernel path (eager, host included; {counts[key]} {key} "
-            f"launches, expected {expect})")
-        if counts[key] != expect:
-            fail(f"{arch}: {counts[key]} launches for a prefill and a step")
+            f"kernel path (eager, host included; launches {counts}, "
+            f"expected {expect})")
+        if counts != expect:
+            fail(f"{arch}: launches {counts} for a prefill and a step, "
+                 f"expected {expect}")
         if profile:
             profile_serving(torch, params, cfg, tokens, cap, arch)
 
@@ -2093,7 +2194,7 @@ def teacher_forced(torch, device, arch, cfg=None, profile=True):
         caches = (M.init_cache(cfg, SCAN_B, cap, device=device),
                   M.init_cache(cfg, SCAN_B, cap, device=device))
         x = M._embed_tokens(params, cfg, tokens)
-        xk, xp = _forced_layers(torch, M, ops, ref, route, params, cfg, x,
+        xk, xp = _forced_layers(torch, M, ops, ref, routes, params, cfg, x,
                                 caches, None, worst)
         lg_k = M._logits(params, cfg, xk[:, -1:])
         lg_p = M._logits(params, cfg, xp[:, -1:])
@@ -2102,8 +2203,8 @@ def teacher_forced(torch, device, arch, cfg=None, profile=True):
                         pop.tree_leaves(caches[1])):
             a.copy_(b)  # the decode step starts from the plain cache
         x = M._embed_tokens(params, cfg, nxt[:, None], pos0=SCAN_S)
-        xk2, xp2 = _forced_layers(torch, M, ops, ref, route, params, cfg, x,
-                                  caches, SCAN_S, worst)
+        xk2, xp2 = _forced_layers(torch, M, ops, ref, routes, params, cfg,
+                                  x, caches, SCAN_S, worst)
         worst["prefill logits"] = drift([lg_k], [lg_p])
         worst["decode-step logits"] = drift(
             [M._logits(params, cfg, xk2)], [M._logits(params, cfg, xp2)])
@@ -3410,7 +3511,7 @@ def serve_deepseek(torch, device, card):
 
     cfg = get_arch(DEEPSEEK)
     expect = {"flash": REQUESTS_PER_MODE * cfg.num_layers
-              * sum(MODE_MEMBERS.values()), "paged": 0, "wkv": 0}
+              * sum(MODE_MEMBERS.values()), "paged": 0, "wkv": 0, "ssm": 0}
     one_model = sum(x.numel() * x.element_size()
                     for x in tree_leaves(M.param_shapes(cfg)))
     floor_ms = one_model / HBM_BYTES_PER_S * 1e3
@@ -3554,6 +3655,450 @@ def moe_and_mla(torch, device, kernels, card):
     log(f"phase 12 (MoE and MLA): {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the hybrid family (hymba-1.5b): the selective-scan kernels and
+# flash at hymba's shapes, full-width serving and training, then reduced
+# float32 on the kernels against plain
+# ---------------------------------------------------------------------------
+
+HYMBA = "hymba-1.5b"
+SSM_SHAPE = (4, 2048, 3200, 16)        # hymba-1.5b prefill: B, T, DI, S
+SSM_TRAIN_SHAPE = (2, 256, 3200, 16)   # hymba-1.5b training: B, T, DI, S
+SSM_DECODE_LAYERS = 32  # hymba-1.5b: one selective-scan call a layer a step
+# every output and grad against its plain version: max |kernel - plain| /
+# max |plain| (both keep the state in float32 and sum over the states,
+# the channels and time in another order)
+SSM_TOL = 1e-4
+# operations an element (b, t, d, s): the forward's dt A, its exp, dt B u
+# (2), the multiply-add into h (2), h C and its sum over s (2); the
+# backward's recomputed state (6) and its own 22 (g = carry + C dy; du's,
+# ddt's, dB's, dC's and dA's products and sums; the carry a g)
+SSM_FWD_OPS, SSM_BWD_OPS = 8, 28
+HYMBA_FLASH = (4, 2048, 25, 5, 64, 1024)  # B, S, H, KV, hd, window
+HYMBA_REDUCED_SEQ = 128  # twice the reduced window: the window bites
+
+
+def ssm_inputs(torch, B, T, DI, S, device, seed, extreme=False):
+    """float32 u, dt, B, C, A, a carried state, dy and a final-state grad:
+    normal u, B, C, states and grads; dt the softplus of a normal shifted
+    by the model's -2 ``dt_bias``, or ``extreme``: log-uniform over [1e-4,
+    30], so exp(dt A) spans ~1 down to an exact 0; A = -exp(log(1..S) +
+    0.1 normal), the reference's init moved a little."""
+    gen = _gen(torch, device, seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    u = randn(B, T, DI)
+    if extreme:
+        lo, hi = float(np.log(1e-4)), float(np.log(30.0))
+        dt = torch.exp(lo + (hi - lo) * torch.rand(B, T, DI, generator=gen,
+                                                   device=device))
+    else:
+        dt = torch.nn.functional.softplus(randn(B, T, DI) - 2)
+    Bm, Cm = randn(B, T, S), randn(B, T, S)
+    A = -torch.exp(torch.log(torch.arange(1, S + 1, dtype=torch.float32,
+                                          device=device))
+                   + 0.1 * randn(DI, S))
+    return u, dt, Bm, Cm, A, randn(B, DI, S), randn(B, T, DI), randn(B, DI, S)
+
+
+def ssm_work(B, T, DI, S, carried, backward=False):
+    """Bytes the function must move (float32; each input read once, each
+    output written once; the backward's workspaces are its design's cost,
+    not the function's) and its operations (``SSM_FWD_OPS`` or
+    ``SSM_BWD_OPS`` an element)."""
+    elems = B * T * DI * S
+    if backward:  # u, dt, dy, B, C, A (+ state, final grad) in; du, ddt,
+        # dB, dC, dA (+ dstate0) out
+        nbytes = 4 * (5 * B * T * DI + 4 * B * T * S + 2 * DI * S
+                      + (3 * B * DI * S if carried else 0))
+        return nbytes, SSM_BWD_OPS * elems
+    nbytes = 4 * (3 * B * T * DI + 2 * B * T * S + DI * S
+                  + (2 * B * DI * S if carried else 0))
+    return nbytes, SSM_FWD_OPS * elems
+
+
+def _rel(torch, got, want, what):
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        fail(f"{what} is not finite")
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp(min=1e-30))
+
+
+def check_selective_scan(torch, ssk, ref, device):
+    """Phase 13, the selective-scan kernels alone: the forward against
+    ``selective_scan_ref`` at hymba's prefill shape from zero and from a
+    carried state (y and the final state), at T = 1, at a ragged T = 1000
+    and with extreme dt; the backward against ``selective_scan_bwd_ref``
+    at the training shape (from zero; and from a carried state with a
+    final-state grad and extreme dt) and at the prefill shape (carried
+    state, final-state grad), every value finite and within SSM_TOL of max
+    |plain|, two calls bitwise equal; then each timed (CUDA-graph
+    replays) beside its bound, its plain version, and the registers,
+    shared memory and spills of each kernel.  Returns the JSON line's
+    entries (launches filled in by the main path)."""
+    B, T, DI, S = SSM_SHAPE
+    TB, TT = SSM_TRAIN_SHAPE[:2]
+    cases = [("from zero", B, T, False, False),
+             ("from a carried state", B, T, True, False),
+             ("T=1 (decode), carried state", B, 1, True, False),
+             ("ragged T=1000, carried state", B, 1000, True, False),
+             ("extreme dt, carried state", B, T, True, True)]
+    err_main = 0.0
+    for n, (what, b, t, carried, extreme) in enumerate(cases):
+        u, dt, Bm, Cm, A, h0, _, _ = ssm_inputs(torch, b, t, DI, S, device,
+                                                150 + n, extreme)
+        state = h0 if carried else None
+        got = ssk.selective_scan_cuda(u, dt, Bm, Cm, A, state=state)
+        torch.cuda.synchronize()
+        want = ref.selective_scan_ref(u, dt, Bm, Cm, A, state=state)
+        if not carried:
+            got, want = (got,), (want,)
+        name = f"selective scan f32 (B={b}, T={t}, DI={DI}, S={S}) {what}"
+        errs = {k: _rel(torch, g, w, f"{name}: {k}")
+                for k, g, w in zip(("y", "final state"), got, want)}
+        decay = ""
+        if extreme:
+            hi = float(torch.exp(dt.min() * A.max()))
+            lo = float(torch.exp(dt.max() * A.min()))
+            decay = f"; exp(dt A) from {hi:.6f} down to {lo:g}"
+        log(f"{name}: max |kernel - plain| / max |plain| "
+            + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+            + f" (tolerance {SSM_TOL:g}); every value finite{decay}")
+        if max(errs.values()) > SSM_TOL:
+            fail(f"{name} disagrees with its plain version: {errs}")
+        if what == "from a carried state":
+            err_main = max(float((g - w).abs().max())
+                           for g, w in zip(got, want))
+        del u, dt, Bm, Cm, A, h0, got, want
+    torch.cuda.empty_cache()
+
+    grads = ("du", "ddt", "dB", "dC", "dA", "dstate0")
+    bwd_cases = [("training shape, from zero", TB, TT, False, False),
+                 ("training shape, carried state and final-state grad, "
+                  "extreme dt", TB, TT, True, True),
+                 ("prefill shape, carried state and final-state grad", B, T,
+                  True, False)]
+    err_bwd = 0.0
+    for n, (what, b, t, carried, extreme) in enumerate(bwd_cases):
+        u, dt, Bm, Cm, A, h0, dy, dh = ssm_inputs(torch, b, t, DI, S, device,
+                                                  160 + n, extreme)
+        state, dfinal = (h0, dh) if carried else (None, None)
+        got = ssk.selective_scan_bwd_cuda(u, dt, Bm, Cm, A, state, dy, dfinal)
+        again = ssk.selective_scan_bwd_cuda(u, dt, Bm, Cm, A, state, dy,
+                                            dfinal)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again)
+                   if x is not None)
+        want = ref.selective_scan_bwd_ref(u, dt, Bm, Cm, A, state, dy, dfinal)
+        name = f"selective scan backward (B={b}, T={t}) {what}"
+        errs = {k: _rel(torch, g, w, f"{name}: {k}")
+                for k, g, w in zip(grads, got, want) if w is not None}
+        log(f"{name}: max |kernel - plain| / max |plain| "
+            + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+            + f" (tolerance {SSM_TOL:g}); every value finite; two calls "
+            f"bitwise equal: {same}")
+        if max(errs.values()) > SSM_TOL:
+            fail(f"{name} disagrees with its plain version: {errs}")
+        if not same:
+            fail(f"{name}: two calls on the same inputs differ")
+        if n == 0:
+            err_bwd = max(float((g - w).abs().max())
+                          for g, w in zip(got[:5], want[:5]))
+        del u, dt, Bm, Cm, A, h0, dy, dh, got, again, want
+    torch.cuda.empty_cache()
+
+    attrs = [attributes_line(ssk.kernel_attributes(i))
+             for i in range(len(ssk.KERNELS))]
+    sets = [ssm_inputs(torch, B, T, DI, S, device, 170 + i) for i in range(2)]
+
+    def fwd(fn, xs):
+        return lambda i: fn(*xs[i][:5], state=xs[i][5])
+
+    n0, nb0 = ssk.launches, ssk.backward_launches
+    ms = device_ms(torch, fwd(ssk.selective_scan_cuda, sets), 2)
+    plain_ms = device_ms(torch, fwd(ref.selective_scan_ref, sets), 2, reps=3)
+    ms2 = device_ms(torch, fwd(ssk.selective_scan_cuda, sets), 2)
+    del sets
+    dec = [ssm_inputs(torch, B, 1, DI, S, device, 172 + i) for i in range(2)]
+    dec_ms = device_ms(torch, fwd(ssk.selective_scan_cuda, dec), 2)
+    dec_plain_ms = device_ms(torch, fwd(ref.selective_scan_ref, dec), 2)
+    dec_layers = [ssm_inputs(torch, B, 1, DI, S, device, 180 + i)
+                  for i in range(SSM_DECODE_LAYERS)]
+    dec_step_ms = device_ms(torch, fwd(ssk.selective_scan_cuda, dec_layers),
+                            SSM_DECODE_LAYERS)
+    del dec, dec_layers
+    nbytes, ops = ssm_work(B, T, DI, S, True)
+    bound_ms, bound_by = bound(nbytes, ops, "f32 FFMA")
+    log(f"selective scan f32 with a carried state at hymba-1.5b's prefill "
+        f"shape (B={B}, T={T}, DI={DI}, S={S}): {ms:.4f} ms on the device "
+        f"(again {ms2:.4f}), plain {plain_ms:.4f} ms, library none, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B: "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {ops} ops at the FFMA "
+        f"rate: {ops / FFMA_OPS * 1e3:.4f} ms); achieved "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s; {ssk.KERNELS[0]}: "
+        f"{attrs[0]}")
+    dec_bytes, dec_ops = ssm_work(B, 1, DI, S, True)
+    dec_bound, dec_by = bound(dec_bytes, dec_ops, "f32 FFMA")
+    log(f"selective scan f32 with a carried state at the decode shape (B={B}, "
+        f"T=1): {dec_ms:.4f} ms on the device (two input sets cycled), plain "
+        f"{dec_plain_ms:.4f} ms, {dec_step_ms:.4f} ms a call over "
+        f"{SSM_DECODE_LAYERS} layers' calls, a state each; bound "
+        f"{dec_bound:.4f} ms by {dec_by} ({dec_bytes} B, {dec_ops} ops)")
+
+    times = {}
+    for key, (b, t, carried) in (("train", (TB, TT, False)),
+                                 ("prefill", (B, T, True))):
+        sets = [ssm_inputs(torch, b, t, DI, S, device, 190 + i)
+                for i in range(2)]
+
+        def args(i):
+            u, dt, Bm, Cm, A, h0, dy, dh = sets[i]
+            return (u, dt, Bm, Cm, A, h0 if carried else None, dy,
+                    dh if carried else None)
+
+        def call(i):
+            return ssk.selective_scan_bwd_cuda(*args(i))
+
+        bms = device_ms(torch, call, 2)
+        bplain = device_ms(torch, lambda i: ref.selective_scan_bwd_ref(
+            *args(i)), 1, reps=1 if key == "prefill" else 3)
+        bms2 = device_ms(torch, call, 2)
+        nbytes, ops = ssm_work(b, t, DI, S, carried, backward=True)
+        bbound, bby = bound(nbytes, ops, "f32 FFMA")
+        ws_bytes = ssk.backward_workspace_bytes(b, t, DI, S)
+        times[key] = (bms, bplain, bbound, bby)
+        log(f"selective scan backward f32 at the {key} shape (B={b}, T={t}"
+            f"{', carried state' if carried else ', from zero'}): {bms:.4f} "
+            f"ms on the device (again {bms2:.4f}; two input sets cycled, a "
+            f"call's two launches), plain {bplain:.4f} ms, library none, "
+            f"bound {bbound:.4f} ms by {bby} ({nbytes} B: "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {ops} ops at the FFMA "
+            f"rate: {ops / FFMA_OPS * 1e3:.4f} ms); workspace {ws_bytes} B "
+            f"written and read ({2 * ws_bytes / HBM_BYTES_PER_S * 1e3:.4f} "
+            f"ms at the memory rate)")
+        del sets
+        torch.cuda.empty_cache()
+    ssk.launches, ssk.backward_launches = n0, nb0  # comparison launches
+    for name, line in zip(ssk.KERNELS[1:], attrs[1:]):
+        log(f"selective scan backward {name}: {line}")
+    bms, bplain, bbound, bby = times["train"]
+    return {"ssm": {
+        "name": "selective_scan[f32,state]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/models/ssm.py:72",
+        "launches": 0,
+        "max_abs_err": err_main,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "decode_ms": dec_ms,
+        "decode_plain_ms": dec_plain_ms,
+        "decode_step_ms": dec_step_ms,
+        "decode_bound_ms": dec_bound,
+    }, "ssm_bwd": {
+        "name": "selective_scan_bwd[f32,training shape]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/models/ssm.py:72",
+        "launches": 0,
+        "max_abs_err": err_bwd,
+        "ms": bms,
+        "plain_ms": bplain,
+        "bound_ms": bbound,
+        "bound_by": bby,
+        "library_ms": None,
+        "prefill_ms": times["prefill"][0],
+        "prefill_plain_ms": times["prefill"][1],
+    }}
+
+
+def check_flash_hymba(torch, fa, ref, F, device):
+    """Phase 13, flash attention at hymba-1.5b's prefill attention (bf16,
+    25 query heads over 5 kv heads, head dim 64, causal with a 1024-token
+    window): against its plain version, then timed beside its bound, its
+    plain version and ``scaled_dot_product_attention`` with the window as
+    a boolean mask (kv heads repeated beforehand; the port never calls
+    it).  Returns the JSON line's entry (launches filled in by the main
+    path)."""
+    B, S, H, KV, hd, W = HYMBA_FLASH
+    q, k, v = flash_inputs(torch, B, S, H, KV, hd, "bf16", device, 140)
+    got = fa.flash_attention_cuda(q, k, v, causal=True, window=W)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=W)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        fail("flash at hymba's shape: kernel output is not finite")
+    err = float((got.float() - want.float()).abs().max())
+    what = (f"flash attention bf16 B={B} S={S} H={H} KV={KV} hd={hd} causal "
+            f"window {W}")
+    log(f"{what}: max |kernel - plain| = {err:.3e} (tolerance "
+        f"{FLASH_TOL['bf16']:g})")
+    if err > FLASH_TOL["bf16"]:
+        fail(f"{what} disagrees with its plain version: {err}")
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    sets = [flash_inputs(torch, B, S, H, KV, hd, "bf16", device, 141 + i)
+            for i in range(2)]
+    g = H // KV
+    lib = [(q.transpose(1, 2).contiguous(),
+            k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous(),
+            v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous())
+           for q, k, v in sets]
+    i = torch.arange(S, device=device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
+    n0 = fa.launches
+    ms = device_ms(torch, lambda j: fa.flash_attention_cuda(
+        *sets[j], causal=True, window=W), 2)
+    plain_ms = device_ms(torch, lambda j: ref.flash_attention_ref(
+        *sets[j], causal=True, window=W), 2, reps=5)
+    library_ms = device_ms(torch, lambda j: F.scaled_dot_product_attention(
+        *lib[j], attn_mask=mask), 2)
+    fa.launches = n0  # comparison launches do not count
+    nbytes, ops = flash_work(B, S, H, KV, hd, "bf16", True, window=W)
+    bound_ms, bound_by = bound(nbytes, ops, "bf16")
+    log(f"{what}: {ms:.4f} ms on the device, plain {plain_ms:.4f} ms, "
+        f"library (SDPA, window mask, kv heads repeated) {library_ms:.4f} "
+        f"ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, {ops} ops "
+        f"over the visible pairs); achieved "
+        f"{ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; "
+        f"{attributes_line(fa.kernel_attributes(torch.bfloat16, hd))}")
+    del sets, lib
+    torch.cuda.empty_cache()
+    return {"flash_bf16_hymba": {
+        "name": f"flash_attention[bf16,causal,window {W},{H}/{KV} heads]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "launches": 0,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }}
+
+
+def hymba_reduced_f32(torch, device):
+    """The reduced float32 hymba (2 layers, window 64) on the kernels
+    against the plain versions: bucketed WASH trained REDUCED_STEPS steps
+    at HYMBA_REDUCED_SEQ tokens (final params within PARAM_TOL), then
+    ``engine.generate`` in soup and ensemble over prompts longer than the
+    window (greedy tokens identical); a state size the scan kernel lacks
+    is refused on the card.  Returns the kernel runs' launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import population as pop
+    from repro_torch.core.mixing import MixingConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.kernels import selective_scan as ssk
+    from repro_torch.launch.serve import init_population
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.serving import engine
+
+    cfg = get_arch(HYMBA).reduced()
+    steps, seq = REDUCED_STEPS, HYMBA_REDUCED_SEQ
+    mcfg = MixingConfig(kind="wash", base_p=0.01, mode="bucketed")
+    torch.cuda.synchronize()
+    _zero(fa, wkv, pa)
+    ssk.backward_launches = 0
+    res = _train(cfg, mcfg, "sgd", steps, device, seq=seq)
+    torch.cuda.synchronize()
+    fwd, bwd = ssk.launches, ssk.backward_launches
+    kept = pop.tree_map(torch.clone, res.population)
+    losses = res.history["loss"]
+    del res
+    with plain_routes(ops, ref, "selective_scan"), plain_shuffles(ops, ref):
+        plain = _train(cfg, mcfg, "sgd", steps, device, seq=seq)
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        pop.tree_leaves(kept), pop.tree_leaves(plain.population)))
+    expect = cfg.num_layers * 2 * steps
+    log(f"{cfg.name} (window {cfg.window}), bucketed WASH, SGD, {steps} "
+        f"steps at {seq} tokens: selective-scan forward launches {fwd}, "
+        f"backward calls {bwd} (expected {expect} each); max |param kernel "
+        f"run - plain run| = {diff:.3e} (tolerance {PARAM_TOL:g}); losses "
+        f"{losses} vs {plain.history['loss']}")
+    if (fwd, bwd) != (expect, expect):
+        fail(f"reduced hymba training: {fwd} forward / {bwd} backward "
+             f"launches, expected {expect}")
+    if diff > PARAM_TOL or not np.isfinite(losses).all():
+        fail(f"reduced hymba training: kernel and plain runs differ by {diff}")
+    launches = {"ssm": fwd, "ssm_bwd": bwd, "flash": 0}
+    del kept, plain
+
+    popn = init_population(cfg, 2, seed=8, device=device)
+    batch = concrete_batch(cfg, 10, 4, 96, device=device)
+    for mode in ("soup", "ensemble"):
+        params = engine.serving_params(popn, mode)
+        members = MODE_MEMBERS[mode]
+        torch.cuda.synchronize()
+        _zero(fa, wkv, pa)
+        out_k = engine.generate(params, cfg, batch, 16, mode=mode,
+                                device=device)
+        torch.cuda.synchronize()
+        counts = _counts(fa, wkv, pa)
+        with plain_routes(ops, ref, "flash_attention", "selective_scan"):
+            out_p = engine.generate(params, cfg, batch, 16, mode=mode,
+                                    device=device)
+        want = {"flash": cfg.num_layers * members, "paged": 0, "wkv": 0,
+                "ssm": cfg.num_layers * members * 16}
+        same = torch.equal(out_k, out_p)
+        log(f"reduced f32 {HYMBA} {mode} (B=4, S=96 past the window of "
+            f"{cfg.window}, 16 new): greedy tokens kernel path == plain "
+            f"path: {same}; launches {counts} (expected {want})")
+        if not same:
+            fail(f"reduced f32 {HYMBA} {mode}: greedy tokens differ")
+        if counts != want:
+            fail(f"reduced f32 {HYMBA} {mode}: launches {counts}")
+        launches["ssm"] += counts["ssm"]
+        launches["flash"] += counts["flash"]
+    state8 = dataclasses.replace(cfg, ssm_state=8)
+    refused(f"engine.generate of {HYMBA} at ssm_state=8",
+            lambda: engine.generate(params, state8, batch, 4, device=device),
+            str(ssk.STATE_DIMS))
+    del popn, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_family(torch, F, device, kernels, card):
+    """Phase 13: the selective-scan kernels and flash at hymba's shapes
+    alone; full-width hymba-1.5b served through the serve CLI's scan
+    engine and its teacher-forced prefill and decode step; trained through
+    the train CLI; then the reduced float32 hymba on the kernels against
+    plain.  Adds the phase's entries to ``kernels`` with their launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ssk
+
+    t0 = time.perf_counter()
+    kernels.update(check_selective_scan(torch, ssk, ref, device))
+    kernels.update(check_flash_hymba(torch, fa, ref, F, device))
+    t1 = time.perf_counter()
+    counts = serve_full_width(torch, device, HYMBA, card)
+    kernels["ssm"]["launches"] += counts["ssm"]
+    kernels["flash_bf16_hymba"]["launches"] += counts["flash"]
+    teacher_forced(torch, device, HYMBA)
+    train_full_width(torch, device, HYMBA, kernels)
+    reduced = hymba_reduced_f32(torch, device)
+    kernels["ssm"]["launches"] += reduced["ssm"]
+    kernels["ssm_bwd"]["launches"] += reduced["ssm_bwd"]
+    kernels["flash_f32"]["launches"] += reduced["flash"]
+    log(f"phase 13 (the hybrid family): {time.perf_counter() - t0:.1f} s "
+        f"(the kernels alone {t1 - t0:.1f} s); selective-scan launches "
+        f"{kernels['ssm']['launches']}, backward calls "
+        f"{kernels['ssm_bwd']['launches']}, flash at hymba's shape "
+        f"{kernels['flash_bf16_hymba']['launches']}, flash f32 (reduced) "
+        f"{reduced['flash']}")
+
+
 def build_kernels(*mods):
     """Every library, each nvcc started at once."""
     t0 = time.perf_counter()
@@ -3591,12 +4136,13 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.kernels import selective_scan as ssk
     from repro_torch.kernels import wash_shuffle as ws
 
     device = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    build_kernels(pa, ws, fa, wkv)
+    build_kernels(pa, ws, fa, wkv, ssk)
 
     kernels = check_kernel(torch, pa, ref, F, device)
     full_width(torch, device, kernels)
@@ -3615,6 +4161,7 @@ def main() -> int:
     live_traffic(torch, device, kernels, card)
     kernels.update(check_flash_mla(torch, fa, ref, F, device))
     moe_and_mla(torch, device, kernels, card)
+    hybrid_family(torch, F, device, kernels, card)
     for entry in kernels.values():
         if entry["launches"] == 0:
             fail(f"kernel {entry['name']} was never launched on its path")

@@ -17,11 +17,13 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rwkv6_scan as _wkv
+from repro_torch.kernels import selective_scan as _ssm
 from repro_torch.kernels import wash_shuffle as _ws
 from repro_torch.kernels.ref import (bucketed_shuffle_ref_,
                                      flash_attention_ref,
                                      paged_attention_ref, rwkv6_scan_bwd_ref,
-                                     rwkv6_scan_ref, wash_shuffle_ref)
+                                     rwkv6_scan_ref, selective_scan_bwd_ref,
+                                     selective_scan_ref, wash_shuffle_ref)
 
 
 def _route(t: torch.Tensor, what: str) -> str:
@@ -131,3 +133,53 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("rwkv6_scan: the gradient takes float32 inputs "
                          f"only, got {sorted({str(x.dtype) for x in xs})}")
     return _RWKV6Scan.apply(r, k, v, w, u, state)
+
+
+def _selective_scan_forward(u, dt, Bm, Cm, A, state):
+    if _route(u, "selective_scan") == "cuda":
+        return _ssm.selective_scan_cuda(u, dt, Bm, Cm, A, state=state)
+    return selective_scan_ref(u, dt, Bm, Cm, A, state=state)
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The selective-scan recurrence with its gradient: the forward's
+    route, and a backward on the same device's route (the CUDA backward
+    kernel, or the plain reverse recurrence for CPU tensors).  The forward
+    saves only its inputs; the backward recomputes the states it needs."""
+
+    @staticmethod
+    def forward(ctx, u, dt, Bm, Cm, A, state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(u, dt, Bm, Cm, A, state)
+        return _selective_scan_forward(u, dt, Bm, Cm, A, state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate_final=None):
+        u, dt, Bm, Cm, A, state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(u)
+        fn = (_ssm.selective_scan_bwd_cuda if u.device.type == "cuda"
+              else selective_scan_bwd_ref)
+        return fn(u, dt, Bm, Cm, A, state, dy.contiguous(),
+                  None if dstate_final is None else dstate_final.contiguous())
+
+
+def selective_scan(u: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, A: torch.Tensor,
+                   state: Optional[torch.Tensor] = None):
+    """Selective-scan (Mamba) recurrence: u/dt (B,T,DI), Bm/Cm (B,T,S),
+    A (DI,S) -> y (B,T,DI) float32; with an initial ``state`` (B,DI,S)
+    float32, ``(y, final_state)``.
+
+    Differentiable: where autograd records (grad mode on and an input that
+    requires a grad), the gradient is the backward kernel on the card and
+    the plain reverse recurrence on the CPU, float32 only (an input of
+    another dtype that needs a grad raises).  Otherwise the call is the
+    forward alone."""
+    xs = (u, dt, Bm, Cm, A) + (() if state is None else (state,))
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+        return _selective_scan_forward(u, dt, Bm, Cm, A, state)
+    if any(x.dtype != torch.float32 for x in xs):
+        raise ValueError("selective_scan: the gradient takes float32 inputs "
+                         f"only, got {sorted({str(x.dtype) for x in xs})}")
+    return _SelectiveScan.apply(u, dt, Bm, Cm, A, state)

@@ -10,9 +10,12 @@ the recurrence (``rwkv6_scan_chunked_ref``; nothing on a main path runs
 it), and the WKV recurrence's gradient as its reverse recurrence
 (``rwkv6_scan_bwd_ref``, which the JAX package leaves to autodiff) and as
 the CUDA backward computes it (``rwkv6_scan_bwd_chunked_ref``; nothing on
-a main path runs it).  The
-CPU paths of :mod:`repro_torch.kernels.ops` run these, and
-``chip_smoke.py`` holds the CUDA kernels against them on the card.
+a main path runs it), and the selective-scan (Mamba) recurrence
+(``selective_scan_ref``, the reference's ``_mamba_core`` scan, which has
+no Pallas kernel) with its gradient as the reverse recurrence
+(``selective_scan_bwd_ref``).  The CPU paths of
+:mod:`repro_torch.kernels.ops` run these, and ``chip_smoke.py`` holds the
+CUDA kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ NEG_INF = -1e30
 FLASH_F32_BK = 64
 # steps a chunk of the WKV backward (``bwd::kC`` in csrc/rwkv6_scan.cu)
 WKV_BWD_CHUNK = 16
+# steps a chunk of the selective-scan backward (``kBwdChunk`` in
+# csrc/selective_scan.cu)
+SSM_BWD_CHUNK = 16
 
 
 def wash_shuffle_ref(x: torch.Tensor, perm: torch.Tensor,
@@ -440,6 +446,105 @@ def rwkv6_scan_chunked_ref(r: torch.Tensor, k: torch.Tensor,
                            + (kc * Q).transpose(-1, -2) @ vc)
     y = y[:, :, :T].permute(0, 2, 1, 3).to(r.dtype)
     return y if state is None else (y, S)
+
+
+def _ssm_step(h, u_t, dt_t, B_t, A):
+    """One step of the selective scan: ``exp(dt A) h + dt B u``, and the
+    decay ``exp(dt A)``; h (B,DI,S), u_t/dt_t (B,DI), B_t (B,S), A (DI,S)."""
+    a = torch.exp(dt_t[..., None] * A)
+    return a * h + dt_t[..., None] * B_t[:, None, :] * u_t[..., None], a
+
+
+def selective_scan_ref(u: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                       Cm: torch.Tensor, A: torch.Tensor,
+                       state: Optional[torch.Tensor] = None):
+    """The selective-scan (Mamba) recurrence, one step at a time, in
+    float32: the reference's ``_mamba_core`` scan body.
+
+    u, dt: (B,T,DI); Bm, Cm: (B,T,S); A: (DI,S), the (negative) state
+    matrix -> y (B,T,DI) float32, with per (batch, channel d) a state of S
+    values::
+
+        h_t = exp(dt_t[d] A[d]) * h_{t-1} + dt_t[d] B_t u_t[d]
+        y_t[d] = sum_s h_t[d, s] C_t[s]
+
+    ``state`` None starts from zero and returns ``y`` alone; given an
+    initial state (B,DI,S) it returns ``(y, final_state)``."""
+    Bsz, T, DI = u.shape
+    A_ = A.float()
+    h = (u.new_zeros((Bsz, DI, A.shape[-1]), dtype=torch.float32)
+         if state is None else state.float())
+    ys = []
+    for t in range(T):
+        h, _ = _ssm_step(h, u[:, t].float(), dt[:, t].float(),
+                         Bm[:, t].float(), A_)
+        ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t].float()))
+    y = torch.stack(ys, dim=1)
+    return y if state is None else (y, h)
+
+
+def selective_scan_bwd_ref(u: torch.Tensor, dt: torch.Tensor,
+                           Bm: torch.Tensor, Cm: torch.Tensor,
+                           A: torch.Tensor, state: Optional[torch.Tensor],
+                           dy: torch.Tensor,
+                           dstate_final: Optional[torch.Tensor] = None):
+    """The gradient of :func:`selective_scan_ref` written out as the
+    reverse recurrence, the plain model of what the CUDA backward kernel
+    computes.
+
+    u/dt/dy: (B,T,DI); Bm/Cm: (B,T,S); A: (DI,S); ``state`` the initial
+    state (B,DI,S) or None (zero); ``dstate_final`` the final state's
+    gradient or None (zero).  Returns ``(du, ddt, dB, dC, dA, dstate0)``
+    in float32, ``dstate0`` None when ``state`` is.  With a_t = exp(dt_t
+    A) and g_t the adjoint of h_t, walked back from ``dstate_final``::
+
+        g_t      = C_t dy_t[d] + a_{t+1} g_{t+1}
+        du_t[d]  = sum_s g_t dt_t B_t
+        ddt_t[d] = sum_s g_t (B_t u_t + h_{t-1} a_t A)
+        dB_t[s]  = sum_d g_t dt_t u_t,   dC_t[s] = sum_d h_t dy_t
+        dA       = sum_{b,t} g_t h_{t-1} a_t dt_t,   dstate0 = a_0 g_0
+
+    A forward walk keeps the state entering every
+    :data:`SSM_BWD_CHUNK` steps, and the backward walk recomputes each
+    chunk's states from that boundary: the state is never walked
+    backwards, which would divide by a_t, and a_t underflows to exactly 0
+    where dt A is below about -104."""
+    Bsz, T, DI = u.shape
+    chunk = SSM_BWD_CHUNK
+    u_, dt_, B_, C_, dy_ = (x.float() for x in (u, dt, Bm, Cm, dy))
+    A_ = A.float()
+    h = (u_.new_zeros((Bsz, DI, A.shape[-1])) if state is None
+         else state.float())
+    bounds = []
+    for t in range(T):
+        if t % chunk == 0:
+            bounds.append(h)
+        h, _ = _ssm_step(h, u_[:, t], dt_[:, t], B_[:, t], A_)
+    carry = (torch.zeros_like(h) if dstate_final is None
+             else dstate_final.float())               # a_{t+1} g_{t+1}
+    du, ddt = torch.zeros_like(u_), torch.zeros_like(u_)
+    dB, dC = torch.zeros_like(B_), torch.zeros_like(B_)
+    dA = torch.zeros_like(A_)
+    for c0 in reversed(range(0, T, chunk)):
+        end = min(c0 + chunk, T)
+        hist, decays = [bounds[c0 // chunk]], []   # h_{c0-1}, h_{c0}, ...
+        for t in range(c0, end):
+            h, a = _ssm_step(hist[-1], u_[:, t], dt_[:, t], B_[:, t], A_)
+            hist.append(h)
+            decays.append(a)
+        for t in reversed(range(c0, end)):
+            hp, ht, a = hist[t - c0], hist[t - c0 + 1], decays[t - c0]
+            u_t, dt_t, B_t, dy_t = u_[:, t], dt_[:, t], B_[:, t], dy_[:, t]
+            g = carry + C_[:, t, None, :] * dy_t[..., None]
+            da = g * hp * a                                # d/d(dt A)
+            du[:, t] = (g * dt_t[..., None] * B_t[:, None, :]).sum(-1)
+            ddt[:, t] = (g * B_t[:, None, :] * u_t[..., None]
+                         + da * A_).sum(-1)
+            dB[:, t] = (g * dt_t[..., None] * u_t[..., None]).sum(1)
+            dC[:, t] = (ht * dy_t[..., None]).sum(1)
+            dA += (da * dt_t[..., None]).sum(0)
+            carry = a * g
+    return du, ddt, dB, dC, dA, None if state is None else carry
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

@@ -13,7 +13,9 @@ runtimes:
     tokens, prefilled at once and decoded ``--max-new`` tokens, reporting
     tokens/s; ``--compare`` serves the same batch in every mode.  On the
     card every prefill attention runs the hand-written flash-attention
-    kernel and every rwkv6 time mix the hand-written WKV kernel;
+    kernel, every rwkv6 time mix the hand-written WKV kernel and every
+    hybrid (hymba) layer's Mamba recurrence the hand-written
+    selective-scan kernel, in prefill and in each decode step;
   * ``--continuous`` — a mixed-length request stream through
     ``serving.batching.ContinuousServer`` over a paged KV cache, reporting
     tokens/s and the runtime's page accounting; every decode attend runs
@@ -35,6 +37,9 @@ a Chrome trace of the first instrumented spans.
 
   python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
       --population 2 --batch-size 4 --seq-len 2048 --max-new 32 --compare
+
+  python -m repro_torch.launch.serve --arch hymba-1.5b --population 2 \\
+      --batch-size 4 --seq-len 2048 --max-new 32 --compare
 
 (``--compare`` serves member and ensemble first and the soup last, made
 in place from the population's memory, so a 16B N=2 population fits one
@@ -67,7 +72,8 @@ from repro_torch.core import population as pop
 from repro_torch.core.device import resolve_device
 from repro_torch.core.mixing import MixingConfig
 from repro_torch.core.prng import fold_in
-from repro_torch.kernels import flash_attention, paged_attention, rwkv6_scan
+from repro_torch.kernels import (flash_attention, paged_attention, rwkv6_scan,
+                                 selective_scan)
 from repro_torch.launch.specs import concrete_batch
 from repro_torch.models import transformer as M
 from repro_torch.serving import batching
@@ -193,12 +199,14 @@ def _serve_scan(popn, cfg, args, device):
     serving.reset_trace_counts()
     # the soup last: it is made in place, from the population's memory
     modes = ["member", "ensemble", "soup"] if args.compare else [args.mode]
-    launches0 = (flash_attention.launches, rwkv6_scan.launches)
+    launches0 = (flash_attention.launches, rwkv6_scan.launches,
+                 selective_scan.launches)
     outs = {m: _serve_once(popn, cfg, batch, args, m, sample_seed, device)
             for m in modes}
     print(f"kernel launches: flash attention "
           f"{flash_attention.launches - launches0[0]}, rwkv6 scan "
-          f"{rwkv6_scan.launches - launches0[1]}")
+          f"{rwkv6_scan.launches - launches0[1]}, selective scan "
+          f"{selective_scan.launches - launches0[2]}")
     if args.compare:
         soup = outs["soup"]["tokens"][:, args.seq_len:]
         ens = outs["ensemble"]["tokens"][:, args.seq_len:]

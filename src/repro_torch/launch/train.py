@@ -3,9 +3,10 @@
 Port of ``repro/launch/train.py`` with the reference loop
 (``--engine vmap``).  On the card every WASH shuffle of the stacked
 population runs the hand-written CUDA kernels (``kernels/wash_shuffle``),
-and an rwkv6 model's time mixes run the WKV kernel forward and its
-backward kernel (``kernels/rwkv6_scan``); the device decides, there is no
-switch.  A config those kernels cannot take is refused on the card before
+an rwkv6 model's time mixes run the WKV kernel forward and its backward
+kernel (``kernels/rwkv6_scan``), and a hybrid (hymba) model's Mamba paths
+the selective-scan kernel forward and its backward
+(``kernels/selective_scan``); the device decides, there is no switch.  A config those kernels cannot take is refused on the card before
 any weight moves there (``models/transformer.py::cuda_supported``).
 ``--ckpt-population`` writes the stacked population in the format
 ``repro_torch.launch.serve --ckpt`` (and the JAX package's
@@ -22,6 +23,9 @@ any weight moves there (``models/transformer.py::cuda_supported``).
   python -m repro_torch.launch.train --arch rwkv6-3b --population 2 \\
       --mode bucketed --steps 4 --batch-size 2 --seq-len 256 \\
       --ckpt-population build/pop.npz
+
+  python -m repro_torch.launch.train --arch hymba-1.5b --population 2 \\
+      --mode bucketed --steps 4 --batch-size 2 --seq-len 256
 
 ``--metrics-out`` writes the telemetry event stream (``repro_torch.obs``:
 the ``train.step`` spans, one ``train.comm_volume`` event a mixing step,

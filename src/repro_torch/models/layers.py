@@ -202,6 +202,41 @@ def sdpa_chunked(q, k, v, num_kv_heads: int, *, chunk: int, window=None,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, hd).to(q.dtype)
 
 
+def sdpa_banded(q, k, v, num_kv_heads: int, *, window: int):
+    """Sliding-window attention in O(S 2W): each W-sized query block
+    attends only to its own and the previous key block (a relative mask
+    inside), the reference's memory-roofline form for sliding-window
+    training (hymba).  S must be a multiple of ``window``."""
+    B, S, H, hd = q.shape
+    kv = num_kv_heads
+    g = H // kv
+    W = window
+    if S % W:
+        raise ValueError(f"pad S={S} to a multiple of window={W}")
+    nb = S // W
+    qf = q.reshape(B, nb, W, kv, g, hd).float() * (hd ** -0.5)
+    kb = k.reshape(B, nb, W, kv, hd).float()
+    vb = v.reshape(B, nb, W, kv, hd).float()
+    # the previous block (zeros before block 0)
+    zeros = torch.zeros_like(kb[:, :1])
+    k2 = torch.cat([torch.cat([zeros, kb[:, :-1]], 1), kb], dim=2)
+    v2 = torch.cat([torch.cat([zeros, vb[:, :-1]], 1), vb], dim=2)
+    scores = torch.einsum("bntkgh,bnskh->bnkgts", qf, k2)  # (B,nb,kv,g,W,2W)
+    qpos = torch.arange(W, device=q.device)[:, None]
+    kpos = torch.arange(2 * W, device=q.device)[None, :] - W
+    rel = qpos - kpos  # how far behind the key is
+    mask = (rel >= 0) & (rel < W)  # causal + window
+    first = torch.arange(2 * W, device=q.device)[None, :] >= W
+    m_all = mask[None].expand(nb, W, 2 * W).clone()
+    m_all[0] = mask & first  # block 0 has no previous block
+    scores = torch.where(m_all[None, :, None, None], scores,
+                         torch.tensor(NEG_INF, dtype=scores.dtype,
+                                      device=scores.device))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bnkgts,bnskh->bntkgh", w, v2)
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
 def causal_mask(T: int, window: Optional[int] = None, device=None):
     i = torch.arange(T, device=device)[:, None]
     j = torch.arange(T, device=device)[None, :]
@@ -216,12 +251,10 @@ def gqa_train(p, cfg: ModelConfig, x, bidirectional: bool = False):
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)
     q, k, v = _qkv(p, cfg, x, positions)
-    if cfg.attn_impl == "chunked":
-        if (not bidirectional and cfg.window and T % cfg.window == 0
-                and T > cfg.window):
-            raise NotImplementedError(
-                "banded sliding-window attention (sdpa_banded) is not "
-                "ported yet")
+    if (cfg.attn_impl == "chunked" and not bidirectional and cfg.window
+            and T % cfg.window == 0 and T > cfg.window):
+        out = sdpa_banded(q, k, v, cfg.num_kv_heads, window=cfg.window)
+    elif cfg.attn_impl == "chunked":
         out = sdpa_chunked(q, k, v, cfg.num_kv_heads,
                            chunk=min(cfg.attn_chunk, T), window=cfg.window,
                            bidirectional=bidirectional)

@@ -1,22 +1,35 @@
-"""RWKV-6 "Finch" (arXiv:2404.05892): data-dependent decay linear attention.
+"""State-space sequence mixers: the selective SSM (Mamba, for the hybrid
+family) and RWKV-6 "Finch" (data-dependent decay linear attention).
 
-Port of the RWKV-6 half of ``repro/models/ssm.py`` (``rwkv_heads``,
-``rwkv6_init``, ``rwkv_state_init``, the token shift, the time and channel
-mixes and ``rwkv6_block``).  The full-sequence form serves prefill and the
-same code with T = 1 serves decode, carrying an O(1) state per layer.
+Port of ``repro/models/ssm.py``.  Each mixer's full-sequence form serves
+training and prefill, and its O(1)-state form serves decode, carrying a
+state per layer.
 
-The WKV recurrence of the time mix goes through
-``kernels.ops.rwkv6_scan``: the hand-written CUDA kernel for CUDA tensors,
-the plain step loop for CPU tensors.  Where the reference runs the
-recurrence as a ``lax.scan`` from a carried state ``S0``, the kernel takes
-``S0`` and returns the final state.  In training, where the reference
-differentiates that scan, ``ops.rwkv6_scan``'s backward gives the grads
-of r, k, v, w, u, and of ``S0`` where one is given (training starts from
-``S0`` None, a zero state); the CUDA backward kernel on the card, the
-plain reverse recurrence on the CPU.  The rest of the time mix is plain
-autograd, so the grads reach ``w0`` and ``w_lora_*`` through
-``w = exp(-exp(w_dd))`` and the bonus ``u`` directly.  The selective SSM
-(Mamba, for the hybrid family) is not ported yet.
+**Mamba** (``dt_rank``, ``mamba_init``, ``mamba_state_init``, the causal
+depthwise conv, ``_mamba_core``, ``mamba_train`` / ``mamba_prefill`` /
+``mamba_decode``): the projections, the k-tap depthwise conv and the
+gates are plain PyTorch, as the reference computes them outside any
+Pallas kernel; the recurrence, the reference's ``lax.scan`` over time,
+goes through ``kernels.ops.selective_scan``: the hand-written CUDA kernel
+for CUDA tensors (one launch a call, prefill and decode alike), the plain
+step loop for CPU tensors, and in training its backward (the CUDA
+backward kernel on the card, the plain reverse recurrence on the CPU).
+The dtypes follow the reference step by step, so the kernel path and the
+plain path differ only by the scan's summation order.
+
+**RWKV-6** (``rwkv_heads``, ``rwkv6_init``, ``rwkv_state_init``, the
+token shift, the time and channel mixes and ``rwkv6_block``): the WKV
+recurrence of the time mix goes through ``kernels.ops.rwkv6_scan``: the
+hand-written CUDA kernel for CUDA tensors, the plain step loop for CPU
+tensors.  Where the reference runs the recurrence as a ``lax.scan`` from
+a carried state ``S0``, the kernel takes ``S0`` and returns the final
+state.  In training, where the reference differentiates that scan,
+``ops.rwkv6_scan``'s backward gives the grads of r, k, v, w, u, and of
+``S0`` where one is given (training starts from ``S0`` None, a zero
+state); the CUDA backward kernel on the card, the plain reverse
+recurrence on the CPU.  The rest of the time mix is plain autograd, so
+the grads reach ``w0`` and ``w_lora_*`` through ``w = exp(-exp(w_dd))``
+and the bonus ``u`` directly.
 """
 
 from __future__ import annotations
@@ -31,6 +44,142 @@ from repro_torch.models.layers import (dense_init, param_dtype, rmsnorm,
                                        rmsnorm_init)
 
 LORA_RANK = 32  # rank of the decay's low-rank projection, as the reference
+
+
+# ---------------------------------------------------------------------------
+# Mamba-style selective SSM (arXiv:2312.00752, simplified; used by Hymba)
+# ---------------------------------------------------------------------------
+
+
+def dt_rank(cfg: ModelConfig) -> int:
+    return max(cfg.d_model // 16, 1)
+
+
+def mamba_init(gen: torch.Generator, cfg: ModelConfig, lead=()):
+    """The reference's ``mamba_init`` tree, with ``lead`` stacked axes
+    (layers) in front of every leaf; ``A_log`` and ``D`` stay float32."""
+    dtype = param_dtype(cfg)
+    D, DI, S = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    R = dt_rank(cfg)
+    lead = tuple(lead)
+    dev = gen.device
+
+    def dense(shape, scale=None):
+        return dense_init(gen, shape, dtype, scale=scale, lead=lead)
+
+    a_log = torch.log(torch.arange(1, S + 1, dtype=torch.float32,
+                                   device=dev))
+    return {
+        "in_proj": dense((D, 2 * DI)),
+        "conv_w": dense((cfg.ssm_conv, DI), scale=0.5),
+        "conv_b": torch.zeros(lead + (DI,), dtype=dtype, device=dev),
+        "x_proj": dense((DI, R + 2 * S)),
+        "dt_proj": dense((R, DI)),
+        "dt_bias": torch.full(lead + (DI,), -2.0, dtype=dtype, device=dev),
+        "A_log": a_log.expand(lead + (DI, S)).clone(),
+        "D": torch.ones(lead + (DI,), dtype=torch.float32, device=dev),
+        "out_proj": dense((DI, D)),
+    }
+
+
+def mamba_shapes(cfg: ModelConfig, num_layers: int):
+    """The stacked mamba tree as ``meta`` tensors (shapes and dtypes)."""
+    dtype = param_dtype(cfg)
+    D, DI, S, L = cfg.d_model, cfg.d_inner, cfg.ssm_state, num_layers
+    R = dt_rank(cfg)
+
+    def m(*shape, dt=dtype):
+        return torch.empty((L,) + shape, dtype=dt, device="meta")
+
+    return {"in_proj": m(D, 2 * DI), "conv_w": m(cfg.ssm_conv, DI),
+            "conv_b": m(DI), "x_proj": m(DI, R + 2 * S), "dt_proj": m(R, DI),
+            "dt_bias": m(DI), "A_log": m(DI, S, dt=torch.float32),
+            "D": m(DI, dt=torch.float32), "out_proj": m(DI, D)}
+
+
+def mamba_state_init(cfg: ModelConfig, batch: int, num_layers: int,
+                     device: DeviceLike = "cuda"):
+    """Zero decode state of every layer: the SSM state ``h`` (L,B,DI,S)
+    float32 and the conv's left context ``conv`` (L,B,k-1,DI) in the param
+    dtype."""
+    dev = resolve_device(device)
+    DI, S = cfg.d_inner, cfg.ssm_state
+    return {
+        "h": torch.zeros((num_layers, batch, DI, S), dtype=torch.float32,
+                         device=dev),
+        "conv": torch.zeros((num_layers, batch, cfg.ssm_conv - 1, DI),
+                            dtype=param_dtype(cfg), device=dev),
+    }
+
+
+def _causal_depthwise_conv(p, cfg: ModelConfig, xz, prev):
+    """xz: (B,T,DI); prev: (B, k-1, DI) left context.  Returns ``(out,
+    new_prev)``, the k shifted products summed in the reference's order."""
+    k = cfg.ssm_conv
+    padded = torch.cat([prev.to(xz.dtype), xz], dim=1)  # (B, T+k-1, DI)
+    T = xz.shape[1]
+    out = torch.zeros_like(xz)
+    for i in range(k):
+        out = out + padded[:, i:i + T] * p["conv_w"][i]
+    new_prev = padded[:, -(k - 1):] if k > 1 else prev
+    return out + p["conv_b"], new_prev
+
+
+def _mamba_core(p, cfg: ModelConfig, u, h0):
+    """u: (B,T,DI) post-conv activations; h0: the initial state (B,DI,S),
+    or None for a zero state whose final value is not wanted (training:
+    the scan kernel then neither reads nor writes a state).  Returns
+    ``(y + D u in u's dtype, the final state or None)``."""
+    S = cfg.ssm_state
+    R = dt_rank(cfg)
+    proj = u @ p["x_proj"]  # (B,T,R+2S)
+    dt_in, Bmat, Cmat = torch.split(proj, [R, S, S], dim=-1)
+    dt = F.softplus(dt_in @ p["dt_proj"] + p["dt_bias"]).float()
+    A = -torch.exp(p["A_log"])  # (DI, S)
+    out = ops.selective_scan(
+        u.float().contiguous(), dt.contiguous(), Bmat.float().contiguous(),
+        Cmat.float().contiguous(), A.float().contiguous(),
+        state=None if h0 is None else h0.float().contiguous())
+    y, h = (out, None) if h0 is None else out
+    return (y + p["D"] * u.float()).to(u.dtype), h
+
+
+def mamba_prefill(p, cfg: ModelConfig, x, state_l):
+    """x: (B,T,D) -> ``(out, new_state)``.  ``state_l``: this layer's
+    ``{"h", "conv"}``, or None for a zero start whose new state is not
+    wanted (training); the new state is then None."""
+    DI = cfg.d_inner
+    xs, z = torch.split(x @ p["in_proj"], [DI, DI], dim=-1)
+    prev = (xs.new_zeros((x.shape[0], cfg.ssm_conv - 1, DI))
+            if state_l is None else state_l["conv"])
+    u, conv_prev = _causal_depthwise_conv(p, cfg, xs, prev)
+    y, h = _mamba_core(p, cfg, F.silu(u),
+                       None if state_l is None else state_l["h"])
+    out = (y * F.silu(z)) @ p["out_proj"]
+    return out, None if state_l is None else {"h": h, "conv": conv_prev}
+
+
+def mamba_train(p, cfg: ModelConfig, x):
+    """The full sequence from a zero state, as the reference's
+    ``mamba_train``; the final state is neither computed nor kept."""
+    return mamba_prefill(p, cfg, x, None)[0]
+
+
+def mamba_decode(p, cfg: ModelConfig, x, state_l):
+    """x: (B,1,D) single-token decode with O(1) state.  Returns ``(out,
+    new_state)`` (new tensors; ``state_l`` is not written)."""
+    DI = cfg.d_inner
+    xs, z = torch.split(x @ p["in_proj"], [DI, DI], dim=-1)
+    hist = torch.cat([state_l["conv"].to(xs.dtype), xs], dim=1)  # (B,k,DI)
+    u = torch.einsum("bkd,kd->bd", hist, p["conv_w"]) + p["conv_b"]
+    y, h = _mamba_core(p, cfg, F.silu(u)[:, None], state_l["h"])
+    out = (y * F.silu(z)) @ p["out_proj"]
+    return out, {"h": h, "conv": hist[:, 1:]}
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 "Finch" (arXiv:2404.05892): data-dependent decay linear attention
+# ---------------------------------------------------------------------------
 
 
 def rwkv_heads(cfg: ModelConfig) -> int:

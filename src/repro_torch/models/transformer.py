@@ -2,9 +2,10 @@
 
 Port of the parts of ``repro/models/transformer.py`` that training, the
 scan engine and continuous batching run: ``init_params`` (attention
-blocks, GQA or MLA, with a dense or MoE MLP, and rwkv6 blocks), the
-training forward and loss (with the MoE router's aux loss), the embedding
-and LM head, the contiguous-cache ``prefill`` / ``decode_step`` /
+blocks, GQA or MLA, with a dense or MoE MLP; rwkv6 blocks; hybrid blocks,
+a sliding-window GQA attention beside a Mamba path), the training
+forward and loss (with the MoE router's aux loss), the embedding and LM
+head, the contiguous-cache ``prefill`` / ``decode_step`` /
 ``decode_scan``, and the paged decode and prefill steps.  Parameters
 keep the reference's tree: every block leaf is stacked along a leading
 ``num_layers`` axis under ``params["blocks"]``.  Where the reference
@@ -32,6 +33,7 @@ from repro_torch.core.population import tree_map
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rwkv6_scan as _wkv
+from repro_torch.kernels import selective_scan as _ssm
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -48,8 +50,9 @@ def scan_supported(cfg: ModelConfig) -> Optional[str]:
     """None if the port can build this config and serve it through the
     scan engine (``prefill`` / ``decode_step``), else the reason: attention
     blocks, GQA (sliding windows included) or MLA, with a dense or MoE
-    MLP, and rwkv6 blocks."""
-    if cfg.block_kind not in ("attn", "rwkv6"):
+    MLP; rwkv6 blocks; hybrid blocks (attention and a Mamba path on the
+    same input, fused by a learned softmax gate)."""
+    if cfg.block_kind not in ("attn", "rwkv6", "hybrid"):
         return f"block_kind={cfg.block_kind!r} is not ported yet"
     if cfg.is_encdec:
         return "encoder-decoder models are not ported to PyTorch yet"
@@ -60,9 +63,10 @@ def scan_supported(cfg: ModelConfig) -> Optional[str]:
 
 def train_supported(cfg: ModelConfig) -> Optional[str]:
     """None if the port can train this config, else the reason: what it
-    can build (:func:`scan_supported`), attention and rwkv6 blocks alike
-    (rwkv6's WKV recurrence is differentiated by ``ops.rwkv6_scan``'s
-    backward)."""
+    can build (:func:`scan_supported`), attention, rwkv6 and hybrid blocks
+    alike (rwkv6's WKV recurrence is differentiated by
+    ``ops.rwkv6_scan``'s backward, the Mamba recurrence by
+    ``ops.selective_scan``'s)."""
     return scan_supported(cfg)
 
 
@@ -73,9 +77,16 @@ def cuda_supported(cfg: ModelConfig, path: str) -> Optional[str]:
     limits are the kernel modules' own constants, and nothing is built.
     The CPU path has no such limit (the plain versions take any head dim),
     so only a run on the card asks."""
+    ssm = (cfg.block_kind == "hybrid"
+           and cfg.ssm_state not in _ssm.STATE_DIMS)
+    ssm_reason = (f"ssm_state={cfg.ssm_state}: the selective-scan kernel "
+                  f"takes state sizes {_ssm.STATE_DIMS}")
     if path == "train":
         # GQA attention trains through plain sdpa, as the reference does;
-        # rwkv6 through the WKV kernel forward and its backward kernel
+        # rwkv6 through the WKV kernel forward and its backward kernel,
+        # hybrid's Mamba path through the selective-scan kernels
+        if ssm:
+            return ssm_reason
         if cfg.mla and cfg.block_kind == "attn":
             return ("MLA attends through the flash-attention kernel, which "
                     "has no backward kernel")
@@ -94,8 +105,13 @@ def cuda_supported(cfg: ModelConfig, path: str) -> Optional[str]:
         elif attention_dims(cfg) not in _fa.HEAD_DIMS:
             return (f"(q/k, v) head dims {attention_dims(cfg)}: the "
                     f"flash-attention kernel takes {_fa.HEAD_DIMS}")
+        elif ssm:
+            return ssm_reason
         return None
     if path == "continuous":
+        reason = paged_decode_supported(cfg)
+        if reason is not None:
+            return reason
         group = cfg.num_heads // cfg.num_kv_heads
         if group > _pa.MAX_GROUP:
             return (f"{group} query heads a kv head: the paged-attention "
@@ -171,6 +187,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if cfg.block_kind == "rwkv6":
         _fill(blocks["rwkv"], SSM.rwkv6_init(gen, cfg, lead=lead))
         return out
+    if cfg.block_kind == "hybrid":
+        _fill(blocks["mamba"], SSM.mamba_init(gen, cfg, lead=lead))
+        blocks["beta"].fill_(1)  # the learned attention / SSM fusion
     attn = (L.mla_init if cfg.mla else L.gqa_init)(gen, cfg, lead=lead)
     _fill(blocks["attn"], attn)
     del attn
@@ -224,6 +243,10 @@ def param_shapes(cfg: ModelConfig) -> Tree:
     params["blocks"] = {"ln1": {"scale": m(NL, D)},
                         "ln2": {"scale": m(NL, D)},
                         "attn": attn, "mlp": mlp}
+    if cfg.block_kind == "hybrid":
+        params["blocks"]["mamba"] = SSM.mamba_shapes(cfg, NL)
+        params["blocks"]["beta"] = torch.empty((NL, 2), dtype=torch.float32,
+                                               device="meta")
     return params
 
 
@@ -261,16 +284,28 @@ def _mlp_apply(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
                                        device=x.device)
 
 
+def _fuse(p, a, m):
+    """The hybrid block's learned gate: ``softmax(beta)`` in float32, cast
+    to the attention output's dtype, weighing attention and Mamba."""
+    beta = torch.softmax(p["beta"].float(), dim=-1).to(a.dtype)
+    return beta[0] * a + beta[1] * m
+
+
 def _block_train(p, cfg: ModelConfig, x, state_l=None):
     """One block over the full sequence: ``(x, aux)``.  An rwkv6 block
     starts from ``state_l`` (a zero start) and its new state is dropped,
-    as the reference's ``_run_blocks_train`` drops it."""
+    as the reference's ``_run_blocks_train`` drops it; a hybrid block's
+    Mamba path starts from zero and keeps no state."""
     if cfg.block_kind == "rwkv6":
         x, _ = SSM.rwkv6_block(p["rwkv"], cfg, x, state_l,
                                {"ln1": p["ln1"], "ln2": p["ln2"]})
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
     attend = L.mla_train if cfg.mla else L.gqa_train
-    x = x + attend(p["attn"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps))
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a = attend(p["attn"], cfg, h)
+    if cfg.block_kind == "hybrid":
+        a = _fuse(p, a, SSM.mamba_train(p["mamba"], cfg, h))
+    x = x + a
     y, aux = _mlp_apply(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x + y, aux
 
@@ -294,7 +329,9 @@ def _run_blocks_train(params, cfg: ModelConfig, x):
     activations are recomputed in the backward pass
     (``torch.utils.checkpoint``) instead of stored, so an rwkv6 layer runs
     its WKV forward twice.  Returns ``(x, the router aux loss summed over
-    the layers)``.  Raises for what :func:`train_supported` refuses."""
+    the layers)``.  A hybrid layer's Mamba path also starts from zero,
+    passing the selective-scan kernels no state.  Raises for what
+    :func:`train_supported` refuses."""
     _require(train_supported(cfg), "training", cfg)
     state_l = None
     if cfg.block_kind == "rwkv6":
@@ -344,15 +381,20 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     sliding-window configs keep only ``min(window, capacity)`` ring slots.
     rwkv6 keeps ``{"state": {"S", "x_tm", "x_cm"}}``, GQA attention
     ``{"kv": {"k", "v", "pos_ids"}}``, MLA its latent cache
-    ``{"kv": {"ckv", "krope", "pos_ids"}}``, each leaf led by the layer
-    axis."""
+    ``{"kv": {"ckv", "krope", "pos_ids"}}``, a hybrid model its windowed
+    ring and its Mamba state ``{"kv": ..., "ssm": {"h", "conv"}}``, each
+    leaf led by the layer axis."""
     _require(scan_supported(cfg), "scan-engine serving of", cfg)
     if cfg.block_kind == "rwkv6":
         return {"state": SSM.rwkv_state_init(cfg, batch, cfg.num_layers,
                                              device=device)}
     cap = capacity if cfg.window is None else min(cfg.window, capacity)
     init = L.mla_cache_init if cfg.mla else L.gqa_cache_init
-    return {"kv": init(cfg, batch, cap, cfg.num_layers, device=device)}
+    cache = {"kv": init(cfg, batch, cap, cfg.num_layers, device=device)}
+    if cfg.block_kind == "hybrid":
+        cache["ssm"] = SSM.mamba_state_init(cfg, batch, cfg.num_layers,
+                                            device=device)
+    return cache
 
 
 def _cache_layer(cache: Tree, l: int) -> Tree:
@@ -361,7 +403,8 @@ def _cache_layer(cache: Tree, l: int) -> Tree:
 
 def _store_layer(cache: Tree, l: int, new_l: Tree) -> None:
     """Write layer ``l``'s new state into the stacked cache (the ring
-    stores already wrote through their views; rwkv6 returns new tensors)."""
+    stores already wrote through their views; rwkv6 and Mamba return new
+    tensors)."""
     for key, value in new_l.items():
         if isinstance(value, dict):
             _store_layer(cache[key], l, value)
@@ -379,15 +422,16 @@ def _block_serve(block_l, cfg: ModelConfig, x, cache_l, pos: Optional[int]):
             block_l["rwkv"], cfg, x, cache_l["state"],
             {"ln1": block_l["ln1"], "ln2": block_l["ln2"]})
         return x, {"state": state}
-    x, kv = _attn_serve(block_l, cfg, x, cache_l, pos)
+    x, new_l = _attn_serve(block_l, cfg, x, cache_l, pos)
     y, _ = _mlp_apply(block_l["mlp"], cfg, L.rmsnorm(block_l["ln2"], x,
                                                      cfg.norm_eps))
-    return x + y, {"kv": kv}
+    return x + y, new_l
 
 
 def _attn_serve(block_l, cfg: ModelConfig, x, cache_l, pos: Optional[int]):
-    """The attention half of an attention block in :func:`_block_serve`:
-    ``(x + attention, this layer's new kv cache)``."""
+    """The attention half of an attention block in :func:`_block_serve`
+    (a hybrid block's attention and Mamba path on the same input, fused):
+    ``(x + attention, this layer's new cache {"kv"} or {"kv", "ssm"})``."""
     h = L.rmsnorm(block_l["ln1"], x, cfg.norm_eps)
     if pos is None:
         prefill_fn = L.mla_prefill if cfg.mla else L.gqa_prefill
@@ -395,7 +439,11 @@ def _attn_serve(block_l, cfg: ModelConfig, x, cache_l, pos: Optional[int]):
     else:
         decode_fn = L.mla_decode if cfg.mla else L.gqa_decode
         a, kv = decode_fn(block_l["attn"], cfg, h, cache_l["kv"], pos)
-    return x + a, kv
+    if cfg.block_kind != "hybrid":
+        return x + a, {"kv": kv}
+    mamba_fn = SSM.mamba_prefill if pos is None else SSM.mamba_decode
+    m, ssm = mamba_fn(block_l["mamba"], cfg, h, cache_l["ssm"])
+    return x + _fuse(block_l, a, m), {"kv": kv, "ssm": ssm}
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, pos: int):

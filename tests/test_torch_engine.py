@@ -167,8 +167,9 @@ def test_requests_are_validated_like_the_reference():
         engine.generate(params, tcfg, batch, 0, device="cpu")
     with pytest.raises(ValueError, match="params must live on"):
         engine.generate(TM.param_shapes(tcfg), tcfg, batch, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        TM.init_cache(get_arch("hymba-1.5b").reduced(), 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        TM.init_cache(get_arch("whisper-medium").reduced(), 1, 8,
+                      device="cpu")
 
 
 def test_training_rwkv6_runs_and_the_card_gate_names_the_backward(capsys):

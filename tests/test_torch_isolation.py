@@ -45,7 +45,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     for name in ("train.loop", "launch.train", "kernels.wash_shuffle",
                  "kernels.build", "core.shuffle", "core.mixing", "optim",
                  "data.synthetic", "kernels.flash_attention",
-                 "kernels.rwkv6_scan", "models.ssm", "serving.engine",
+                 "kernels.rwkv6_scan", "kernels.selective_scan",
+                 "models.ssm", "serving.engine",
                  "models.cnn", "data.augment", "core.averaging",
                  "launch.quickstart", "serving.driver",
                  "serving.speculative", "obs", "obs.metrics", "obs.events",
@@ -98,6 +99,16 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_card):
         TM.init_cache(CFG, 1, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SSM.rwkv_state_init(get_arch("rwkv6-3b").reduced(), 1, 1)
+    hymba = get_arch("hymba-1.5b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SSM.mamba_state_init(hymba, 1, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TM.init_cache(hymba, 1, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "hymba-1.5b", "--reduced", "--population", "1",
+                    "--batch-size", "1", "--max-new", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(["--arch", "hymba-1.5b", "--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TL.paged_pools_init(CFG, 4, 2, CFG.num_layers)
     pools = TL.paged_pools_init(CFG, 4, 2, CFG.num_layers, device="cpu")

@@ -3,7 +3,8 @@
 ``models.transformer.cuda_supported`` names the reason a config's shapes
 do not fit the CUDA kernels (the WKV kernel's and its backward's head
 dims, flash attention's head dims, the paged kernel's group and head
-dim), from the kernel modules' own constants.  ``ContinuousServer``,
+dim, the selective-scan kernel's state sizes), from the kernel modules'
+own constants.  ``ContinuousServer``,
 ``engine.generate``, the serve CLI and the train CLI ask it for a run on
 the card before any weight reaches the card, and refuse with
 ``NotImplementedError``; the CPU path keeps serving any head dim through
@@ -28,6 +29,7 @@ from repro_torch.core import population as pop
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rwkv6_scan as wkv
+from repro_torch.kernels import selective_scan as ssk
 from repro_torch.launch import serve
 from repro_torch.models import transformer as M
 from repro_torch.serving import batching
@@ -99,6 +101,33 @@ def test_takes_the_moe_configs(cfg):
         assert M.cuda_supported(cfg, "train") is None
 
 
+HYMBA = get_arch("hymba-1.5b")
+
+
+@pytest.mark.parametrize("cfg", [HYMBA, HYMBA.reduced()],
+                         ids=["full", "reduced"])
+def test_takes_hymba_on_the_scan_engine_and_in_training(cfg):
+    """hymba's attention (head dim 64, group 5 at full width) is a flash
+    instantiation and its 16 states the selective-scan kernel's; its
+    state is not paged, so continuous batching refuses it with the
+    reference's reason."""
+    assert M.attention_dims(cfg) in fa.HEAD_DIMS
+    assert cfg.ssm_state in ssk.STATE_DIMS
+    assert M.cuda_supported(cfg, "scan") is None
+    assert M.cuda_supported(cfg, "train") is None
+    reason = M.cuda_supported(cfg, "continuous")
+    assert reason == M.paged_decode_supported(cfg)
+    assert reason == "block_kind='hybrid' state is not paged"
+
+
+@pytest.mark.parametrize("path", ["scan", "train"])
+def test_refuses_a_state_size_the_scan_kernel_lacks(path):
+    cfg = HYMBA.reduced(ssm_state=8)
+    reason = M.cuda_supported(cfg, path)
+    assert reason is not None and "selective-scan" in reason
+    assert str(ssk.STATE_DIMS) in reason
+
+
 def test_unknown_path_raises():
     with pytest.raises(ValueError, match="path"):
         M.cuda_supported(RWKV16, "paged")
@@ -108,7 +137,7 @@ def _on_the_card(monkeypatch, module):
     """``module``'s entry point believes it runs on the card; no build may
     happen."""
     monkeypatch.setattr(module, "resolve_device", lambda device: CUDA)
-    for kernel in (fa, pa, wkv):
+    for kernel in (fa, pa, wkv, ssk):
         monkeypatch.setattr(kernel, "build",
                             lambda: pytest.fail("a kernel was built"))
 
