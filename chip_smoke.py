@@ -179,12 +179,15 @@ and then, failing on the first phase that fails:
      T=2048, DI=3200, 16 states) from zero and from a carried state (y
      and the final state), at T=1, at a ragged T=1000 and with extreme dt
      (log-uniform over [1e-4, 30]: exp(dt A) down to an exact 0), and its
-     backward at the training shape (B=2, T=256; from zero, and from a
-     carried state with a final-state grad and extreme dt) and at the
-     prefill shape (carried state, final-state grad), every value finite
-     and within 1e-4 of max |plain|, two backward calls bitwise equal;
-     times each (CUDA-graph replays) beside its bound, its plain version
-     and its registers, shared memory and spills; holds the flash kernel at
+     backward (segments of the sequence run at once) at the training
+     shape (B=2, T=256; from zero, and from a carried state with a
+     final-state grad and extreme dt), at the prefill shape, at a ragged
+     T=1000 over eight segments, at hymba's train_4k length and at the
+     longest T, 12,288 (carried state, final-state grad), every value
+     finite and within 1e-4 of max |plain|, two backward calls bitwise
+     equal; times each (CUDA-graph replays) beside its bound, its plain
+     version (the backward beside its time before the redesign) and its
+     registers, shared memory and spills; holds the flash kernel at
      hymba's prefill attention (bf16, 25 heads over 5 kv heads, head dim
      64, causal, window 1024) and times it beside SDPA with the window
      as a mask; serves full-width hymba-1.5b (32 layers, bf16, a random
@@ -1168,7 +1171,7 @@ def train_full_width(torch, device, arch, kernels):
 
     timed_training_run(torch, train_cli, argv, f"{arch} training")
     torch.cuda.empty_cache()
-    profile_training_step(torch, device, cfg)
+    profile_training_step(torch, device, cfg, kernels)
     _zero(fa, wkv, pa)
     wkv.backward_launches = ssk.backward_launches = 0
     torch.cuda.empty_cache()
@@ -1222,12 +1225,13 @@ def serve_trained_soup(torch, device, cfg, soup):
         fail(f"trained {cfg.name} soup: the scan engine's launches are off")
 
 
-def profile_training_step(torch, device, cfg):
+def profile_training_step(torch, device, cfg, kernels):
     """One full-width training step (the third of three) under
     ``torch.profiler``: device time by operator and the device's busy
     share of the step's wall time (the step ends in a synchronizing
     read of the loss; the profiler's own host cost is in the wall time,
-    so the idle share is an upper bound)."""
+    so the idle share is an upper bound).  For the hybrid family, the
+    selective-scan backward's launches a call, into ``kernels``."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.core.mixing import MixingConfig
@@ -1260,22 +1264,44 @@ def profile_training_step(torch, device, cfg):
     if cfg.block_kind == "hybrid":
         from repro_torch.kernels import selective_scan as ssk
         bwd = backward_profile(prof, "_SelectiveScanBackward", ssk.KERNELS)
-        log(f"profiled {cfg.name} training step: the selective scan {bwd}")
+        log(f"profiled {cfg.name} training step: the selective scan {bwd} "
+            f"(the backward before its redesign in segments: "
+            f"_SelectiveScanBackward 13.22 ms x 64)")
+        calls = op_calls(prof, "_SelectiveScanBackward")
+        launched = sum(n for _, n in kernel_us(prof, ssk.KERNELS[1:]).values())
+        if not calls or not launched:
+            fail(f"profiled {cfg.name} training step: {calls} selective-scan "
+                 f"backward calls, {launched} launches of {ssk.KERNELS[1:]}")
+        kernels["ssm_bwd"]["launches_per_call"] = launched / calls
 
 
 def backward_profile(prof, op_name, names) -> str:
     """From a finished ``torch.profiler`` run: the device time of the
     autograd operator ``op_name`` (a recurrence backward's calls) and of
     each of the kernels ``names`` by name, totals over the run."""
-    from torch.autograd import DeviceType
-
-    op = [a for a in prof.key_averages()
-          if a.device_type == DeviceType.CPU and a.key == op_name]
-    total = (f"{op_name} {op[0].self_device_time_total / 1e3:.2f} "
-             f"ms x{op[0].count}" if op else f"{op_name} not seen")
+    op = _op(prof, op_name)
+    total = (f"{op_name} {op.self_device_time_total / 1e3:.2f} "
+             f"ms x{op.count}" if op is not None else f"{op_name} not seen")
     return total + "; by kernel: " + ", ".join(
         f"{name} {us / 1e3:.2f} ms x{n}"
         for name, (us, n) in kernel_us(prof, names).items())
+
+
+def _op(prof, op_name):
+    """The host operator ``op_name``'s totals in a finished
+    ``torch.profiler`` run, or None."""
+    from torch.autograd import DeviceType
+
+    return next((a for a in prof.key_averages()
+                 if a.device_type == DeviceType.CPU and a.key == op_name),
+                None)
+
+
+def op_calls(prof, op_name) -> int:
+    """How often the host operator ``op_name`` ran in a finished
+    ``torch.profiler`` run."""
+    op = _op(prof, op_name)
+    return 0 if op is None else op.count
 
 
 def device_activity(prof, n_top: int = 10):
@@ -3674,6 +3700,10 @@ SSM_TOL = 1e-4
 # backward's recomputed state (6) and its own 22 (g = carry + C dy; du's,
 # ddt's, dB's, dC's and dA's products and sums; the carry a g)
 SSM_FWD_OPS, SSM_BWD_OPS = 8, 28
+# the selective-scan backward's device ms before its redesign in segments
+# (one thread a state walking 3T steps; chip_smoke.py phase 13, H100 80GB
+# HBM3 at 700.00 W): training shape, prefill shape
+SSM_BWD_EARLIER_MS = {"train": 0.2086, "prefill": 2.7419}
 HYMBA_FLASH = (4, 2048, 25, 5, 64, 1024)  # B, S, H, KV, hd, window
 HYMBA_REDUCED_SEQ = 128  # twice the reduced window: the window bites
 
@@ -3732,12 +3762,16 @@ def check_selective_scan(torch, ssk, ref, device):
     carried state (y and the final state), at T = 1, at a ragged T = 1000
     and with extreme dt; the backward against ``selective_scan_bwd_ref``
     at the training shape (from zero; and from a carried state with a
-    final-state grad and extreme dt) and at the prefill shape (carried
-    state, final-state grad), every value finite and within SSM_TOL of max
-    |plain|, two calls bitwise equal; then each timed (CUDA-graph
-    replays) beside its bound, its plain version, and the registers,
-    shared memory and spills of each kernel.  Returns the JSON line's
-    entries (launches filled in by the main path)."""
+    final-state grad and extreme dt), and from a carried state with a
+    final-state grad at the prefill shape, at a ragged T = 1000 over eight
+    segments, at hymba's train_4k length (B = 1) and at the longest T
+    (B = 1, DI = 40; both past 48 KB of dynamic shared memory), every
+    value finite and within SSM_TOL of max |plain|, two calls bitwise
+    equal; then each timed (CUDA-graph replays) beside its bound, its
+    plain version, the backward beside its time before the redesign, and
+    the registers, shared memory and spills of each kernel.  Returns the
+    JSON line's entries (launches, and the backward's launches a call,
+    filled in by the main path)."""
     B, T, DI, S = SSM_SHAPE
     TB, TT = SSM_TRAIN_SHAPE[:2]
     cases = [("from zero", B, T, False, False),
@@ -3775,14 +3809,19 @@ def check_selective_scan(torch, ssk, ref, device):
     torch.cuda.empty_cache()
 
     grads = ("du", "ddt", "dB", "dC", "dA", "dstate0")
-    bwd_cases = [("training shape, from zero", TB, TT, False, False),
-                 ("training shape, carried state and final-state grad, "
-                  "extreme dt", TB, TT, True, True),
-                 ("prefill shape, carried state and final-state grad", B, T,
-                  True, False)]
+    carried_grad = "carried state and final-state grad"
+    bwd_cases = [("training shape, from zero", TB, TT, DI, False, False),
+                 (f"training shape, {carried_grad}, extreme dt", TB, TT, DI,
+                  True, True),
+                 (f"prefill shape, {carried_grad}", B, T, DI, True, False),
+                 (f"ragged T=1000, {carried_grad}", B, 1000, DI, True, False),
+                 (f"hymba's train_4k length, {carried_grad}", 1, 4096, DI,
+                  True, False),
+                 (f"the longest T, {carried_grad}", 1, ssk.MAX_BACKWARD_T,
+                  40, True, False)]
     err_bwd = 0.0
-    for n, (what, b, t, carried, extreme) in enumerate(bwd_cases):
-        u, dt, Bm, Cm, A, h0, dy, dh = ssm_inputs(torch, b, t, DI, S, device,
+    for n, (what, b, t, di, carried, extreme) in enumerate(bwd_cases):
+        u, dt, Bm, Cm, A, h0, dy, dh = ssm_inputs(torch, b, t, di, S, device,
                                                   160 + n, extreme)
         state, dfinal = (h0, dh) if carried else (None, None)
         got = ssk.selective_scan_bwd_cuda(u, dt, Bm, Cm, A, state, dy, dfinal)
@@ -3792,7 +3831,11 @@ def check_selective_scan(torch, ssk, ref, device):
         same = all(torch.equal(x, y) for x, y in zip(got, again)
                    if x is not None)
         want = ref.selective_scan_bwd_ref(u, dt, Bm, Cm, A, state, dy, dfinal)
-        name = f"selective scan backward (B={b}, T={t}) {what}"
+        seg = ssk.segment_length(t)
+        name = (f"selective scan backward (B={b}, T={t}, DI={di}; "
+                f"{ssk.segments(t, seg)} segments of {seg}, "
+                f"{ssk.backward_dynamic_shared_bytes(seg)} B of dynamic "
+                f"shared memory a block) {what}")
         errs = {k: _rel(torch, g, w, f"{name}: {k}")
                 for k, g, w in zip(grads, got, want) if w is not None}
         log(f"{name}: max |kernel - plain| / max |plain| "
@@ -3868,16 +3911,20 @@ def check_selective_scan(torch, ssk, ref, device):
         nbytes, ops = ssm_work(b, t, DI, S, carried, backward=True)
         bbound, bby = bound(nbytes, ops, "f32 FFMA")
         ws_bytes = ssk.backward_workspace_bytes(b, t, DI, S)
+        seg = ssk.segment_length(t)
         times[key] = (bms, bplain, bbound, bby)
         log(f"selective scan backward f32 at the {key} shape (B={b}, T={t}"
-            f"{', carried state' if carried else ', from zero'}): {bms:.4f} "
-            f"ms on the device (again {bms2:.4f}; two input sets cycled, a "
-            f"call's two launches), plain {bplain:.4f} ms, library none, "
-            f"bound {bbound:.4f} ms by {bby} ({nbytes} B: "
+            f"{', carried state' if carried else ', from zero'}; "
+            f"{ssk.segments(t, seg)} segments of {seg}): {bms:.4f} ms on the "
+            f"device (again {bms2:.4f}; two input sets cycled, a call's "
+            f"launches), before the redesign {SSM_BWD_EARLIER_MS[key]:.4f} "
+            f"ms, plain {bplain:.4f} ms, library none, bound {bbound:.4f} ms "
+            f"by {bby} ({nbytes} B: "
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {ops} ops at the FFMA "
             f"rate: {ops / FFMA_OPS * 1e3:.4f} ms); workspace {ws_bytes} B "
             f"written and read ({2 * ws_bytes / HBM_BYTES_PER_S * 1e3:.4f} "
-            f"ms at the memory rate)")
+            f"ms at the memory rate); dynamic shared "
+            f"{ssk.backward_dynamic_shared_bytes(seg)} B a block")
         del sets
         torch.cuda.empty_cache()
     ssk.launches, ssk.backward_launches = n0, nb0  # comparison launches
@@ -3912,8 +3959,10 @@ def check_selective_scan(torch, ssk, ref, device):
         "bound_ms": bbound,
         "bound_by": bby,
         "library_ms": None,
+        "launches_per_call": None,  # from the training profile
         "prefill_ms": times["prefill"][0],
         "prefill_plain_ms": times["prefill"][1],
+        "prefill_bound_ms": times["prefill"][2],
     }}
 
 

@@ -128,19 +128,12 @@ using sm90::store_split;
 
 // ---- cluster (distributed shared memory) -----------------------------------
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-// the address of `p` in the shared memory of block `rank` of the cluster
-__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out)
-               : "r"(sm90::smem_u32(p)), "r"(rank));
-  return out;
-}
+using sm90::cluster_arrive_relaxed;
+using sm90::cluster_rank;
+using sm90::cluster_sync;
+using sm90::cluster_wait;
+using sm90::map_rank;
+
 // 16 bytes into the shared memory of another block of the cluster; the
 // write completes 16 bytes of a transaction on the mbarrier `bar` there
 __device__ __forceinline__ void st_async4(uint32_t addr, float a, float b,
@@ -150,19 +143,6 @@ __device__ __forceinline__ void st_async4(uint32_t addr, float a, float b,
       "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
       "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
       : "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-// an execution barrier over the cluster without memory ordering (a release
-// arrive costs a GPU-wide memory fence)
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // Level LV of the butterfly over NL lanes: lanes o = NL >> (LV+1) apart

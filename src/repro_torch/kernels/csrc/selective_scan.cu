@@ -56,17 +56,53 @@
 //   dB_t[s]  = sum_d g_t dt_t u_t,   dC_t[s] = sum_d h_t dy_t[d]
 //   dA[d,s]  = sum_{b,t} g_t h_{t-1} a_t dt_t,   dstate0 = a_0 g_0
 //
-// Two launches: selective_scan_bwd_kernel, one thread a (b, d, s) (a block
-// 16 channels x 16 states, synchronous staging: the simple form), walks
-// the sequence forward and keeps the state entering every kBwdChunk steps
-// (a workspace), then walks it back a chunk at a time, recomputing the
-// chunk's states from its boundary into registers; du and ddt sum over s
-// by xor-shuffles, dB and dC over the block's 16 channels (a shuffle, then
-// the 8 warps' values in order in shared memory), each block writing its
-// partial sums of dB and dC and each (b, d, s) its dA term to workspaces.
+// What bounds it: at the training shape (B=2, T=256, DI=3200, S=16) the
+// call must move ~36 MB (u, dt, dy in; du, ddt out), 0.011 ms at 3.35
+// TB/s, against ~28 operations an element (b, t, d, s), 0.011 ms at the
+// f32 rate; at the prefill shape (B=4, T=2048) the bytes, 0.175 ms.  Both
+// walks are serial chains of T steps a (b, d, s), forward for h and
+// backward for g, and each step's grads need both.
+//
+// What this design does about it: the recurrence is diagonal, so the
+// sequence is cut into a power of two of segments, at most kSegs, of L
+// steps (chosen by the wrapper: as many segments as keep four 16-step
+// chunks each; the last padded with dt = u = dy = 0, B = C = 0, so a = 1
+// and the padding is the identity) that run at once, one block each, the
+// segments of a (batch, 16-channel block) one cluster.  Every
+// (b, d, s) chain is a segment long, not 3T:
+//   1. the local pass walks the segment forward once from a zero state:
+//      its state hloc, its decay product Gamma = prod a_t (a running
+//      product) and the adjoint it sends to the state entering it, gloc =
+//      sum_t (prod_{tau<=t} a_tau) C_t dy_t (the same running product);
+//      the (hloc, Gamma) entering each 16-step chunk are kept in shared
+//      memory;
+//   2. the hop, through distributed shared memory: block k reads the
+//      (hloc, Gamma) of the segments before it and the (Gamma, gloc) of
+//      those after it from their blocks, all at once, then h_in = Gamma_j
+//      h_in + hloc_j from the carried state and g_out = Gamma_j g_out +
+//      gloc_j from the final-state grad, in segment order;
+//   3. the grad pass walks its chunks back from g_out, each chunk's states
+//      recomputed into registers from hloc + Gamma h_in at its start,
+//      writing du and ddt, the block's partial sums of dB and dC over its
+//      16 channels and each chain's dA term; segment 0's last carry is
+//      dstate0.
+// The segment boundaries never leave the chip: the workspaces are the dB
+// and dC partials (ceil(DI / 16) B T S floats each) and the dA terms (B
+// segments DI S).  Nothing is divided and no logarithm is taken: an a_t
+// that underflows to exactly 0 gives Gamma = 0 and exact grads.  The lanes
+// are the forward's (8 a channel, 2 states each), at most 102 registers a
+// thread so that 5 blocks share an SM.  A step's sums over a channel's
+// states (du, ddt) and over a warp's 4 channels (dB, dC) are xor-shuffle
+// folds, each level halving the values a lane carries (three shuffles for
+// two or four values), left in shared memory; once a chunk they are added
+// up over the lanes and warps and written.  Every chunk's inputs arrive
+// by cp.async into one of two buffers while the chunk before runs.
 // selective_scan_bwd_reduce_kernel adds the partials over the channel
-// blocks (dB, dC) and over the batch (dA) in a fixed order.  No float
-// atomics: two calls on the same inputs give the same bits.
+// blocks (dB, dC) and over (batch, segment) (dA) in a fixed order.  No
+// float atomics: two calls on the same inputs give the same bits.  The hop
+// associates the state differently from a sequential walk, so the result
+// is not the earlier kernel's bits; the tolerance against the plain
+// reverse recurrence is the contract.
 
 #include <cuda_runtime.h>
 
@@ -77,42 +113,22 @@
 namespace {
 
 constexpr int kS = 16;               // states a channel (STATE_DIMS)
-constexpr int kCh = 16;              // backward channels a block
-constexpr int kThreads = kS * kCh;   // backward threads a block, 256
-constexpr int kWarps = kThreads / 32;
 constexpr int kFwdLanes = 8;         // forward lanes a channel, 2 states each
 constexpr int kFwdCh = 16;           // forward channels a block
 constexpr int kFwdThreads = kFwdLanes * kFwdCh;  // 128
 constexpr int kFwdBlocks = 12;       // forward blocks an SM (<= 40 registers)
 constexpr int kFwdChunk = 16;        // steps the forward stages at once
 constexpr int kFwdPartStride = kFwdCh * kFwdLanes + 1;  // a step's, padded
+constexpr int kCh = 16;              // backward channels a block (CHANNELS)
+constexpr int kLanes = 8;            // backward lanes a channel, 2 states each
+constexpr int kThreads = kCh * kLanes;  // backward threads a block, 128
+constexpr int kWarps = kThreads / 32;
+constexpr int kBwdBlocks = 5;        // backward blocks an SM (<= 102 registers)
 constexpr int kBwdChunk = 16;        // steps a backward chunk (SSM_BWD_CHUNK)
+constexpr int kSegs = 8;             // segments at most, a cluster (SEGMENTS)
+constexpr int kMaxSegment = 1536;    // steps a segment at most (MAX_SEGMENT)
 constexpr int kReduceThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float sum_states(float x) {
-  // lanes s of one channel are 16 consecutive lanes of the warp
-  x += __shfl_xor_sync(0xffffffffu, x, 8);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x;
-}
-
-// Stage rows [t0, t0 + n) of a (B, T, width) tensor's columns [c0, c0 +
-// cols) for batch b into dst (rows x cols), zero past n or width.
-template <int Rows, int Cols>
-__device__ __forceinline__ void stage(float (*dst)[Cols],
-                                      const float* __restrict__ src, int b,
-                                      int T, int width, int t0, int n,
-                                      int c0) {
-  for (int i = threadIdx.x; i < Rows * Cols; i += kThreads) {
-    const int r = i / Cols, c = i % Cols;
-    const bool ok = r < n && c0 + c < width;
-    dst[r][c] =
-        ok ? src[(static_cast<size_t>(b) * T + t0 + r) * width + c0 + c] : 0.f;
-  }
-}
 
 // 4 bytes from global to shared memory, asynchronously; a zero where
 // !valid (the source is then not read)
@@ -168,18 +184,6 @@ struct ChunkCopies {
     }
   }
 };
-
-// Write rows [0, n) of src (rows x kCh) into a (B, T, DI) tensor at rows
-// [t0, t0 + n) and channels [d0, d0 + kCh) of batch b.
-__device__ __forceinline__ void unstage(float* __restrict__ dst,
-                                        float (*src)[kCh], int b, int T,
-                                        int DI, int t0, int n, int d0) {
-  for (int i = threadIdx.x; i < n * kCh; i += kThreads) {
-    const int r = i / kCh, c = i % kCh;
-    if (d0 + c < DI)
-      dst[(static_cast<size_t>(b) * T + t0 + r) * DI + d0 + c] = src[r][c];
-  }
-}
 
 // grid (ceil(DI / kFwdCh), B), kFwdThreads threads; thread (c, q) =
 // (threadIdx.x / kFwdLanes, threadIdx.x % kFwdLanes) owns channel d0 + c,
@@ -274,13 +278,43 @@ selective_scan_fwd_kernel(const float* __restrict__ u,
   }
 }
 
-// The backward's walks: grid (ceil(DI / kCh), B), kThreads threads; thread
-// (c, s) = (threadIdx.x / kS, threadIdx.x % kS) owns channel d0 + c, state
-// s.  Workspaces:
-// hb (B, ceil(T / kBwdChunk), DI, kS), the state entering each chunk;
-// partB, partC (gridDim.x, B, T, kS), each channel block's sums of dB and
-// dC; dApart (B, DI, kS), each (b, d, s)'s dA over t.
-__global__ void __launch_bounds__(kThreads)
+// The backward's copies of the 16-step chunk at row t0: the rows of u, dt
+// and dy at the block's kCh channels, and of B and C, into one of two
+// buffers (u, dt, dy, B, C one after the other, kBwdChunk x kCh each), two
+// elements of each a thread; past T or DI a zero is written and nothing
+// read (the padding of the last segment).  int offsets: a row that is read
+// lies inside its tensor, which the wrapper holds below 2^31 elements.
+__device__ __forceinline__ void copy_bwd_chunk(
+    float* buf, const float* __restrict__ u, const float* __restrict__ dt,
+    const float* __restrict__ dy, const float* __restrict__ Bm,
+    const float* __restrict__ Cm, int b, int t0, int T, int d0, int DI) {
+  constexpr int kArray = kBwdChunk * kCh;
+  static_assert(kCh == kS && kArray % kThreads == 0,
+                "u, dt, dy, B and C rows are equally wide");
+#pragma unroll
+  for (int k = 0; k < kArray / kThreads; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    const int t = t0 + i / kCh, col = i % kCh;
+    const bool in_t = t < T, ok = in_t && d0 + col < DI;
+    const int ud = ok ? (b * T + t) * DI + d0 + col : 0;
+    const int bc = in_t ? (b * T + t) * kS + col : 0;
+    cp_async4(buf + i, u + ud, ok);
+    cp_async4(buf + kArray + i, dt + ud, ok);
+    cp_async4(buf + 2 * kArray + i, dy + ud, ok);
+    cp_async4(buf + 3 * kArray + i, Bm + bc, in_t);
+    cp_async4(buf + 4 * kArray + i, Cm + bc, in_t);
+  }
+}
+
+// grid (segments, ceil(DI / kCh), B), a cluster of all the segments of a
+// (channel block, batch); kThreads threads; thread (c, q) = (threadIdx.x /
+// kLanes, threadIdx.x % kLanes) owns channel d0 + c, states 2q and 2q + 1
+// (two chains), of the L steps of segment blockIdx.x.  Dynamic shared
+// memory: (hloc, Gamma) of both chains entering each of the segment's L/16
+// chunks, a float4 a thread a chunk.  Workspaces: partB, partC
+// (ceil(DI / kCh), B, T, kS), each channel block's sums of dB and dC;
+// dApart (B, segments, DI, kS), each (b, segment, d, s)'s dA over its t.
+__global__ void __launch_bounds__(kThreads, kBwdBlocks)
 selective_scan_bwd_kernel(const float* __restrict__ u,
                           const float* __restrict__ dt,
                           const float* __restrict__ Bm,
@@ -290,120 +324,229 @@ selective_scan_bwd_kernel(const float* __restrict__ u,
                           const float* __restrict__ dy,
                           const float* __restrict__ dhT,
                           float* __restrict__ du, float* __restrict__ ddt,
-                          float* __restrict__ dh0, float* __restrict__ hb,
+                          float* __restrict__ dh0,
                           float* __restrict__ partB,
                           float* __restrict__ partC,
-                          float* __restrict__ dApart, int Bsz, int T,
-                          int DI) {
-  __shared__ float su[kBwdChunk][kCh], sdt[kBwdChunk][kCh];
-  __shared__ float sdy[kBwdChunk][kCh];
-  __shared__ float sB[kBwdChunk][kS], sC[kBwdChunk][kS];
-  __shared__ float sdu[kBwdChunk][kCh], sddt[kBwdChunk][kCh];
-  __shared__ float redB[kBwdChunk][kWarps][kS], redC[kBwdChunk][kWarps][kS];
-  const int b = blockIdx.y, d0 = blockIdx.x * kCh;
-  const int c = threadIdx.x / kS, s = threadIdx.x % kS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+                          float* __restrict__ dApart, int T, int DI, int L) {
+  constexpr int kArray = kBwdChunk * kCh;
+  // [buffer][u, dt, dy, B, C][step][column]
+  __shared__ __align__(16) float stage_in[2][5][kArray];
+  // the segment's hloc, Gamma and gloc, read by the other blocks in the hop
+  __shared__ float2 seg_h[kThreads], seg_g[kThreads], seg_l[kThreads];
+  // a step's sums over a channel's states: [sum g B, sum da A][step][channel]
+  __shared__ float chan[2][kBwdChunk][kCh];
+  // a step's sums over a warp's 4 channels: [step][warp][lane], lane (m, q)
+  // holding dB (m < 2) or dC (m >= 2) of state 2q + (m & 1)
+  __shared__ float red[kBwdChunk][kWarps][32];
+  extern __shared__ float4 ckpt[];  // [chunk][thread]
+  const int seg = blockIdx.x, nseg = gridDim.x, b = blockIdx.z;
+  const int cb = blockIdx.y, d0 = cb * kCh;
+  const int tid = threadIdx.x, c = tid / kLanes, q = tid % kLanes;
+  const int warp = tid / 32, lane = tid % 32;
   const int d = d0 + c;
   const bool live = d < DI;
-  const int chunks = (T + kBwdChunk - 1) / kBwdChunk;
-  const size_t sidx = (static_cast<size_t>(b) * DI + d) * kS + s;
-  const float a_ds = live ? A[d * kS + s] : 0.f;
-  const float a2 = a_ds * kLog2e;  // exp(dt A) = exp2(dt a2), as forward
-  auto boundary = [&](int ch) -> float& {
-    return hb[((static_cast<size_t>(b) * chunks + ch) * DI + d) * kS + s];
+  const size_t sidx = (static_cast<size_t>(b) * DI + d) * kS + 2 * q;
+  const float2 Av = live ? make_float2(A[d * kS + 2 * q], A[d * kS + 2 * q + 1])
+                         : make_float2(0.f, 0.f);
+  // exp(dt A) as exp2(dt A log2 e), as the forward
+  const float2 a2 = make_float2(Av.x * kLog2e, Av.y * kLog2e);
+  const int t_seg = seg * L, nch = L / kBwdChunk;
+
+  // The chunks in the order they are visited: 0 .. nch-1 (the local pass),
+  // then nch-1 .. 0 (the grad pass); visit v's inputs go to buffer v & 1.
+  // Visit v waits for its copies, then (every thread past the barrier, so
+  // done with visit v - 1's buffer) starts those of visit v + 1, which land
+  // while visit v runs.
+  auto visit_chunk = [&](int v) { return v < nch ? v : 2 * nch - 1 - v; };
+  auto start_copies = [&](int v) {
+    if (v < 2 * nch)
+      copy_bwd_chunk(stage_in[v & 1][0], u, dt, dy, Bm, Cm, b,
+                     t_seg + visit_chunk(v) * kBwdChunk, T, d0, DI);
+    sm90::cp_async_commit();
   };
 
-  // forward walk: the state entering every chunk
-  float h = (live && h0 != nullptr) ? h0[sidx] : 0.f;
-  for (int ch = 0; ch < chunks; ++ch) {
-    const int t0 = ch * kBwdChunk, n = min(kBwdChunk, T - t0);
-    if (live) boundary(ch) = h;
-    __syncthreads();  // the previous chunk's reads of the stages are done
-    stage<kBwdChunk, kCh>(su, u, b, T, DI, t0, n, d0);
-    stage<kBwdChunk, kCh>(sdt, dt, b, T, DI, t0, n, d0);
-    stage<kBwdChunk, kS>(sB, Bm, b, T, kS, t0, n, 0);
+  // 1. the local pass, from a zero state
+  float2 hl = make_float2(0.f, 0.f), G = make_float2(1.f, 1.f);
+  float2 gl = make_float2(0.f, 0.f);
+  start_copies(0);
+  for (int v = 0; v < nch; ++v) {
+    sm90::cp_async_wait<0>();  // this chunk's copies have landed
     __syncthreads();
-    for (int r = 0; r < n; ++r) {
-      const float dtv = sdt[r][c];
-      h = exp2f(dtv * a2) * h + dtv * sB[r][s] * su[r][c];
+    start_copies(v + 1);
+    ckpt[v * kThreads + tid] = make_float4(hl.x, hl.y, G.x, G.y);
+    const float* const cu = stage_in[v & 1][0] + c;
+    const float* const cdt = stage_in[v & 1][1] + c;
+    const float* const cdy = stage_in[v & 1][2] + c;
+    const float2* const cB =
+        reinterpret_cast<const float2*>(stage_in[v & 1][3]) + q;
+    const float2* const cC =
+        reinterpret_cast<const float2*>(stage_in[v & 1][4]) + q;
+#pragma unroll
+    for (int r = 0; r < kBwdChunk; ++r) {
+      const float dtv = cdt[r * kCh], x = dtv * cu[r * kCh];
+      const float dyv = cdy[r * kCh];
+      const float2 Bv = cB[r * kS / 2], Cv = cC[r * kS / 2];
+      const float ax = sm90::exp2_approx(dtv * a2.x);
+      const float ay = sm90::exp2_approx(dtv * a2.y);
+      hl.x = fmaf(ax, hl.x, x * Bv.x);
+      hl.y = fmaf(ay, hl.y, x * Bv.y);
+      G.x *= ax;
+      G.y *= ay;
+      gl.x = fmaf(G.x, Cv.x * dyv, gl.x);
+      gl.y = fmaf(G.y, Cv.y * dyv, gl.y);
     }
   }
 
-  // backward walk, a chunk at a time from the last
-  float carry = (live && dhT != nullptr) ? dhT[sidx] : 0.f;  // a_{t+1} g_{t+1}
-  float dA_acc = 0.f;
-  for (int ch = chunks - 1; ch >= 0; --ch) {
-    const int t0 = ch * kBwdChunk, n = min(kBwdChunk, T - t0);
-    __syncthreads();  // the previous chunk's reads of the stages are done
-    stage<kBwdChunk, kCh>(su, u, b, T, DI, t0, n, d0);
-    stage<kBwdChunk, kCh>(sdt, dt, b, T, DI, t0, n, d0);
-    stage<kBwdChunk, kCh>(sdy, dy, b, T, DI, t0, n, d0);
-    stage<kBwdChunk, kS>(sB, Bm, b, T, kS, t0, n, 0);
-    stage<kBwdChunk, kS>(sC, Cm, b, T, kS, t0, n, 0);
-    __syncthreads();
-    float hs[kBwdChunk + 1];  // hs[0] = h_{t0-1}, hs[r + 1] = h_{t0+r}
-    hs[0] = live ? boundary(ch) : 0.f;
+  // 2. the hop, in segment order, from the other blocks of the cluster
+  seg_h[tid] = hl;
+  seg_g[tid] = G;
+  seg_l[tid] = gl;
+  sm90::cluster_sync();
+  // the other segments' Gamma, and hloc of those before, gloc of those after
+  float2 rg[kSegs], rx[kSegs];
+#pragma unroll
+  for (int k = 0; k < kSegs; ++k) {
+    if (k < nseg && k != seg) {
+      rg[k] = sm90::ld_cluster(&seg_g[tid], k);
+      rx[k] = sm90::ld_cluster(k < seg ? &seg_h[tid] : &seg_l[tid], k);
+    }
+  }
+  float2 hin = (live && h0 != nullptr) ? make_float2(h0[sidx], h0[sidx + 1])
+                                       : make_float2(0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < kSegs; ++k) {
+    if (k < seg)
+      hin = make_float2(fmaf(rg[k].x, hin.x, rx[k].x),
+                        fmaf(rg[k].y, hin.y, rx[k].y));
+  }
+  // carry: a_{t+1} g_{t+1} at the step walked next, from the last step's
+  float2 carry = (live && dhT != nullptr)
+                     ? make_float2(dhT[sidx], dhT[sidx + 1])
+                     : make_float2(0.f, 0.f);
+#pragma unroll
+  for (int k = kSegs - 1; k >= 0; --k) {
+    if (k > seg && k < nseg)
+      carry = make_float2(fmaf(rg[k].x, carry.x, rx[k].x),
+                          fmaf(rg[k].y, carry.y, rx[k].y));
+  }
+  sm90::cluster_arrive();  // the reads of the other blocks are done
+
+  // 3. the grad pass, the chunks from the last
+  const bool hi4 = q & 4, hi8 = lane & 8, hi16 = lane & 16;
+  const int prow = tid / kCh, pcol = tid % kCh;
+  const bool pcol_live = d0 + pcol < DI;
+  const size_t row0 = static_cast<size_t>(b) * T * DI + d0 + pcol;
+  float* const du_row = du + row0;
+  float* const ddt_row = ddt + row0;
+  const int from = (2 * (lane / kS) + (lane & 1)) * kLanes + lane % kS / 2;
+  float* const part_row = (lane < kS ? partB : partC) +
+                          (static_cast<size_t>(cb) * gridDim.z + b) * T * kS +
+                          lane % kS;
+  float2 dA_acc = make_float2(0.f, 0.f);
+  for (int v = nch; v < 2 * nch; ++v) {
+    sm90::cp_async_wait<0>();
+    __syncthreads();  // and the sums of visit v - 1 are read
+    start_copies(v + 1);
+    const int j = visit_chunk(v), t0 = t_seg + j * kBwdChunk;
+    const float* const cu = stage_in[v & 1][0] + c;
+    const float* const cdt = stage_in[v & 1][1] + c;
+    const float* const cdy = stage_in[v & 1][2] + c;
+    const float2* const cB =
+        reinterpret_cast<const float2*>(stage_in[v & 1][3]) + q;
+    const float2* const cC =
+        reinterpret_cast<const float2*>(stage_in[v & 1][4]) + q;
+    // hx[0] = h_{t0-1}, hx[r + 1] = h_{t0+r}: the chunk's states
+    float hx[kBwdChunk + 1], hy[kBwdChunk + 1];
+    const float4 ck = ckpt[j * kThreads + tid];
+    hx[0] = fmaf(ck.z, hin.x, ck.x);
+    hy[0] = fmaf(ck.w, hin.y, ck.y);
 #pragma unroll
     for (int r = 0; r < kBwdChunk; ++r) {
-      if (r < n) {
-        const float dtv = sdt[r][c];
-        hs[r + 1] = exp2f(dtv * a2) * hs[r] + dtv * sB[r][s] * su[r][c];
-      }
+      const float dtv = cdt[r * kCh], x = dtv * cu[r * kCh];
+      const float2 Bv = cB[r * kS / 2];
+      hx[r + 1] = fmaf(sm90::exp2_approx(dtv * a2.x), hx[r], x * Bv.x);
+      hy[r + 1] = fmaf(sm90::exp2_approx(dtv * a2.y), hy[r], x * Bv.y);
     }
 #pragma unroll
     for (int r = kBwdChunk - 1; r >= 0; --r) {
-      if (r < n) {
-        const float dtv = sdt[r][c], uv = su[r][c], bv = sB[r][s];
-        const float a = exp2f(dtv * a2);
-        const float g = carry + sC[r][s] * sdy[r][c];
-        const float da = g * hs[r] * a;  // d/d(dt A)
-        const float du_t = sum_states(g * dtv * bv);
-        const float ddt_t = sum_states(g * bv * uv + da * a_ds);
-        if (s == 0) {
-          sdu[r][c] = du_t;
-          sddt[r][c] = ddt_t;
-        }
-        float gB = g * dtv * uv, gC = hs[r + 1] * sdy[r][c];
-        gB += __shfl_xor_sync(0xffffffffu, gB, 16);  // the warp's 2 channels
-        gC += __shfl_xor_sync(0xffffffffu, gC, 16);
-        if (lane < kS) {
-          redB[r][warp][lane] = gB;
-          redC[r][warp][lane] = gC;
-        }
-        dA_acc += da * dtv;
-        carry = a * g;
+      const float dtv = cdt[r * kCh], uv = cu[r * kCh], dyv = cdy[r * kCh];
+      const float2 Bv = cB[r * kS / 2], Cv = cC[r * kS / 2];
+      const float ax = sm90::exp2_approx(dtv * a2.x);
+      const float ay = sm90::exp2_approx(dtv * a2.y);
+      const float gx = fmaf(Cv.x, dyv, carry.x), gy = fmaf(Cv.y, dyv, carry.y);
+      carry = make_float2(ax * gx, ay * gy);
+      const float dax = carry.x * hx[r], day = carry.y * hy[r];  // d/d(dt A)
+      dA_acc.x = fmaf(dax, dtv, dA_acc.x);
+      dA_acc.y = fmaf(day, dtv, dA_acc.y);
+      {  // sum g B and sum da A over the channel's 16 states: lanes q < 4
+         // end with the first, q >= 4 with the second
+        const float sg = fmaf(gx, Bv.x, gy * Bv.y);
+        const float sd = fmaf(dax, Av.x, day * Av.y);
+        float keep = hi4 ? sd : sg;
+        keep += __shfl_xor_sync(0xffffffffu, hi4 ? sg : sd, 4);
+        keep += __shfl_xor_sync(0xffffffffu, keep, 2);
+        keep += __shfl_xor_sync(0xffffffffu, keep, 1);
+        if ((q & 3) == 0) chan[hi4][r][c] = keep;
+      }
+      {  // dB = g dt u and dC = h dy of both states over the warp's 4
+         // channels: lane bit 4 keeps dC, bit 3 the odd state
+        const float dtu = dtv * uv;
+        const float bx = gx * dtu, by = gy * dtu;
+        const float cx = hx[r + 1] * dyv, cy = hy[r + 1] * dyv;
+        float k0 = hi16 ? cx : bx, k1 = hi16 ? cy : by;
+        k0 += __shfl_xor_sync(0xffffffffu, hi16 ? bx : cx, 16);
+        k1 += __shfl_xor_sync(0xffffffffu, hi16 ? by : cy, 16);
+        float keep = hi8 ? k1 : k0;
+        keep += __shfl_xor_sync(0xffffffffu, hi8 ? k0 : k1, 8);
+        red[r][warp][lane] = keep;
       }
     }
     __syncthreads();
-    unstage(du, sdu, b, T, DI, t0, n, d0);
-    unstage(ddt, sddt, b, T, DI, t0, n, d0);
-    {  // this block's sums of dB and dC over its channels, warps in order
-      const int r = threadIdx.x / kS, ss = threadIdx.x % kS;
-      static_assert(kBwdChunk * kS == kThreads, "a thread a (step, state)");
-      if (r < n) {
-        float sb = 0.f, sc = 0.f;
+    // du = dt sum g B, ddt = u sum g B + sum da A: thread (prow, pcol) the
+    // steps prow and prow + 8 of channel d0 + pcol
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) {
-          sb += redB[r][w][ss];
-          sc += redC[r][w][ss];
-        }
-        const size_t o =
-            ((static_cast<size_t>(blockIdx.x) * Bsz + b) * T + t0 + r) * kS +
-            ss;
-        partB[o] = sb;
-        partC[o] = sc;
+    for (int k = 0; k < kArray / kThreads; ++k) {
+      const int r = prow + k * (kThreads / kCh), i = r * kCh + pcol;
+      const float sg = chan[0][r][pcol], sd = chan[1][r][pcol];
+      const float dtv = stage_in[v & 1][1][i], uv = stage_in[v & 1][0][i];
+      if (pcol_live && t0 + r < T) {
+        const size_t o = static_cast<size_t>(t0 + r) * DI;
+        du_row[o] = dtv * sg;
+        ddt_row[o] = fmaf(uv, sg, sd);
       }
+    }
+    // this block's sums of dB and dC over its channels, warps in order:
+    // warp w the steps w, w + 4, ..., lane m dB (m < 16) or dC of state m % 16
+#pragma unroll
+    for (int k = 0; k < kBwdChunk / kWarps; ++k) {
+      const int r = warp + k * kWarps;
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += red[r][w][from];
+      if (t0 + r < T) part_row[static_cast<size_t>(t0 + r) * kS] = sum;
     }
   }
   if (live) {
-    dApart[sidx] = dA_acc;
-    if (dh0 != nullptr) dh0[sidx] = carry;
+    const size_t o = ((static_cast<size_t>(b) * nseg + seg) * DI + d) * kS +
+                     2 * q;
+    dApart[o] = dA_acc.x;
+    dApart[o + 1] = dA_acc.y;
+    if (seg == 0 && dh0 != nullptr) {
+      dh0[sidx] = carry.x;
+      dh0[sidx + 1] = carry.y;
+    }
   }
+  sm90::cluster_wait();  // no block leaves while another reads its hop
 }
 
-// dB, dC (B, T, kS): the channel blocks' partials summed in block order;
-// dA (DI, kS): the batch's partials summed in batch order.  One thread an
-// output element.
+// dB, dC (B, T, kS): each output's channel-block partials in kGroups
+// interleaved groups (block k in group k % kGroups), a thread summing a
+// group in block order, then the groups in order; dA (DI, kS): the (batch,
+// segment) partials summed in that order, a thread an output.  The first
+// ceil(bts / kRedOut) blocks take dB and dC, kRedOut outputs each, the rest
+// dA, kReduceThreads outputs each.
+constexpr int kRedOut = 32;
+constexpr int kGroups = kReduceThreads / kRedOut;
 __global__ void __launch_bounds__(kReduceThreads)
 selective_scan_bwd_reduce_kernel(const float* __restrict__ partB,
                                  const float* __restrict__ partC,
@@ -411,23 +554,48 @@ selective_scan_bwd_reduce_kernel(const float* __restrict__ partB,
                                  float* __restrict__ dB,
                                  float* __restrict__ dC,
                                  float* __restrict__ dA, int blocks,
-                                 int Bsz, int bts, int dis) {
-  const int i = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (i < bts) {
-    float sb = 0.f, sc = 0.f;
-    for (int k = 0; k < blocks; ++k) {
-      sb += partB[static_cast<size_t>(k) * bts + i];
-      sc += partC[static_cast<size_t>(k) * bts + i];
+                                 int parts, int bts, int dis) {
+  __shared__ float sb[kGroups][kRedOut], sc[kGroups][kRedOut];
+  const int bc_blocks = (bts + kRedOut - 1) / kRedOut;
+  if (static_cast<int>(blockIdx.x) < bc_blocks) {
+    const int o = threadIdx.x % kRedOut, g = threadIdx.x / kRedOut;
+    const int i = blockIdx.x * kRedOut + o;
+    float b = 0.f, c = 0.f;
+    if (i < bts) {
+#pragma unroll 4
+      for (int k = g; k < blocks; k += kGroups) {
+        b += partB[static_cast<size_t>(k) * bts + i];
+        c += partC[static_cast<size_t>(k) * bts + i];
+      }
     }
-    dB[i] = sb;
-    dC[i] = sc;
-  } else if (i - bts < dis) {
-    const int j = i - bts;
-    float sa = 0.f;
-    for (int b = 0; b < Bsz; ++b)
-      sa += dApart[static_cast<size_t>(b) * dis + j];
-    dA[j] = sa;
+    sb[g][o] = b;
+    sc[g][o] = c;
+    __syncthreads();
+    if (g == 0 && i < bts) {
+#pragma unroll
+      for (int k = 1; k < kGroups; ++k) {
+        b += sb[k][o];
+        c += sc[k][o];
+      }
+      dB[i] = b;
+      dC[i] = c;
+    }
+  } else {
+    const int j = (blockIdx.x - bc_blocks) * kReduceThreads + threadIdx.x;
+    if (j < dis) {
+      float a = 0.f;
+#pragma unroll 4
+      for (int p = 0; p < parts; ++p)
+        a += dApart[static_cast<size_t>(p) * dis + j];
+      dA[j] = a;
+    }
   }
+}
+
+// The backward's dynamic shared memory for segments of L steps: a float4
+// a thread for each 16-step chunk.
+constexpr int bwd_dynamic_smem(int L) {
+  return L / kBwdChunk * kThreads * static_cast<int>(sizeof(float4));
 }
 
 template <typename K>
@@ -468,41 +636,69 @@ extern "C" int repro_selective_scan(const void* u, const void* dt,
 // The backward, float32: the grads du, ddt (B, T, DI), dB, dC (B, T, S),
 // dA (DI, S) and, when dstate0 is not null, of the initial state (B, DI,
 // S), for dy (B, T, DI) and dstate_final (the final state's; null: zero).
-// state_in null: a zero initial state.  Workspaces, float32, written before
-// they are read: hb (B, ceil(T / 16), DI, S); partB, partC (ceil(DI / 16),
-// B, T, S); dApart (B, DI, S).  Two launches; returns cudaGetLastError()
-// after them (0 on success).
+// state_in null: a zero initial state.  `segment` (L) is the segments'
+// length, a multiple of 16 up to kMaxSegment with ceil(T / L) <= kSegs
+// (so T is at most kSegs * kMaxSegment = 12,288); the segments are
+// the smallest power of two >= ceil(T / L).  Workspaces, float32, written
+// before they are read: partB, partC (ceil(DI / 16), B, T, S); dApart (B,
+// segments, DI, S).  Two launches; returns cudaGetLastError() after them (0
+// on success).
 extern "C" int repro_selective_scan_bwd(
     const void* u, const void* dt, const void* Bm, const void* Cm,
     const void* A, const void* state_in, const void* dy,
     const void* dstate_final, void* du, void* ddt, void* dB, void* dC,
-    void* dA, void* dstate0, void* hb, void* partB, void* partC,
-    void* dApart, int B, int T, int DI, int S, void* stream) {
-  if (B <= 0 || T <= 0 || DI <= 0 || B > 65535 || S != kS)
+    void* dA, void* dstate0, void* partB, void* partC, void* dApart, int B,
+    int T, int DI, int S, int segment, void* stream) {
+  const int blocks = (DI + kCh - 1) / kCh;
+  if (B <= 0 || T <= 0 || DI <= 0 || B > 65535 || blocks > 65535 ||
+      S != kS || segment <= 0 || segment > kMaxSegment ||
+      segment % kBwdChunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  int nseg = 1;
+  while (nseg * segment < T) nseg *= 2;
+  if (nseg > kSegs) return static_cast<int>(cudaErrorInvalidValue);
+  // the opt-in beyond 48 KB, set on every call (it is per device, and the
+  // same value from every caller): the longest segment's
+  cudaError_t rc = cudaFuncSetAttribute(
+      selective_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dynamic_smem(kMaxSegment));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int smem = bwd_dynamic_smem(segment);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((DI + kCh - 1) / kCh, B);
-  selective_scan_bwd_kernel<<<grid, kThreads, 0, st>>>(
-      f(u), f(dt), f(Bm), f(Cm), f(A), f(state_in), f(dy), f(dstate_final),
-      m(du), m(ddt), m(dstate0), m(hb), m(partB), m(partC), m(dApart), B, T,
-      DI);
-  const int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nseg, blocks, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nseg;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  rc = cudaLaunchKernelEx(
+      &cfg, selective_scan_bwd_kernel, f(u), f(dt), f(Bm), f(Cm), f(A),
+      f(state_in), f(dy), f(dstate_final), m(du), m(ddt), m(dstate0),
+      m(partB), m(partC), m(dApart), T, DI, segment);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   const int bts = B * T * kS, dis = DI * kS;
-  const int total = bts + dis;
-  selective_scan_bwd_reduce_kernel<<<(total + kReduceThreads - 1) /
-                                         kReduceThreads,
-                                     kReduceThreads, 0, st>>>(
-      f(partB), f(partC), f(dApart), m(dB), m(dC), m(dA),
-      static_cast<int>(grid.x), B, bts, dis);
+  const int reduce_blocks = (bts + kRedOut - 1) / kRedOut +
+                            (dis + kReduceThreads - 1) / kReduceThreads;
+  selective_scan_bwd_reduce_kernel<<<reduce_blocks, kReduceThreads, 0, st>>>(
+      f(partB), f(partC), f(dApart), m(dB), m(dC), m(dA), blocks, B * nseg,
+      bts, dis);
   return static_cast<int>(cudaGetLastError());
 }
 
 // What the compiler gave kernel `which` (0 the forward, 1 the backward's
-// walks, 2 its reduction): registers a thread, static shared bytes, local
-// (stack and spill) bytes, dynamic shared bytes (none).
+// segments, 2 its reduction): registers a thread, static shared bytes, local
+// (stack and spill) bytes, 0 (the backward's dynamic shared bytes depend on
+// the segment length: bwd_dynamic_smem).
 extern "C" int repro_selective_scan_attributes(int which, int* out) {
   if (which == 0) return attributes(selective_scan_fwd_kernel, out);
   if (which == 1) return attributes(selective_scan_bwd_kernel, out);

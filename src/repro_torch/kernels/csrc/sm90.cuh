@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks written out in PTX: mbarriers, TMA tile
-// loads, cp.async copies, wgmma descriptors and the wgmma shapes the bf16
-// flash-attention kernel runs, and the 3xTF32 mma.sync helpers that give
-// the f32 flash-attention and WKV kernels float32 products on the tensor
-// cores.
-// Included by flash_attention.cu and rwkv6_scan.cu; kernels/build.py
-// hashes every local header a source includes, so an edit here rebuilds
-// its users.
+// loads, cp.async copies, cluster barriers and distributed shared memory,
+// wgmma descriptors and the wgmma shapes the bf16 flash-attention kernel
+// runs, and the 3xTF32 mma.sync helpers that give the f32 flash-attention
+// and WKV kernels float32 products on the tensor cores.
+// Included by flash_attention.cu, rwkv6_scan.cu and selective_scan.cu;
+// kernels/build.py hashes every local header a source includes, so an
+// edit here rebuilds its users.
 //
 // Conventions (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"):
 //   * a tile in shared memory is written by a TMA load with 128-byte (or
@@ -232,6 +232,50 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc));
+}
+
+// ---- clusters (distributed shared memory) ---------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// the address of `p` in the shared memory of block `rank` of the cluster
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+// two floats from the shared memory of block `rank` of the cluster
+__device__ __forceinline__ float2 ld_cluster(const float2* p,
+                                             uint32_t rank) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(map_rank(p, rank))
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// an execution barrier over the cluster without memory ordering (a release
+// arrive costs a GPU-wide memory fence)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// the arrive half of cluster_sync: this thread's memory accesses are
+// ordered before the barrier; cluster_wait completes it
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 
 // ---- misc -----------------------------------------------------------------

@@ -13,7 +13,9 @@ the CUDA backward computes it (``rwkv6_scan_bwd_chunked_ref``; nothing on
 a main path runs it), and the selective-scan (Mamba) recurrence
 (``selective_scan_ref``, the reference's ``_mamba_core`` scan, which has
 no Pallas kernel) with its gradient as the reverse recurrence
-(``selective_scan_bwd_ref``).  The CPU paths of
+(``selective_scan_bwd_ref``) and as the CUDA backward computes it, in
+segments (``selective_scan_bwd_segmented_ref``; nothing on a main path
+runs it).  The CPU paths of
 :mod:`repro_torch.kernels.ops` run these, and ``chip_smoke.py`` holds the
 CUDA kernels against them on the card.
 """
@@ -545,6 +547,117 @@ def selective_scan_bwd_ref(u: torch.Tensor, dt: torch.Tensor,
             dA += (da * dt_t[..., None]).sum(0)
             carry = a * g
     return du, ddt, dB, dC, dA, None if state is None else carry
+
+
+def selective_scan_bwd_segmented_ref(u: torch.Tensor, dt: torch.Tensor,
+                                     Bm: torch.Tensor, Cm: torch.Tensor,
+                                     A: torch.Tensor,
+                                     state: Optional[torch.Tensor],
+                                     dy: torch.Tensor,
+                                     dstate_final: Optional[torch.Tensor] = None,
+                                     segment: int = SSM_BWD_CHUNK):
+    """The gradient of :func:`selective_scan_ref` computed as the CUDA
+    backward kernel computes it: a plain model of its arithmetic, same
+    contract as :func:`selective_scan_bwd_ref`.
+
+    The sequence is cut into segments of ``segment`` steps (a multiple of
+    :data:`SSM_BWD_CHUNK`), the last padded with dt = u = dy = 0 and B = C
+    = 0, so a = 1 and the padding is the identity.  Every segment at once:
+
+    1. the local pass, forward from a zero state: the segment's state
+       ``hloc``, its decay product ``G = prod a_t`` and the adjoint it sends
+       to the state entering it, ``gloc = sum_t (prod_{tau<=t} a_tau) C_t
+       dy_t``, all from running products; ``(hloc, G)`` entering every
+       chunk is kept;
+    2. the hops, in segment order: ``h_in[k+1] = G_k h_in[k] + hloc_k``
+       from the carried state, ``g_out[k-1] = G_k g_out[k] + gloc_k`` from
+       ``dstate_final``;
+    3. the grad pass, back from ``g_out``: each chunk's states recomputed
+       from ``hloc + G h_in`` at its start, then the reverse recurrence of
+       :func:`selective_scan_bwd_ref` over it; segment 0's last carry is
+       ``dstate0``;
+    4. dB and dC summed over blocks of 16 channels, then over the blocks;
+       dA over t within a (batch, segment), then over both.
+
+    Nothing is divided and no logarithm taken: a decay that underflows to
+    0 gives ``G = 0`` and exact grads."""
+    chunk = SSM_BWD_CHUNK
+    assert segment > 0 and segment % chunk == 0, segment
+    Bsz, T, DI = u.shape
+    S = A.shape[-1]
+    nseg = -(-T // segment)
+    pad = nseg * segment - T
+
+    def split(x):  # (B, T, W) -> (B, nseg, segment, W), zero-padded
+        x = torch.cat([x.float(), x.new_zeros((Bsz, pad, x.shape[-1]),
+                                              dtype=torch.float32)], 1)
+        return x.reshape(Bsz, nseg, segment, x.shape[-1])
+
+    u_, dt_, dy_, B_, C_ = (split(x) for x in (u, dt, dy, Bm, Cm))
+    A_ = A.float()
+
+    def step(h, t):  # one step of every segment
+        x = dt_[:, :, t, :, None] * B_[:, :, t, None, :] * u_[:, :, t, :, None]
+        a = torch.exp(dt_[:, :, t, :, None] * A_)
+        return a * h + x, a
+
+    hl = u_.new_zeros((Bsz, nseg, DI, S))
+    G, gl = torch.ones_like(hl), torch.zeros_like(hl)
+    ckpt = []
+    for t in range(segment):
+        if t % chunk == 0:
+            ckpt.append((hl, G))
+        hl, a = step(hl, t)
+        G = G * a
+        gl = gl + G * C_[:, :, t, None, :] * dy_[:, :, t, :, None]
+
+    h = (torch.zeros_like(hl[:, 0]) if state is None else state.float())
+    h_in = []
+    for k in range(nseg):
+        h_in.append(h)
+        h = G[:, k] * h + hl[:, k]
+    g = (torch.zeros_like(hl[:, 0]) if dstate_final is None
+         else dstate_final.float())
+    g_out = [None] * nseg
+    for k in reversed(range(nseg)):
+        g_out[k] = g
+        g = G[:, k] * g + gl[:, k]
+    h_in, carry = torch.stack(h_in, 1), torch.stack(g_out, 1)
+
+    du, ddt = torch.zeros_like(u_), torch.zeros_like(u_)
+    dB, dC = torch.zeros_like(B_), torch.zeros_like(B_)
+    dA = torch.zeros_like(hl)                       # (B, nseg, DI, S)
+    blocks = -(-DI // 16)
+
+    def block_sum(x):  # (B, nseg, DI, S) -> (B, nseg, S), blocks in order
+        x = torch.cat([x, x.new_zeros((Bsz, nseg, blocks * 16 - DI, S))], 2)
+        return x.reshape(Bsz, nseg, blocks, 16, S).sum(3).sum(2)
+
+    for c0 in reversed(range(0, segment, chunk)):
+        hl_c, G_c = ckpt[c0 // chunk]
+        hist, decays = [hl_c + G_c * h_in], []
+        for t in range(c0, c0 + chunk):
+            hn, a = step(hist[-1], t)
+            hist.append(hn)
+            decays.append(a)
+        for t in reversed(range(c0, c0 + chunk)):
+            hp, ht, a = hist[t - c0], hist[t - c0 + 1], decays[t - c0]
+            u_t, dt_t, dy_t = (x[:, :, t, :, None] for x in (u_, dt_, dy_))
+            B_t, C_t = B_[:, :, t, None, :], C_[:, :, t, None, :]
+            g = carry + C_t * dy_t
+            da = g * hp * a
+            du[:, :, t] = (g * dt_t * B_t).sum(-1)
+            ddt[:, :, t] = (g * B_t * u_t + da * A_).sum(-1)
+            dB[:, :, t] = block_sum(g * dt_t * u_t)
+            dC[:, :, t] = block_sum(ht * dy_t)
+            dA = dA + da * dt_t
+            carry = a * g
+
+    def join(x):
+        return x.reshape(Bsz, nseg * segment, x.shape[-1])[:, :T]
+
+    return (join(du), join(ddt), join(dB), join(dC), dA.sum(1).sum(0),
+            None if state is None else carry[:, 0])
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

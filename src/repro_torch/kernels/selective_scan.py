@@ -13,10 +13,15 @@ loaded when this module is imported.
 :func:`selective_scan_cuda` is one launch a call, for any T (T = 1 is a
 decode step), from a carried state or from zero, writing the final state
 when asked.  :func:`selective_scan_bwd_cuda` is training's backward, two
-launches a call (the walks, then a fixed-order reduction of the channel
-blocks' partial sums), counted once a call in :data:`backward_launches`.
+launches a call, counted once a call in :data:`backward_launches`: the
+sequence cut into at most :data:`SEGMENTS` segments of
+:func:`segment_length` steps, one cluster of blocks a (batch, channel
+block) that walks every segment at once and passes the segments' ends
+through distributed shared memory; then a fixed-order reduction of the
+channel blocks' and segments' partial sums.
 ``kernels.ref.selective_scan_ref`` and ``selective_scan_bwd_ref`` are the
-plain versions they are held to.  Both take CUDA tensors only; the CPU
+plain versions they are held to; ``selective_scan_bwd_segmented_ref``
+models the backward's arithmetic.  Both take CUDA tensors only; the CPU
 path of ``kernels.ops.selective_scan`` never reaches this module's build.
 """
 
@@ -48,9 +53,18 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "selective_scan.cu"
 
 STATE_DIMS = (16,)  # the state sizes the source takes (``kS``)
 CHANNELS = 16       # channels a backward block (``kCh``)
+SEGMENTS = 8        # segments of a backward call at most, a cluster (``kSegs``)
+MIN_CHUNKS = 4      # chunks a backward segment at least
+THREADS = 128       # threads a backward block (``kThreads``)
+# the longest segment: its chunks' (state, decay) pairs, 2 KB a chunk, and
+# the block's 23 KB of static shared memory fit the 227 KB a block can take
+MAX_SEGMENT = 96 * SSM_BWD_CHUNK
+#: the longest sequence the backward takes (training's ``seq_len`` on the
+#: card, ``models.transformer.cuda_supported``)
+MAX_BACKWARD_T = SEGMENTS * MAX_SEGMENT
 
 #: the kernels, in the order of ``kernel_attributes``' ``which``: the
-#: forward, then the backward's two launches
+#: forward, then the backward's two launches (the segments, the reduction)
 KERNELS = ("selective_scan_fwd_kernel", "selective_scan_bwd_kernel",
            "selective_scan_bwd_reduce_kernel")
 
@@ -67,7 +81,7 @@ def build() -> ctypes.CDLL:
     lib.repro_selective_scan.restype = ci
     lib.repro_selective_scan.argtypes = [vp] * 8 + [ci] * 4 + [vp]
     lib.repro_selective_scan_bwd.restype = ci
-    lib.repro_selective_scan_bwd.argtypes = [vp] * 18 + [ci] * 4 + [vp]
+    lib.repro_selective_scan_bwd.argtypes = [vp] * 17 + [ci] * 5 + [vp]
     lib.repro_selective_scan_attributes.restype = ci
     lib.repro_selective_scan_attributes.argtypes = [ci, ctypes.POINTER(ci)]
     _lib = lib
@@ -87,20 +101,48 @@ def kernel_attributes(which: int) -> dict:
             "local_bytes": out[2], "dynamic_shared_bytes": out[3]}
 
 
-def _workspace_shapes(B: int, T: int, DI: int, S: int):
-    """The float32 workspaces of one backward call: the state entering
-    every ``SSM_BWD_CHUNK``-step chunk, each channel block's partial sums
-    of dB and of dC, and each (b, d, s)'s dA term."""
+def segment_length(T: int) -> int:
+    """The backward's segment length for a sequence of T steps: as many
+    segments as a power of two up to :data:`SEGMENTS` allows while each
+    keeps at least :data:`MIN_CHUNKS` ``SSM_BWD_CHUNK``-step chunks, each
+    as short as covers T.  Shorter segments spread a (batch, channel
+    block) over more blocks; below four chunks a segment its fixed costs
+    outweigh that (PERF.md)."""
     chunks = -(-T // SSM_BWD_CHUNK)
+    n = 1
+    while n < SEGMENTS and chunks >= 2 * n * MIN_CHUNKS:
+        n *= 2
+    return SSM_BWD_CHUNK * -(-chunks // n)
+
+
+def segments(T: int, segment: int) -> int:
+    """The segments of a backward call: the smallest power of two that
+    covers T steps with ``segment``-step segments (a cluster's blocks)."""
+    n = 1
+    while n * segment < T:
+        n *= 2
+    return n
+
+
+def backward_dynamic_shared_bytes(segment: int) -> int:
+    """Dynamic shared bytes of a backward block: a float4 a thread for
+    each ``SSM_BWD_CHUNK``-step chunk of its segment."""
+    return segment // SSM_BWD_CHUNK * THREADS * 16
+
+
+def _workspace_shapes(B: int, T: int, DI: int, S: int, segment: int):
+    """The float32 workspaces of one backward call: each channel block's
+    partial sums of dB and of dC, and each (b, segment, d, s)'s dA
+    term."""
     blocks = -(-DI // CHANNELS)
-    return ((B, chunks, DI, S), (blocks, B, T, S), (blocks, B, T, S),
-            (B, DI, S))
+    return ((blocks, B, T, S), (blocks, B, T, S),
+            (B, segments(T, segment), DI, S))
 
 
 def backward_workspace_bytes(B: int, T: int, DI: int, S: int) -> int:
     """Bytes of workspace one backward call allocates."""
-    return 4 * sum(math.prod(shape)
-                   for shape in _workspace_shapes(B, T, DI, S))
+    return 4 * sum(math.prod(shape) for shape in
+                   _workspace_shapes(B, T, DI, S, segment_length(T)))
 
 
 def _check(cond: bool, msg: str, what: str) -> None:
@@ -178,26 +220,33 @@ def selective_scan_bwd_cuda(u: torch.Tensor, dt: torch.Tensor,
     """Launch the backward on the current stream; same contract as
     ``kernels.ref.selective_scan_bwd_ref``: the forward's inputs as in
     :func:`selective_scan_cuda` (``state`` None: zero), ``dy`` (B, T, DI)
-    and ``dstate_final`` None (zero) or (B, DI, S), float32, contiguous.
+    and ``dstate_final`` None (zero) or (B, DI, S), float32, contiguous;
+    T at most :data:`MAX_BACKWARD_T`, in segments of
+    :func:`segment_length`.
 
     Returns ``(du, ddt, dB, dC, dA, dstate0)``, new float32 tensors;
     ``dstate0`` is None when ``state`` is."""
     global backward_launches
+    what = "selective_scan_bwd_cuda"
     states = tuple(t for t in (state, dstate_final) if t is not None)
-    B, T, DI, S = _check_inputs("selective_scan_bwd_cuda", u, dt, Bm, Cm, A,
-                                states, seq=(dy,))
+    B, T, DI, S = _check_inputs(what, u, dt, Bm, Cm, A, states, seq=(dy,))
+    _check(-(-DI // CHANNELS) <= 65535, f"DI={DI} too large", what)
+    _check(T <= MAX_BACKWARD_T, f"T={T} too long: the backward takes at "
+           f"most {MAX_BACKWARD_T} steps ({SEGMENTS} segments of "
+           f"{MAX_SEGMENT})", what)
+    segment = segment_length(T)
     du, ddt = torch.empty_like(u), torch.empty_like(u)
     dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
     dA = torch.empty_like(A)
     dstate0 = None if state is None else torch.empty_like(state)
-    hb, part_b, part_c, da_part = (
+    part_b, part_c, da_part = (
         torch.empty(shape, dtype=torch.float32, device=u.device)
-        for shape in _workspace_shapes(B, T, DI, S))
+        for shape in _workspace_shapes(B, T, DI, S, segment))
     rc = build().repro_selective_scan_bwd(
         *(_ptr(t) for t in (u, dt, Bm, Cm, A, state, dy, dstate_final, du,
-                            ddt, dB, dC, dA, dstate0, hb, part_b, part_c,
+                            ddt, dB, dC, dA, dstate0, part_b, part_c,
                             da_part)),
-        B, T, DI, S, torch.cuda.current_stream(u.device).cuda_stream)
+        B, T, DI, S, segment, torch.cuda.current_stream(u.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"selective scan backward launch failed: CUDA "
                            f"error {rc}")

@@ -137,7 +137,7 @@ def main(argv=None):
     if reason is not None:
         raise NotImplementedError(f"training {cfg.name}: {reason}")
     if device.type == "cuda":  # before any weight reaches the card
-        reason = M.cuda_supported(cfg, "train")
+        reason = M.cuda_supported(cfg, "train", args.seq_len)
         if reason is not None:
             raise NotImplementedError(f"training {cfg.name} on the card: "
                                       f"{reason}")

@@ -70,10 +70,12 @@ def train_supported(cfg: ModelConfig) -> Optional[str]:
     return scan_supported(cfg)
 
 
-def cuda_supported(cfg: ModelConfig, path: str) -> Optional[str]:
+def cuda_supported(cfg: ModelConfig, path: str,
+                   seq_len: Optional[int] = None) -> Optional[str]:
     """None if the card's kernels take ``cfg`` on ``path`` (``"scan"``: the
     scan engine; ``"continuous"``: continuous batching; ``"train"``:
-    training), else the reason, naming the kernel's limit.  Pure: the
+    training, at ``seq_len`` tokens a sequence when given), else the
+    reason, naming the kernel's limit.  Pure: the
     limits are the kernel modules' own constants, and nothing is built.
     The CPU path has no such limit (the plain versions take any head dim),
     so only a run on the card asks."""
@@ -87,6 +89,10 @@ def cuda_supported(cfg: ModelConfig, path: str) -> Optional[str]:
         # hybrid's Mamba path through the selective-scan kernels
         if ssm:
             return ssm_reason
+        if (cfg.block_kind == "hybrid" and seq_len is not None
+                and seq_len > _ssm.MAX_BACKWARD_T):
+            return (f"seq_len={seq_len}: the selective-scan backward kernel "
+                    f"takes at most {_ssm.MAX_BACKWARD_T} steps")
         if cfg.mla and cfg.block_kind == "attn":
             return ("MLA attends through the flash-attention kernel, which "
                     "has no backward kernel")

@@ -3,8 +3,8 @@
 ``models.transformer.cuda_supported`` names the reason a config's shapes
 do not fit the CUDA kernels (the WKV kernel's and its backward's head
 dims, flash attention's head dims, the paged kernel's group and head
-dim, the selective-scan kernel's state sizes), from the kernel modules'
-own constants.  ``ContinuousServer``,
+dim, the selective-scan kernel's state sizes and its backward's longest
+sequence), from the kernel modules' own constants.  ``ContinuousServer``,
 ``engine.generate``, the serve CLI and the train CLI ask it for a run on
 the card before any weight reaches the card, and refuse with
 ``NotImplementedError``; the CPU path keeps serving any head dim through
@@ -120,6 +120,21 @@ def test_takes_hymba_on_the_scan_engine_and_in_training(cfg):
     assert reason == "block_kind='hybrid' state is not paged"
 
 
+@pytest.mark.parametrize("seq_len,refused", [
+    (4096, False), (ssk.MAX_BACKWARD_T, False), (ssk.MAX_BACKWARD_T + 1, True)],
+    ids=["train_4k", "longest", "too-long"])
+def test_train_gate_asks_the_scan_backward_for_the_length(seq_len, refused):
+    """The selective-scan backward takes at most ``MAX_BACKWARD_T`` steps:
+    a longer training sequence is refused before the first step, not after
+    its forward."""
+    reason = M.cuda_supported(HYMBA, "train", seq_len)
+    assert (reason is not None) == refused
+    if refused:
+        assert f"at most {ssk.MAX_BACKWARD_T} steps" in reason
+    assert M.cuda_supported(get_arch("llama3.2-3b"), "train",
+                            ssk.MAX_BACKWARD_T + 1) is None
+
+
 @pytest.mark.parametrize("path", ["scan", "train"])
 def test_refuses_a_state_size_the_scan_kernel_lacks(path):
     cfg = HYMBA.reduced(ssm_state=8)
@@ -189,6 +204,18 @@ def test_train_cli_on_the_card_refuses_before_the_weights(monkeypatch):
                         lambda *a, **k: pytest.fail("weights were made"))
     with pytest.raises(NotImplementedError, match="backward kernel"):
         train.main(["--arch", "any", "--population", "2", "--steps", "1"])
+
+
+def test_train_cli_on_the_card_refuses_a_sequence_too_long(monkeypatch):
+    from repro_torch.launch import train
+
+    _on_the_card(monkeypatch, train)
+    monkeypatch.setattr(train, "get_arch", lambda name: HYMBA)
+    monkeypatch.setattr(M, "init_params",
+                        lambda *a, **k: pytest.fail("weights were made"))
+    with pytest.raises(NotImplementedError, match="selective-scan backward"):
+        train.main(["--arch", "any", "--population", "2", "--steps", "1",
+                    "--seq-len", str(ssk.MAX_BACKWARD_T + 1)])
 
 
 def test_the_cpu_path_serves_any_head_dim():

@@ -3,17 +3,22 @@ package, on the CPU: the plain forward (``kernels.ref.selective_scan_ref``)
 inside the port's ``_mamba_core`` against JAX's ``_mamba_core`` scan, the
 plain reverse recurrence (``selective_scan_bwd_ref``) and the
 ``ops.selective_scan`` autograd route against ``jax.vjp`` through
-``_mamba_core`` and against autodiff of the plain forward, extreme step
-sizes, and the routes' contracts.  The CUDA kernels themselves are held to
+``_mamba_core`` and against autodiff of the plain forward, the model of
+the CUDA backward's segments (``selective_scan_bwd_segmented_ref``)
+against the reverse recurrence and ``jax.vjp``, extreme step sizes, and
+the routes' contracts.  The CUDA kernels themselves are held to
 these plain versions on the card (``test_torch_selective_scan_cuda.py``,
 ``chip_smoke.py`` phase 13).
 
 Tolerances, each with its reason: the forward within 1e-5 (float32, the
 projections and the state sums in another order in each framework); the
 grads within 1e-4 (float32 sums over time and channels in another order,
-through the same projections).
+through the same projections); the segmented model within 1e-5 of the
+reverse recurrence (the same float32 steps, the state and the adjoint
+carried across segments by a product in another association).
 """
 
+import functools
 import re
 from pathlib import Path
 
@@ -101,14 +106,9 @@ def test_forward_from_no_state_equals_the_zero_state():
     assert h is None and torch.equal(y0, y1)
 
 
-@pytest.mark.parametrize("T", [1, 16, 37], ids=["one", "chunk", "ragged"])
-def test_core_grads_match_jax_vjp(T):
+def _assert_core_grads_match_jax_vjp(T):
     """The vjp of ``_mamba_core`` from a carried state, with cotangents on
-    y and on the final state: the grads of every mamba param (dt's reach
-    ``dt_proj`` / ``dt_bias``, B's and C's ``x_proj``, ``A_log`` directly),
-    of u and of the carried state, through ``ops.selective_scan``'s
-    backward (the plain reverse recurrence on the CPU), where JAX
-    differentiates its scan."""
+    y and on the final state, against the port's autograd route."""
     jcfg, tcfg = _configs()
     p, u, h0 = _core_inputs(jcfg, 10 + T, 2, T)
     rng = np.random.default_rng(T)
@@ -134,6 +134,26 @@ def test_core_grads_match_jax_vjp(T):
     grads = dict(zip(paths, got))
     for leaf in ("A_log", "x_proj", "dt_proj", "dt_bias"):
         assert grads[(0, leaf)].abs().max() > 0, leaf
+
+
+@pytest.mark.parametrize("T", [1, 16, 37], ids=["one", "chunk", "ragged"])
+def test_core_grads_match_jax_vjp(T):
+    """The vjp of ``_mamba_core`` from a carried state, with cotangents on
+    y and on the final state: the grads of every mamba param (dt's reach
+    ``dt_proj`` / ``dt_bias``, B's and C's ``x_proj``, ``A_log`` directly),
+    of u and of the carried state, through ``ops.selective_scan``'s
+    backward (the plain reverse recurrence on the CPU), where JAX
+    differentiates its scan."""
+    _assert_core_grads_match_jax_vjp(T)
+
+
+def test_segmented_grads_match_jax_vjp(monkeypatch):
+    """The same vjp with the route's CPU backward replaced by the model of
+    the CUDA backward: 37 steps in three 16-step segments, the last
+    ragged."""
+    monkeypatch.setattr(ops, "selective_scan_bwd_ref", functools.partial(
+        ref.selective_scan_bwd_segmented_ref, segment=16))
+    _assert_core_grads_match_jax_vjp(37)
 
 
 def _scan_inputs(seed, B, T, DI, S=16, extreme=False):
@@ -178,6 +198,30 @@ def test_bwd_ref_matches_autodiff_of_the_plain_forward(T, carried, extreme):
                           want):
         assert torch.isfinite(g).all(), name
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+
+
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 40, 100])
+@pytest.mark.parametrize("segment", [16, 32])
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "carried"])
+@pytest.mark.parametrize("extreme", [False, True], ids=["normal", "extreme"])
+def test_segmented_bwd_ref_matches_the_reverse_recurrence(T, segment, carried,
+                                                          extreme):
+    """The model of the CUDA backward (segments walked at once, joined by
+    the two hops) against the reverse recurrence: one segment, several,
+    and a ragged last one; every grad within 1e-5 of max |plain|."""
+    u, dt, Bm, Cm, A, h0, dy, dh = _scan_inputs(T, 2, T, 24,
+                                                extreme=extreme)
+    state, dfinal = (h0, dh) if carried else (None, None)
+    want = ref.selective_scan_bwd_ref(u, dt, Bm, Cm, A, state, dy, dfinal)
+    got = ref.selective_scan_bwd_segmented_ref(u, dt, Bm, Cm, A, state, dy,
+                                               dfinal, segment=segment)
+    assert (got[5] is None) == (not carried)
+    for name, g, w in zip(("du", "ddt", "dB", "dC", "dA", "dstate0"), got,
+                          want):
+        if w is None:
+            continue
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max()), name
 
 
 def test_extreme_step_sizes_stay_finite_through_the_route():
@@ -246,18 +290,42 @@ def _constant(name):
 
 
 def test_constants_are_the_sources():
-    """The wrapper's state sizes, channels a backward block and the plain
-    backward's chunk are the source's; the kernel names are its kernels
-    in launch order; the backward's workspaces at the training shape."""
+    """The wrapper's state sizes, channels and threads a backward block,
+    its segments at most and the plain backward's chunk are the source's;
+    the kernel names are its kernels in launch order; the backward's
+    segments and workspaces at the training shape."""
     assert ssk.STATE_DIMS == (_constant("kS"),)
     assert ssk.CHANNELS == _constant("kCh")
+    assert ssk.THREADS == _constant("kCh") * _constant("kLanes")
+    assert ssk.SEGMENTS == _constant("kSegs")
+    assert ssk.MAX_SEGMENT == _constant("kMaxSegment")
     assert ref.SSM_BWD_CHUNK == _constant("kBwdChunk")
     for name in ssk.KERNELS:
         assert re.search(rf"__global__ void __launch_bounds__\([\w, ]+\)"
                          rf"\s*{name}\(", SOURCE), name
-    # hb (2, 16, 3200, 16), partials 2 x (200, 2, 256, 16), dA (2, 3200, 16)
+    assert ssk.segment_length(256) == 64 and ssk.segments(256, 64) == 4
+    # partials 2 x (200, 2, 256, 16), dA (2, 4 segments, 3200, 16)
     assert ssk.backward_workspace_bytes(2, 256, 3200, 16) == 4 * (
-        2 * 16 * 3200 * 16 + 2 * 200 * 2 * 256 * 16 + 2 * 3200 * 16)
+        2 * 200 * 2 * 256 * 16 + 2 * 4 * 3200 * 16)
+
+
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 40, 100, 256, 300, 528, 1000,
+                               2048, 4096, ssk.MAX_BACKWARD_T])
+def test_segments_cover_the_sequence(T):
+    """A power of two of segments, at most ``SEGMENTS``, each a whole
+    number of chunks, at least ``MIN_CHUNKS`` of them unless there is one
+    segment, and as many as that allows; the first half of them short of
+    T and all of them not; the dynamic shared memory a chunk's float4 a
+    thread."""
+    L = ssk.segment_length(T)
+    n = ssk.segments(T, L)
+    chunks, C = -(-T // ref.SSM_BWD_CHUNK), ref.SSM_BWD_CHUNK
+    assert L % C == 0 and L <= ssk.MAX_SEGMENT
+    assert n & (n - 1) == 0 and n <= ssk.SEGMENTS
+    assert n == 1 or L >= ssk.MIN_CHUNKS * C
+    assert n == ssk.SEGMENTS or chunks < 2 * n * ssk.MIN_CHUNKS
+    assert n // 2 * L < T <= n * L
+    assert ssk.backward_dynamic_shared_bytes(L) == L // 16 * 128 * 16
 
 
 def test_source_adds_no_float_atomics():

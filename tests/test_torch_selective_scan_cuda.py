@@ -15,9 +15,12 @@ carried state; dt the softplus of a normal shifted by -2 (the model's
 to an exact 0); A = -exp(log(1..16) + 0.1 normal).  Tolerance: 1e-4 of
 max |plain| for every output and grad (both keep the state in float32 and
 sum over the states, the channels and time in another order).  The
-forward stages 32 steps at a time and the backward walks 16-step chunks,
-so T = 1, 15, 16, 17, 33 and 300 cover ragged, whole and several chunks;
-DI = 40 and 3200 a ragged and a whole last block of 16 channels.
+forward stages 16 steps at a time and the backward walks 16-step chunks
+in at most 8 segments of at least four chunks (unless one segment), so
+T = 1, 15, 16, 17 and 33 cover ragged, whole and several chunks in one
+segment, T = 150 two segments of 80, T = 300 four, and T = 1000 at full
+width eight of 128, each with a ragged last one; DI = 40 and 3200 a
+ragged and a whole last block of 16 channels.
 """
 
 import numpy as np
@@ -62,7 +65,8 @@ def _close(got, want, what):
 
 
 SHAPES = [(1, 1, 40), (2, 15, 48), (2, 16, 40), (3, 17, 64), (2, 33, 40),
-          (1, 300, 48), (4, 1, 3200), (2, 64, 3200)]
+          (2, 150, 40), (1, 300, 48), (4, 1, 3200), (2, 64, 3200),
+          (2, 1000, 3200)]
 
 
 @pytest.mark.gpu
@@ -110,12 +114,32 @@ def test_backward_matches_plain_version(cuda_device, B, T, DI, carried,
 @pytest.mark.gpu
 def test_backward_is_the_same_from_run_to_run(cuda_device):
     """No float atomics: two calls on the same inputs give the same bits
-    (dB and dC summed over 200 channel blocks, dA over the batch)."""
+    (dB and dC summed over 200 channel blocks, dA over the batch and the
+    segments, the state and its adjoint carried across the segments)."""
     u, dt, Bm, Cm, A, h0, dy, dh = _inputs(cuda_device, 2, 256, 3200, seed=5)
     a = ssk.selective_scan_bwd_cuda(u, dt, Bm, Cm, A, h0, dy, dh)
     b = ssk.selective_scan_bwd_cuda(u, dt, Bm, Cm, A, h0, dy, dh)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [4096, ssk.MAX_BACKWARD_T])
+def test_backward_takes_long_segments(cuda_device, T):
+    """Segments past 384 steps take more than 48 KB of dynamic shared
+    memory, which the kernel opts into: hymba's train_4k length (8
+    segments of 512) and the longest T (8 of 1,536), from a carried state
+    with a final-state grad, held to the plain version and bitwise from
+    call to call."""
+    u, dt, Bm, Cm, A, h0, dy, dh = _inputs(cuda_device, 1, T, 40, seed=7)
+    got = ssk.selective_scan_bwd_cuda(u, dt, Bm, Cm, A, h0, dy, dh)
+    again = ssk.selective_scan_bwd_cuda(u, dt, Bm, Cm, A, h0, dy, dh)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = selective_scan_bwd_ref(u, dt, Bm, Cm, A, h0, dy, dh)
+    for name, g, w in zip(("du", "ddt", "dB", "dC", "dA", "dstate0"), got,
+                          want):
+        _close(g, w, name)
 
 
 @pytest.mark.gpu
@@ -149,6 +173,10 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
         ssk.selective_scan_cuda(strided, dt, Bm, Cm, A)
     with pytest.raises(ValueError, match="states"):
         ssk.selective_scan_bwd_cuda(u, dt, Bm, Cm, A, h0[:, :8], dy)
+    T = ssk.MAX_BACKWARD_T + 1
+    u, dt, Bm, Cm, A, _, dy, _ = _inputs(cuda_device, 1, T, 16)
+    with pytest.raises(ValueError, match="too long"):
+        ssk.selective_scan_bwd_cuda(u, dt, Bm, Cm, A, None, dy)
 
 
 @pytest.mark.gpu
