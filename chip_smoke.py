@@ -13,8 +13,9 @@ and then, failing on the first phase that fails:
      the plain model of the split (``paged_attention_partials_ref`` then
      ``merge_partials_ref``) at the llama3.2-3b attention geometry (24
      heads, 8 kv heads, head dim 128, 16-token pages, 8 slots, contexts
-     up to 1152 tokens) for bf16, int8 and f32 pools, and times the
-     kernel, the plain version and a library yardstick
+     up to 1152 tokens) for bf16, int8 and f32 pools and f32 queries on
+     int8 pools, and times the kernel, the plain version and a library
+     yardstick
      (``scaled_dot_product_attention`` on the context gathered
      beforehand, which the port never calls), with the achieved GB/s and
      the registers and shared memory of the variant launched;
@@ -208,6 +209,31 @@ and then, failing on the first phase that fails:
      1e-5), and served through ``engine.generate`` (soup, ensemble;
      greedy tokens identical); a state size the scan kernel lacks is
      refused on the card.
+ 14. the last model families: holds the flash kernel at whisper-medium's
+     encoder (B=4, 1500 frames, 16 heads of 64, non-causal) and decoder
+     prefill (B=4, 224 positions, 16 heads of 64, causal), each in bf16
+     and f32, and at internvl2-76b's prefill behind its patches (B=4,
+     256 + 2048 positions, 64 query heads over 8 kv heads of 128,
+     causal; bf16) against its plain version and times it beside its
+     bound and SDPA; serves full-width whisper-medium (24 encoder and 24
+     decoder layers, bf16, a random N=2 population) through the serve
+     CLI's scan engine (``--compare``, B=4, 1500 frames, a 224-token
+     prompt, 32 new): flash launches == 2 requests x 24 layers x 4
+     member-runs at the encoder's shape and as many at the decoder's,
+     each counted under its own entry; trains it through the train CLI
+     (N=2, SGD, bucketed WASH at p=0.01, 2 x 256 tokens and 1500 frames a
+     member, 4 steps; every shuffle bitwise, the comm exactly
+     ``static_mix_comm``, 2,460,113.0 scalars a member a step) and serves
+     the trained soup; trains DeepSeek-V2-Lite at full width and 4 of its
+     27 layers the same way through the train loop (its MLA trains on
+     plain attention) and serves its trained soup through the (192, 128)
+     flash prefill; serves internvl2-76b at full width and 4 of its 80
+     layers as the soup (B=4, 256 patches + 2048 prompt, 32 new; flash
+     launches == 2 x 4); then the reduced float32 whisper (at its full
+     attention widths and 1500 frames, a 224-token prompt), internvl2
+     and DeepSeek (at its full MLA widths) on the kernels against plain:
+     3 steps of bucketed WASH with params within 1e-5, and greedy tokens
+     identical in soup and ensemble.
 
 Kernels are built from the sources in the checkout, each ``nvcc`` started
 at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
@@ -218,6 +244,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -234,7 +261,7 @@ ROOT = Path(__file__).resolve().parent
 # tolerances of the kernel against its plain version, per (q, pool) dtype:
 # both accumulate in f32; bf16 outputs differ by the final rounding
 # (one bf16 ulp is 2**-8 relative), f32 and int8 outputs by summation order
-KERNEL_TOL = {"bf16": 2e-2, "int8": 2e-2, "f32": 2e-5}
+KERNEL_TOL = {"bf16": 2e-2, "int8": 2e-2, "f32": 2e-5, "f32-int8": 2e-5}
 
 # phase 6: params after 3 float32 steps on the kernels against the plain
 # versions; the shuffles are bitwise, but the embedding's backward adds
@@ -335,7 +362,7 @@ LAYERS = 28
 def kernel_inputs(torch, variant: str, device):
     """28 layers of pools at the slice's geometry, random page tables (the
     entries past each length point at arbitrary pages), this variant's
-    q and pool dtypes."""
+    q and pool dtypes ("f32-int8": f32 queries on int8 pools)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(11)
     max_pages = -(-max(LENGTHS) // PAGE)
@@ -343,12 +370,12 @@ def kernel_inputs(torch, variant: str, device):
     perm = torch.randperm(P - 1, generator=gen, device=device) + 1
     table = perm[:SLOTS * max_pages].reshape(SLOTS, max_pages).to(torch.int32)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=device)
-    qdt = torch.float32 if variant == "f32" else torch.bfloat16
+    qdt = torch.float32 if variant.startswith("f32") else torch.bfloat16
     q = torch.randn(LAYERS, SLOTS, H, HD, generator=gen, device=device).to(qdt)
     shape = (LAYERS, P, PAGE, KV, HD)
     k = torch.randn(shape, generator=gen, device=device)
     v = torch.randn(shape, generator=gen, device=device)
-    if variant == "int8":
+    if variant.endswith("int8"):
         ks = k.abs().amax(dim=(2, 3, 4)) / 127.0
         vs = v.abs().amax(dim=(2, 3, 4)) / 127.0
         k = torch.round(k / ks[:, :, None, None, None]).clamp(-127, 127)
@@ -363,8 +390,8 @@ def work_of(variant: str, q, lengths, scales: bool):
     call's data: each needed input element read once, the output written
     once (K/V: only the rows below each slot's length)."""
     tokens = int(lengths.sum())
-    kv_elem = {"bf16": 2, "f32": 4, "int8": 1}[variant]
-    q_elem = 4 if variant == "f32" else 2
+    kv_elem = {"bf16": 2, "f32": 4, "int8": 1, "f32-int8": 1}[variant]
+    q_elem = 4 if variant.startswith("f32") else 2
     pages = sum(-(-n // PAGE) for n in lengths.tolist())
     nbytes = (2 * tokens * KV * HD * kv_elem      # K and V rows
               + 2 * SLOTS * H * HD * q_elem       # q in, out
@@ -383,7 +410,7 @@ def check_kernel(torch, pa, ref, F, device):
     filled in later from the main-path runs)."""
     entries = {}
     split_tokens, n_split = pa.split_of(PAGE, -(-max(LENGTHS) // PAGE))
-    for variant in ("bf16", "int8", "f32"):
+    for variant in ("bf16", "int8", "f32", "f32-int8"):
         q, k, v, table, lengths, ks, vs = kernel_inputs(torch, variant, device)
         err = err_split = 0.0
         for layer in (0, LAYERS - 1):
@@ -456,7 +483,8 @@ def check_kernel(torch, pa, ref, F, device):
         pa.launches = n0  # comparison launches do not count
         nbytes, ops = work_of(variant, q[0], lengths, ks is not None)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS[variant] * 1e3
+        # f32 queries on int8 pools compute in float32
+        t_ops = ops / PEAK_OPS[variant.split("-")[0]] * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         log(f"kernel {variant}: {ms:.4f} ms on the device, a call's two "
@@ -466,8 +494,9 @@ def check_kernel(torch, pa, ref, F, device):
             f"({nbytes} B, {ops} ops); achieved "
             f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
         entries[variant] = {
-            "name": f"paged_attention[q={'f32' if variant == 'f32' else 'bf16'}"
-                    f",kv={variant}]",
+            "name": f"paged_attention[q="
+                    f"{'f32' if variant.startswith('f32') else 'bf16'},kv="
+                    f"{variant.split('-')[-1]}]",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:106",
@@ -942,7 +971,9 @@ TRAIN_STEPS, TRAIN_SEQ = 4, 256    # phases 5, 9: steps, tokens a sequence
 # per arch trained at full width: the leaves that get a plan, and the
 # scalars sent per member a mixing step (also its static_mix_comm)
 TRAIN_PLANS = {"llama3.2-3b": (10, 9016867.0), "rwkv6-3b": (18, 7670170.0),
-               "hymba-1.5b": (19, 4155400.0)}
+               "hymba-1.5b": (19, 4155400.0),
+               "whisper-medium": (28, 2460113.0),
+               "deepseek-v2-lite-16b-4layers": (16, 6897044.0)}
 
 
 @contextlib.contextmanager
@@ -1018,12 +1049,12 @@ def comm_per_step(seen, history, n: int, per_step: int):
     return applied, np.diff([0.0] + history["comm"]).tolist()
 
 
-def timed_training_run(torch, train_cli, argv, what: str) -> None:
-    """The train CLI once more without the checks: the step's split,
-    tokens/s and peak memory."""
+def timed_training_run(torch, run, what: str) -> None:
+    """The training run ``run()`` once more without the checks: the step's
+    split, tokens/s and peak memory."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = train_cli.main(argv)
+    res = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = TRAIN_STEPS
@@ -1039,22 +1070,25 @@ def timed_training_run(torch, train_cli, argv, what: str) -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def train_full_width(torch, device, arch, kernels):
-    """Phases 5 (llama3.2-3b), 9 (rwkv6-3b) and 13 (hymba-1.5b): the arch
-    at full width through the train CLI's ``main`` (``training_argv``),
-    every shuffle held bitwise against its plain version.  Checks the
+def train_full_width(torch, device, arch, kernels, cfg=None):
+    """Phases 5 (llama3.2-3b), 9 (rwkv6-3b), 13 (hymba-1.5b) and 14
+    (whisper-medium; DeepSeek-V2-Lite cut in depth): the arch at full width,
+    or ``cfg`` (a cut of it that no flag expresses), through the train
+    CLI's ``main`` on ``training_argv``, every shuffle held bitwise
+    against its plain version.  Checks the
     bucketed launches (``TRAIN_PLANS`` leaves a step), the comm the
     applied plans send a step (``TRAIN_PLANS`` and ``static_mix_comm``),
     finite losses, and the recurrence kernels' launches (rwkv6's WKV,
     hymba's selective scan: a forward and a backward a layer, member and
     step, with ``remat_blocks`` a second forward; none for llama); for
     the attention archs one leaf's coordinate multisets across a shuffle.
-    Then the trained soup is served (llama: ``ContinuousServer``; rwkv6
-    and hymba: the scan engine), the same run made again unchecked for
-    the step's split, tokens/s and peak memory, and one more step
-    profiled.  Sets the launches of the kernels the phase owns in
-    ``kernels`` (llama: the bucketed shuffle; rwkv6: the WKV backward;
-    hymba: the selective-scan backward, and its forward's are added)."""
+    Then the trained soup is served (llama: ``ContinuousServer``; the
+    others: the scan engine), the same run made again unchecked for the
+    step's split, tokens/s and peak memory, and one more step profiled.
+    Sets the launches of the kernels the phase owns in ``kernels`` (rwkv6:
+    the WKV backward; hymba: the selective-scan backward, and its
+    forward's are added; the attention archs add to the bucketed
+    shuffle's)."""
     from repro_torch.configs import get_arch
     from repro_torch.core import layer_index as tli
     from repro_torch.core.mixing import MixingConfig, static_mix_comm
@@ -1068,24 +1102,32 @@ def train_full_width(torch, device, arch, kernels):
     from repro_torch.models import transformer as M
     from repro_torch.serving.engine import averaged_params
 
-    cfg = get_arch(arch)
+    argv = training_argv(arch, device)
+    route = "launch.train.main" + ("" if cfg is None else
+                                   f" on the cut config {cfg.name}")
+    if cfg is None:
+        cfg = get_arch(arch)
+
+    def run():
+        return train_cli.main(argv, cfg=cfg)
     rwkv = cfg.block_kind == "rwkv6"
     scan = {"rwkv6": wkv, "hybrid": ssk}.get(cfg.block_kind)
     scan_name = {"rwkv6": "WKV", "hybrid": "selective-scan"}.get(
         cfg.block_kind, "recurrence")
     steps, seq, n = TRAIN_STEPS, TRAIN_SEQ, 2
-    leaves, step_comm = TRAIN_PLANS[arch]
-    argv = training_argv(arch, device)
+    leaves, step_comm = TRAIN_PLANS[cfg.name]
     shapes = M.param_shapes(cfg)
     static = static_mix_comm(
         shapes, MixingConfig(kind="wash", base_p=0.01, mode="bucketed"),
         tli.infer_layer_ids(shapes, cfg.num_layers),
         tli.total_layers(cfg.num_layers), n)
-    # llama, hymba: the stacked blocks.attn.wk (or its twin attn.wv) is
-    # copied across its first shuffle (width 0: no leaf is copied, only
-    # the applied plans' shapes kept)
-    wk = 0 if rwkv else (cfg.num_layers * cfg.d_model * cfg.num_kv_heads
-                         * cfg.resolved_head_dim)
+    # llama, hymba, whisper: the stacked blocks.attn.wk (or a leaf of its
+    # width) is copied across its first shuffle; MLA: blocks.attn.w_dkv
+    # (or its twin w_uk) (width 0: no leaf is copied, only the applied
+    # plans' shapes kept)
+    wk = 0 if rwkv else cfg.num_layers * cfg.d_model * (
+        cfg.kv_lora_rank if cfg.mla else
+        cfg.num_kv_heads * cfg.resolved_head_dim)
     # rwkv6, hymba: a recurrence forward and backward a layer, member and
     # step (with remat_blocks, the forward twice); the CLI then evaluates
     # the averaged model's loss, a forward a layer
@@ -1100,7 +1142,7 @@ def train_full_width(torch, device, arch, kernels):
     t0 = time.perf_counter()
     with checked_shuffles(ops, ref, torch, counts), \
             watch_bucketed_shuffles(ops, wk, seen):
-        res = train_cli.main(argv)
+        res = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ws.bucketed_launches
@@ -1110,7 +1152,7 @@ def train_full_width(torch, device, arch, kernels):
     other.pop({"rwkv6": "wkv", "hybrid": "ssm"}.get(cfg.block_kind), None)
     log(f"training ({cfg.name}, {cfg.num_layers} layers, {cfg.dtype}, "
         f"N={n}, SGD, bucketed WASH p=0.01, 2 x {seq} tokens per member, "
-        f"{steps} steps) through launch.train.main, every shuffle held "
+        f"{steps} steps) through {route}, every shuffle held "
         f"against its plain version: {wall:.2f} s; bucketed shuffle "
         f"launches {launches} (expected {leaves} x {steps}), "
         f"{counts['bucketed']} of them bitwise equal to the plain version "
@@ -1142,13 +1184,14 @@ def train_full_width(torch, device, arch, kernels):
     if not rwkv:
         before, after = seen.get("before"), seen.get("after")
         if before is None:
-            fail("training: no bucketed shuffle of blocks.attn.wk was seen")
+            fail(f"training: no bucketed shuffle of a leaf of width {wk} "
+                 "was seen")
         moved = int((before != after).any(dim=0).sum())
         same = torch.equal(torch.sort(before, dim=0).values,
                            torch.sort(after, dim=0).values)
-        log(f"blocks.attn.wk across one shuffle: {moved} of "
-            f"{before.shape[1]} columns changed; each column's multiset of "
-            f"member values unchanged: {same}")
+        log(f"the first stacked leaf of width {wk} across one shuffle: "
+            f"{moved} of {before.shape[1]} columns changed; each column's "
+            f"multiset of member values unchanged: {same}")
         if not same or moved == 0:
             fail("training: the shuffle did not preserve each coordinate's "
                  "multiset, or moved nothing")
@@ -1160,7 +1203,7 @@ def train_full_width(torch, device, arch, kernels):
         kernels["ssm"]["launches"] += fwd
         kernels["ssm_bwd"]["launches"] += bwd
     else:
-        kernels["bucketed"]["launches"] = launches
+        kernels["bucketed"]["launches"] += launches
 
     soup = averaged_params(res)
     del res
@@ -1169,7 +1212,7 @@ def train_full_width(torch, device, arch, kernels):
     del soup
     torch.cuda.empty_cache()
 
-    timed_training_run(torch, train_cli, argv, f"{arch} training")
+    timed_training_run(torch, run, f"{cfg.name} training")
     torch.cuda.empty_cache()
     profile_training_step(torch, device, cfg, kernels)
     _zero(fa, wkv, pa)
@@ -1178,22 +1221,23 @@ def train_full_width(torch, device, arch, kernels):
 
 
 def serve_trained_soup(torch, device, cfg, soup):
-    """llama: 4 requests through ``ContinuousServer``; rwkv6 and hymba: 2
-    prompts of TRAIN_SEQ tokens and 8 new tokens through the scan engine
-    (a WKV or selective-scan launch a layer for the prefill and each of
-    the 7 decode steps, no backward; hymba's flash kernel once a layer in
-    the prefill)."""
+    """llama: 4 requests through ``ContinuousServer``; the configs it does
+    not take: 2 prompts of TRAIN_SEQ tokens and 8 new tokens through the
+    scan engine (a WKV or selective-scan launch a layer for the prefill
+    and each of the 7 decode steps, no backward; the flash kernel once an
+    attention layer, encoder layers included, in the prefill)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rwkv6_scan as wkv
     from repro_torch.kernels import selective_scan as ssk
     from repro_torch.launch.serve import mixed_stream
     from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models import transformer as M
     from repro_torch.serving import batching as B
     from repro_torch.serving import engine
 
     seq = TRAIN_SEQ
-    if cfg.block_kind == "attn":
+    if M.paged_decode_supported(cfg) is None:
         server = B.ContinuousServer(soup, cfg, mode="soup", page_size=16,
                                     max_slots=4, num_pages=128,
                                     max_pages_per_slot=-(-(seq + 16) // 16),
@@ -1203,9 +1247,9 @@ def serve_trained_soup(torch, device, cfg, soup):
                      "trained soup stream (full width)", cfg.num_layers)
         return
     batch = concrete_batch(cfg, 21, 2, seq, device=device)
-    hybrid = cfg.block_kind == "hybrid"
-    expect = {"flash": cfg.num_layers if hybrid else 0, "paged": 0,
-              "wkv": 0 if hybrid else cfg.num_layers * 8,
+    hybrid, rwkv = cfg.block_kind == "hybrid", cfg.block_kind == "rwkv6"
+    expect = {"flash": 0 if rwkv else cfg.num_layers + cfg.encoder_layers,
+              "paged": 0, "wkv": cfg.num_layers * 8 if rwkv else 0,
               "ssm": cfg.num_layers * 8 if hybrid else 0}
     _zero(fa, wkv, pa)
     wkv.backward_launches = ssk.backward_launches = 0
@@ -1354,9 +1398,13 @@ def plain_shuffles(ops, ref):
 
 
 def _train(cfg, mcfg, optimizer, steps, device, seq=64, record_fn=None):
+    """The train loop on N = 2 members, 2 x ``seq`` tokens a member a step
+    of the synthetic LM task (with the frontend's frames or patches from
+    ``concrete_batch``, as the train CLI draws them)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.prng import fold_in
     from repro_torch.data import make_lm_task, sample_tokens
+    from repro_torch.launch.specs import concrete_batch
     from repro_torch.models import transformer as M
     from repro_torch.train.loop import train_population
 
@@ -1364,7 +1412,10 @@ def _train(cfg, mcfg, optimizer, steps, device, seq=64, record_fn=None):
                         device=device)
 
     def data_fn(m, step, s):
-        return {"tokens": sample_tokens(task, s, 2, seq)}
+        b = (concrete_batch(cfg, fold_in(s, 10), 2, seq, device=device)
+             if cfg.frontend else {})
+        b["tokens"] = sample_tokens(task, s, 2, seq)
+        return b
 
     tcfg = TrainConfig(population=2, optimizer=optimizer, total_steps=steps,
                        lr=3e-4 if optimizer == "adamw" else 0.05, seed=0)
@@ -1979,12 +2030,14 @@ def _zero(fa, wkv, pa):
     from repro_torch.kernels import selective_scan as ssk
 
     fa.launches = wkv.launches = pa.launches = ssk.launches = 0
+    fa.launch_shapes.clear()
 
 
-def serve_full_width(torch, device, arch, card):
+def serve_full_width(torch, device, arch, card, seq=SCAN_S):
     """The serve CLI without --continuous, --compare: each mode served
     twice (its first request and the timed one) from a random N = 2
-    population.  Returns the launches of the run, checked exactly."""
+    population, B = SCAN_B prompts of ``seq`` tokens.  Returns the
+    launches of the run, checked exactly."""
     from repro_torch.configs import get_arch
     from repro_torch.core.prng import fold_in
     from repro_torch.kernels import flash_attention as fa
@@ -2003,9 +2056,11 @@ def serve_full_width(torch, device, arch, card):
     runs = REQUESTS_PER_MODE * cfg.num_layers * members
     if cfg.block_kind == "rwkv6":  # every time mix, prefill and decode
         expect = {"flash": 0, "paged": 0, "wkv": runs * SCAN_NEW, "ssm": 0}
-    else:  # every prefill attention (decode attends with plain sdpa), and
-        # a hybrid layer's Mamba recurrence in prefill and every decode step
-        expect = {"flash": runs, "paged": 0, "wkv": 0,
+    else:  # every prefill attention (decode attends with plain sdpa; an
+        # encoder's layers attend once a prefill), and a hybrid layer's
+        # Mamba recurrence in prefill and every decode step
+        expect = {"flash": runs + REQUESTS_PER_MODE * cfg.encoder_layers
+                  * members, "paged": 0, "wkv": 0,
                   "ssm": runs * SCAN_NEW if cfg.block_kind == "hybrid"
                   else 0}
     torch.cuda.synchronize()
@@ -2014,16 +2069,19 @@ def serve_full_width(torch, device, arch, card):
     t0 = time.perf_counter()
     outs = serve_cli.main(["--arch", arch, "--population", "2", "--seed", "0",
                            "--batch-size", str(SCAN_B), "--seq-len",
-                           str(SCAN_S), "--max-new", str(SCAN_NEW),
+                           str(seq), "--max-new", str(SCAN_NEW),
                            "--compare"])
     torch.cuda.synchronize()
     counts = _counts(fa, wkv, pa)
     dt = time.perf_counter() - t0
-    log(f"scan engine {arch} (full width, {cfg.num_layers} layers, "
-        f"{cfg.dtype}, N=2, B={SCAN_B}, S={SCAN_S}, max_new {SCAN_NEW}, "
+    enc = (f" + {cfg.encoder_layers} encoder layers over {cfg.num_frames} "
+           f"frames" if cfg.is_encdec else "")
+    log(f"scan engine {arch} (full width, {cfg.num_layers} layers{enc}, "
+        f"{cfg.dtype}, N=2, B={SCAN_B}, S={seq}, max_new {SCAN_NEW}, "
         f"every mode twice): {dt:.2f} s with the population's init; kernel "
         f"launches {counts} (expected {expect}: {REQUESTS_PER_MODE} requests "
-        f"x {cfg.num_layers} layers x {members} member-runs"
+        f"x ({cfg.num_layers}{f' + {cfg.encoder_layers}' if enc else ''}) "
+        f"layers x {members} member-runs"
         + (f" x (1 prefill + {SCAN_NEW - 1} decode steps) for the "
            f"recurrence" if cfg.block_kind != "attn" else "")
         + f"); peak device memory "
@@ -2033,19 +2091,19 @@ def serve_full_width(torch, device, arch, card):
         f"{one_model / HBM_BYTES_PER_S * 1e3:.3f} ms a model")
     if counts != expect:
         fail(f"{arch}: kernel launches {counts}, expected {expect}")
-    prompts = concrete_batch(cfg, fold_in(0, 2), SCAN_B, SCAN_S,
+    prompts = concrete_batch(cfg, fold_in(0, 2), SCAN_B, seq,
                              device=device)["tokens"]
     for mode, res in outs.items():
         toks = res["tokens"]
-        if toks.shape != (SCAN_B, SCAN_S + SCAN_NEW):
+        if toks.shape != (SCAN_B, seq + SCAN_NEW):
             fail(f"{arch} {mode}: tokens of shape {tuple(toks.shape)}")
-        if not torch.equal(toks[:, :SCAN_S].long(), prompts.long()):
+        if not torch.equal(toks[:, :seq].long(), prompts.long()):
             fail(f"{arch} {mode}: the prompt was not kept")
         if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
             fail(f"{arch} {mode}: sampled out of the vocabulary")
         log(f"scan engine {arch} {mode}: {res['tok_s']:.2f} tok/s (B="
             f"{SCAN_B} x {SCAN_NEW} new tokens in {res['steady_s']:.3f} s, "
-            f"prefill of {SCAN_S} tokens included: prefill "
+            f"prefill of {seq} tokens included: prefill "
             f"{res['prefill_s']:.3f} s, decode step "
             f"{res['decode_step_ms']:.2f} ms; first request "
             f"{res['first_s']:.2f} s) on {card}")
@@ -3300,7 +3358,7 @@ def reduced_traffic(torch, device):
     log(f"reduced int8 KV: speculative k=4 tokens == plain int8 tokens "
         f"(accepted {server.stats['spec_accepted']}/"
         f"{server.stats['spec_drafted']}); {counts['int8']} launches with "
-        f"f32 queries on int8 pools (a variant outside the kernels line)")
+        f"f32 queries on int8 pools")
     del popn, soup
     torch.cuda.empty_cache()
     return counts
@@ -3370,8 +3428,8 @@ def traffic_clis(torch, device):
 
 
 def live_traffic(torch, device, kernels, card):
-    """Phase 11.  Adds its launches to the paged (bf16, f32) and flash
-    (bf16, f32) entries of the JSON line."""
+    """Phase 11.  Adds its launches to the paged (bf16, f32, f32 queries on
+    int8 pools) and flash (bf16, f32) entries of the JSON line."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import init_population
     from repro_torch.serving.engine import averaged_params
@@ -3392,11 +3450,12 @@ def live_traffic(torch, device, kernels, card):
     kernels["bf16"]["launches"] += bf16
     kernels["flash_bf16"]["launches"] += flash
     kernels["f32"]["launches"] += reduced["f32"]
+    kernels["f32-int8"]["launches"] += reduced["int8"]
     kernels["flash_f32"]["launches"] += reduced["flash_f32"]
     log(f"phase 11 (serving under live traffic): "
         f"{time.perf_counter() - t0:.1f} s; paged bf16 launches {bf16}, "
-        f"flash bf16 {flash}, paged f32 {reduced['f32']}, flash f32 "
-        f"{reduced['flash_f32']}")
+        f"flash bf16 {flash}, paged f32 {reduced['f32']}, paged f32 on int8 "
+        f"pools {reduced['int8']}, flash f32 {reduced['flash_f32']}")
 
 
 # ---------------------------------------------------------------------------
@@ -4148,6 +4207,323 @@ def hybrid_family(torch, F, device, kernels, card):
         f"{reduced['flash']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the last model families: whisper-medium's encoder-decoder over
+# audio frames, internvl2-76b's vision prefix, DeepSeek-V2-Lite trained
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-medium"
+INTERNVL2 = "internvl2-76b"
+# whisper's decoder context is 448 text tokens, up to 224 of them the
+# previous window's text (arXiv:2212.04356): its served prompt length
+WHISPER_PROMPT = 224
+# the flash kernel at the phase's new shapes: B, S, H, KV, hd, causal
+WHISPER_FLASH = (4, 1500, 16, 16, 64, False)       # the encoder's frames
+WHISPER_DEC_FLASH = (4, WHISPER_PROMPT, 16, 16, 64, True)  # decoder prefill
+INTERNVL2_FLASH = (4, 256 + 2048, 64, 8, 128, True)  # patches + prompt
+# each shape's entry key, its label in the entry's name, and its dtypes
+NEW_FLASH_SHAPES = (
+    ("whisper", "whisper's encoder", WHISPER_FLASH, ("bf16", "f32")),
+    ("whisper_dec", "whisper's decoder prefill", WHISPER_DEC_FLASH,
+     ("bf16", "f32")),
+    ("internvl2", "internvl2's prefill", INTERNVL2_FLASH, ("bf16",)))
+CUT_LAYERS = 4  # internvl2-76b (of 80) and DeepSeek-V2-Lite (of 27)
+# the reduced float32 whisper keeps the full model's attention widths and
+# frame count, so its flash launches fall at WHISPER_FLASH and
+# WHISPER_DEC_FLASH (in float32)
+WHISPER_WIDTHS = dict(d_model=1024, num_heads=16, num_kv_heads=16,
+                      num_frames=1500)
+
+
+def check_flash_new_shapes(torch, fa, ref, F, device):
+    """Phase 14, the kernel alone: flash attention at whisper-medium's
+    encoder (non-causal over 1500 frames, 16 heads of 64) and decoder
+    prefill (causal over the 224-token prompt, 16 heads of 64), each in
+    bf16 and f32, and at internvl2-76b's prefill behind its patches
+    (causal, 64 query heads over 8 kv heads of 128, S = 256 + 2048; bf16)
+    against its plain version, then timed beside its bound, its plain
+    version and ``scaled_dot_product_attention`` on the same inputs (kv
+    heads repeated beforehand; the port never calls it).  Returns the
+    JSON line's entries (launches filled in by the main path)."""
+    entries = {}
+    for key, label, shape, dts in NEW_FLASH_SHAPES:
+        B, S, H, KV, hd, causal = shape
+        g = H // KV
+        what = (f"flash attention at {label} shape (B={B} S={S} H={H} "
+                f"KV={KV} hd={hd} {'causal' if causal else 'non-causal'})")
+        for n, dt in enumerate(dts):
+            q, k, v = flash_inputs(torch, B, S, H, KV, hd, dt, device, 150 + n)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal)
+            want = ref.flash_attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if got.shape != q.shape or not torch.isfinite(got.float()).all():
+                fail(f"{what} {dt}: output {tuple(got.shape)} not finite or "
+                     "of the wrong shape")
+            err = float((got.float() - want.float()).abs().max())
+            log(f"{what} {dt}: max |kernel - plain| = {err:.3e} (tolerance "
+                f"{FLASH_TOL[dt]:g})")
+            if err > FLASH_TOL[dt]:
+                fail(f"{what} {dt} disagrees with its plain version: {err}")
+            del q, k, v, got, want
+            torch.cuda.empty_cache()
+            sets = [flash_inputs(torch, B, S, H, KV, hd, dt, device, 160 + i)
+                    for i in range(2)]
+            lib = [tuple(x.repeat_interleave(g if j else 1, dim=2)
+                         .transpose(1, 2).contiguous()
+                         for j, x in enumerate(xs)) for xs in sets]
+            n0 = fa.launches
+            ms = device_ms(torch, lambda j: fa.flash_attention_cuda(
+                *sets[j], causal=causal), 2)
+            # one input set: the plain version holds B H S S float32 scores
+            plain_ms = device_ms(torch, lambda j: ref.flash_attention_ref(
+                *sets[0], causal=causal), 1, reps=3)
+            library_ms = device_ms(
+                torch, lambda j: F.scaled_dot_product_attention(
+                    *lib[j], is_causal=causal), 2)
+            fa.launches = n0  # comparison launches do not count
+            nbytes, ops = flash_work(B, S, H, KV, hd, dt, causal)
+            bound_ms, bound_by = bound(nbytes, ops, dt)
+            log(f"{what} {dt}: {ms:.4f} ms on the device, plain "
+                f"{plain_ms:.4f} ms, library (SDPA, kv heads repeated) "
+                f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                f"({nbytes} B, {ops} ops over the visible pairs); achieved "
+                f"{ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; " + attributes_line(
+                    fa.kernel_attributes(sets[0][0].dtype, hd)))
+            entries[f"flash_{dt}_{key}"] = {
+                "name": f"flash_attention[{dt},{label}: "
+                        f"{'causal' if causal else 'non-causal'} S={S},"
+                        f"{H}/{KV} heads,hd {hd}]",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:77",
+                "launches": 0,
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": library_ms,
+            }
+            del sets, lib
+            torch.cuda.empty_cache()
+    return entries
+
+
+def split_flash_launches(torch, got, kernels, dt, expect, what):
+    """Add a path's flash launches to the phase's entries by shape: ``got``
+    is ``flash_attention.launch_shapes`` as the path left it (cleared with
+    the counts before it), ``expect`` maps entry keys of NEW_FLASH_SHAPES
+    to the launches the path must make at each one's shape in ``dt``.  A
+    launch at any other shape fails the run."""
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+    shapes = {key: shape for key, _, shape, _ in NEW_FLASH_SHAPES}
+    want = {}
+    for key, n in expect.items():
+        B, S, H, KV, hd, causal = shapes[key]
+        want[(dtype, B, S, H, KV, hd, hd, causal, None)] = n
+    log(f"{what}: flash launches by (dtype, B, S, H, KV, hd, hd_v, causal, "
+        f"window) {dict(got)} (expected {want})")
+    if dict(got) != want:
+        fail(f"{what}: flash launches by shape {dict(got)}, expected {want}")
+    for key, n in expect.items():
+        kernels[f"flash_{dt}_{key}"]["launches"] += n
+
+
+def serve_internvl2(torch, device, card):
+    """internvl2-76b at full width and CUT_LAYERS of its 80 layers, a
+    random N=2 bf16 population from seed 0 averaged in place, served as
+    the soup through the scan engine: B=SCAN_B, 256 patches + 2048 prompt
+    tokens, SCAN_NEW new, twice (the first request and the timed one).
+    Every prefill attention goes through the flash kernel (launches ==
+    2 requests x CUT_LAYERS).  Returns the launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import averaging
+    from repro_torch.core.population import tree_leaves
+    from repro_torch.core.prng import fold_in
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.launch.serve import init_population
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.serving import engine
+
+    cfg = dataclasses.replace(get_arch(INTERNVL2), num_layers=CUT_LAYERS,
+                              name=f"{INTERNVL2}-{CUT_LAYERS}layers")
+    S = INTERNVL2_FLASH[1] - cfg.num_patches
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    popn = init_population(cfg, 2, seed=0, device=device)
+    one_model = sum(x.numel() * x.element_size()
+                    for x in tree_leaves(popn)) // 2
+    soup = averaging.uniform_soup_(popn)
+    batch = concrete_batch(cfg, fold_in(0, 2), SCAN_B, S, device=device)
+    expect = {"flash": REQUESTS_PER_MODE * cfg.num_layers, "paged": 0,
+              "wkv": 0, "ssm": 0}
+    _zero(fa, wkv, pa)
+    t1 = time.perf_counter()
+    engine.generate(soup, cfg, batch, SCAN_NEW, device=device)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t1
+    split = {}
+    t1 = time.perf_counter()
+    toks = engine.generate(soup, cfg, batch, SCAN_NEW, device=device,
+                           timings=split)
+    torch.cuda.synchronize()
+    steady = time.perf_counter() - t1
+    counts = _counts(fa, wkv, pa)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = split["decode_s"] * 1e3 / (SCAN_NEW - 1)
+    log(f"scan engine {cfg.name} (full width, {cfg.num_layers} of 80 layers, "
+        f"bf16, N=2 = {2 * one_model / 2**30:.2f} GiB of weights, the soup "
+        f"made in place; B={SCAN_B}, {cfg.num_patches} patches + {S} prompt "
+        f"tokens, {SCAN_NEW} new, twice): "
+        f"{time.perf_counter() - t0:.2f} s with the population's init; "
+        f"{SCAN_B * SCAN_NEW / steady:.2f} tok/s (timed request "
+        f"{steady:.3f} s: prefill {split['prefill_s']:.3f} s, decode step "
+        f"{step_ms:.2f} ms; first request {first:.2f} s); kernel launches "
+        f"{counts} (expected {expect}); peak allocated {peak / 2**30:.2f} "
+        f"GiB; on {card}")
+    if counts != expect:
+        fail(f"{cfg.name}: kernel launches {counts}, expected {expect}")
+    if (toks.shape != (SCAN_B, S + SCAN_NEW)
+            or not torch.equal(toks[:, :S].long(), batch["tokens"].long())
+            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size):
+        fail(f"{cfg.name}: tokens of shape {tuple(toks.shape)}, or the prompt "
+             "lost, or sampled out of the vocabulary")
+    del popn, soup, batch
+    torch.cuda.empty_cache()
+    return counts["flash"]
+
+
+def last_families_reduced_f32(torch, device):
+    """Reduced float32 whisper, internvl2 and DeepSeek (at the full model's
+    MLA widths) on the card (TF32 off), kernels against plain: REDUCED_STEPS
+    steps of bucketed WASH (p = 0.1) on the shuffle kernels and on their
+    plain versions, final params within PARAM_TOL; then ``engine.generate``
+    in soup and ensemble on the flash kernel and on its plain version,
+    greedy tokens identical (flash launches == attention layers, encoder
+    included, x members).  Whisper keeps WHISPER_WIDTHS and is prompted
+    with WHISPER_PROMPT tokens.  Returns the kernel runs' flash launches
+    per arch, by shape (``flash_attention.launch_shapes``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import population as pop
+    from repro_torch.core.mixing import MixingConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.kernels import wash_shuffle as ws
+    from repro_torch.launch.serve import init_population
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.serving import engine
+
+    launches = {}
+    mcfg = MixingConfig(kind="wash", base_p=0.1, mode="bucketed")
+    for arch, cfg, S in (
+            (WHISPER, get_arch(WHISPER).reduced(**WHISPER_WIDTHS),
+             WHISPER_PROMPT),
+            (INTERNVL2, get_arch(INTERNVL2).reduced(), 64),
+            (DEEPSEEK, get_arch(DEEPSEEK).reduced(**MLA_WIDTHS), 64)):
+        torch.cuda.synchronize()
+        ws.bucketed_launches = 0
+        res = _train(cfg, mcfg, "sgd", REDUCED_STEPS, device)
+        torch.cuda.synchronize()
+        shuffles = ws.bucketed_launches
+        kept = pop.tree_map(torch.clone, res.population)
+        losses = res.history["loss"]
+        del res
+        with plain_shuffles(ops, ref):
+            plain = _train(cfg, mcfg, "sgd", REDUCED_STEPS, device)
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            pop.tree_leaves(kept), pop.tree_leaves(plain.population)))
+        log(f"reduced f32 {cfg.name}, bucketed WASH p=0.1, SGD, "
+            f"{REDUCED_STEPS} steps: {shuffles} bucketed shuffle launches; "
+            f"max |param kernel run - plain run| = {diff:.3e} (tolerance "
+            f"{PARAM_TOL:g}); losses {losses} vs {plain.history['loss']}")
+        if not shuffles or diff > PARAM_TOL or not np.isfinite(losses).all():
+            fail(f"reduced f32 {cfg.name} training: {shuffles} shuffles, "
+                 f"kernel and plain runs differ by {diff}")
+        del kept, plain
+
+        popn = init_population(cfg, 2, seed=9, device=device)
+        batch = concrete_batch(cfg, 11, 4, S, device=device)
+        launches[arch] = collections.Counter()
+        for mode in ("soup", "ensemble"):
+            params = engine.serving_params(popn, mode)
+            torch.cuda.synchronize()
+            _zero(fa, wkv, pa)
+            out_k = engine.generate(params, cfg, batch, 16, mode=mode,
+                                    device=device)
+            torch.cuda.synchronize()
+            n = fa.launches
+            launches[arch] += fa.launch_shapes
+            with plain_routes(ops, ref, "flash_attention"):
+                out_p = engine.generate(params, cfg, batch, 16, mode=mode,
+                                        device=device)
+            expect = ((cfg.num_layers + cfg.encoder_layers)
+                      * MODE_MEMBERS[mode])
+            same = torch.equal(out_k, out_p)
+            log(f"reduced f32 {cfg.name} {mode} (B=4, S={S}, 16 new): greedy "
+                f"tokens kernel path == plain path: {same}; flash launches "
+                f"{n} (expected {expect})")
+            if not same or n != expect:
+                fail(f"reduced f32 {cfg.name} {mode}: tokens differ or {n} "
+                     "flash launches")
+        del popn, params
+        torch.cuda.empty_cache()
+    return launches
+
+
+def last_families(torch, F, device, kernels, card):
+    """Phase 14: flash at the new shapes alone; full-width whisper-medium
+    served through the serve CLI's scan engine and trained through the
+    train CLI; DeepSeek-V2-Lite at full width and CUT_LAYERS layers
+    trained through the train CLI's ``main`` and its soup served; the
+    flash launches of whisper's runs counted by shape; internvl2-76b at
+    full width and CUT_LAYERS layers served as the soup; then the reduced
+    float32 models on the kernels against plain.  Adds the phase's entries
+    to ``kernels`` with their launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    t0 = time.perf_counter()
+    kernels.update(check_flash_new_shapes(torch, fa, ref, F, device))
+    t1 = time.perf_counter()
+    whisper = get_arch(WHISPER)
+    members = sum(MODE_MEMBERS.values())
+    serve_full_width(torch, device, WHISPER, card, seq=WHISPER_PROMPT)
+    split_flash_launches(torch, fa.launch_shapes, kernels, "bf16", {
+        "whisper": REQUESTS_PER_MODE * whisper.encoder_layers * members,
+        "whisper_dec": REQUESTS_PER_MODE * whisper.num_layers * members},
+        f"{WHISPER} served")
+    train_full_width(torch, device, WHISPER, kernels)
+    deepseek = dataclasses.replace(get_arch(DEEPSEEK), num_layers=CUT_LAYERS,
+                                   name=f"{DEEPSEEK}-{CUT_LAYERS}layers")
+    train_full_width(torch, device, DEEPSEEK, kernels, cfg=deepseek)
+    kernels["flash_bf16_internvl2"]["launches"] += serve_internvl2(
+        torch, device, card)
+    reduced = last_families_reduced_f32(torch, device)
+    small = get_arch(WHISPER).reduced(**WHISPER_WIDTHS)
+    runs = sum(MODE_MEMBERS[m] for m in ("soup", "ensemble"))
+    split_flash_launches(torch, reduced[WHISPER], kernels, "f32", {
+        "whisper": small.encoder_layers * runs,
+        "whisper_dec": small.num_layers * runs},
+        f"reduced f32 {small.name} served")
+    kernels["flash_f32"]["launches"] += sum(reduced[INTERNVL2].values())
+    kernels["flash_f32_mla"]["launches"] += sum(reduced[DEEPSEEK].values())
+    log(f"phase 14 (the last model families): {time.perf_counter() - t0:.1f} "
+        f"s (the kernels alone {t1 - t0:.1f} s); flash launches at whisper's "
+        f"encoder {kernels['flash_bf16_whisper']['launches']} (bf16) and "
+        f"{kernels['flash_f32_whisper']['launches']} (f32, reduced), at its "
+        f"decoder prefill {kernels['flash_bf16_whisper_dec']['launches']} "
+        f"(bf16) and {kernels['flash_f32_whisper_dec']['launches']} (f32, "
+        f"reduced), at internvl2's "
+        f"{kernels['flash_bf16_internvl2']['launches']}")
+
+
 def build_kernels(*mods):
     """Every library, each nvcc started at once."""
     t0 = time.perf_counter()
@@ -4211,6 +4587,7 @@ def main() -> int:
     kernels.update(check_flash_mla(torch, fa, ref, F, device))
     moe_and_mla(torch, device, kernels, card)
     hybrid_family(torch, F, device, kernels, card)
+    last_families(torch, F, device, kernels, card)
     for entry in kernels.values():
         if entry["launches"] == 0:
             fail(f"kernel {entry['name']} was never launched on its path")

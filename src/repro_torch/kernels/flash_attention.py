@@ -16,6 +16,7 @@ imported.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from pathlib import Path
 from typing import Optional
@@ -26,6 +27,9 @@ from repro_torch.kernels import build as _build
 
 #: kernel launches made through :func:`flash_attention_cuda`
 launches = 0
+
+#: the same launches by (dtype, B, S, H, KV, hd, hd_v, causal, window)
+launch_shapes: collections.Counter = collections.Counter()
 
 #: seconds the last build took (None until built in this process)
 build_seconds: Optional[float] = None
@@ -131,4 +135,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {rc}")
     launches += 1
+    launch_shapes[(q.dtype, B, S, H, KV, hd, hd_v, bool(causal), window)] += 1
     return out

@@ -124,13 +124,17 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
+def main(argv=None, cfg=None):
+    """Run the CLI on ``argv``; returns the loop's result.  ``cfg``, when
+    given, is trained in place of ``--arch``'s config: a caller's cut of
+    it (fewer layers, say), which no flag expresses."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.record_every is not None and args.record_every < 1:
         ap.error("--record-every must be >= 1")
     device = resolve_device(args.device)
-    cfg = get_arch(args.arch)
+    if cfg is None:
+        cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     reason = M.train_supported(cfg)

@@ -1,10 +1,11 @@
-"""Shared layers: norms, rope, SwiGLU, GQA and MLA for training and serving.
+"""Shared layers: norms, rope, the MLPs, GQA, cross-attention and MLA for
+training and serving.
 
-Port of the parts of ``repro/models/layers.py`` that training, the scan
-engine (the contiguous ring KV cache and MLA's latent cache) and
-continuous batching (the paged KV cache) run.  Plain functions over
-explicit parameter dicts, in the reference's layout (linear weights
-``(d_in, d_out)`` used as ``x @ w``).
+Port of ``repro/models/layers.py``: what training, the scan engine (the
+contiguous ring KV cache, MLA's latent cache, whisper's encoder and
+cross-attention) and continuous batching (the paged KV cache) run.
+Plain functions over explicit parameter dicts, in the reference's layout
+(linear weights ``(d_in, d_out)`` used as ``x @ w``).
 Compute-sensitive reductions run in float32.
 
 Where the reference returns new caches and pools (JAX donates them), the
@@ -95,6 +96,24 @@ def swiglu_init(gen, d_model, d_ff, dtype, lead=()):
 def swiglu(p, x):
     h = F.silu(x @ p["w1"]) * (x @ p["w3"])
     return h @ p["w2"]
+
+
+def gelu_mlp_init(gen, d_model, d_ff, dtype, lead=()):
+    zeros = lambda n: torch.zeros(tuple(lead) + (n,), dtype=dtype,  # noqa: E731
+                                  device=gen.device)
+    return {
+        "w1": dense_init(gen, (d_model, d_ff), dtype, lead=lead),
+        "b1": zeros(d_ff),
+        "w2": dense_init(gen, (d_ff, d_model), dtype, lead=lead),
+        "b2": zeros(d_model),
+    }
+
+
+def gelu_mlp(p, x):
+    """The encoder's MLP.  ``jax.nn.gelu`` defaults to the tanh
+    approximation, and so does this (the exact erf form differs by ~1e-3)."""
+    h = F.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
+    return h @ p["w2"] + p["b2"]
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +284,61 @@ def gqa_train(p, cfg: ModelConfig, x, bidirectional: bool = False):
     return out.reshape(B, T, -1) @ p["wo"]
 
 
+def gqa_encode(p, cfg: ModelConfig, x):
+    """Bidirectional GQA over ``x`` (B, S, D) at positions 0..S-1, the
+    serving path's encoder attention: ``gqa_train(bidirectional=True)``'s
+    function through ``ops.flash_attention(causal=False)``, the
+    hand-written kernel for CUDA tensors (the plain form would hold every
+    (B, H, S, S) score in float32), the plain version for CPU tensors."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, torch.arange(S, device=x.device))
+    out = ops.flash_attention(q, k, v, causal=False)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper's decoder)
+# ---------------------------------------------------------------------------
+
+
+def xattn_init(gen, cfg: ModelConfig, lead=()):
+    dtype = param_dtype(cfg)
+    hd = cfg.resolved_head_dim
+    D, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    return {
+        "wq": dense_init(gen, (D, H * hd), dtype, lead=lead),
+        "wk": dense_init(gen, (D, KV * hd), dtype, lead=lead),
+        "wv": dense_init(gen, (D, KV * hd), dtype, lead=lead),
+        "wo": dense_init(gen, (H * hd, D), dtype, lead=lead),
+    }
+
+
+def xattn_kv(p, cfg: ModelConfig, kv_feats):
+    """The keys and values (B, S_enc, KV, hd) of the encoder output
+    ``kv_feats`` (B, S_enc, D): no rope, as the cache holds them."""
+    B, S, _ = kv_feats.shape
+    shape = (B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return ((kv_feats @ p["wk"]).reshape(shape),
+            (kv_feats @ p["wv"]).reshape(shape))
+
+
+def xattn_attend(p, cfg: ModelConfig, x, k, v):
+    """Queries of ``x`` (B, T, D) against every encoder key, all visible,
+    in plain ``sdpa`` as the reference computes it (the flash kernel takes
+    only equal query and key lengths)."""
+    B, T, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, T, cfg.num_heads, cfg.resolved_head_dim)
+    mask = torch.ones((T, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = sdpa(q, k, v, mask, cfg.num_kv_heads)
+    return out.reshape(B, T, -1) @ p["wo"]
+
+
+def xattn(p, cfg: ModelConfig, x, kv_feats):
+    """Cross-attention of ``x`` (B, T, D) over the encoder output
+    ``kv_feats`` (B, S_enc, D)."""
+    return xattn_attend(p, cfg, x, *xattn_kv(p, cfg, kv_feats))
+
+
 # ---------------------------------------------------------------------------
 # contiguous ring KV cache (the scan engine)
 # ---------------------------------------------------------------------------
@@ -375,13 +449,10 @@ def _mla_latents(p, cfg: ModelConfig, x, positions):
     return ckv, krope
 
 
-def _mla_prefill_attend(p, cfg: ModelConfig, x):
-    """Whole-sequence MLA over ``x`` (B, T, D) at positions 0..T-1, the
-    latents expanded to per-head keys and values.  The attention is
-    ``ops.flash_attention`` (causal): q = [q_nope, q_rope] and k = [k_nope,
-    krope on every head], both ``qk_nope_dim + qk_rope_dim`` wide, v
-    ``v_head_dim`` wide; its ``hd**-0.5`` on the q/k width is the
-    reference's scale.  Returns ``(out (B, T, D), ckv, krope)``."""
+def _mla_expand(p, cfg: ModelConfig, x):
+    """Whole-sequence MLA's inputs over ``x`` (B, T, D) at positions
+    0..T-1, the latents expanded to per-head keys and values: ``(q_nope,
+    q_rope, k_nope, v, ckv, krope)``."""
     B, T, _ = x.shape
     H = cfg.num_heads
     positions = torch.arange(T, device=x.device)
@@ -389,16 +460,41 @@ def _mla_prefill_attend(p, cfg: ModelConfig, x):
     ckv, krope = _mla_latents(p, cfg, x, positions)
     k_nope = (ckv @ p["w_uk"]).reshape(B, T, H, cfg.qk_nope_dim)
     v = (ckv @ p["w_uv"]).reshape(B, T, H, cfg.v_head_dim)
+    return q_nope, q_rope, k_nope, v, ckv, krope
+
+
+def _mla_prefill_attend(p, cfg: ModelConfig, x):
+    """The prefill's whole-sequence MLA.  The attention is
+    ``ops.flash_attention`` (causal): q = [q_nope, q_rope] and k = [k_nope,
+    krope on every head], both ``qk_nope_dim + qk_rope_dim`` wide, v
+    ``v_head_dim`` wide; its ``hd**-0.5`` on the q/k width is the
+    reference's scale.  Returns ``(out (B, T, D), ckv, krope)``."""
+    B, T, _ = x.shape
+    q_nope, q_rope, k_nope, v, ckv, krope = _mla_expand(p, cfg, x)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, krope[:, :, None, :].expand(
-        B, T, H, cfg.qk_rope_dim)], dim=-1)
+        B, T, cfg.num_heads, cfg.qk_rope_dim)], dim=-1)
     out = ops.flash_attention(q, k, v.contiguous(), causal=True)
     return out.reshape(B, T, -1) @ p["wo"], ckv, krope
 
 
 def mla_train(p, cfg: ModelConfig, x):
-    """Training / prefill form of MLA over ``x`` (B, T, D)."""
-    return _mla_prefill_attend(p, cfg, x)[0]
+    """Training form of MLA over ``x`` (B, T, D), as the reference computes
+    it: float32 scores ``q_nope k_nope + q_rope krope`` (the rope key shared
+    by every head), a causal mask and a softmax, in plain PyTorch on both
+    devices, so autograd differentiates it on the card."""
+    B, T, _ = x.shape
+    q_nope, q_rope, k_nope, v, _, krope = _mla_expand(p, cfg, x)
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    scores = (torch.einsum("bthd,bshd->bhts", q_nope.float(), k_nope.float())
+              + torch.einsum("bthd,bsd->bhts", q_rope.float(), krope.float())
+              ) * scale
+    scores = torch.where(causal_mask(T, device=x.device)[None, None], scores,
+                         torch.tensor(NEG_INF, dtype=scores.dtype,
+                                      device=scores.device))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhts,bshd->bthd", w, v.float()).to(x.dtype)
+    return out.reshape(B, T, -1) @ p["wo"]
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, capacity: int,
@@ -419,9 +515,9 @@ def mla_cache_init(cfg: ModelConfig, batch: int, capacity: int,
 
 
 def mla_prefill(p, cfg: ModelConfig, x, cache_l):
-    """Whole-prompt MLA (:func:`mla_train`) that also writes the prompt's
-    latents into this layer's cache (views, written in place) from slot 0.
-    Returns ``(out, cache_l)``."""
+    """Whole-prompt MLA through the flash route that also writes the
+    prompt's latents into this layer's cache (views, written in place)
+    from slot 0.  Returns ``(out, cache_l)``."""
     T = x.shape[1]
     out, ckv, krope = _mla_prefill_attend(p, cfg, x)
     cache_l["ckv"][:, :T] = ckv

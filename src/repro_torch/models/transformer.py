@@ -3,12 +3,19 @@
 Port of the parts of ``repro/models/transformer.py`` that training, the
 scan engine and continuous batching run: ``init_params`` (attention
 blocks, GQA or MLA, with a dense or MoE MLP; rwkv6 blocks; hybrid blocks,
-a sliding-window GQA attention beside a Mamba path), the training
-forward and loss (with the MoE router's aux loss), the embedding and LM
-head, the contiguous-cache ``prefill`` / ``decode_step`` /
-``decode_scan``, and the paged decode and prefill steps.  Parameters
-keep the reference's tree: every block leaf is stacked along a leading
-``num_layers`` axis under ``params["blocks"]``.  Where the reference
+a sliding-window GQA attention beside a Mamba path; whisper's
+encoder-decoder; the vision and audio frontends' projections), the
+training forward and loss (with the MoE router's aux loss), the
+embedding and LM head, the contiguous-cache ``prefill`` /
+``decode_step`` / ``decode_scan``, and the paged decode and prefill
+steps.  Parameters keep the reference's tree: every block leaf is stacked
+along a leading ``num_layers`` axis under ``params["blocks"]`` (an
+encoder's along ``encoder_layers`` under ``params["enc_blocks"]``).
+
+Batches: ``{"tokens": (B, S)}``, plus ``"patches"`` (B, num_patches, D)
+for the vision frontend (prepended to the text) and ``"frames"`` (B,
+num_frames, D) for the audio frontend (the encoder's input): the
+modality encoders are stubs, as in the reference.  Where the reference
 runs ``lax.scan`` over the stacked blocks, the port loops over layers in
 Python on per-layer views (``leaf[l]``, ``cache[l]``), which copy
 nothing.
@@ -51,13 +58,14 @@ def scan_supported(cfg: ModelConfig) -> Optional[str]:
     scan engine (``prefill`` / ``decode_step``), else the reason: attention
     blocks, GQA (sliding windows included) or MLA, with a dense or MoE
     MLP; rwkv6 blocks; hybrid blocks (attention and a Mamba path on the
-    same input, fused by a learned softmax gate)."""
+    same input, fused by a learned softmax gate); an encoder-decoder of
+    GQA blocks with dense MLPs (whisper); a vision patch prefix."""
     if cfg.block_kind not in ("attn", "rwkv6", "hybrid"):
         return f"block_kind={cfg.block_kind!r} is not ported yet"
-    if cfg.is_encdec:
-        return "encoder-decoder models are not ported to PyTorch yet"
-    if cfg.frontend is not None:
-        return f"frontend={cfg.frontend!r} inputs are not ported yet"
+    if cfg.is_encdec and (cfg.block_kind != "attn" or cfg.mla or cfg.moe):
+        return "an encoder-decoder's blocks are GQA attention with dense MLPs"
+    if cfg.frontend == "vision" and cfg.block_kind == "rwkv6":
+        return "an rwkv6 prefill does not take a patch prefix"
     return None
 
 
@@ -84,7 +92,8 @@ def cuda_supported(cfg: ModelConfig, path: str,
     ssm_reason = (f"ssm_state={cfg.ssm_state}: the selective-scan kernel "
                   f"takes state sizes {_ssm.STATE_DIMS}")
     if path == "train":
-        # GQA attention trains through plain sdpa, as the reference does;
+        # GQA and MLA attention (the encoder's and the cross-attention
+        # too) train through plain attention, as the reference does;
         # rwkv6 through the WKV kernel forward and its backward kernel,
         # hybrid's Mamba path through the selective-scan kernels
         if ssm:
@@ -93,9 +102,6 @@ def cuda_supported(cfg: ModelConfig, path: str,
                 and seq_len > _ssm.MAX_BACKWARD_T):
             return (f"seq_len={seq_len}: the selective-scan backward kernel "
                     f"takes at most {_ssm.MAX_BACKWARD_T} steps")
-        if cfg.mla and cfg.block_kind == "attn":
-            return ("MLA attends through the flash-attention kernel, which "
-                    "has no backward kernel")
         hd = cfg.rwkv_head_dim
         if cfg.block_kind == "rwkv6" and (
                 hd not in _wkv.HEAD_DIMS or hd not in _wkv.BACKWARD_HEAD_DIMS):
@@ -186,10 +192,24 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if cfg.pos_kind == "learned":
         out["embed"]["pos"].copy_(L.dense_init(
             gen, (cfg.max_position, D), dtype, scale=0.02))
+    if cfg.frontend == "vision":
+        out["embed"]["patch_proj"].copy_(L.dense_init(gen, (D, D), dtype))
+    if cfg.frontend == "audio":
+        out["embed"]["frame_proj"].copy_(L.dense_init(gen, (D, D), dtype))
+        out["embed"]["enc_pos"].copy_(L.dense_init(
+            gen, (cfg.num_frames, D), dtype, scale=0.02))
     lead = (NL,)
     blocks = out["blocks"]
     blocks["ln1"]["scale"].fill_(1)
     blocks["ln2"]["scale"].fill_(1)
+    if cfg.is_encdec:
+        enc, lead_e = out["enc_blocks"], (cfg.encoder_layers,)
+        for norm in (enc["ln1"], enc["ln2"], out["enc_norm"], blocks["ln_x"]):
+            norm["scale"].fill_(1)
+        _fill(enc["attn"], L.gqa_init(gen, cfg, lead=lead_e))
+        _fill(enc["mlp"], L.gelu_mlp_init(gen, D, cfg.d_ff, dtype,
+                                          lead=lead_e))
+        _fill(blocks["xattn"], L.xattn_init(gen, cfg, lead=lead))
     if cfg.block_kind == "rwkv6":
         _fill(blocks["rwkv"], SSM.rwkv6_init(gen, cfg, lead=lead))
         return out
@@ -217,12 +237,28 @@ def param_shapes(cfg: ModelConfig) -> Tree:
     D, V, NL, F = cfg.d_model, cfg.vocab_size, cfg.num_layers, cfg.d_ff
     H, KV = cfg.num_heads, cfg.num_kv_heads
     m = lambda *s: torch.empty(s, dtype=dtype, device="meta")  # noqa: E731
+
+    def gqa(n):
+        attn = {"wq": m(n, D, H * hd), "wk": m(n, D, KV * hd),
+                "wv": m(n, D, KV * hd), "wo": m(n, H * hd, D)}
+        if cfg.qkv_bias:
+            attn.update(bq=m(n, H * hd), bk=m(n, KV * hd), bv=m(n, KV * hd))
+        if cfg.qk_norm:
+            attn.update(q_norm={"scale": m(n, hd)},
+                        k_norm={"scale": m(n, hd)})
+        return attn
+
     params: Dict[str, Any] = {"embed": {"tok": m(V, D)},
                               "final_norm": {"scale": m(D)}}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": m(D, V)}
     if cfg.pos_kind == "learned":
         params["embed"]["pos"] = m(cfg.max_position, D)
+    if cfg.frontend == "vision":
+        params["embed"]["patch_proj"] = m(D, D)
+    if cfg.frontend == "audio":
+        params["embed"]["frame_proj"] = m(D, D)
+        params["embed"]["enc_pos"] = m(cfg.num_frames, D)
     if cfg.block_kind == "rwkv6":
         params["blocks"] = {"ln1": {"scale": m(NL, D)},
                             "ln2": {"scale": m(NL, D)},
@@ -236,19 +272,23 @@ def param_shapes(cfg: ModelConfig) -> Tree:
                 "w_uv": m(NL, r, H * cfg.v_head_dim),
                 "wo": m(NL, H * cfg.v_head_dim, D)}
     else:
-        attn = {"wq": m(NL, D, H * hd), "wk": m(NL, D, KV * hd),
-                "wv": m(NL, D, KV * hd), "wo": m(NL, H * hd, D)}
-        if cfg.qkv_bias:
-            attn.update(bq=m(NL, H * hd), bk=m(NL, KV * hd),
-                        bv=m(NL, KV * hd))
-        if cfg.qk_norm:
-            attn.update(q_norm={"scale": m(NL, hd)},
-                        k_norm={"scale": m(NL, hd)})
+        attn = gqa(NL)
     mlp = (MOE.moe_shapes(cfg, NL) if cfg.moe else
            {"w1": m(NL, D, F), "w3": m(NL, D, F), "w2": m(NL, F, D)})
     params["blocks"] = {"ln1": {"scale": m(NL, D)},
                         "ln2": {"scale": m(NL, D)},
                         "attn": attn, "mlp": mlp}
+    if cfg.is_encdec:
+        NE = cfg.encoder_layers
+        params["blocks"]["xattn"] = {
+            "wq": m(NL, D, H * hd), "wk": m(NL, D, KV * hd),
+            "wv": m(NL, D, KV * hd), "wo": m(NL, H * hd, D)}
+        params["blocks"]["ln_x"] = {"scale": m(NL, D)}
+        params["enc_blocks"] = {
+            "ln1": {"scale": m(NE, D)}, "ln2": {"scale": m(NE, D)},
+            "attn": gqa(NE), "mlp": {"w1": m(NE, D, F), "b1": m(NE, F),
+                                     "w2": m(NE, F, D), "b2": m(NE, D)}}
+        params["enc_norm"] = {"scale": m(D)}
     if cfg.block_kind == "hybrid":
         params["blocks"]["mamba"] = SSM.mamba_shapes(cfg, NL)
         params["blocks"]["beta"] = torch.empty((NL, 2), dtype=torch.float32,
@@ -276,6 +316,37 @@ def _logits(params, cfg: ModelConfig, x):
     return x @ params["lm_head"]["w"]
 
 
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    """The text's embeddings, behind the vision patches' projections when
+    the config has that frontend: ``(x, the number of prefix positions)``."""
+    x = _embed_tokens(params, cfg, batch["tokens"].long())
+    if cfg.frontend != "vision":
+        return x, 0
+    patches = batch["patches"] @ params["embed"]["patch_proj"]
+    return torch.cat([patches.to(x.dtype), x], dim=1), patches.shape[1]
+
+
+def _encode(params, cfg: ModelConfig, frames, serve: bool = False):
+    """Whisper's encoder over the stubbed frame embeddings ``frames`` (B,
+    num_frames, D): the frame projection and learned positions, then
+    pre-norm blocks of bidirectional GQA and the GELU MLP, and a final
+    norm.  The attention runs ``gqa_train(bidirectional=True)`` in
+    training and :func:`layers.gqa_encode` (the flash kernel on the card)
+    when ``serve``.  The positions broadcast only over ``num_frames``
+    frames; the reference pads none, nor does this."""
+    if frames.shape[1] != cfg.num_frames:
+        raise ValueError(f"{cfg.name}: {frames.shape[1]} frames, the encoder "
+                         f"takes exactly num_frames={cfg.num_frames}")
+    emb = params["embed"]
+    x = frames @ emb["frame_proj"] + emb["enc_pos"][None]
+    for blk in _layer_views(params["enc_blocks"], cfg.encoder_layers):
+        h = L.rmsnorm(blk["ln1"], x, cfg.norm_eps)
+        x = x + (L.gqa_encode(blk["attn"], cfg, h) if serve else
+                 L.gqa_train(blk["attn"], cfg, h, bidirectional=True))
+        x = x + L.gelu_mlp(blk["mlp"], L.rmsnorm(blk["ln2"], x, cfg.norm_eps))
+    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
 # ---------------------------------------------------------------------------
 # training forward / loss
 # ---------------------------------------------------------------------------
@@ -297,11 +368,13 @@ def _fuse(p, a, m):
     return beta[0] * a + beta[1] * m
 
 
-def _block_train(p, cfg: ModelConfig, x, state_l=None):
+def _block_train(p, cfg: ModelConfig, x, state_l=None, enc_out=None):
     """One block over the full sequence: ``(x, aux)``.  An rwkv6 block
     starts from ``state_l`` (a zero start) and its new state is dropped,
     as the reference's ``_run_blocks_train`` drops it; a hybrid block's
-    Mamba path starts from zero and keeps no state."""
+    Mamba path starts from zero and keeps no state; a decoder block of an
+    encoder-decoder cross-attends to ``enc_out`` after its self-attention
+    (the reference's ``_run_dec_blocks_train``)."""
     if cfg.block_kind == "rwkv6":
         x, _ = SSM.rwkv6_block(p["rwkv"], cfg, x, state_l,
                                {"ln1": p["ln1"], "ln2": p["ln2"]})
@@ -312,6 +385,9 @@ def _block_train(p, cfg: ModelConfig, x, state_l=None):
     if cfg.block_kind == "hybrid":
         a = _fuse(p, a, SSM.mamba_train(p["mamba"], cfg, h))
     x = x + a
+    if enc_out is not None:
+        x = x + L.xattn(p["xattn"], cfg, L.rmsnorm(p["ln_x"], x, cfg.norm_eps),
+                        enc_out)
     y, aux = _mlp_apply(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x + y, aux
 
@@ -326,7 +402,7 @@ def _layer_views(blocks: Tree, num_layers: int) -> List[Tree]:
             for l in range(num_layers)]
 
 
-def _run_blocks_train(params, cfg: ModelConfig, x):
+def _run_blocks_train(params, cfg: ModelConfig, x, enc_out=None):
     """All blocks in order, a Python loop over per-layer views; rwkv6
     blocks each from a zero start, as from the reference's
     ``rwkv_state_init``: zero token-shift inputs, and the WKV state as
@@ -336,7 +412,8 @@ def _run_blocks_train(params, cfg: ModelConfig, x):
     (``torch.utils.checkpoint``) instead of stored, so an rwkv6 layer runs
     its WKV forward twice.  Returns ``(x, the router aux loss summed over
     the layers)``.  A hybrid layer's Mamba path also starts from zero,
-    passing the selective-scan kernels no state.  Raises for what
+    passing the selective-scan kernels no state.  A decoder block
+    cross-attends to ``enc_out`` when given.  Raises for what
     :func:`train_supported` refuses."""
     _require(train_supported(cfg), "training", cfg)
     state_l = None
@@ -347,20 +424,24 @@ def _run_blocks_train(params, cfg: ModelConfig, x):
     for blk in _layer_views(params["blocks"], cfg.num_layers):
         if cfg.remat_blocks:
             x, aux_l = checkpoint(_block_train, blk, cfg, x, state_l,
-                                  use_reentrant=False)
+                                  enc_out, use_reentrant=False)
         else:
-            x, aux_l = _block_train(blk, cfg, x, state_l)
+            x, aux_l = _block_train(blk, cfg, x, state_l, enc_out)
         aux = aux + aux_l
     return x, aux
 
 
 def forward_logits(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor,
                                                                torch.Tensor]:
-    """Full-sequence logits (B, S, V) and the auxiliary loss (the MoE
-    router's, summed over the layers; 0 without MoE)."""
-    x = _embed_tokens(params, cfg, batch["tokens"].long())
-    x, aux = _run_blocks_train(params, cfg, x)
-    return _logits(params, cfg, x), aux
+    """Full-sequence logits (B, S, V) over the text positions and the
+    auxiliary loss (the MoE router's, summed over the layers; 0 without
+    MoE).  An encoder-decoder encodes ``batch["frames"]`` first; a vision
+    prefix is run through the blocks and sliced off before the head."""
+    enc_out = (_encode(params, cfg, batch["frames"]) if cfg.is_encdec
+               else None)
+    x, n_prefix = _embed_inputs(params, cfg, batch)
+    x, aux = _run_blocks_train(params, cfg, x, enc_out)
+    return _logits(params, cfg, x[:, n_prefix:]), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor,
@@ -388,7 +469,9 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     rwkv6 keeps ``{"state": {"S", "x_tm", "x_cm"}}``, GQA attention
     ``{"kv": {"k", "v", "pos_ids"}}``, MLA its latent cache
     ``{"kv": {"ckv", "krope", "pos_ids"}}``, a hybrid model its windowed
-    ring and its Mamba state ``{"kv": ..., "ssm": {"h", "conv"}}``, each
+    ring and its Mamba state ``{"kv": ..., "ssm": {"h", "conv"}}``, an
+    encoder-decoder also the cross-attention's keys and values of the
+    encoded frames, ``"xk"`` and ``"xv"`` (L, B, num_frames, KV, hd); each
     leaf led by the layer axis."""
     _require(scan_supported(cfg), "scan-engine serving of", cfg)
     if cfg.block_kind == "rwkv6":
@@ -400,6 +483,13 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     if cfg.block_kind == "hybrid":
         cache["ssm"] = SSM.mamba_state_init(cfg, batch, cfg.num_layers,
                                             device=device)
+    if cfg.is_encdec:
+        shape = (cfg.num_layers, batch, cfg.num_frames, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        dev = resolve_device(device)
+        for key in ("xk", "xv"):
+            cache[key] = torch.zeros(shape, dtype=L.param_dtype(cfg),
+                                     device=dev)
     return cache
 
 
@@ -418,17 +508,28 @@ def _store_layer(cache: Tree, l: int, new_l: Tree) -> None:
             cache[key][l].copy_(value)
 
 
-def _block_serve(block_l, cfg: ModelConfig, x, cache_l, pos: Optional[int]):
+def _block_serve(block_l, cfg: ModelConfig, x, cache_l, pos: Optional[int],
+                 enc_out=None):
     """One layer of prefill (``pos`` None: the whole prompt from position
     0; the reference's ``prefill`` scan body) or of one-token decode at
-    ``pos`` (the reference's ``_block_decode``).  Returns
-    ``(x, new_cache_l)``."""
+    ``pos`` (the reference's ``_block_decode``).  An encoder-decoder's
+    prefill takes the encoder output ``enc_out``, whose keys and values
+    it writes into the layer's ``xk`` / ``xv`` views in place; its decode
+    reads them.  Returns ``(x, new_cache_l)``."""
     if cfg.block_kind == "rwkv6":
         x, state = SSM.rwkv6_block(
             block_l["rwkv"], cfg, x, cache_l["state"],
             {"ln1": block_l["ln1"], "ln2": block_l["ln2"]})
         return x, {"state": state}
     x, new_l = _attn_serve(block_l, cfg, x, cache_l, pos)
+    if cfg.is_encdec:
+        xk, xv = cache_l["xk"], cache_l["xv"]
+        if enc_out is not None:
+            k, v = L.xattn_kv(block_l["xattn"], cfg, enc_out)
+            xk.copy_(k)
+            xv.copy_(v)
+        h = L.rmsnorm(block_l["ln_x"], x, cfg.norm_eps)
+        x = x + L.xattn_attend(block_l["xattn"], cfg, h, xk, xv)
     y, _ = _mlp_apply(block_l["mlp"], cfg, L.rmsnorm(block_l["ln2"], x,
                                                      cfg.norm_eps))
     return x + y, new_l
@@ -494,16 +595,20 @@ def decode_scan(params, cfg: ModelConfig, first, cache, start_pos: int,
 
 
 def prefill(params, cfg: ModelConfig, batch, capacity: Optional[int] = None):
-    """Process the whole prompt ``batch["tokens"]`` (B, T) from position 0.
-    Returns ``(last-position logits (B, 1, V), the filled cache)``; the
-    cache lands on the tokens' device."""
-    tokens = batch["tokens"].long()
+    """Process the whole prompt ``batch["tokens"]`` (B, T) from position 0,
+    behind the vision patches (their positions first) or after encoding
+    the audio frames once, as the config says.  ``capacity`` defaults to
+    T, as the reference's does.  Returns ``(last-position logits (B, 1,
+    V), the filled cache)``; the cache lands on the tokens' device."""
+    tokens = batch["tokens"]
     B, T = tokens.shape
     cache = init_cache(cfg, B, capacity or T, device=tokens.device)
-    x = _embed_tokens(params, cfg, tokens)
+    enc_out = (_encode(params, cfg, batch["frames"], serve=True)
+               if cfg.is_encdec else None)
+    x, _ = _embed_inputs(params, cfg, batch)
     for l in range(cfg.num_layers):
         x, new_l = _block_serve(_block(params, l), cfg, x,
-                                _cache_layer(cache, l), None)
+                                _cache_layer(cache, l), None, enc_out)
         _store_layer(cache, l, new_l)
     return _logits(params, cfg, x[:, -1:]), cache
 

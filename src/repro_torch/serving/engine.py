@@ -1,8 +1,10 @@
 """The scan serving engine: prefill once, then decode a static batch.
 
 Port of ``repro/serving/engine.py`` without the mesh and stage-split
-parts.  A request is a shape-uniform batch ``{"tokens": (B, S)}``; the
-engine prefills the whole prompt (``models.transformer.prefill``, whose
+parts.  A request is a shape-uniform batch ``{"tokens": (B, S)}``, with
+the frontend's ``"patches"`` (B, num_patches, D) or ``"frames"`` (B,
+num_frames, D) where the config has one; the engine prefills the whole
+prompt (``models.transformer.prefill``, whose
 attention on the card is the hand-written flash-attention kernel and whose
 rwkv6 time mix is the hand-written WKV kernel), then decodes
 ``max_new_tokens - 1`` more steps against the contiguous cache
@@ -58,8 +60,9 @@ MODES = ("soup", "member", "ensemble")
 
 
 def internal_prefix(cfg: ModelConfig) -> int:
-    """Positions the model prepends to the text (vision patches); 0 for
-    every family the port serves."""
+    """Positions the model prepends to the text: the vision patches, which
+    the cache holds before the prompt and every decode position follows;
+    0 for every other family."""
     return cfg.num_patches if cfg.frontend == "vision" else 0
 
 
@@ -218,9 +221,10 @@ def _programs(cfg: ModelConfig, ensemble: bool, B: int, S: int, max_new: int,
 
 def _place(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
            device: DeviceLike) -> Dict[str, torch.Tensor]:
-    """The request's tokens on ``device``; the params must live there.  On
-    the card, a config whose shapes the kernels do not take is refused
-    here, before the first prefill (``transformer.cuda_supported``)."""
+    """The request's tokens, and its frontend's patches or frames, on
+    ``device``; the params must live there.  On the card, a config whose
+    shapes the kernels do not take is refused here, before the first
+    prefill (``transformer.cuda_supported``)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         reason = M.cuda_supported(cfg, "scan")
@@ -230,7 +234,8 @@ def _place(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     for x in pop.tree_leaves(params):
         if x.device != dev:
             raise ValueError(f"params must live on {dev}, found {x.device}")
-    return {"tokens": batch["tokens"].to(dev)}
+    return {k: batch[k].to(dev) for k in ("tokens", "patches", "frames")
+            if k in batch}
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +268,8 @@ def generate(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
              seed: Seeds = None, mode: str = "soup",
              device: DeviceLike = "cuda",
              timings: Optional[Dict[str, float]] = None) -> torch.Tensor:
-    """batch ``{"tokens": (B, S)}`` -> (B, S + max_new_tokens) int32 on
+    """batch ``{"tokens": (B, S)}`` (with ``"patches"`` or ``"frames"``
+    for a frontend) -> (B, S + max_new_tokens) int32 on
     ``device`` (the card unless the caller asks for the CPU; ``params``
     must live there).
 

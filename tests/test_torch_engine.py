@@ -167,9 +167,17 @@ def test_requests_are_validated_like_the_reference():
         engine.generate(params, tcfg, batch, 0, device="cpu")
     with pytest.raises(ValueError, match="params must live on"):
         engine.generate(TM.param_shapes(tcfg), tcfg, batch, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        TM.init_cache(get_arch("whisper-medium").reduced(), 1, 8,
-                      device="cpu")
+    # whisper's cache: the decoder's ring and the cross-attention's keys
+    # and values of every frame, in the reference's tree and shapes
+    jw, tw = _configs("whisper-medium")
+    want = jax.tree_util.tree_map(lambda x: (x.shape, str(x.dtype)),
+                                  JM.init_cache(jw, 3, 8))
+    got = jax.tree_util.tree_map(
+        lambda x: (tuple(x.shape), str(x.dtype).replace("torch.", "")),
+        TM.init_cache(tw, 3, 8, device="cpu"))
+    assert got == want
+    assert got["xk"][0] == (tw.num_layers, 3, tw.num_frames,
+                            tw.num_kv_heads, tw.resolved_head_dim)
 
 
 def test_training_rwkv6_runs_and_the_card_gate_names_the_backward(capsys):

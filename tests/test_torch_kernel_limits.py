@@ -47,6 +47,8 @@ DEEPSEEK = get_arch("deepseek-v2-lite-16b")
 MLA48 = DEEPSEEK.reduced()
 # the reduced model at the full model's MLA widths, (128 + 64, 128)
 MLA192 = DEEPSEEK.reduced(qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128)
+WHISPER = get_arch("whisper-medium")
+INTERNVL2 = get_arch("internvl2-76b")
 
 
 @pytest.mark.parametrize("cfg,path,limit", [
@@ -56,9 +58,10 @@ MLA192 = DEEPSEEK.reduced(qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128)
     (HD256, "continuous", f"at most {pa.MAX_HEAD_DIM}"),
     (RWKV16, "train", str(wkv.BACKWARD_HEAD_DIMS)),
     (MLA48, "scan", str(fa.HEAD_DIMS)),
-    (DEEPSEEK, "train", "no backward kernel"),
+    (WHISPER, "continuous", "encoder-decoder cross-attention cache is not "
+                            "paged"),
 ], ids=["rwkv6-hd16", "attn-hd96", "paged-group9", "paged-hd256",
-        "rwkv6-hd16-train", "mla-48x32", "mla-train"])
+        "rwkv6-hd16-train", "mla-48x32", "whisper-continuous"])
 def test_refuses_what_the_kernels_cannot_take(cfg, path, limit):
     reason = M.cuda_supported(cfg, path)
     assert reason is not None and limit in reason
@@ -93,12 +96,34 @@ def test_takes_the_shipped_configs(arch, reduced):
                               "kimi-k2", "kimi-k2-reduced"])
 def test_takes_the_moe_configs(cfg):
     """DeepSeek-V2-Lite's MLA widths (192, 128) are an instantiation of
-    the flash kernel; kimi-k2 is GQA with group 8 and head dim 128."""
+    the flash kernel; kimi-k2 is GQA with group 8 and head dim 128.  Both
+    train on the card: MLA's training attention is plain, as GQA's is."""
     assert M.attention_dims(cfg) in fa.HEAD_DIMS
     assert M.cuda_supported(cfg, "scan") is None
+    assert M.cuda_supported(cfg, "train") is None
     if not cfg.mla:
         assert M.cuda_supported(cfg, "continuous") is None
-        assert M.cuda_supported(cfg, "train") is None
+
+
+@pytest.mark.parametrize("cfg,reason", [
+    (WHISPER, "encoder-decoder cross-attention cache is not paged"),
+    (WHISPER.reduced(), "encoder-decoder cross-attention cache is not paged"),
+    (INTERNVL2, "frontend='vision' prefixes are not paged"),
+    (INTERNVL2.reduced(), "frontend='vision' prefixes are not paged"),
+    (DEEPSEEK, "MLA latent cache has no paged layout yet"),
+], ids=["whisper", "whisper-reduced", "internvl2", "internvl2-reduced",
+        "deepseek"])
+def test_takes_the_last_families_on_the_scan_engine_and_in_training(
+        cfg, reason):
+    """whisper's attention (encoder, decoder and cross, head dim 64) and
+    internvl2's (head dim 128, group 8) are flash instantiations; both
+    train, and DeepSeek-V2-Lite trains.  Continuous batching refuses all
+    three with the reference's reasons."""
+    assert M.attention_dims(cfg) in fa.HEAD_DIMS
+    assert M.cuda_supported(cfg, "scan") is None
+    assert M.cuda_supported(cfg, "train") is None
+    assert M.cuda_supported(cfg, "continuous") == reason
+    assert M.paged_decode_supported(cfg) == reason
 
 
 HYMBA = get_arch("hymba-1.5b")

@@ -3,10 +3,13 @@
 and the plain flash attention with values narrower than queries and keys
 against the reference's ``flash_attention_ref``.
 
-Float32: outputs and the latent cache within 1e-5.  The port's
-``mla_train`` / ``mla_prefill`` attend through ``ops.flash_attention``
-(its plain version on the CPU) where the reference writes the masked
-softmax out; ``mla_decode`` keeps the reference's absorbed form.
+Float32: outputs and the latent cache within 1e-5, ``mla_train``'s
+gradients within 1e-4 of ``jax.grad`` (float32 sums through the softmax
+and its backward in two frameworks).  The port's ``mla_train`` writes the
+masked softmax out in float32, as the reference does, so autograd
+differentiates it on either device; ``mla_prefill`` attends through
+``ops.flash_attention`` (its plain version on the CPU, the flash kernel
+on the card); ``mla_decode`` keeps the reference's absorbed form.
 """
 
 import jax
@@ -49,6 +52,23 @@ def test_train_matches_jax():
     x = _x((2, T, 32), 0)
     _close(TL.mla_train(TP, TCFG, torch.from_numpy(x)),
            JL.mla_train(JP, JCFG, jnp.asarray(x)))
+
+
+def test_train_grads_match_jax():
+    """The gradients of ``sum(mla_train(p, x) * dy)`` with respect to every
+    weight and to ``x``."""
+    x, dy = _x((2, T, 32), 5), _x((2, T, 32), 6)
+    want = jax.jit(jax.grad(
+        lambda p, x: jnp.sum(JL.mla_train(p, JCFG, x) * dy),
+        argnums=(0, 1)))(JP, jnp.asarray(x))
+    tp = {k: v.clone().requires_grad_() for k, v in TP.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    out = TL.mla_train(tp, TCFG, tx)
+    grads = torch.autograd.grad((out * torch.from_numpy(dy)).sum(),
+                                [tp[k] for k in sorted(tp)] + [tx])
+    for name, g in zip(sorted(tp), grads):
+        _close(g, want[0][name], 1e-4)
+    _close(grads[-1], want[1], 1e-4)
 
 
 def test_prefill_then_decode_track_jax_and_the_full_forward():

@@ -24,6 +24,8 @@ Tolerances, each with its reason:
   by the scan engine.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -177,8 +179,22 @@ def test_concrete_batch_for_attention_models():
     assert int(b["tokens"].max()) < cfg.vocab_size
     assert torch.equal(b["tokens"],
                        concrete_batch(cfg, 4, 3, 7, device="cpu")["tokens"])
-    with pytest.raises(NotImplementedError, match="frontend"):
-        concrete_batch(get_arch("whisper-medium").reduced(), 0, 1, 4, "cpu")
+    # the frontends' stubbed inputs: frames or patches of (B, n, d_model)
+    # in the config's dtype, the same for the same seed, the tokens as
+    # without a frontend
+    for arch, key, n in (("whisper-medium", "frames", "num_frames"),
+                         ("internvl2-76b", "patches", "num_patches")):
+        mcfg = get_arch(arch).reduced()
+        b = concrete_batch(mcfg, 4, 3, 7, device="cpu")
+        assert set(b) == {"tokens", key}
+        assert b[key].shape == (3, getattr(mcfg, n), mcfg.d_model)
+        assert b[key].dtype == torch.float32 and b[key].std() > 0.5
+        again = concrete_batch(mcfg, 4, 3, 7, device="cpu")
+        assert all(torch.equal(b[k], again[k]) for k in b)
+        assert not torch.equal(
+            b[key], concrete_batch(mcfg, 5, 3, 7, device="cpu")[key])
+        assert concrete_batch(dataclasses.replace(mcfg, dtype="bfloat16"), 4,
+                              3, 7, device="cpu")[key].dtype == torch.bfloat16
 
 
 # ---------------------------------------------------------------------------

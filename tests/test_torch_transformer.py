@@ -11,6 +11,8 @@ rounding boundary, so they are compared dequantized, within one page
 scale, with the scales themselves within 1e-5 relative.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -113,8 +115,27 @@ def test_init_params_matches_the_reference_tree():
 
 
 def test_unported_configs_are_rejected():
+    """whisper's encoder-decoder and internvl2's patch prefix build in the
+    reference's tree (``init_params`` and ``param_shapes``); what neither
+    package runs is refused: an encoder-decoder of MoE blocks, an rwkv6
+    model behind a patch prefix."""
+    from repro.configs import get_arch as jax_arch
     from repro_torch.configs import get_arch
 
     for arch in ("internvl2-76b", "whisper-medium"):
+        jcfg, tcfg = jax_arch(arch).reduced(), get_arch(arch).reduced()
+        want = jax.tree_util.tree_map(lambda x: (x.shape, str(x.dtype)),
+                                      JM.init_params(jax.random.key(0), jcfg))
+        for tree in (TM.init_params(tcfg, seed=0, device="cpu"),
+                     TM.param_shapes(tcfg)):
+            got = jax.tree_util.tree_map(
+                lambda x: (tuple(x.shape),
+                           str(x.dtype).replace("torch.", "")), tree)
+            assert got == want, arch
+    whisper = get_arch("whisper-medium").reduced()
+    for cfg in (dataclasses.replace(whisper, moe=True, n_routed_experts=4,
+                                    top_k=2),
+                get_arch("rwkv6-3b").reduced(frontend="vision",
+                                              num_patches=4)):
         with pytest.raises(NotImplementedError):
-            TM.init_params(get_arch(arch).reduced(), device="cpu")
+            TM.init_params(cfg, device="cpu")
