@@ -234,6 +234,24 @@ and then, failing on the first phase that fails:
      and DeepSeek (at its full MLA widths) on the kernels against plain:
      3 steps of bucketed WASH with params within 1e-5, and greedy tokens
      identical in soup and ensemble.
+ 15. multi-device training: the ensemble engine (``--engine shard_map``)
+     at world 1 on the card (NCCL refuses two ranks on one device, so the
+     ring across ranks is not run here).  Full-width llama3.2-3b (bf16,
+     N = 2, SGD, bucketed WASH at p = 0.01, 2 x 256 tokens a member, 4
+     steps, a record every 2) through the train CLI's ``main``: every
+     shuffle through the bucketed kernel (launches == 10 leaves x 4
+     steps), each held bitwise against the plain version, the comm
+     exactly 9,016,867.0 scalars a member a step, one chunk function
+     built, finite losses within 1e-2 relative of phase 5's vmap loop;
+     the same run unchecked through the vmap loop, the engine with the
+     staging thread and the engine with ``--sync-staging``, interleaved
+     for two rounds, for the step split, tokens/s and peak memory; then
+     llama3.2-3b at full width and 4 layers in
+     float32 on the kernels, the engine against the vmap loop (params
+     within 1e-5): bucketed WASH+Opt under AdamW, PAPA with and without
+     the gate split (the chunk functions built counted), synchronous
+     staging against the staging thread; finally an engine asked for two
+     ranks on the one card is refused before any weight is made.
 
 Kernels are built from the sources in the checkout, each ``nvcc`` started
 at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
@@ -1049,9 +1067,9 @@ def comm_per_step(seen, history, n: int, per_step: int):
     return applied, np.diff([0.0] + history["comm"]).tolist()
 
 
-def timed_training_run(torch, run, what: str) -> None:
+def timed_training_run(torch, run, what: str) -> dict:
     """The training run ``run()`` once more without the checks: the step's
-    split, tokens/s and peak memory."""
+    split, tokens/s and peak memory, logged and returned."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = run()
@@ -1068,6 +1086,9 @@ def timed_training_run(torch, run, what: str) -> None:
         f"{sum(sum(ph[p][1:]) for p in ph) / max(steps - 1, 1):.1f} ms in "
         f"the three phases; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"split_ms": ph, "tok_s": tokens / wall,
+            "steps2_ms": sum(sum(ph[p][1:]) for p in ph) / max(steps - 1, 1),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 def train_full_width(torch, device, arch, kernels, cfg=None):
@@ -1088,7 +1109,8 @@ def train_full_width(torch, device, arch, kernels, cfg=None):
     Sets the launches of the kernels the phase owns in ``kernels`` (rwkv6:
     the WKV backward; hymba: the selective-scan backward, and its
     forward's are added; the attention archs add to the bucketed
-    shuffle's)."""
+    shuffle's).  Returns the checked run's losses by step and the
+    unchecked run's timing (``timed_training_run``)."""
     from repro_torch.configs import get_arch
     from repro_torch.core import layer_index as tli
     from repro_torch.core.mixing import MixingConfig, static_mix_comm
@@ -1197,6 +1219,7 @@ def train_full_width(torch, device, arch, kernels, cfg=None):
                  "multiset, or moved nothing")
         del before, after
     del seen
+    losses = dict(zip(res.history["step"], res.history["loss"]))
     if rwkv:
         kernels["wkv_bwd"]["launches"] = bwd
     elif scan:
@@ -1212,12 +1235,13 @@ def train_full_width(torch, device, arch, kernels, cfg=None):
     del soup
     torch.cuda.empty_cache()
 
-    timed_training_run(torch, run, f"{cfg.name} training")
+    timing = timed_training_run(torch, run, f"{cfg.name} training")
     torch.cuda.empty_cache()
     profile_training_step(torch, device, cfg, kernels)
     _zero(fa, wkv, pa)
     wkv.backward_launches = ssk.backward_launches = 0
     torch.cuda.empty_cache()
+    return {"loss": losses, "timing": timing}
 
 
 def serve_trained_soup(torch, device, cfg, soup):
@@ -1397,10 +1421,13 @@ def plain_shuffles(ops, ref):
         ops.wash_shuffle, ops.bucketed_shuffle_ = dense, bucketed
 
 
-def _train(cfg, mcfg, optimizer, steps, device, seq=64, record_fn=None):
-    """The train loop on N = 2 members, 2 x ``seq`` tokens a member a step
-    of the synthetic LM task (with the frontend's frames or patches from
-    ``concrete_batch``, as the train CLI draws them)."""
+def _train(cfg, mcfg, optimizer, steps, device, seq=64, record_fn=None,
+           engine="vmap", **engine_opts):
+    """The train loop (or, with ``engine="shard_map"``, the ensemble
+    engine at world 1, with ``engine_opts``) on N = 2 members, 2 x ``seq``
+    tokens a member a step of the synthetic LM task (with the frontend's
+    frames or patches from ``concrete_batch``, as the train CLI draws
+    them)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.prng import fold_in
     from repro_torch.data import make_lm_task, sample_tokens
@@ -1423,7 +1450,8 @@ def _train(cfg, mcfg, optimizer, steps, device, seq=64, record_fn=None):
         0, lambda s: M.init_params(cfg, seed=s, device=device),
         lambda p, b: M.loss_fn(p, cfg, b)[0], data_fn, tcfg, mcfg,
         cfg.num_layers, record_every=1 if record_fn else steps,
-        record_fn=record_fn, device=device)
+        record_fn=record_fn, device=device, engine=engine,
+        engine_opts=engine_opts or None)
 
 
 def reduced_paths(torch, device, kernels):
@@ -4524,6 +4552,248 @@ def last_families(torch, F, device, kernels, card):
         f"{kernels['flash_bf16_internvl2']['launches']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: multi-device training, the ensemble engine at world 1
+# ---------------------------------------------------------------------------
+
+ENGINE_RECORD_EVERY = 2   # (a): a record every 2 of TRAIN_STEPS steps
+ENGINE_LOSS_RTOL = 1e-2   # (a): against phase 5's vmap loop, bf16
+ENGINE_ROUNDS = 2         # (a): interleaved timing rounds, loop and engine
+
+
+def engine_full_width(torch, device, kernels, phase5) -> dict:
+    """(a) Full-width llama3.2-3b (bf16, N = 2, SGD, bucketed WASH at
+    p = 0.01, 2 x TRAIN_SEQ tokens a member, TRAIN_STEPS steps, a record
+    every ENGINE_RECORD_EVERY) through the train CLI's ``main`` with
+    ``--engine shard_map``: every shuffle through the bucketed kernel and
+    held bitwise against its plain version, the comm exactly
+    ``TRAIN_PLANS``' a step, one chunk function built, finite losses
+    within ENGINE_LOSS_RTOL of phase 5's vmap loop from the same seed
+    (``phase5``: ``train_full_width``'s result); then the same run
+    unchecked through the vmap loop, the engine with the staging thread
+    and the engine with ``--sync-staging``, interleaved for
+    ENGINE_ROUNDS rounds, for the step split, tokens/s and peak memory.
+    Adds its bucketed launches to ``kernels``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.kernels import wash_shuffle as ws
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import engine
+
+    arch, n, steps = "llama3.2-3b", 2, TRAIN_STEPS
+    leaves, step_comm = TRAIN_PLANS[arch]
+    argv = training_argv(arch, device)
+    argv[argv.index("--record-every") + 1] = str(ENGINE_RECORD_EVERY)
+    argv += ["--engine", "shard_map"]
+    seen, counts = {"plans": []}, {"dense": 0, "bucketed": 0}
+    torch.cuda.synchronize()
+    ws.bucketed_launches = ws.wash_launches = 0
+    _zero(fa, wkv, pa)
+    engine.reset_chunk_trace_count()
+    t0 = time.perf_counter()
+    with checked_shuffles(ops, ref, torch, counts), \
+            watch_bucketed_shuffles(ops, 0, seen):
+        res = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, built = ws.bucketed_launches, engine.chunk_trace_count()
+    other = _counts(fa, wkv, pa)
+    sent = [k_n * k_per * (n - 1) / n for k_n, k_per in seen["plans"]]
+    applied = [sum(sent[i:i + leaves]) for i in range(0, len(sent), leaves)]
+    recorded = res.history["comm"]
+    want_comm = [step_comm * (s + 1) for s in res.history["step"]]
+    rel = [abs(loss - phase5["loss"][s]) / abs(phase5["loss"][s])
+           for s, loss in zip(res.history["step"], res.history["loss"])]
+    log(f"training ({arch}, 28 layers, bf16, N={n}, SGD, bucketed WASH "
+        f"p=0.01, 2 x {TRAIN_SEQ} tokens per member, {steps} steps, a "
+        f"record every {ENGINE_RECORD_EVERY}) through launch.train.main "
+        f"--engine shard_map (world 1), every shuffle held against its plain "
+        f"version: {wall:.2f} s; chunk functions built {built} (expected 1); "
+        f"bucketed shuffle launches {launches} (expected {leaves} x {steps}),"
+        f" {counts['bucketed']} of them bitwise equal to the plain version, "
+        f"dense {ws.wash_launches}; other kernels' launches {other} "
+        f"(expected none); comm per step of the plans applied {applied}, "
+        f"recorded {recorded} at steps {res.history['step']} (expected "
+        f"{want_comm}); losses {res.history['loss']} against phase 5's vmap "
+        f"loop {[phase5['loss'][s] for s in res.history['step']]}: relative "
+        f"differences {rel} (tolerance {ENGINE_LOSS_RTOL:g})")
+    if (launches != leaves * steps or counts["bucketed"] != launches
+            or ws.wash_launches or any(other.values())):
+        fail(f"engine training: {launches} bucketed launches "
+             f"({counts['bucketed']} checked), {ws.wash_launches} dense, "
+             f"other kernels {other}")
+    if (applied != [step_comm] * steps or recorded != want_comm
+            or res.comm_scalars != step_comm * steps):
+        fail(f"engine training: comm {applied} applied a step, {recorded} "
+             f"recorded, expected {step_comm} a step")
+    if built != 1 or res.history["step"] != [0, 2, 3]:
+        fail(f"engine training: {built} chunk functions built, records at "
+             f"{res.history['step']}")
+    if not np.isfinite(res.history["loss"]).all() or max(rel) > ENGINE_LOSS_RTOL:
+        fail(f"engine training: losses {res.history['loss']}, relative "
+             f"differences to the vmap loop {rel}")
+    kernels["bucketed"]["launches"] += launches
+    del res, seen
+    torch.cuda.empty_cache()
+
+    # the loop and both stagings interleaved, ENGINE_ROUNDS rounds in this
+    # one process: host time drifts over a long run, so a comparison with
+    # phase 5, minutes earlier, cannot tell the engine's cost from drift
+    loop_argv = argv[:argv.index("--engine")]
+    variants = {"vmap loop": loop_argv, "engine, staging thread": argv,
+                "engine, --sync-staging": argv + ["--sync-staging"]}
+    timing = {name: [] for name in variants}
+    for rnd in range(ENGINE_ROUNDS):
+        for name, av in variants.items():
+            timing[name].append(timed_training_run(
+                torch, lambda: train_cli.main(av),
+                f"{arch} training, {name} (round {rnd + 1})"))
+            torch.cuda.empty_cache()
+    p5 = phase5["timing"]
+    for name, runs in timing.items():
+        log(f"{arch} training, a record every {ENGINE_RECORD_EVERY}, {name}, "
+            f"{ENGINE_ROUNDS} interleaved rounds: steps 2.. "
+            f"{[round(t['steps2_ms'], 1) for t in runs]} ms a step in the "
+            f"three phases, {[round(t['tok_s'], 1) for t in runs]} tokens/s, "
+            f"peak {max(t['peak_gib'] for t in runs):.2f} GiB (phase 5's "
+            f"loop: {p5['steps2_ms']:.1f} ms, {p5['tok_s']:.1f} tokens/s, "
+            f"{p5['peak_gib']:.2f} GiB)")
+    return timing
+
+
+def engine_reduced_f32(torch, device) -> None:
+    """(b) llama3.2-3b at full width and REDUCED_LAYERS layers in float32
+    (phase 6's size), REDUCED_STEPS steps on the kernels, the ensemble
+    engine against the vmap loop, final params within PARAM_TOL: bucketed
+    WASH+Opt under AdamW (the bucketed kernel on params, ``mu`` and
+    ``nu``); PAPA (``papa_every=2``) with the gate split and without it
+    (one chunk function a variant of the schedule: 2 both ways, PAPA's
+    first window never mixing; one chunk a record window without the
+    split); synchronous staging against the staging thread (bucketed
+    WASH, SGD)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import population as pop
+    from repro_torch.core.mixing import MixingConfig
+    from repro_torch.kernels import wash_shuffle as ws
+    from repro_torch.train import engine
+
+    base = get_arch("llama3.2-3b")
+    steps = REDUCED_STEPS
+    cfg = dataclasses.replace(base, num_layers=REDUCED_LAYERS, dtype="float32",
+                              name=f"{base.name}-{REDUCED_LAYERS}layers-f32")
+
+    def run(mcfg, optimizer, **opts):
+        """The population after ``steps``, the bucketed launches and the
+        chunk functions built."""
+        torch.cuda.synchronize()
+        ws.bucketed_launches = 0
+        engine.reset_chunk_trace_count()
+        res = _train(cfg, mcfg, optimizer, steps, device, **opts)
+        torch.cuda.synchronize()
+        out = (pop.tree_map(torch.clone, res.population), ws.bucketed_launches,
+               engine.chunk_trace_count(), res.history["loss"])
+        del res
+        torch.cuda.empty_cache()
+        return out
+
+    def diff(a, b) -> float:
+        return max(float((x - y).abs().max()) for x, y in zip(
+            pop.tree_leaves(a), pop.tree_leaves(b)))
+
+    wash_opt = MixingConfig(kind="wash_opt", base_p=0.01, mode="bucketed")
+    papa = MixingConfig(kind="papa", papa_every=2)
+    wash = MixingConfig(kind="wash", base_p=0.01, mode="bucketed")
+    leaves = TRAIN_PLANS[base.name][0]
+    checks = [
+        ("WASH+Opt, AdamW", wash_opt, "adamw", {}, leaves * 3 * steps, 1),
+        ("PAPA, gate split", papa, "sgd", {}, 0, 2),
+        ("PAPA, --no-gate-split", papa, "sgd", {"split_gate_runs": False}, 0,
+         2),
+    ]
+    loops = {}
+    for what, mcfg, optimizer, opts, want_launches, want_built in checks:
+        if mcfg not in loops:
+            loops[mcfg] = run(mcfg, optimizer)
+        got, launches, built, losses = run(mcfg, optimizer,
+                                           engine="shard_map", **opts)
+        sched = engine.build_schedule(steps, steps, mcfg, **opts)
+        d = diff(got, loops[mcfg][0])
+        log(f"{cfg.name}, {what}, {steps} steps, engine (world 1) against the "
+            f"vmap loop: max |param engine - loop| = {d:.3e} (tolerance "
+            f"{PARAM_TOL:g}); bucketed launches {launches} (loop "
+            f"{loops[mcfg][1]}, expected {want_launches}); chunk functions "
+            f"built {built} (expected {want_built}) for {len(sched.chunks)} "
+            f"chunks; losses {losses} vs {loops[mcfg][3]}")
+        if (d > PARAM_TOL or launches != want_launches
+                or loops[mcfg][1] != want_launches or built != want_built
+                or not np.isfinite(losses).all()):
+            fail(f"reduced f32 engine, {what}: params differ by {d}, "
+                 f"{launches} launches, {built} chunk functions")
+        del got
+    del loops
+    torch.cuda.empty_cache()
+    sync, _, _, _ = run(wash, "sgd", engine="shard_map", async_staging=False)
+    asyn, launches, _, _ = run(wash, "sgd", engine="shard_map",
+                               async_staging=True)
+    d = diff(sync, asyn)
+    log(f"{cfg.name}, bucketed WASH, SGD: --sync-staging against the staging "
+        f"thread: max |param sync - async| = {d:.3e} (tolerance "
+        f"{PARAM_TOL:g}); bucketed launches {launches} (expected "
+        f"{leaves * steps})")
+    if d > PARAM_TOL or launches != leaves * steps:
+        fail(f"reduced f32 engine: sync and async staging differ by {d}")
+    del sync, asyn
+    torch.cuda.empty_cache()
+
+
+def engine_refuses_two_ranks_on_one_card(torch, device) -> None:
+    """(c) An engine asked for world 2 (torchrun's environment) on one
+    card is refused before any weight is made, with the one-card-per-rank
+    reason."""
+    import os
+
+    from repro_torch.launch import train as train_cli
+
+    saved = {k: os.environ.get(k) for k in ("WORLD_SIZE", "RANK")}
+    os.environ.update(WORLD_SIZE="2", RANK="0")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        train_cli.main(training_argv("llama3.2-3b", device)
+                       + ["--engine", "shard_map"])
+    except ValueError as e:
+        reason = str(e)
+    else:
+        fail("the engine at world 2 on one card was not refused")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    after = torch.cuda.memory_allocated()
+    log(f"the engine asked for world 2 on {torch.cuda.device_count()} card: "
+        f"refused: {reason}; device memory {before} -> {after} bytes")
+    if "one card per rank" not in reason or after != before:
+        fail(f"two ranks on one card: refused with {reason!r}, memory "
+             f"{before} -> {after}")
+
+
+def multi_device_training(torch, device, kernels, phase5) -> None:
+    """Phase 15: the ensemble engine (``--engine shard_map``) at world 1
+    on the card: (a) full width against phase 5, (b) reduced f32 against
+    the vmap loop, (c) the refusal of two ranks on one card."""
+    t0 = time.perf_counter()
+    engine_full_width(torch, device, kernels, phase5)
+    engine_reduced_f32(torch, device)
+    engine_refuses_two_ranks_on_one_card(torch, device)
+    log(f"phase 15 (multi-device training, world 1): "
+        f"{time.perf_counter() - t0:.1f} s; bucketed launches on the main "
+        f"paths so far {kernels['bucketed']['launches']}")
+
+
 def build_kernels(*mods):
     """Every library, each nvcc started at once."""
     t0 = time.perf_counter()
@@ -4573,7 +4843,7 @@ def main() -> int:
     full_width(torch, device, kernels)
     reduced_f32(torch, device, kernels)
     shuffles = check_shuffle_kernels(torch, device)
-    train_full_width(torch, device, "llama3.2-3b", shuffles)
+    phase5 = train_full_width(torch, device, "llama3.2-3b", shuffles)
     reduced_paths(torch, device, shuffles)
     kernels.update(shuffles)
     kernels.update(check_flash(torch, fa, ref, F, device))
@@ -4588,6 +4858,7 @@ def main() -> int:
     moe_and_mla(torch, device, kernels, card)
     hybrid_family(torch, F, device, kernels, card)
     last_families(torch, F, device, kernels, card)
+    multi_device_training(torch, device, kernels, phase5)
     for entry in kernels.values():
         if entry["launches"] == 0:
             fail(f"kernel {entry['name']} was never launched on its path")

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Any, Iterator
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.population import tree_leaves, tree_map
 
@@ -52,6 +53,29 @@ def avg_distance_to_consensus(population: Tree) -> torch.Tensor:
             per_member = per_member + torch.sum(
                 (xc - xc.mean(dim=0, keepdim=True)) ** 2, dim=1)
     return torch.mean(torch.sqrt(per_member))
+
+
+def avg_distance_to_consensus_blocked(block: Tree, mesh) -> torch.Tensor:
+    """:func:`avg_distance_to_consensus` of a population spread over the
+    ranks of ``mesh`` (a :class:`repro_torch.launch.mesh.EnsMesh`), each
+    holding its ``(n_local, ...)`` block: the consensus by an all-reduce of
+    the column sums, the members' distances summed by another.  Every rank
+    gets the same value; at world 1 it is the stacked function itself."""
+    if mesh.world == 1:
+        return avg_distance_to_consensus(block)
+    leaves = tree_leaves(block)
+    n_local = leaves[0].shape[0]
+    n = n_local * mesh.world
+    per_member = torch.zeros((n_local,), dtype=torch.float32,
+                             device=leaves[0].device)
+    for x in leaves:
+        for xc in _chunks(x):
+            mean = torch.sum(xc, dim=0, keepdim=True)
+            dist.all_reduce(mean, group=mesh.group)
+            per_member = per_member + torch.sum((xc - mean / n) ** 2, dim=1)
+    total = torch.sum(torch.sqrt(per_member))
+    dist.all_reduce(total, group=mesh.group)
+    return total / n
 
 
 def pairwise_distance(population: Tree) -> torch.Tensor:

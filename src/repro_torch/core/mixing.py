@@ -16,7 +16,9 @@ is never held twice.  There is no ``pallas_shuffle`` switch: the leaves'
 device picks the shuffle kernel (``core.shuffle.apply_plan_stacked``).
 Communication (scalars sent per member per mixing step) feeds the paper's
 Table 1; :func:`static_mix_comm` gives it exactly in float64 from shapes.
-The ``mix_collective*`` variants wait for multi-device training.
+The ``mix_collective*`` variants mix a population spread over the ranks
+of the ensemble mesh (``launch/mesh.py``): WASH exchanges rows over a
+ring of sends and receives, PAPA all-reduces.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import shuffle as shf
-from repro_torch.core.population import tree_leaves
+from repro_torch.core.population import tree_leaves, tree_map
 from repro_torch.core.schedules import active_window
 
 Tree = Any
@@ -69,8 +72,30 @@ def _wash_step_stacked(seed: int, params: Tree, opt_state: Optional[Tree],
     return params, opt_state, comm
 
 
-def _mean0(x: torch.Tensor) -> torch.Tensor:
-    return torch.mean(x, dim=0, keepdim=True)
+#: columns of a stacked leaf averaged at a time
+CHUNK = 1 << 24
+
+
+def _mean0(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The members' mean of a stacked leaf ``x`` (n, ...), as (1, ...) in
+    its dtype; with a ``mesh`` (a :class:`repro_torch.launch.mesh.EnsMesh`)
+    of world > 1, of the population whose rank-local block is ``x``.
+
+    Sums are taken in float64 (over column chunks), all-reduced across
+    ranks, divided by the population size and rounded once to the leaf's
+    dtype: a float64 sum of a few float32 values is exact, so the mean
+    does not depend on the order of the adds, and PAPA gives the same
+    population on 1, 2 or 4 ranks.  (The reference takes ``jnp.mean`` /
+    ``pmean`` in the leaf's dtype; the two agree within its rounding.)"""
+    world = 1 if mesh is None else mesh.world
+    flat = x.reshape(x.shape[0], -1)
+    out = torch.empty((1, flat.shape[1]), dtype=x.dtype, device=x.device)
+    for a in range(0, flat.shape[1], CHUNK):
+        s = torch.sum(flat[:, a:a + CHUNK], dim=0, dtype=torch.float64)
+        if world > 1:
+            dist.all_reduce(s, group=mesh.group)
+        out[0, a:a + CHUNK] = s / (x.shape[0] * world)
+    return out.view((1,) + tuple(x.shape[1:]))
 
 
 def _papa_pull_stacked(params: Tree, alpha: float) -> Tree:
@@ -150,3 +175,93 @@ def static_mix_comm(member_params: Tree, cfg: MixingConfig, layer_ids: Tree,
     if cfg.shuffles_optimizer() and opt_state is not None:
         comm = comm * (1 + len(momentum_like_leaves(opt_state, member_params)))
     return comm
+
+
+# ---------------------------------------------------------------------------
+# collective variants (a block of members a rank of the ensemble mesh)
+# ---------------------------------------------------------------------------
+
+
+def _wash_collective(seed: int, params: Tree, opt_state: Optional[Tree],
+                     cfg: MixingConfig, layer_ids: Tree, total_layers: int,
+                     member: Tree, n: int, apply) -> float:
+    """One bucketed plan from the shared seed, drawn for the population
+    of ``n`` on the member template ``member`` (the same indices on every
+    rank), applied in place to the params and, under WASH+Opt, replayed
+    on the moments.  Returns the scalars each member sends."""
+    plan = shf.make_plan(seed, member, layer_ids, total_layers, cfg.base_p,
+                         cfg.schedule, mode="bucketed", n=n)
+    apply(plan, params)
+    comm = shf.plan_sent_scalars(plan, n, mode="bucketed")
+    if cfg.shuffles_optimizer() and opt_state is not None:
+        for moments in momentum_like_leaves(opt_state, params).values():
+            apply(plan, moments)
+            comm = comm + shf.plan_sent_scalars(plan, n, mode="bucketed")
+    return comm
+
+
+def mix_collective(step: int, seed: int, params: Tree,
+                   opt_state: Optional[Tree], cfg: MixingConfig,
+                   layer_ids: Tree, total_layers: int, mesh
+                   ) -> Tuple[Tree, Optional[Tree], float]:
+    """Mixing with one member a rank of ``mesh`` (leaves carry no ens
+    axis), in place: WASH on the bucketed plan from the shared seed, its
+    rows exchanged over the ring; PAPA and PAPA-all over an all-reduce.
+    Returns ``(params, opt_state, scalars sent per member)``."""
+    if cfg.kind == "none" or not active_window(step, cfg.start_step,
+                                               cfg.stop_step):
+        return params, opt_state, 0.0
+    n = mesh.world
+    if cfg.kind in ("wash", "wash_opt"):
+        comm = _wash_collective(
+            seed, params, opt_state, cfg, layer_ids, total_layers, params, n,
+            lambda plan, tree: shf.apply_plan_collective(plan, tree, mesh))
+        return params, opt_state, comm
+    due = step > 0 and step % (cfg.papa_every if cfg.kind == "papa"
+                               else cfg.papa_all_every) == 0
+    if cfg.kind not in ("papa", "papa_all") or not due:
+        return params, opt_state, 0.0
+    for x in tree_leaves(params):
+        mean = _mean0(x.unsqueeze(0), mesh)[0]
+        x.copy_(cfg.papa_alpha * x + (1.0 - cfg.papa_alpha) * mean
+                if cfg.kind == "papa" else mean)
+    return params, opt_state, float(sum(x.numel()
+                                        for x in tree_leaves(params)))
+
+
+def mix_collective_blocked(seed: int, params: Tree, opt_state: Optional[Tree],
+                           cfg: MixingConfig, layer_ids: Tree,
+                           total_layers: int, mesh, gate: bool
+                           ) -> Tuple[Tree, Optional[Tree]]:
+    """The ensemble engine's mixing on this rank's block of members
+    (leaves ``(n_local, ...)``; the population is n_local x world), in
+    place.
+
+    ``gate`` is the host's :func:`mixing_due` for the step: a closed gate
+    mixes nothing, as the reference's ``where(gate > 0, ...)`` keeps the
+    old values.  The WASH plan is drawn once from the shared seed on the
+    member template (``block[0]``) with the global n, so every rank draws
+    the same indices, and replayed on the moments under WASH+Opt.  PAPA
+    pulls toward the population's mean (all-reduced); PAPA-all sets
+    every member to it (:func:`_mean0`: the same on any world size).
+    Comm is counted on the host from
+    :func:`static_mix_comm`, as in the reference."""
+    if cfg.kind == "none" or not gate:
+        return params, opt_state
+    if cfg.kind in ("wash", "wash_opt"):
+        n = tree_leaves(params)[0].shape[0] * mesh.world
+        member = tree_map(lambda x: x[0], params)
+        _wash_collective(
+            seed, params, opt_state, cfg, layer_ids, total_layers, member, n,
+            lambda plan, tree: shf.apply_plan_collective_blocked(plan, tree,
+                                                                 mesh))
+        return params, opt_state
+    if cfg.kind not in ("papa", "papa_all"):
+        raise ValueError(f"unknown mixing kind {cfg.kind!r}")
+    for x in tree_leaves(params):
+        mean = _mean0(x, mesh)
+        if cfg.kind == "papa":
+            x.copy_(cfg.papa_alpha * x + (1.0 - cfg.papa_alpha) * mean)
+        else:
+            x.copy_(mean.expand_as(x))
+    return params, opt_state

@@ -4,7 +4,8 @@ Port of ``repro/core/population.py``.  A *population* of N models is one
 tree whose every leaf carries a leading ``ens`` axis of size N.  Trees are
 nested ``dict``s and ``list``/``tuple``s with tensors at the leaves; dict
 keys are visited in sorted order, as JAX flattens them, so paths and leaf
-order agree with the reference package.
+order agree with the reference package.  :func:`gather_population` is the
+ensemble engine's counterpart of the reference's ``host_gather``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.prng import fold_in
 
@@ -109,3 +111,21 @@ def map_members(fn: Callable, population: Tree, *rest: Tree) -> Tree:
 def num_params(params: Tree) -> int:
     """Total scalar count of a single member (population leaves: drop axis 0)."""
     return sum(int(x.numel()) for x in tree_leaves(params))
+
+
+def gather_population(block: Tree, mesh, dst: int = 0) -> Optional[Tree]:
+    """The whole stacked population on rank ``dst`` of ``mesh`` (a
+    :class:`repro_torch.launch.mesh.EnsMesh`) from each rank's
+    ``(n_local, ...)`` block, members in global order; None on the other
+    ranks.  At world 1 the block itself, with no copy.  Every rank of the
+    mesh must call it."""
+    if mesh.world == 1:
+        return block
+
+    def gather(x):
+        parts = [torch.empty_like(x) for _ in range(mesh.world)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group)
+        return torch.cat(parts) if mesh.rank == dst else None
+
+    full = tree_map(gather, block)
+    return full if mesh.rank == dst else None

@@ -22,8 +22,10 @@ Randomness comes from integer seeds (``core.prng``), not ``jax.random``:
 the port's plans hold the reference's contracts but not its numbers.
 :func:`apply_plan_stacked` picks the kernel by device, with no flag: a
 CUDA leaf goes to the hand-written Hopper kernels, a CPU leaf to their
-plain versions.  The multi-device ``*_collective*`` applies are not
-ported yet (ROADMAP: multi-device training).
+plain versions.  The ``*_collective*`` applies run the same plans on a
+block of members per rank of the ensemble mesh (``launch/mesh.py``),
+rows crossing ranks over a ring of ``torch.distributed`` sends and
+receives where the reference ``ppermute``s.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.population import tree_leaves, tree_map
@@ -218,6 +221,60 @@ def bucketed_apply_stacked(leaf: torch.Tensor, idx: torch.Tensor) -> torch.Tenso
     return ops.bucketed_shuffle(leaf.reshape(n, -1), idx).reshape(leaf.shape)
 
 
+def _block_from(vals: torch.Tensor, mesh, q: int) -> torch.Tensor:
+    """This rank's copy of the block held q ranks ahead on the ring: each
+    rank sends ``vals`` to (rank - q) mod m and receives from (rank + q)
+    mod m, both posted at once (the reference's ``ppermute`` with
+    ``perm=[(j, (j - q) % m)]``).  At q mod m == 0, ``vals`` itself."""
+    m = mesh.world
+    if q % m == 0:
+        return vals
+    send = vals.contiguous()
+    recv = torch.empty_like(send)
+    p2p = [dist.P2POp(dist.isend, send,
+                      mesh.global_rank((mesh.rank - q) % m), mesh.group),
+           dist.P2POp(dist.irecv, recv,
+                      mesh.global_rank((mesh.rank + q) % m), mesh.group)]
+    for req in dist.batch_isend_irecv(p2p):
+        req.wait()
+    return recv
+
+
+def bucketed_apply_collective(x_flat: torch.Tensor, idx: torch.Tensor,
+                              mesh) -> torch.Tensor:
+    """Apply a bucketed plan to one member's flat params (D,), one member
+    a rank, **in place**.  Bucket s is one exchange: member j sends its
+    k_per selected scalars to member (j - s) mod N, so each member sends
+    k_per (N - 1) scalars a step, the paper's p·d·(N-1)/N."""
+    for s in range(1, mesh.world):
+        cols = idx[s].long()
+        x_flat.index_copy_(0, cols, _block_from(x_flat.index_select(0, cols),
+                                                mesh, s))
+    return x_flat
+
+
+def bucketed_apply_collective_blocked(x_flat: torch.Tensor,
+                                      idx: torch.Tensor, mesh) -> torch.Tensor:
+    """Bucketed apply for a rank holding ``n_local`` contiguous members,
+    ``x_flat`` (n_local, D), **in place**; the population is n = n_local m.
+
+    Bucket s applies the global cyclic shift θ̂_g = θ_{(g+s) mod n}.  For
+    member i of rank j (g = j n_local + i) the source rows [g+s, g+s+n_local)
+    span at most two neighbouring ranks, so a bucket costs at most two
+    exchanges whatever n_local is; at m == 1 it is the stacked roll."""
+    n_local = x_flat.shape[0]
+    for s in range(1, n_local * mesh.world):
+        cols = idx[s].long()
+        vals = x_flat.index_select(1, cols)          # (n_local, k_per)
+        q, r = divmod(s, n_local)
+        shifted = _block_from(vals, mesh, q)
+        if r:
+            shifted = torch.cat([shifted, _block_from(vals, mesh, q + 1)]
+                                )[r:r + n_local]
+        x_flat.index_copy_(1, cols, shifted)
+    return x_flat
+
+
 # ---------------------------------------------------------------------------
 # tree-level plans
 # ---------------------------------------------------------------------------
@@ -324,6 +381,39 @@ def apply_plan_stacked(plan: Tree, tree: Tree, mode: str = "dense") -> Tree:
                                         mask.reshape(-1)))
         else:
             ops.bucketed_shuffle_(flat, p)
+        return leaf
+
+    return tree_map(_one, plan, tree, is_leaf=_is_plan_leaf)
+
+
+def apply_plan_collective(plan: Tree, tree: Tree, mesh) -> Tree:
+    """Apply a bucketed plan to one member's tree, one member a rank of
+    ``mesh``, **in place** (every leaf contiguous)."""
+
+    def _one(p, leaf):
+        if p is not None:
+            bucketed_apply_collective(leaf.view(-1), p, mesh)
+        return leaf
+
+    return tree_map(_one, plan, tree, is_leaf=_is_plan_leaf)
+
+
+def apply_plan_collective_blocked(plan: Tree, tree: Tree, mesh) -> Tree:
+    """Apply a bucketed plan, drawn for the whole population, to this
+    rank's block of members (leaves ``(n_local, *member_shape)``,
+    contiguous), **in place**.  At world 1 each planned leaf goes whole
+    through ``ops.bucketed_shuffle_`` (the CUDA kernel on the card: the
+    reference's Pallas route when the ens axis is one shard); across
+    ranks the rows travel by :func:`bucketed_apply_collective_blocked`."""
+
+    def _one(p, leaf):
+        if p is None:
+            return leaf
+        flat = leaf.view(leaf.shape[0], -1)
+        if mesh.world == 1:
+            ops.bucketed_shuffle_(flat, p)
+        else:
+            bucketed_apply_collective_blocked(flat, p, mesh)
         return leaf
 
     return tree_map(_one, plan, tree, is_leaf=_is_plan_leaf)

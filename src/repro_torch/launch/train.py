@@ -1,13 +1,20 @@
 """CLI launcher: train a WASH population of a language model.
 
-Port of ``repro/launch/train.py`` with the reference loop
-(``--engine vmap``).  On the card every WASH shuffle of the stacked
-population runs the hand-written CUDA kernels (``kernels/wash_shuffle``),
-an rwkv6 model's time mixes run the WKV kernel forward and its backward
-kernel (``kernels/rwkv6_scan``), and a hybrid (hymba) model's Mamba paths
-the selective-scan kernel forward and its backward
-(``kernels/selective_scan``); the device decides, there is no switch.  A config those kernels cannot take is refused on the card before
-any weight moves there (``models/transformer.py::cuda_supported``).
+Port of ``repro/launch/train.py``.  ``--engine vmap`` (the default) runs
+the reference loop on one device; ``--engine shard_map`` runs the
+ensemble engine (``train/engine.py``) over the ranks that ``torchrun``
+starts, one block of N / world members a rank (``--mesh ens``, the one
+mesh ported), or at world 1 over the whole population on one device.
+WASH kinds on that engine take bucketed plans: ``--mode dense`` is
+switched to bucketed with a note, as in the reference.  On the card
+every WASH shuffle of a stacked block runs the hand-written CUDA kernels
+(``kernels/wash_shuffle``), an rwkv6 model's time mixes run the WKV
+kernel forward and its backward kernel (``kernels/rwkv6_scan``), and a
+hybrid (hymba) model's Mamba paths the selective-scan kernel forward and
+its backward (``kernels/selective_scan``); the device decides, there is
+no switch (so the reference's ``--pallas-shuffle`` has no counterpart).
+A config those kernels cannot take is refused on the card before any
+weight moves there (``models/transformer.py::cuda_supported``).
 ``--ckpt-population`` writes the stacked population in the format
 ``repro_torch.launch.serve --ckpt`` (and the JAX package's
 ``train.checkpoint.restore``) reads.
@@ -20,28 +27,37 @@ any weight moves there (``models/transformer.py::cuda_supported``).
       --device cpu --population 2 --mode bucketed --steps 4 \\
       --batch-size 2 --seq-len 16
 
+  python -m repro_torch.launch.train --arch llama3.2-3b --population 2 \\
+      --mode bucketed --steps 4 --batch-size 2 --seq-len 256 \\
+      --engine shard_map
+
+  torchrun --nproc-per-node=2 -m repro_torch.launch.train \\
+      --arch llama3.2-3b --reduced --device cpu --population 4 \\
+      --mode bucketed --steps 4 --batch-size 2 --seq-len 16 \\
+      --engine shard_map
+
   python -m repro_torch.launch.train --arch rwkv6-3b --population 2 \\
       --mode bucketed --steps 4 --batch-size 2 --seq-len 256 \\
       --ckpt-population build/pop.npz
 
-  python -m repro_torch.launch.train --arch hymba-1.5b --population 2 \\
-      --mode bucketed --steps 4 --batch-size 2 --seq-len 256
+Under ``torchrun`` every rank trains its block; rank 0 alone prints,
+gathers the population (``core.population.gather_population``) for the
+averaged-model loss and ``--ckpt`` / ``--ckpt-population``, and writes
+``--history`` and ``--metrics-out``.  The multi-axis meshes
+(``--mesh ens_dp`` and the others, ``--mesh-shape``) and the pipeline
+(``--pp-stages``, ``--microbatches``) are not ported yet and are refused.
 
 ``--metrics-out`` writes the telemetry event stream (``repro_torch.obs``:
-the ``train.step`` spans, one ``train.comm_volume`` event a mixing step,
-the final metric snapshots) as JSONL, which
-``tools/check_metrics_schema.py --require-comm`` checks; ``--profile-dir``
-writes a Chrome trace of the first steps.
-
-Every flag is documented with its default: ``--help``.  The multi-device
-engine and its flags (``--engine shard_map``, ``--mesh*``,
-``--pp-stages``, ``--microbatches``, ``--sync-staging``,
-``--no-gate-split``) are not ported yet.
+the step or chunk spans, the ``train.comm_volume`` events, the final
+metric snapshots) as JSONL, which ``tools/check_metrics_schema.py
+--require-comm`` checks; ``--profile-dir`` writes a Chrome trace of the
+first steps.  Every flag is documented with its default: ``--help``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
@@ -52,8 +68,10 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.mixing import MixingConfig
+from repro_torch.core.population import gather_population
 from repro_torch.core.prng import fold_in
 from repro_torch.data import make_lm_task, sample_tokens
+from repro_torch.launch.mesh import HOST_MESH_AXES, make_host_mesh
 from repro_torch.launch.specs import concrete_batch
 from repro_torch.models import transformer as M
 from repro_torch.serving.engine import averaged_params
@@ -86,10 +104,37 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mode", default="dense", choices=["dense", "bucketed"],
                     help="shuffle plan mode: dense per-coordinate permutes "
                          "or bucketed cyclic shifts (sparse, in place)")
+    ap.add_argument("--engine", default="vmap", choices=["vmap", "shard_map"],
+                    help="vmap: the reference loop on one device; "
+                         "shard_map: the ensemble engine over the ranks "
+                         "torchrun starts (forces bucketed plans for wash "
+                         "kinds)")
     ap.add_argument("--steps", type=int, default=200,
                     help="total optimizer steps per member")
     ap.add_argument("--record-every", type=int, default=None,
-                    help="history record period (default: steps // 10)")
+                    help="history record period (default: steps // 10); "
+                         "also the ensemble engine's chunk window length")
+    ap.add_argument("--sync-staging", action="store_true",
+                    help="shard_map engine: stage each chunk's batches "
+                         "synchronously; by default a staging thread makes "
+                         "the next chunk's while one runs (off on the CPU "
+                         "when chunks are too short to pay for the handoff)")
+    ap.add_argument("--no-gate-split", action="store_true",
+                    help="shard_map engine: one chunk per record window, "
+                         "instead of running no-mix gate runs on the "
+                         "collective-free chunk function")
+    ap.add_argument("--mesh", default="ens", choices=sorted(HOST_MESH_AXES),
+                    help="shard_map engine: mesh layout; ens (one block of "
+                         "members a rank) is ported, the multi-axis kinds "
+                         "are refused")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="explicit comma-separated axis sizes for --mesh "
+                         "(refused: not ported)")
+    ap.add_argument("--pp-stages", type=int, default=None,
+                    help="pipeline stages (refused: not ported)")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="pipelined engine's microbatches a step (refused "
+                         "above 1: not ported)")
     ap.add_argument("--batch-size", type=int, default=8,
                     help="per-member batch size (synthetic LM task)")
     ap.add_argument("--seq-len", type=int, default=64,
@@ -132,7 +177,21 @@ def main(argv=None, cfg=None):
     args = ap.parse_args(argv)
     if args.record_every is not None and args.record_every < 1:
         ap.error("--record-every must be >= 1")
-    device = resolve_device(args.device)
+    sharded = args.engine == "shard_map"
+    if not sharded and (args.sync_staging or args.no_gate_split
+                        or args.mesh != "ens" or args.mesh_shape is not None):
+        ap.error("--sync-staging/--no-gate-split/--mesh/--mesh-shape "
+                 "require --engine shard_map")
+    if ((args.pp_stages is not None or args.microbatches > 1)
+            and args.mesh not in ("ens_pp", "ens_dp_pp")):
+        ap.error("--pp-stages/--microbatches require --mesh ens_pp or "
+                 "ens_dp_pp")
+    mesh = (make_host_mesh(args.population, args.mesh,
+                           mesh_shape=args.mesh_shape,
+                           pp_stages=args.pp_stages, device=args.device)
+            if sharded else None)
+    device = mesh.device if sharded else resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
     if cfg is None:
         cfg = get_arch(args.arch)
     if args.reduced:
@@ -167,27 +226,47 @@ def main(argv=None, cfg=None):
     )
     mcfg = MixingConfig(kind=args.mixing, base_p=args.base_p,
                         schedule=args.schedule, mode=args.mode)
+    if (sharded and args.mixing in ("wash", "wash_opt")
+            and args.mode != "bucketed"):
+        if lead:
+            print("note: engine=shard_map runs bucketed plans only; "
+                  "switching --mode dense -> bucketed")
+        mcfg = dataclasses.replace(mcfg, mode="bucketed")
+    engine_opts = None
+    if sharded:
+        engine_opts = {"async_staging": False if args.sync_staging else None,
+                       "split_gate_runs": not args.no_gate_split}
+        if lead:
+            print(f"mesh: ens={mesh.world} ({mesh.n_local} members a rank, "
+                  f"{device})")
     record_every = (args.record_every if args.record_every is not None
                     else max(args.steps // 10, 1))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    tel = obs.configure(jsonl=args.metrics_out,
-                        console=args.metrics_summary,
-                        profile_dir=args.profile_dir)
+    tel = obs.configure(jsonl=args.metrics_out if lead else None,
+                        console=args.metrics_summary and lead,
+                        profile_dir=args.profile_dir if lead else None)
     try:
         res = train_population(
             args.seed, lambda s: M.init_params(cfg, seed=s, device=device),
             loss_fn, data_fn, tcfg, mcfg, cfg.num_layers,
-            record_every=record_every, device=device,
+            record_every=record_every, engine=args.engine, device=device,
+            mesh=mesh, engine_opts=engine_opts,
         )
     finally:
         tel.finalize()
+    population = (gather_population(res.population, mesh) if sharded
+                  else res.population)
+    if sharded:
+        mesh.close()
+    if not lead:
+        return res
     if args.metrics_out:
         print(f"wrote telemetry stream -> {args.metrics_out}")
 
-    soup = averaged_params(res)
+    soup = averaged_params(population)
     print(f"arch={cfg.name} mixing={args.mixing} steps={args.steps} "
-          f"engine=vmap")
+          f"engine={args.engine}")
     print(f"final mean member loss : {res.history['loss'][-1]:.4f}")
     print(f"consensus distance     : {res.history['consensus'][-1]:.4f}")
     print(f"scalars sent per member: {res.comm_scalars:.3e}")
@@ -210,7 +289,7 @@ def main(argv=None, cfg=None):
         written = checkpoint.save(args.ckpt, soup)
         print(f"saved averaged model -> {written}")
     if args.ckpt_population:
-        written = checkpoint.save(args.ckpt_population, res.population)
+        written = checkpoint.save(args.ckpt_population, population)
         print(f"saved population -> {written}")
     if args.history:
         os.makedirs(os.path.dirname(args.history) or ".", exist_ok=True)

@@ -1,0 +1,343 @@
+"""The ensemble engine: population training over the ranks of an ens mesh.
+
+Port of the single-axis body of ``repro/train/engine.py``
+(``train_population_sharded`` with an ``ens``-only mesh).  Where the
+reference runs each chunk of steps as one donated jit under
+``shard_map``, the port runs it as one eager chunk function on every rank
+of a ``torch.distributed`` group (:mod:`repro_torch.launch.mesh`):
+
+  * each rank holds a contiguous block of n_local = N / world members
+    (the whole population at world 1, as on the reference's one-device
+    host),
+  * WASH shuffles cross ranks over a ring of sends and receives
+    (:func:`repro_torch.core.mixing.mix_collective_blocked`) and PAPA over
+    an all-reduce; at world 1 every planned leaf goes through
+    ``ops.bucketed_shuffle_``, the CUDA kernel on the card,
+  * the host plans every chunk up front (:mod:`repro_torch.train.schedule`):
+    chunks end at record steps and are split along runs of equal
+    ``mixing_due``, so at most two chunk functions are built a run (one
+    with mixing, one collective-free), counted by
+    :func:`chunk_trace_count` and ``obs``'s ``compile.train_chunk``,
+  * a chunk function runs the chunk's real steps (``chunk.length``; pad
+    slots never run, and eager code takes any length, so none is staged)
+    with no host sync inside: the last step's loss stays a device tensor
+    until the record,
+  * batches for chunk k+1 are made on a staging thread while chunk k runs
+    (on the thread's default stream, so staging overlaps host work and
+    cannot race the compute),
+  * comm is counted on the host in exact float64 from the plan sizes
+    (:func:`repro_torch.core.mixing.static_mix_comm`).
+
+Member g's data, the step seeds, the optimizer arithmetic and the plans
+are the vmap loop's (:mod:`repro_torch.train.loop`), so at world 1 the
+engine reproduces it bit for bit under WASH, PAPA and ``none``.  WASH
+kinds need bucketed plans: dense ones have no collective form.
+"""
+
+from __future__ import annotations
+
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import obs
+from repro_torch.configs.base import TrainConfig
+from repro_torch.core import population as pop
+from repro_torch.core.consensus import avg_distance_to_consensus_blocked
+from repro_torch.core.device import DeviceLike
+from repro_torch.core.layer_index import infer_layer_ids, total_layers
+from repro_torch.core.mixing import (MixingConfig, mix_collective_blocked,
+                                     static_mix_comm)
+from repro_torch.core.prng import fold_in, step_seed
+from repro_torch.optim import cosine_lr, make_optimizer
+from repro_torch.train.loop import TrainResult, _grad_step, _PhaseClock
+from repro_torch.train.schedule import (  # noqa: F401  (re-exported API)
+    ChunkPlan,
+    Schedule,
+    build_schedule,
+    chunk_ranges,
+    num_pipeline_ticks,
+    record_boundaries,
+    split_microbatch_sizes,
+)
+
+Tree = Any
+
+# chunk functions built (one per variant a run; the reference counts its
+# traces, which are its compiles)
+_CHUNK_TRACES = [0]
+
+
+def reset_chunk_trace_count() -> None:
+    _CHUNK_TRACES[0] = 0
+
+
+def chunk_trace_count() -> int:
+    return _CHUNK_TRACES[0]
+
+
+# Below this average of real steps a chunk, CPU runs are faster with
+# synchronous staging: the thread handoff costs more than it hides.  On
+# the card the host stages while the device computes.
+ASYNC_STAGING_MIN_CHUNK_STEPS = 2
+
+
+def resolve_async_staging(async_staging: Optional[bool],
+                          chunks: List[ChunkPlan],
+                          device: DeviceLike = "cuda") -> bool:
+    """Whether to stage the next chunk on a thread.  An explicit
+    True/False wins.  ``None``: off with fewer than two chunks, off on the
+    CPU when the average chunk is shorter than
+    :data:`ASYNC_STAGING_MIN_CHUNK_STEPS` real steps, on otherwise."""
+    if async_staging is not None:
+        return bool(async_staging)
+    if len(chunks) < 2:
+        return False
+    if torch.device(device).type == "cpu":
+        avg = sum(c.length for c in chunks) / len(chunks)
+        return avg >= ASYNC_STAGING_MIN_CHUNK_STEPS
+    return True
+
+
+class Staged(NamedTuple):
+    """A chunk's inputs: per real step, its index, this rank's members'
+    batches, the learning rate, the shared mixing seed and the gate."""
+
+    steps: List[int]
+    batches: List[List[Any]]
+    lrs: List[float]
+    seeds: List[int]
+    gates: List[bool]
+
+
+def make_fused_chunk_fn(mesh, mcfg: MixingConfig, layer_ids: Tree, tl: int,
+                        opt_update: Callable, loss_fn: Callable, *,
+                        with_mixing: bool = True,
+                        clock: Optional[_PhaseClock] = None) -> Callable:
+    """Build the chunk function ``(population, opt_state, staged) ->
+    (population, opt_state, loss)``: per step, each local member's
+    forward+backward and optimizer update (in place, as the vmap loop
+    does them), then the gated collective mix; the loss of the chunk's
+    last step is the mean over all N members (the local mean,
+    all-reduced).  ``with_mixing=False`` builds the collective-free
+    variant run on no-mix gate runs.  ``clock`` times the loop's phases
+    a step."""
+    _CHUNK_TRACES[0] += 1
+    obs.get().record_compile("train_chunk", mixing=bool(with_mixing))
+    if clock is None:
+        clock = _PhaseClock(mesh.device)  # marks that nobody reads
+
+    def chunk_fn(population: Tree, opt_state: Tree, staged: Staged):
+        loss = None
+        for step, batches, lr, seed, gate in zip(*staged):
+            losses = []
+            for m, batch in enumerate(batches):
+                a = clock.mark()
+                loss_m, grads = _grad_step(loss_fn, pop.member(population, m),
+                                           batch)
+                b = clock.mark()
+                opt_update(pop.member(population, m), grads,
+                           pop.member(opt_state, m), lr)
+                clock.add("fwd_bwd", step, a, b)
+                clock.add("opt", step, b, clock.mark())
+                losses.append(loss_m)
+                del grads
+            loss = torch.mean(torch.stack(losses).float())
+            if with_mixing and gate:
+                a = clock.mark()
+                mix_collective_blocked(seed, population, opt_state, mcfg,
+                                       layer_ids, tl, mesh, gate)
+                clock.add("mix", step, a, clock.mark())
+        if mesh.world > 1:
+            dist.all_reduce(loss, group=mesh.group)
+            loss = loss / mesh.world
+        return population, opt_state, loss
+
+    return chunk_fn
+
+
+def train_population_sharded(
+        seed: int, init_fn: Callable[[int], Tree],
+        loss_fn: Callable[[Tree, Any], torch.Tensor],
+        data_fn: Callable[[int, int, int], Any], tcfg: TrainConfig,
+        mcfg: MixingConfig, num_blocks: int, record_every: int = 25,
+        record_fn: Optional[Callable[[int, Tree], Dict[str, float]]] = None,
+        mesh=None, async_staging: Optional[bool] = None,
+        split_gate_runs: bool = True, param_specs=None,
+        device: DeviceLike = "cuda") -> TrainResult:
+    """:func:`repro_torch.train.loop.train_population` on the ensemble
+    engine.  ``mesh`` is this rank's :class:`~repro_torch.launch.mesh.EnsMesh`
+    (default: :func:`~repro_torch.launch.mesh.make_host_ensemble_mesh` on
+    ``device``, made before any parameter); ``init_fn`` must put the
+    parameters on its device.  ``async_staging`` (None: see
+    :func:`resolve_async_staging`) and ``split_gate_runs`` (see
+    :func:`repro_torch.train.schedule.build_schedule`) are the reference's.
+    ``record_fn(step, block)`` sees this rank's block.  The result holds
+    this rank's block of the population and of the optimizer state, from
+    global member ``member_offset`` on; losses, consensus and comm are the
+    whole population's, the same on every rank."""
+    if mcfg.kind in ("wash", "wash_opt") and mcfg.mode != "bucketed":
+        raise ValueError(
+            f"engine='shard_map' only runs bucketed WASH plans; got "
+            f"mode={mcfg.mode!r}.  Use mode='bucketed' (identical in "
+            f"expectation, Eq. 4) or engine='vmap' for dense plans.")
+    if param_specs is not None:
+        raise NotImplementedError(
+            "param_specs (members sharded over data / model axes, "
+            "core/shardplan.py) are not ported yet: ROADMAP §1, "
+            "'Multi-device training'")
+    n = tcfg.population
+    if mesh is None:
+        from repro_torch.launch.mesh import make_host_ensemble_mesh
+
+        mesh = make_host_ensemble_mesh(n, device)
+    if mesh.n_local * mesh.world != n:
+        raise ValueError(f"population {n} is not {mesh.world} ranks x "
+                         f"{mesh.n_local} members")
+    dev = mesh.device
+
+    if tcfg.same_init:
+        population = pop.replicate(init_fn(seed), mesh.n_local)
+    else:
+        population = pop.stack([init_fn(fold_in(seed, g))
+                                for g in mesh.members])
+    for x in pop.tree_leaves(population):
+        if x.device != dev:
+            raise ValueError(f"init_fn put parameters on {x.device}; the "
+                             f"engine trains on {dev}")
+    lids = infer_layer_ids(pop.member(population, 0), num_blocks)
+    tl = total_layers(num_blocks)
+
+    opt_init, opt_update = make_optimizer(
+        tcfg.optimizer, momentum=tcfg.momentum, weight_decay=tcfg.weight_decay)
+    opt_state = opt_init(population)
+    opt_state["step"] = torch.zeros((mesh.n_local,), dtype=torch.int32,
+                                    device=dev)
+
+    member_tpl = pop.tree_map(
+        lambda x: torch.empty(x.shape[1:], dtype=x.dtype, device="meta"),
+        population)
+    comm_per_mix_step = static_mix_comm(member_tpl, mcfg, lids, tl, n,
+                                        opt_state=opt_state)
+
+    sched = build_schedule(tcfg.total_steps, record_every, mcfg,
+                           split_gate_runs=split_gate_runs)
+    clock = _PhaseClock(dev)
+    fused: Dict[bool, Callable] = {}
+
+    def get_fused(chunk: ChunkPlan) -> Callable:
+        if chunk.mixing not in fused:
+            fused[chunk.mixing] = make_fused_chunk_fn(
+                mesh, mcfg, lids, tl, opt_update, loss_fn,
+                with_mixing=chunk.mixing, clock=clock)
+        return fused[chunk.mixing]
+
+    return _run_chunked_schedule(
+        mesh=mesh, tcfg=tcfg, data_fn=data_fn, sched=sched,
+        get_fused=get_fused, population=population, opt_state=opt_state,
+        comm_per_mix_step=comm_per_mix_step, record_fn=record_fn, seed=seed,
+        async_staging=async_staging, clock=clock)
+
+
+def _run_chunked_schedule(*, mesh, tcfg: TrainConfig, data_fn: Callable,
+                          sched: Schedule, get_fused: Callable,
+                          population: Tree, opt_state: Tree,
+                          comm_per_mix_step: float, record_fn, seed: int,
+                          async_staging: Optional[bool],
+                          clock: _PhaseClock) -> TrainResult:
+    """Stage each chunk's inputs (on a thread, one chunk ahead, when
+    :func:`resolve_async_staging` allows), run its chunk function, add
+    the exact float64 comm a mixing step, and record at the reference
+    loop's record steps."""
+    base_seed = fold_in(seed, 1234)
+    data_seed = fold_in(seed, 5678)
+
+    def stage(chunk: ChunkPlan) -> Staged:
+        steps = list(chunk.steps)
+        batches = []
+        for step in steps:
+            ds = fold_in(data_seed, step)
+            batches.append([data_fn(g, step, fold_in(ds, g))
+                            for g in mesh.members])
+        lrs = [cosine_lr(s, tcfg.total_steps, tcfg.lr, tcfg.min_lr,
+                         tcfg.warmup_steps) for s in steps]
+        seeds = [step_seed(base_seed, s) for s in steps]
+        return Staged(steps, batches, lrs, seeds, list(chunk.gates))
+
+    history: Dict[str, List[float]] = {
+        "step": [], "loss": [], "consensus": [], "comm": []}
+    comm_total = 0.0
+    chunks = sched.chunks
+    executor = (ThreadPoolExecutor(max_workers=1,
+                                   thread_name_prefix="wash-stage")
+                if resolve_async_staging(async_staging, chunks, mesh.device)
+                else None)
+    tel = obs.get()
+    # mirrors comm_total add for add, so the counter equals the exact
+    # host-side accounting bit for bit
+    comm_counter = (tel.registry.counter("train.comm_scalars")
+                    if tel.enabled else None)
+
+    def staged_timed(chunk: ChunkPlan) -> Staged:
+        with tel.span("train.stage", step=chunk.stop - 1):
+            return stage(chunk)
+
+    t0 = time.time()
+    try:
+        nxt = executor.submit(staged_timed, chunks[0]) if executor else None
+        for i, chunk in enumerate(chunks):
+            staged = nxt.result() if executor else staged_timed(chunk)
+            if executor and i + 1 < len(chunks):
+                nxt = executor.submit(staged_timed, chunks[i + 1])
+            with tel.span("train.chunk_execute", step=chunk.stop - 1,
+                          mixing=chunk.mixing):
+                population, opt_state, loss_last = get_fused(chunk)(
+                    population, opt_state, staged)
+            del staged
+            mix_steps = 0
+            for g in chunk.gates:  # per-step float64 adds, as the loop
+                if g:
+                    comm_total += comm_per_mix_step
+                    mix_steps += 1
+                    if comm_counter is not None:
+                        comm_counter.inc(comm_per_mix_step)
+            if mix_steps and tel.enabled:
+                tel.event("train.comm_volume",
+                          comm_per_mix_step=comm_per_mix_step,
+                          mix_steps=mix_steps, comm_total=comm_total)
+
+            if chunk.record:
+                step = chunk.stop - 1
+                history["step"].append(step)
+                history["loss"].append(float(loss_last))
+                history["consensus"].append(float(
+                    avg_distance_to_consensus_blocked(population, mesh)))
+                history["comm"].append(comm_total)
+                extras = {}
+                if record_fn is not None:
+                    for k_, v in record_fn(step, population).items():
+                        history.setdefault(k_, []).append(v)
+                        extras[k_] = v
+                if tel.enabled:
+                    tel.registry.gauge("train.loss").set(history["loss"][-1])
+                    wall = time.time() - t0
+                    if wall > 0:
+                        tel.registry.gauge("train.steps_per_s").set(
+                            chunk.stop / wall)
+                    tel.event("train.record", step=step,
+                              loss=history["loss"][-1],
+                              consensus=history["consensus"][-1],
+                              comm=comm_total, **extras)
+    finally:
+        if executor is not None:
+            executor.shutdown(wait=True)
+
+    phase_ms = clock.per_step(tcfg.total_steps)
+    history["wall_s"] = [time.time() - t0]
+    if tel.enabled:
+        tel.registry.gauge("train.wall_s").set(history["wall_s"][0])
+    return TrainResult(population, opt_state, history, comm_total, phase_ms,
+                       member_offset=mesh.member_offset)

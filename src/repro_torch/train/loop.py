@@ -1,7 +1,9 @@
 """Population training loop (paper Alg. 1).
 
-Port of ``repro/train/loop.py`` (``engine="vmap"``, the reference loop).
-Each step: (1) an independent optimizer step per member on its own data
+Port of ``repro/train/loop.py``: ``engine="vmap"`` is the reference loop
+below, ``engine="shard_map"`` the ensemble engine over the ranks of a
+``torch.distributed`` group (:mod:`repro_torch.train.engine`).  Each
+step: (1) an independent optimizer step per member on its own data
 stream, then (2) the configured mixing op (WASH shuffle / PAPA EMA /
 PAPA-all average / none) on the stacked population.
 
@@ -55,6 +57,9 @@ class TrainResult:
     #: optimizer updates and the mixing op: CUDA events on the card, the
     #: host clock on the CPU
     phase_ms: Dict[str, List[float]] = dataclasses.field(default_factory=dict)
+    #: the global index of ``population``'s first member: the ensemble
+    #: engine's result holds this rank's block of members; the loop's, all
+    member_offset: int = 0
 
 
 class _PhaseClock:
@@ -104,17 +109,32 @@ def train_population(seed: int, init_fn: Callable[[int], Tree],
                      record_fn: Optional[Callable[[int, Tree],
                                                   Dict[str, float]]] = None,
                      engine: str = "vmap",
-                     device: DeviceLike = "cuda") -> TrainResult:
+                     device: DeviceLike = "cuda", mesh=None,
+                     engine_opts: Optional[Dict[str, Any]] = None
+                     ) -> TrainResult:
     """Train a population on ``device`` (the card unless the caller asks
     for the CPU); ``init_fn`` must put the parameters there.
-    ``engine="vmap"`` is the reference loop; the fused multi-device
-    ``"shard_map"`` engine is not ported yet."""
+    ``engine="vmap"`` is this module's reference loop; ``"shard_map"``
+    runs the ensemble engine
+    (:func:`repro_torch.train.engine.train_population_sharded`), which
+    also takes ``mesh`` (a :class:`repro_torch.launch.mesh.EnsMesh`) and
+    ``engine_opts`` (``async_staging``, ``split_gate_runs``,
+    ``param_specs``)."""
     if engine == "shard_map":
-        raise NotImplementedError(
-            "engine='shard_map' (train/engine.py) is not ported yet: "
-            "ROADMAP §1, 'Multi-device training'")
+        from repro_torch.train.engine import train_population_sharded
+
+        return train_population_sharded(
+            seed, init_fn, loss_fn, data_fn, tcfg, mcfg, num_blocks,
+            record_every=record_every, record_fn=record_fn, mesh=mesh,
+            device=device, **(engine_opts or {}))
     if engine != "vmap":
         raise ValueError(f"unknown engine {engine!r}")
+    if mesh is not None:
+        raise ValueError("mesh= is only consumed by engine='shard_map'; the "
+                         "vmap reference loop runs on one device")
+    if engine_opts:
+        raise ValueError(f"engine_opts={sorted(engine_opts)} are only "
+                         "consumed by engine='shard_map'")
     dev = resolve_device(device)
     n = tcfg.population
     population = pop.init_population(init_fn, seed, n, same_init=tcfg.same_init)

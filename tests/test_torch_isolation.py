@@ -50,7 +50,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "models.cnn", "data.augment", "core.averaging",
                  "launch.quickstart", "serving.driver",
                  "serving.speculative", "obs", "obs.metrics", "obs.events",
-                 "obs.profiler"):
+                 "obs.profiler", "train.engine", "train.schedule",
+                 "launch.mesh"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

@@ -304,7 +304,9 @@ def test_train_population_refuses_what_it_does_not_run():
             lambda p, b: TM.loss_fn(p, cfg, b)[0], None,
             TrainConfig(population=2, total_steps=1), mix.MixingConfig(), 2)
     with pytest.raises(NotImplementedError, match="Multi-device training"):
-        tloop.train_population(*args, engine="shard_map", device="cpu")
+        tloop.train_population(*args[:5], mix.MixingConfig(mode="bucketed"),
+                               2, engine="shard_map", device="cpu",
+                               engine_opts={"param_specs": {}})
     with pytest.raises(ValueError, match="engine"):
         tloop.train_population(*args, engine="pmap", device="cpu")
     with pytest.raises(ValueError, match="meta"):

@@ -1,0 +1,281 @@
+"""One rank of a gloo group for the ensemble engine's multi-process tests.
+
+    python tests/torch_ring_worker.py SCENARIO RANK WORLD DIR
+
+joins a ``gloo`` group of WORLD processes through a ``FileStore`` in DIR
+(nothing on the network), runs SCENARIO on the inputs the parent test
+left in ``DIR/in.npz`` and writes this rank's results to
+``DIR/out_RANK.npz``.  It imports ``torch`` and ``repro_torch`` only: the
+parent computes the JAX package's expectations and compares.  The toy
+model (:func:`toy_init`, :func:`toy_loss`, :func:`toy_data`) is the one
+the parent trains at world 1.
+
+Scenarios:
+  collective  the blocked ring apply on rank subgroups of 1-4 ranks, the
+              one-member-a-rank apply, ``mix_collective_blocked`` on the
+              parent's plans, the plans each rank draws, and
+              ``gather_population``;
+  engine      the ensemble engine on the toy model at world 2 (two
+              subgroups of 2) and world 4, the population gathered.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+TOY_N, TOY_STEPS, TOY_RECORD = 4, 11, 5
+# the engine runs across ranks: (name, MixingConfig kwargs)
+ENGINE_RUNS = [("wash", dict(kind="wash", base_p=0.5, mode="bucketed")),
+               ("papa", dict(kind="papa", papa_every=2, papa_alpha=0.9)),
+               ("none", dict(kind="none"))]
+# (n, m) of the blocked ring apply: n members over m ranks
+RING_CASES = [(4, 1), (4, 2), (4, 4), (6, 3), (8, 2), (8, 4)]
+RING_WIDTH = 37  # a multiple of no block
+MIX_KINDS = ("wash", "wash_opt", "papa", "papa_all")
+
+
+def toy_init(seed: int):
+    """embed 16x8, one 8x8 block, head 8x4, float32, from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    return {"embed": {"w": torch.randn(16, 8, generator=g)},
+            "blocks": [{"w1": torch.randn(8, 8, generator=g)}],
+            "head": {"w": torch.randn(8, 4, generator=g)}}
+
+
+def toy_loss(p, b):
+    h = torch.tanh(b["x"] @ p["embed"]["w"] @ p["blocks"][0]["w1"])
+    return torch.mean((h @ p["head"]["w"] - b["y"]) ** 2)
+
+
+def toy_data(m: int, step: int, seed: int):
+    g = torch.Generator().manual_seed(seed)
+    return {"x": torch.randn(4, 16, generator=g),
+            "y": torch.randn(4, 4, generator=g)}
+
+
+def toy_train(mcfg_kw: dict, mesh=None):
+    """The engine on the toy model (N = 4, SGD, 11 steps, a record every
+    5), on the CPU."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.mixing import MixingConfig
+    from repro_torch.train import engine
+
+    engine.reset_chunk_trace_count()
+    tcfg = TrainConfig(population=TOY_N, optimizer="sgd", lr=0.05,
+                       total_steps=TOY_STEPS, batch_size=4)
+    return engine.train_population_sharded(
+        0, toy_init, toy_loss, toy_data, tcfg, MixingConfig(**mcfg_kw), 1,
+        record_every=TOY_RECORD, mesh=mesh, device="cpu")
+
+
+def flat_tree(tree, prefix=""):
+    from repro_torch.core.population import tree_paths
+
+    return {prefix + "/".join(map(str, path)): leaf
+            for path, leaf in tree_paths(tree)}
+
+
+# the rank subgroups of a world of 4, by size: [2, 3] and [1, 2, 3]
+# have group ranks that are not their global ranks
+GROUPS = {2: [[0, 1], [2, 3]], 3: [[1, 2, 3]], 4: [[0, 1, 2, 3]]}
+
+
+def _meshes(rank: int):
+    """Every group of :data:`GROUPS`, made by every rank in one order:
+    ``{m: mesh}`` for the groups this rank is in."""
+    from repro_torch.launch.mesh import make_host_ensemble_mesh
+
+    out = {}
+    for m, groups in GROUPS.items():
+        for g in groups:
+            pg = dist.new_group(g)
+            if rank in g:
+                out[m] = make_host_ensemble_mesh(m, "cpu", group=pg)
+    return out
+
+
+def _ring_mesh(meshes, m: int, n: int):
+    """This rank's mesh for n members over m ranks (None: not in one)."""
+    from repro_torch.launch.mesh import EnsMesh
+
+    if m == 1:
+        return EnsMesh(0, 1, n, 0, torch.device("cpu"))
+    mesh = meshes.get(m)
+    if mesh is None:
+        return None
+    return EnsMesh(mesh.rank, m, n // m, mesh.rank * (n // m), mesh.device,
+                   mesh.group)
+
+
+def _rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A copy of this rank's block of the stacked ``x``."""
+    return x[mesh.member_offset:mesh.member_offset + mesh.n_local].clone()
+
+
+def collective(rank: int, world: int, data) -> dict:
+    from repro_torch.core import mixing as mix
+    from repro_torch.core import population as pop
+    from repro_torch.core import shuffle as shf
+    from repro_torch.core.layer_index import infer_layer_ids, total_layers
+
+    out = {}
+    meshes = _meshes(rank)
+    for n, m in RING_CASES:
+        mesh = _ring_mesh(meshes, m, n)
+        if mesh is None:
+            continue
+        for dt in ("float32", "bfloat16"):
+            x = torch.from_numpy(data[f"ring_x_{n}"]).to(getattr(torch, dt))
+            idx = torch.from_numpy(data[f"ring_idx_{n}"])
+            block = _rows(x, mesh)
+            shf.apply_plan_collective_blocked([idx], [block], mesh)
+            out[f"ring_{n}_{m}_{dt}"] = block.float().numpy()
+
+    # one member a rank, every rank of the world
+    mesh = _ring_mesh(meshes, world, world)
+    x = torch.from_numpy(data["one_x"])[rank].clone()
+    shf.apply_plan_collective({"w": torch.from_numpy(data["one_idx"])},
+                              {"w": x}, mesh)
+    out["one"] = x.numpy()
+
+    # mixing on the toy tree, two members a rank at world 2 and one at 4
+    keys = sorted(k[len("pop/"):] for k in data.files if k.startswith("pop/"))
+    for m in (2, 4):
+        mesh = _ring_mesh(meshes, m, TOY_N)
+        if mesh is None:
+            continue
+
+        def block_of(prefix):
+            return {k: _rows(torch.from_numpy(data[prefix + k]), mesh)
+                    for k in keys}
+
+        for kind in MIX_KINDS:
+            params = block_of("pop/")
+            moments = {"mu": block_of("mu/"), "nu": block_of("nu/")}
+            plan = {k: (torch.from_numpy(data["plan/" + k])
+                        if "plan/" + k in data.files else None) for k in keys}
+            real = shf.make_plan
+            shf.make_plan = lambda *a, **k: plan
+            try:
+                cfg = mix.MixingConfig(kind=kind, base_p=0.5, mode="bucketed",
+                                       papa_alpha=0.9)
+                mix.mix_collective_blocked(7, params, moments, cfg,
+                                           {k: 0 for k in keys}, 3, mesh, True)
+            finally:
+                shf.make_plan = real
+            for k in keys:
+                out[f"mix_{kind}_{m}/p/{k}"] = params[k].numpy()
+                out[f"mix_{kind}_{m}/mu/{k}"] = moments["mu"][k].numpy()
+                out[f"mix_{kind}_{m}/nu/{k}"] = moments["nu"][k].numpy()
+
+    # the plans every rank draws from one seed on its own member template
+    mesh = _ring_mesh(meshes, world, 2 * world)
+    member = toy_init(rank)  # different values, the same shapes
+    lids = infer_layer_ids(member, 1)
+    plan = shf.make_plan(11, member, lids, total_layers(1), 0.5,
+                         mode="bucketed", n=2 * world)
+    check = torch.tensor([float(sum(int(p.long().sum()) * (i + 1)
+                                    for i, p in enumerate(
+                                        pop.tree_leaves(plan))
+                                    if p is not None))], dtype=torch.float64)
+    sums = [torch.zeros_like(check) for _ in range(world)]
+    dist.all_gather(sums, check, group=mesh.group)
+    out["plan_checksums"] = torch.cat(sums).numpy()
+
+    # the stacked population rebuilt on rank 0
+    full = torch.from_numpy(data["gather_x"])
+    got = pop.gather_population({"w": _rows(full, mesh)}, mesh)
+    if rank == 0:
+        out["gathered"] = got["w"].numpy()
+    elif got is not None:
+        raise AssertionError("gather_population gave a tree off rank 0")
+    return out
+
+
+def engine_runs(rank: int, world: int, data) -> dict:
+    from repro_torch.core.population import gather_population
+
+    out = {}
+    meshes = _meshes(rank)
+    for m in (2, 4):
+        if rank >= m:  # in the group of rank 0 only
+            continue
+        mesh = _ring_mesh(meshes, m, TOY_N)
+        for name, kw in ENGINE_RUNS:
+            res = toy_train(kw, mesh)
+            full = gather_population(res.population, mesh)
+            if mesh.rank == 0:
+                out.update(flat_tree(full, f"{name}_{m}/"))
+                for k in ("loss", "consensus", "comm", "step"):
+                    out[f"{name}_{m}/{k}"] = np.asarray(res.history[k])
+                out[f"{name}_{m}/offset"] = np.asarray(res.member_offset)
+    return out
+
+
+def start(scenario: str, world: int, path: str, inputs: dict,
+          timeout: float = 120.0):
+    """Start SCENARIO on ``world`` ranks in fresh processes with
+    ``inputs`` (numpy arrays); returns ``wait()``, which gives each rank's
+    results.  The ranks share one deadline of ``timeout`` seconds from
+    the start, past which all are killed and ``wait`` fails, so a ring
+    that deadlocks fails rather than hangs."""
+    np.savez(os.path.join(path, "in.npz"), **inputs)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), scenario, str(r),
+         str(world), path], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    deadline = time.monotonic() + timeout
+
+    def wait() -> list:
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(
+                    timeout=max(deadline - time.monotonic(), 1.0))[0])
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"{scenario} on {world} ranks passed its "
+                                 f"{timeout:.0f} s deadline")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        bad = [(r, p.returncode, log)
+               for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
+        assert not bad, "\n".join(f"rank {r} exited {rc}:\n{log[-3000:]}"
+                                   for r, rc, log in bad)
+        return [dict(np.load(os.path.join(path, f"out_{r}.npz")))
+                for r in range(world)]
+
+    return wait
+
+
+def main() -> int:
+    scenario, rank, world, path = (sys.argv[1], int(sys.argv[2]),
+                                   int(sys.argv[3]), sys.argv[4])
+    store = dist.FileStore(os.path.join(path, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        data = np.load(os.path.join(path, "in.npz"))
+        out = {"collective": collective, "engine": engine_runs}[scenario](
+            rank, world, data)
+        np.savez(os.path.join(path, f"out_{rank}.npz"), **out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src"))
+    sys.exit(main())

@@ -1,0 +1,327 @@
+#!/usr/bin/env python3
+"""The ensemble engine across ranks, one device a rank, against world 1.
+
+Run under ``torchrun``, a process a card (``nccl``) or, with ``--device
+cpu``, a process a CPU rank (``gloo``), from the root of a checkout:
+
+    torchrun --standalone --nproc-per-node=4 tools/ensemble_ranks.py
+    torchrun --standalone --nproc-per-node=4 tools/ensemble_ranks.py \\
+        --device cpu --small
+
+Four ranks are needed.  Three parts, each failing the run on a mismatch:
+
+  1. ring: the blocked bucketed apply (``core/shuffle.py``) on
+     llama3.2-3b's stacked ``blocks.mlp.w1`` (N = 4, bf16, the layered
+     bucketed plan at p = 0.01) across the 4 ranks (a member a rank) and
+     across ranks [0, 1] and [2, 3] (two members a rank), against world 1
+     (the stacked leaf through ``ops.bucketed_shuffle_``, the shuffle
+     kernel on the card): bitwise, and each timed (CUDA events on the
+     card, the host clock on the CPU; the slowest rank's median of 5),
+     beside the bytes each rank sends;
+  2. engine: llama3.2-3b at full width cut to 4 layers, float32, N = 4,
+     SGD, 3 steps, bucketed WASH (p = 0.01), PAPA (``papa_every=2``) and
+     ``none``, at worlds 4 and 2 against world 1 on rank 0: the
+     populations gathered on rank 0 bitwise equal, the comm equal;
+  3. full width: llama3.2-3b (28 layers, bf16, N = 4, a member a rank,
+     SGD, bucketed WASH at p = 0.01, 2 x 256 tokens a member, 4 steps)
+     through the train CLI's ``main`` with ``--engine shard_map``, twice:
+     the comm a step against ``static_mix_comm``, each rank's step split
+     (ms a step: forward+backward, optimizer, mixing) and peak memory.
+
+``--small`` runs every part on the reduced config instead (a CPU run).
+Rank 0 prints the card's name and power limit, then the results as one
+JSON line, last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import datetime
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.core import layer_index as tli  # noqa: E402
+from repro_torch.core import population as pop  # noqa: E402
+from repro_torch.core import shuffle as shf  # noqa: E402
+from repro_torch.core.mixing import MixingConfig, static_mix_comm  # noqa: E402
+from repro_torch.core.prng import fold_in  # noqa: E402
+from repro_torch.core.schedules import layer_probability_array  # noqa: E402
+from repro_torch.data import make_lm_task, sample_tokens  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    EnsMesh, make_host_ensemble_mesh)
+from repro_torch.models import transformer as M  # noqa: E402
+from repro_torch.train import engine  # noqa: E402
+
+WORLD, N, P = 4, 4, 0.01
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (nccl, a card a rank) or cpu (gloo)")
+    ap.add_argument("--small", action="store_true",
+                    help="the reduced llama3.2-3b config in every part")
+    return ap
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"ensemble_ranks: FAILED: {msg}")
+
+
+def say(rank: int, msg: str) -> None:
+    if rank == 0:
+        print(msg, flush=True)
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def timed_ms(fn, dev, reps: int = 5) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` calls."""
+    out = []
+    for _ in range(reps):
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def subgroups():
+    """Every rank makes every group, in one order: the world's ranks,
+    then [0, 1] and [2, 3]."""
+    return dist.new_group(list(range(WORLD))), [dist.new_group([0, 1]),
+                                                dist.new_group([2, 3])]
+
+
+def ring(rank: int, dev, cfg, groups) -> dict:
+    """Part 1: the stacked leaf blocks.mlp.w1 of N members, the blocked
+    apply on 4 and on 2 ranks against world 1."""
+    all4, pairs = groups
+    shape = tuple(M.param_shapes(cfg)["blocks"]["mlp"]["w1"].shape)
+    L, d_rest = shape[0], int(np.prod(shape[1:]))
+    p_vec = np.clip(layer_probability_array(
+        P, np.arange(1, L + 1), tli.total_layers(L), "decreasing"), 0, 1)
+    idx = shf.bucketed_plan_layered(7, L, d_rest, N, p_vec, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((N, L * d_rest), generator=gen, device=dev,
+                    dtype=torch.float32).to(torch.bfloat16)
+    want = x.clone()
+    ops.bucketed_shuffle_(want, idx)  # world 1: the kernel on the card
+    sums = [torch.zeros(2, dtype=torch.float64, device=dev)
+            for _ in range(WORLD)]
+    check = torch.stack([idx.double().sum(), x[:, ::997].double().sum()])
+    dist.all_gather(sums, check)
+    if any(not torch.equal(s, sums[0]) for s in sums):
+        fail(f"ranks drew different plans or leaves: {sums}")
+    spare = x.clone()
+    out = {"leaf": "blocks.mlp.w1", "shape": [N, L * d_rest],
+           "k_per": int(idx.shape[1]),  # the kernel in place, again and again
+           "world_1_ms": timed_ms(lambda: ops.bucketed_shuffle_(spare, idx),
+                                  dev)}
+    del spare
+    for name, world, group in (("4 ranks", 4, all4),
+                               ("2 ranks", 2, pairs[rank // 2])):
+        mesh = make_host_ensemble_mesh(N, dev.type, group=group)
+        a = mesh.member_offset
+        block = x[a:a + mesh.n_local].clone()
+        shf.bucketed_apply_collective_blocked(block, idx, mesh)
+        full = pop.gather_population({"w": block}, mesh)
+        same = True if full is None else bool(torch.equal(full["w"], want))
+        flags = [None] * WORLD
+        dist.all_gather_object(flags, same)
+        if not all(flags):
+            fail(f"ring on {name}: the gathered leaf differs from world 1")
+        ms = timed_ms(lambda: shf.bucketed_apply_collective_blocked(
+            block, idx, mesh), dev)  # in place, again and again
+        each = [None] * WORLD
+        dist.all_gather_object(each, ms)
+        # exchanges a step: bucket s crosses ranks for each of its q, q+1
+        # blocks that lie on another rank
+        sent = 0
+        for s in range(1, N):
+            q, r = divmod(s, mesh.n_local)
+            for qq in ((q,) if r == 0 else (q, q + 1)):
+                if qq % world:
+                    sent += mesh.n_local * idx.shape[1] * x.element_size()
+        out[name] = {"bitwise": True, "ms_slowest_rank": max(each),
+                     "ms_each_rank": each, "bytes_sent_a_rank": sent}
+        del block, full
+    del x, want
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def engine_worlds(rank: int, dev, cfg, groups) -> dict:
+    """Part 2: the engine at worlds 4, 2 and 1 on the same population."""
+    all4, pairs = groups
+    task = make_lm_task(fold_in(0, 1), vocab=min(cfg.vocab_size, 512),
+                        device=dev)
+
+    def data_fn(m, step, s):
+        return {"tokens": sample_tokens(task, s, 2, 64)}
+
+    def train(mcfg, mesh):
+        tcfg = TrainConfig(population=N, optimizer="sgd", lr=0.05,
+                           total_steps=3, seed=0)
+        return engine.train_population_sharded(
+            0, lambda s: M.init_params(cfg, seed=s, device=dev),
+            lambda p, b: M.loss_fn(p, cfg, b)[0], data_fn, tcfg, mcfg,
+            cfg.num_layers, record_every=3, mesh=mesh, device=dev.type)
+
+    out = {}
+    for kind, mcfg in (("wash", MixingConfig(kind="wash", base_p=P,
+                                             mode="bucketed")),
+                       ("papa", MixingConfig(kind="papa", papa_every=2)),
+                       ("none", MixingConfig(kind="none"))):
+        ref = None
+        if rank == 0:  # world 1: the population whole on rank 0
+            t0 = time.perf_counter()
+            res = train(mcfg, EnsMesh(0, 1, N, 0, dev))
+            ref = (res.population, res.comm_scalars, time.perf_counter() - t0)
+            del res
+        dist.barrier()
+        row = {}
+        for name, world, group in (("4 ranks", 4, all4),
+                                   ("2 ranks", 2, pairs[0])):
+            same = True
+            if rank < world:
+                mesh = make_host_ensemble_mesh(N, dev.type, group=group)
+                t0 = time.perf_counter()
+                res = train(mcfg, mesh)
+                wall = time.perf_counter() - t0
+                full = pop.gather_population(res.population, mesh)
+                if rank == 0:
+                    same = all(torch.equal(a, b) for a, b in zip(
+                        pop.tree_leaves(full), pop.tree_leaves(ref[0])))
+                    same = same and res.comm_scalars == ref[1]
+                    row[name] = {"bitwise": same, "s": wall,
+                                 "comm": res.comm_scalars}
+                del res, full
+            flags = [None] * WORLD
+            dist.all_gather_object(flags, same)
+            if not all(flags):
+                fail(f"engine, {kind}, {name}: the population differs from "
+                     "world 1")
+        if rank == 0:
+            row["1 rank"] = {"s": ref[2], "comm": ref[1]}
+            out[kind] = row
+        del ref
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def full_width(rank: int, dev, cfg_name: str, small: bool) -> dict:
+    """Part 3: the train CLI at world 4, a member a rank, twice: the first
+    run's first ring exchanges also set up the communicator's peer
+    connections, the second's find them made."""
+    argv = ["--arch", cfg_name, "--population", str(N), "--mixing", "wash",
+            "--mode", "bucketed", "--base-p", str(P), "--optimizer", "sgd",
+            "--steps", "4", "--batch-size", "2", "--seq-len",
+            "16" if small else "256", "--record-every", "1", "--lr", "0.01",
+            "--device", dev.type, "--engine", "shard_map"]
+    if small:
+        argv.append("--reduced")
+    cfg = get_arch(cfg_name).reduced() if small else get_arch(cfg_name)
+    shapes = M.param_shapes(cfg)
+    static = static_mix_comm(
+        shapes, MixingConfig(kind="wash", base_p=P, mode="bucketed"),
+        tli.infer_layer_ids(shapes, cfg.num_layers),
+        tli.total_layers(cfg.num_layers), N)
+    out = {"comm_a_step": static}
+    for run in ("first", "second"):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        res = train_cli.main(argv)
+        sync(dev)
+        steps = np.diff([0.0] + res.history["comm"]).tolist()
+        if steps != [static] * 4:
+            fail(f"full width: comm a step {steps}, static_mix_comm {static}")
+        mine = {p: [round(v, 3) for v in res.phase_ms[p]]
+                for p in res.phase_ms}
+        mine["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                            if dev.type == "cuda" else None)
+        each = [None] * WORLD
+        dist.all_gather_object(each, mine)
+        out[run] = {"losses": res.history["loss"],
+                    "wall_s": res.history["wall_s"][0], "ranks": each}
+        del res
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    args = build_parser().parse_args()
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != WORLD:
+        print(f"ensemble_ranks: needs {WORLD} ranks under torchrun, got "
+              f"{world}", file=sys.stderr)
+        return 2
+    rank, local = int(os.environ["RANK"]), int(os.environ["LOCAL_RANK"])
+    if args.device == "cuda":
+        if torch.cuda.device_count() < WORLD:
+            print(f"ensemble_ranks: {torch.cuda.device_count()} card(s), "
+                  f"needs {WORLD}", file=sys.stderr)
+            return 2
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        dev = torch.device("cpu")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            timeout=datetime.timedelta(seconds=180))
+    try:
+        card = None
+        if dev.type == "cuda" and rank == 0:
+            card = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip()
+        groups = subgroups()
+        base = get_arch("llama3.2-3b")
+        small = base.reduced()
+        cut = (small if args.small else dataclasses.replace(
+            base, num_layers=4, dtype="float32",
+            name=f"{base.name}-4layers-f32"))
+        t0 = time.perf_counter()
+        res = {"device": dev.type, "world": WORLD, "torch": torch.__version__}
+        res["ring"] = ring(rank, dev, small if args.small else base, groups)
+        say(rank, f"ring: {json.dumps(res['ring'])}")
+        res["engine"] = engine_worlds(rank, dev, cut, groups)
+        say(rank, f"engine: {json.dumps(res['engine'])}")
+        res["full_width"] = full_width(rank, dev, "llama3.2-3b", args.small)
+        say(rank, f"full width: {json.dumps(res['full_width'])}")
+        res["seconds"] = time.perf_counter() - t0
+        dist.barrier()
+        if rank == 0:
+            if card:
+                print(card)
+            print(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
