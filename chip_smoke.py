@@ -252,6 +252,14 @@ and then, failing on the first phase that fails:
      the gate split (the chunk functions built counted), synchronous
      staging against the staging thread; finally an engine asked for two
      ranks on the one card is refused before any weight is made.
+ 16. training on ens x data x model meshes: phase 15's full-width run
+     through the train CLI with ``--mesh ens_dp_mp`` at world 1 (the
+     fill gives the (1, 1, 1) mesh: the shard-local planner runs, the
+     single-axis body trains), held to phase 15: losses equal, 40
+     bucketed launches each bitwise, 9,016,867.0 scalars a step, one
+     chunk function, the peak memory; then, on the host, the planner's
+     comm (held to the reference's to the last digit) and what a card
+     holds for the four-card layouts (2,1,2), (1,1,4), (2,2,1).
 
 Kernels are built from the sources in the checkout, each ``nvcc`` started
 at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
@@ -4635,6 +4643,7 @@ def engine_full_width(torch, device, kernels, phase5) -> dict:
         fail(f"engine training: losses {res.history['loss']}, relative "
              f"differences to the vmap loop {rel}")
     kernels["bucketed"]["launches"] += launches
+    history = {k: list(res.history[k]) for k in ("step", "loss", "comm")}
     del res, seen
     torch.cuda.empty_cache()
 
@@ -4660,7 +4669,7 @@ def engine_full_width(torch, device, kernels, phase5) -> dict:
             f"peak {max(t['peak_gib'] for t in runs):.2f} GiB (phase 5's "
             f"loop: {p5['steps2_ms']:.1f} ms, {p5['tok_s']:.1f} tokens/s, "
             f"{p5['peak_gib']:.2f} GiB)")
-    return timing
+    return history
 
 
 def engine_reduced_f32(torch, device) -> None:
@@ -4781,15 +4790,181 @@ def engine_refuses_two_ranks_on_one_card(torch, device) -> None:
              f"{before} -> {after}")
 
 
-def multi_device_training(torch, device, kernels, phase5) -> None:
+def multi_device_training(torch, device, kernels, phase5) -> dict:
     """Phase 15: the ensemble engine (``--engine shard_map``) at world 1
     on the card: (a) full width against phase 5, (b) reduced f32 against
-    the vmap loop, (c) the refusal of two ranks on one card."""
+    the vmap loop, (c) the refusal of two ranks on one card.  Returns
+    (a)'s history (steps, losses, comm), phase 16's yardstick."""
     t0 = time.perf_counter()
-    engine_full_width(torch, device, kernels, phase5)
+    history = engine_full_width(torch, device, kernels, phase5)
     engine_reduced_f32(torch, device)
     engine_refuses_two_ranks_on_one_card(torch, device)
     log(f"phase 15 (multi-device training, world 1): "
+        f"{time.perf_counter() - t0:.1f} s; bucketed launches on the main "
+        f"paths so far {kernels['bucketed']['launches']}")
+    return history
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training on ens×data×model meshes, at world 1 on the card; the
+# planner's four-card layouts on the host
+# ---------------------------------------------------------------------------
+
+#: full-width llama3.2-3b, bucketed p = 0.01: (mesh (E, D, M), N) -> the
+#: scalars a member sends a mixing step under WASH and under WASH+Opt with
+#: AdamW, from the JAX package's planner (``static_shard_mix_comm`` over
+#: ``sharding.rules.param_pspecs`` specs); tests/test_torch_shardplan.py
+#: holds the port's planner to it on the CPU
+MESH_COMM = {((1, 1, 1), 2): (9016867.0, 27050601.0),
+             ((2, 1, 2), 2): (9016816.0, 27050448.0),
+             ((1, 1, 4), 2): (9016712.0, 27050136.0),
+             ((2, 2, 1), 2): (9016867.0, 27050601.0),
+             ((2, 2, 1), 4): (13525293.0, 40575879.0)}
+
+
+def mesh_layouts() -> None:
+    """On the host: for each layout of MESH_COMM, the shard-local planner's
+    comm (held to MESH_COMM exactly) and what a card holds under AdamW
+    WASH+Opt: its parameter shards (bf16), their two f32 moments, one
+    member's gradient (bf16) at a time and, when leaves are split, the
+    member gathered whole for it."""
+    import types
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import shardplan
+    from repro_torch.core.layer_index import infer_layer_ids, total_layers
+    from repro_torch.core.mixing import MixingConfig
+    from repro_torch.core.population import tree_leaves
+    from repro_torch.models import transformer as M
+    from repro_torch.sharding import rules
+
+    cfg = get_arch("llama3.2-3b")
+    shapes = M.param_shapes(cfg)
+    lids = infer_layer_ids(shapes, cfg.num_layers)
+    tl = total_layers(cfg.num_layers)
+    member = sum(int(np.prod(x.shape)) for x in tree_leaves(shapes))
+    gib = 2 ** 30
+    for (shape, n), want in MESH_COMM.items():
+        mesh = types.SimpleNamespace(
+            axis_names=("ens", "data", "model"),
+            shape=dict(zip(("ens", "data", "model"), shape)))
+        specs = rules.param_pspecs(shapes, cfg, mesh)
+        got = []
+        for kind in ("wash", "wash_opt"):
+            pplan = shardplan.plan_population_mixing(
+                mesh, shapes, specs,
+                MixingConfig(kind=kind, base_p=0.01, mode="bucketed"), lids,
+                tl, n)
+            got.append(shardplan.static_shard_mix_comm(
+                pplan, {"mu": None, "nu": None, "step": None}
+                if kind == "wash_opt" else None))
+        local = pplan.n_local * sum(int(np.prod(i.local_shape))
+                                    for i in pplan.infos)
+        split = sum(bool(i.sharded_dims) for i in pplan.infos)
+        held = {"params": 2 * local, "moments": 8 * local,
+                "member": 2 * member if pplan.any_sharded else 0,
+                "grad": 2 * member}
+        log(f"layout {shape} N={n}: population over {pplan.pop_axes}, "
+            f"batches over {pplan.dp_axes or '-'}, {split} of "
+            f"{len(pplan.infos)} leaves split; comm a member a step: WASH "
+            f"{got[0]!r}, WASH+Opt (AdamW) {got[1]!r} (expected {want}); a "
+            f"card holds {pplan.n_local} member shard(s): params "
+            f"{held['params'] / gib:.2f} GiB, AdamW moments "
+            f"{held['moments'] / gib:.2f} GiB, a gathered member "
+            f"{held['member'] / gib:.2f} GiB, a member's gradient "
+            f"{held['grad'] / gib:.2f} GiB: {sum(held.values()) / gib:.2f} "
+            f"GiB before activations")
+        if tuple(got) != want:
+            fail(f"layout {shape} N={n}: the planner's comm {got}, the "
+                 f"reference's {want}")
+
+
+def multi_axis_training(torch, device, kernels, phase15) -> None:
+    """Phase 16: full-width llama3.2-3b (bf16, N = 2, SGD, bucketed WASH
+    at p = 0.01, 2 x TRAIN_SEQ tokens a member, TRAIN_STEPS steps, a
+    record every ENGINE_RECORD_EVERY) through the train CLI's ``main``
+    with ``--engine shard_map --mesh ens_dp_mp`` at world 1: the fill
+    gives the (1, 1, 1) mesh, so the shard-local planner runs and the
+    single-axis body trains with every planned leaf through the bucketed
+    kernel (held bitwise against its plain version).  Held to phase 15
+    (``phase15``: its history): losses equal, the comm exactly
+    ``TRAIN_PLANS``' a step, one chunk function; the peak memory.  Then
+    :func:`mesh_layouts` on the host.  Adds its bucketed launches to
+    ``kernels``."""
+    import io
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.kernels import wash_shuffle as ws
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import engine
+
+    t0 = time.perf_counter()
+    arch, n, steps = "llama3.2-3b", 2, TRAIN_STEPS
+    leaves, step_comm = TRAIN_PLANS[arch]
+    argv = training_argv(arch, device)
+    argv[argv.index("--record-every") + 1] = str(ENGINE_RECORD_EVERY)
+    argv += ["--engine", "shard_map", "--mesh", "ens_dp_mp"]
+    seen, counts = {"plans": []}, {"dense": 0, "bucketed": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ws.bucketed_launches = ws.wash_launches = 0
+    _zero(fa, wkv, pa)
+    engine.reset_chunk_trace_count()
+    out = io.StringIO()
+    t1 = time.perf_counter()
+    with checked_shuffles(ops, ref, torch, counts), \
+            watch_bucketed_shuffles(ops, 0, seen), \
+            contextlib.redirect_stdout(out):
+        res = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    printed = out.getvalue()
+    for line in printed.splitlines():
+        log(f"  train CLI: {line}")
+    launches, built = ws.bucketed_launches, engine.chunk_trace_count()
+    other = _counts(fa, wkv, pa)
+    applied, recorded = comm_per_step(seen, res.history, n, leaves)
+    want_comm = [step_comm * (s + 1) for s in res.history["step"]]
+    diffs = [abs(a - b) for a, b in zip(res.history["loss"], phase15["loss"])]
+    log(f"training ({arch}, 28 layers, bf16, N={n}, SGD, bucketed WASH "
+        f"p=0.01, 2 x {TRAIN_SEQ} tokens per member, {steps} steps, a record "
+        f"every {ENGINE_RECORD_EVERY}) through launch.train.main --engine "
+        f"shard_map --mesh ens_dp_mp (world 1), every shuffle held against "
+        f"its plain version: {wall:.2f} s; chunk functions built {built} "
+        f"(expected 1); bucketed shuffle launches {launches} (expected "
+        f"{leaves} x {steps}), {counts['bucketed']} of them bitwise equal to "
+        f"the plain version, dense {ws.wash_launches}; other kernels' "
+        f"launches {other} (expected none); comm per step of the plans "
+        f"applied {applied}, recorded {res.history['comm']} at steps "
+        f"{res.history['step']} (expected {want_comm}); losses "
+        f"{res.history['loss']} against phase 15's {phase15['loss']}: "
+        f"|differences| {diffs} (expected 0.0); peak device memory "
+        f"{peak:.2f} GiB")
+    if "mesh: {'ens': 1, 'data': 1, 'model': 1}" not in printed:
+        fail("mesh training: the CLI did not run on the (1, 1, 1) mesh")
+    if (launches != leaves * steps or counts["bucketed"] != launches
+            or ws.wash_launches or any(other.values())):
+        fail(f"mesh training: {launches} bucketed launches "
+             f"({counts['bucketed']} checked), {ws.wash_launches} dense, "
+             f"other kernels {other}")
+    if (applied != [step_comm] * steps or res.history["comm"] != want_comm
+            or res.history["comm"] != phase15["comm"]):
+        fail(f"mesh training: comm {applied} applied a step, "
+             f"{res.history['comm']} recorded, expected {want_comm}")
+    if (built != 1 or res.history["step"] != phase15["step"]
+            or res.history["loss"] != phase15["loss"]):
+        fail(f"mesh training: {built} chunk functions, losses "
+             f"{res.history['loss']} at {res.history['step']}, phase 15's "
+             f"{phase15['loss']} at {phase15['step']}")
+    kernels["bucketed"]["launches"] += launches
+    del res, seen
+    torch.cuda.empty_cache()
+    mesh_layouts()
+    log(f"phase 16 (training on ens x data x model meshes, world 1): "
         f"{time.perf_counter() - t0:.1f} s; bucketed launches on the main "
         f"paths so far {kernels['bucketed']['launches']}")
 
@@ -4858,7 +5033,8 @@ def main() -> int:
     moe_and_mla(torch, device, kernels, card)
     hybrid_family(torch, F, device, kernels, card)
     last_families(torch, F, device, kernels, card)
-    multi_device_training(torch, device, kernels, phase5)
+    phase15 = multi_device_training(torch, device, kernels, phase5)
+    multi_axis_training(torch, device, kernels, phase15)
     for entry in kernels.values():
         if entry["launches"] == 0:
             fail(f"kernel {entry['name']} was never launched on its path")

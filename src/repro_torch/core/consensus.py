@@ -55,26 +55,49 @@ def avg_distance_to_consensus(population: Tree) -> torch.Tensor:
     return torch.mean(torch.sqrt(per_member))
 
 
-def avg_distance_to_consensus_blocked(block: Tree, mesh) -> torch.Tensor:
+def avg_distance_to_consensus_blocked(block: Tree, mesh,
+                                      shard_dims=None) -> torch.Tensor:
     """:func:`avg_distance_to_consensus` of a population spread over the
-    ranks of ``mesh`` (a :class:`repro_torch.launch.mesh.EnsMesh`), each
-    holding its ``(n_local, ...)`` block: the consensus by an all-reduce of
-    the column sums, the members' distances summed by another.  Every rank
-    gets the same value; at world 1 it is the stacked function itself."""
-    if mesh.world == 1:
+    ranks of ``mesh``, each holding its ``(n_local, ...)`` block: the
+    consensus by an all-reduce of the column sums over the population
+    group, the members' distances summed by another.  On a
+    :class:`repro_torch.launch.mesh.HostMesh` whose model group splits
+    leaves (``shard_dims``: a tuple of member dims for each leaf, as
+    :func:`repro_torch.core.population.gather_population` takes it), a
+    member's squared distance over the split leaves is summed over the
+    model group before the square root, the replicated leaves counted
+    once; data replicas hold the same block and reduce nothing.  Every
+    rank gets the same value; at world 1 it is the stacked function
+    itself."""
+    pop_mesh = getattr(mesh, "pop", mesh)
+    model = getattr(mesh, "model", None)
+    split = ([bool(d) for d in shard_dims]
+             if shard_dims is not None and model is not None
+             and model.world > 1 else None)
+    if pop_mesh.world == 1 and not (split and any(split)):
         return avg_distance_to_consensus(block)
     leaves = tree_leaves(block)
     n_local = leaves[0].shape[0]
-    n = n_local * mesh.world
+    n = n_local * pop_mesh.world
     per_member = torch.zeros((n_local,), dtype=torch.float32,
                              device=leaves[0].device)
-    for x in leaves:
+    per_shard = torch.zeros_like(per_member)
+    for i, x in enumerate(leaves):
         for xc in _chunks(x):
             mean = torch.sum(xc, dim=0, keepdim=True)
-            dist.all_reduce(mean, group=mesh.group)
-            per_member = per_member + torch.sum((xc - mean / n) ** 2, dim=1)
+            if pop_mesh.world > 1:
+                dist.all_reduce(mean, group=pop_mesh.group)
+            sq = torch.sum((xc - mean / n) ** 2, dim=1)
+            if split and split[i]:
+                per_shard = per_shard + sq
+            else:
+                per_member = per_member + sq
+    if split and any(split):
+        dist.all_reduce(per_shard, group=model.group)
+        per_member = per_member + per_shard
     total = torch.sum(torch.sqrt(per_member))
-    dist.all_reduce(total, group=mesh.group)
+    if pop_mesh.world > 1:
+        dist.all_reduce(total, group=pop_mesh.group)
     return total / n
 
 

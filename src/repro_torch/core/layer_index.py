@@ -1,7 +1,8 @@
 """Per-leaf layer indices for the layer-wise probability schedule (Eq. 6).
 
 Port of ``repro/core/layer_index.py`` (``leaf_depth``, ``infer_layer_ids``,
-``total_layers``).  Every parameter gets a depth l in [0, L-1]:
+``total_layers``, and the stage arithmetic the shard-local planner's
+pipeline accounting reads: ``stage_layer_bounds``, ``stage_of_depth``).  Every parameter gets a depth l in [0, L-1]:
 
   * token/patch/frame embeddings            -> depth 0
   * transformer block i (or conv stage i)   -> depth i + 1
@@ -79,3 +80,28 @@ def infer_layer_ids(params: Tree, num_blocks: int) -> Tree:
 
 def total_layers(num_blocks: int) -> int:
     return num_blocks + 2
+
+
+def stage_layer_bounds(num_blocks: int, num_stages: int):
+    """Contiguous ``[lo, hi)`` block ranges per pipeline stage: stage ``s``
+    owns blocks ``[s*L//S, (s+1)*L//S)`` (uneven counts allowed)."""
+    if num_stages < 1:
+        raise ValueError(f"num_stages must be >= 1, got {num_stages}")
+    return tuple((s * num_blocks // num_stages,
+                  (s + 1) * num_blocks // num_stages)
+                 for s in range(num_stages))
+
+
+def stage_of_depth(depth: int, num_blocks: int, num_stages: int) -> int:
+    """Owner stage of a leaf by its depth: embeddings on stage 0, the final
+    norm and head on the last, block ``b`` (depth ``b + 1``) on the stage
+    whose :func:`stage_layer_bounds` range holds it."""
+    if depth <= 0:
+        return 0
+    if depth >= num_blocks + 1:
+        return num_stages - 1
+    b = depth - 1
+    for s, (lo, hi) in enumerate(stage_layer_bounds(num_blocks, num_stages)):
+        if lo <= b < hi:
+            return s
+    return num_stages - 1

@@ -256,6 +256,14 @@ def mix_collective_blocked(seed: int, params: Tree, opt_state: Optional[Tree],
             lambda plan, tree: shf.apply_plan_collective_blocked(plan, tree,
                                                                  mesh))
         return params, opt_state
+    return papa_blocked(params, cfg, mesh), opt_state
+
+
+def papa_blocked(params: Tree, cfg: MixingConfig, mesh) -> Tree:
+    """PAPA's pull (PAPA-all's average) of this rank's block of members
+    toward the population's mean over ``mesh``'s group (:func:`_mean0`),
+    in place.  Elementwise, so a block of member shards mixes exactly as
+    the whole members would."""
     if cfg.kind not in ("papa", "papa_all"):
         raise ValueError(f"unknown mixing kind {cfg.kind!r}")
     for x in tree_leaves(params):
@@ -264,4 +272,4 @@ def mix_collective_blocked(seed: int, params: Tree, opt_state: Optional[Tree],
             x.copy_(cfg.papa_alpha * x + (1.0 - cfg.papa_alpha) * mean)
         else:
             x.copy_(mean.expand_as(x))
-    return params, opt_state
+    return params

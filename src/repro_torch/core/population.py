@@ -113,18 +113,44 @@ def num_params(params: Tree) -> int:
     return sum(int(x.numel()) for x in tree_leaves(params))
 
 
-def gather_population(block: Tree, mesh, dst: int = 0) -> Optional[Tree]:
-    """The whole stacked population on rank ``dst`` of ``mesh`` (a
-    :class:`repro_torch.launch.mesh.EnsMesh`) from each rank's
+def all_gather_dims(x: torch.Tensor, dims, group) -> torch.Tensor:
+    """Whole leaves from a block of shards ``x`` (n_local, *shard): an
+    all-gather over ``group`` (an axis group of a mesh: ``world``,
+    ``group``) along member dim d + 1 for each d in ``dims``.  Moves
+    values, computes nothing."""
+    for d in dims:
+        parts = [torch.empty_like(x) for _ in range(group.world)]
+        dist.all_gather(parts, x.contiguous(), group=group.group)
+        x = torch.cat(parts, dim=d + 1)
+    return x
+
+
+def gather_population(block: Tree, mesh, dst: int = 0,
+                      shard_dims=None) -> Optional[Tree]:
+    """The whole stacked population on rank ``dst`` from each rank's
     ``(n_local, ...)`` block, members in global order; None on the other
-    ranks.  At world 1 the block itself, with no copy.  Every rank of the
-    mesh must call it."""
-    if mesh.world == 1:
+    ranks.  ``mesh`` is an ensemble mesh or a multi-axis
+    :class:`repro_torch.launch.mesh.HostMesh`, whose ranks hold member
+    shards: ``shard_dims`` (a tuple of member dims for each leaf, in leaf
+    order) names the dims its model group splits, which are gathered
+    first, leaf by leaf, then the members over the population group.  At
+    world 1 the block itself, with no copy.  Every rank of the mesh must
+    call it."""
+    pop_mesh = getattr(mesh, "pop", mesh)
+    model = getattr(mesh, "model", None)
+    if model is None or model.world == 1:
+        shard_dims = None
+    if pop_mesh.world == 1 and shard_dims is None:
         return block
+    dims = iter(shard_dims) if shard_dims is not None else None
 
     def gather(x):
-        parts = [torch.empty_like(x) for _ in range(mesh.world)]
-        dist.all_gather(parts, x.contiguous(), group=mesh.group)
+        if dims is not None:
+            x = all_gather_dims(x, next(dims), model)
+        if pop_mesh.world == 1:
+            return x if mesh.rank == dst else None
+        parts = [torch.empty_like(x) for _ in range(pop_mesh.world)]
+        dist.all_gather(parts, x.contiguous(), group=pop_mesh.group)
         return torch.cat(parts) if mesh.rank == dst else None
 
     full = tree_map(gather, block)

@@ -3,8 +3,12 @@
 Port of ``repro/launch/train.py``.  ``--engine vmap`` (the default) runs
 the reference loop on one device; ``--engine shard_map`` runs the
 ensemble engine (``train/engine.py``) over the ranks that ``torchrun``
-starts, one block of N / world members a rank (``--mesh ens``, the one
-mesh ported), or at world 1 over the whole population on one device.
+starts: ``--mesh ens`` one block of N / world members a rank (at world 1
+the whole population on one device); ``--mesh ens_dp`` / ``ens_dp_mp``
+an (E, D[, M]) mesh of the ranks (``launch/mesh.py``, the reference's
+fill, or ``--mesh-shape E,D,M``), where members split over the model
+axis by ``sharding/rules.py``'s specs and batches over a data axis that
+carries no members.
 WASH kinds on that engine take bucketed plans: ``--mode dense`` is
 switched to bucketed with a note, as in the reference.  On the card
 every WASH shuffle of a stacked block runs the hand-written CUDA kernels
@@ -36,16 +40,22 @@ weight moves there (``models/transformer.py::cuda_supported``).
       --mode bucketed --steps 4 --batch-size 2 --seq-len 16 \\
       --engine shard_map
 
+  torchrun --nproc-per-node=4 -m repro_torch.launch.train \\
+      --arch llama3.2-3b --population 2 --mixing wash_opt \\
+      --optimizer adamw --mode bucketed --steps 4 --batch-size 2 \\
+      --seq-len 256 --engine shard_map --mesh ens_dp_mp
+
   python -m repro_torch.launch.train --arch rwkv6-3b --population 2 \\
       --mode bucketed --steps 4 --batch-size 2 --seq-len 256 \\
       --ckpt-population build/pop.npz
 
 Under ``torchrun`` every rank trains its block; rank 0 alone prints,
 gathers the population (``core.population.gather_population``) for the
-averaged-model loss and ``--ckpt`` / ``--ckpt-population``, and writes
-``--history`` and ``--metrics-out``.  The multi-axis meshes
-(``--mesh ens_dp`` and the others, ``--mesh-shape``) and the pipeline
-(``--pp-stages``, ``--microbatches``) are not ported yet and are refused.
+averaged-model loss and ``--ckpt`` / ``--ckpt-population`` (member
+shards gathered over the model axis first), and writes ``--history`` and
+``--metrics-out``.  The pipeline (``--mesh ens_pp`` / ``ens_dp_pp`` with
+``--pp-stages`` above 1, ``--microbatches`` above 1) is not ported yet
+and is refused before any weight is made.
 
 ``--metrics-out`` writes the telemetry event stream (``repro_torch.obs``:
 the step or chunk spans, the ``train.comm_volume`` events, the final
@@ -66,15 +76,18 @@ import torch
 from repro_torch import obs
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core import shardplan
 from repro_torch.core.device import resolve_device
+from repro_torch.core.layer_index import infer_layer_ids, total_layers
 from repro_torch.core.mixing import MixingConfig
 from repro_torch.core.population import gather_population
 from repro_torch.core.prng import fold_in
 from repro_torch.data import make_lm_task, sample_tokens
-from repro_torch.launch.mesh import HOST_MESH_AXES, make_host_mesh
+from repro_torch.launch.mesh import HOST_MESH_AXES, HostMesh, make_host_mesh
 from repro_torch.launch.specs import concrete_batch
 from repro_torch.models import transformer as M
 from repro_torch.serving.engine import averaged_params
+from repro_torch.sharding import rules
 from repro_torch.train import checkpoint
 from repro_torch.train.loop import PHASES, train_population
 
@@ -124,14 +137,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "instead of running no-mix gate runs on the "
                          "collective-free chunk function")
     ap.add_argument("--mesh", default="ens", choices=sorted(HOST_MESH_AXES),
-                    help="shard_map engine: mesh layout; ens (one block of "
-                         "members a rank) is ported, the multi-axis kinds "
-                         "are refused")
+                    help="shard_map engine: mesh layout over the ranks; ens "
+                         "(one block of members a rank), ens_dp (E, D), "
+                         "ens_dp_mp (E, D, M: members split over the model "
+                         "axis); the pipeline kinds take a pipe axis of 1")
     ap.add_argument("--mesh-shape", default=None,
                     help="explicit comma-separated axis sizes for --mesh "
-                         "(refused: not ported)")
+                         "(their product must be the world); default: E "
+                         "the largest divisor of N that fits, then the "
+                         "model axis, then the data axis")
     ap.add_argument("--pp-stages", type=int, default=None,
-                    help="pipeline stages (refused: not ported)")
+                    help="pipeline stages (refused above 1: not ported)")
     ap.add_argument("--microbatches", type=int, default=1,
                     help="pipelined engine's microbatches a step (refused "
                          "above 1: not ported)")
@@ -169,6 +185,21 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def member_specs(cfg, mcfg: MixingConfig, mesh: HostMesh, population: int):
+    """The member specs of ``cfg`` on ``mesh``: ``rules.param_pspecs``
+    over a ``meta`` template when the model axis splits members (None
+    otherwise), checked by the shard-local planner on that template, so
+    a spec the mesh cannot take is refused before any weight is made."""
+    if mesh.shape.get("model", 1) == 1:
+        return None
+    shapes = M.param_shapes(cfg)
+    specs = rules.param_pspecs(shapes, cfg, mesh)
+    shardplan.plan_population_mixing(
+        mesh, shapes, specs, mcfg, infer_layer_ids(shapes, cfg.num_layers),
+        total_layers(cfg.num_layers), population)
+    return specs
+
+
 def main(argv=None, cfg=None):
     """Run the CLI on ``argv``; returns the loop's result.  ``cfg``, when
     given, is trained in place of ``--arch``'s config: a caller's cut of
@@ -186,12 +217,17 @@ def main(argv=None, cfg=None):
             and args.mesh not in ("ens_pp", "ens_dp_pp")):
         ap.error("--pp-stages/--microbatches require --mesh ens_pp or "
                  "ens_dp_pp")
-    mesh = (make_host_mesh(args.population, args.mesh,
-                           mesh_shape=args.mesh_shape,
-                           pp_stages=args.pp_stages, device=args.device)
-            if sharded else None)
-    device = mesh.device if sharded else resolve_device(args.device)
-    lead = mesh is None or mesh.rank == 0
+    if args.microbatches > 1:
+        raise NotImplementedError(
+            "--microbatches: the pipelined engine is not ported yet "
+            "(ROADMAP §1, 'The pipeline axis')")
+    mesh_shape = None
+    if args.mesh_shape is not None:
+        try:
+            mesh_shape = tuple(int(x) for x in args.mesh_shape.split(","))
+        except ValueError:
+            ap.error(f"--mesh-shape {args.mesh_shape!r} is not a "
+                     "comma-separated list of integers")
     if cfg is None:
         cfg = get_arch(args.arch)
     if args.reduced:
@@ -199,6 +235,12 @@ def main(argv=None, cfg=None):
     reason = M.train_supported(cfg)
     if reason is not None:
         raise NotImplementedError(f"training {cfg.name}: {reason}")
+    mesh = (make_host_mesh(args.population, args.mesh,
+                           mesh_shape=mesh_shape,
+                           pp_stages=args.pp_stages, device=args.device)
+            if sharded else None)
+    device = mesh.device if sharded else resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
     if device.type == "cuda":  # before any weight reaches the card
         reason = M.cuda_supported(cfg, "train", args.seq_len)
         if reason is not None:
@@ -236,7 +278,17 @@ def main(argv=None, cfg=None):
     if sharded:
         engine_opts = {"async_staging": False if args.sync_staging else None,
                        "split_gate_runs": not args.no_gate_split}
-        if lead:
+        if isinstance(mesh, HostMesh):
+            engine_opts["param_specs"] = member_specs(cfg, mcfg, mesh,
+                                                      args.population)
+            if lead:
+                r = mesh.roles
+                split = tuple(a for a in r.model_axes if mesh.shape[a] > 1)
+                print(f"mesh: {mesh.shape} (population over {r.pop_axes}, "
+                      f"batches split over {r.dp_axes or 'none'}, members "
+                      f"split over {split or 'none'}; {mesh.n_local} "
+                      f"members a rank, {device})")
+        elif lead:
             print(f"mesh: ens={mesh.world} ({mesh.n_local} members a rank, "
                   f"{device})")
     record_every = (args.record_every if args.record_every is not None
@@ -255,8 +307,9 @@ def main(argv=None, cfg=None):
         )
     finally:
         tel.finalize()
-    population = (gather_population(res.population, mesh) if sharded
-                  else res.population)
+    population = (gather_population(res.population, mesh,
+                                    shard_dims=res.shard_dims)
+                  if sharded else res.population)
     if sharded:
         mesh.close()
     if not lead:

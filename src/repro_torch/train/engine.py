@@ -32,6 +32,20 @@ Member g's data, the step seeds, the optimizer arithmetic and the plans
 are the vmap loop's (:mod:`repro_torch.train.loop`), so at world 1 the
 engine reproduces it bit for bit under WASH, PAPA and ``none``.  WASH
 kinds need bucketed plans: dense ones have no collective form.
+
+On a multi-axis mesh (:class:`repro_torch.launch.mesh.HostMesh`, the
+reference's ``pplan`` body) the shard-local planner
+(:mod:`repro_torch.core.shardplan`) places the population: members over
+the population axes, each member's leaves split over the model axes by
+``param_specs`` (``sharding/rules.py``), batches split over the data
+axes that do not carry members.  When a leaf is split or a data axis
+splits batches, each step of a member gathers it whole over the model
+group, runs forward and backward on it, takes the gradients' mean over
+the data group, keeps this rank's slice of them and updates its shard
+(the optimizers are elementwise, so the update is that of the same
+slice of the whole member); the mix is shard-local
+(:func:`repro_torch.core.shardplan.mix_collective_sharded`).  Otherwise
+the step is the single-axis one, as in the reference.
 """
 
 from __future__ import annotations
@@ -46,6 +60,7 @@ import torch.distributed as dist
 from repro_torch import obs
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import population as pop
+from repro_torch.core import shardplan
 from repro_torch.core.consensus import avg_distance_to_consensus_blocked
 from repro_torch.core.device import DeviceLike
 from repro_torch.core.layer_index import infer_layer_ids, total_layers
@@ -113,22 +128,50 @@ class Staged(NamedTuple):
     gates: List[bool]
 
 
+def _mean_over(x: torch.Tensor, axes) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of the axis group ``axes``."""
+    if axes.world > 1:
+        x = x.contiguous()
+        dist.all_reduce(x, group=axes.group)
+        x = x / axes.world
+    return x
+
+
 def make_fused_chunk_fn(mesh, mcfg: MixingConfig, layer_ids: Tree, tl: int,
                         opt_update: Callable, loss_fn: Callable, *,
                         with_mixing: bool = True,
-                        clock: Optional[_PhaseClock] = None) -> Callable:
+                        clock: Optional[_PhaseClock] = None,
+                        pplan: Optional[shardplan.PopulationPlan] = None
+                        ) -> Callable:
     """Build the chunk function ``(population, opt_state, staged) ->
     (population, opt_state, loss)``: per step, each local member's
     forward+backward and optimizer update (in place, as the vmap loop
     does them), then the gated collective mix; the loss of the chunk's
     last step is the mean over all N members (the local mean,
-    all-reduced).  ``with_mixing=False`` builds the collective-free
-    variant run on no-mix gate runs.  ``clock`` times the loop's phases
-    a step."""
+    all-reduced; on a multi-axis mesh over the population and data
+    groups).  ``with_mixing=False`` builds the collective-free variant
+    run on no-mix gate runs.  ``clock`` times the loop's phases a step.
+    ``pplan`` (with ``mesh`` a ``HostMesh``) selects the multi-axis body:
+    gather, grad, data mean and slice when a leaf is split or a data axis
+    splits batches, and shard-local mixing."""
     _CHUNK_TRACES[0] += 1
     obs.get().record_compile("train_chunk", mixing=bool(with_mixing))
     if clock is None:
         clock = _PhaseClock(mesh.device)  # marks that nobody reads
+    loss_axes = mesh if pplan is None else mesh.loss
+    gathered = pplan is not None and (pplan.any_sharded or bool(pplan.dp_axes))
+
+    def grads_of(population: Tree, m: int, batch):
+        if not gathered:
+            return _grad_step(loss_fn, pop.member(population, m), batch)
+        full = pop.member(shardplan.all_gather_population(
+            pop.tree_map(lambda x: x[m:m + 1], population), pplan, mesh), 0)
+        loss_m, grads = _grad_step(loss_fn, full, batch)
+        del full
+        grads = pop.tree_map(lambda g: _mean_over(g, mesh.data).unsqueeze(0),
+                             grads)
+        return loss_m, pop.member(
+            shardplan.shard_population(grads, pplan, mesh), 0)
 
     def chunk_fn(population: Tree, opt_state: Tree, staged: Staged):
         loss = None
@@ -136,8 +179,7 @@ def make_fused_chunk_fn(mesh, mcfg: MixingConfig, layer_ids: Tree, tl: int,
             losses = []
             for m, batch in enumerate(batches):
                 a = clock.mark()
-                loss_m, grads = _grad_step(loss_fn, pop.member(population, m),
-                                           batch)
+                loss_m, grads = grads_of(population, m, batch)
                 b = clock.mark()
                 opt_update(pop.member(population, m), grads,
                            pop.member(opt_state, m), lr)
@@ -148,13 +190,14 @@ def make_fused_chunk_fn(mesh, mcfg: MixingConfig, layer_ids: Tree, tl: int,
             loss = torch.mean(torch.stack(losses).float())
             if with_mixing and gate:
                 a = clock.mark()
-                mix_collective_blocked(seed, population, opt_state, mcfg,
-                                       layer_ids, tl, mesh, gate)
+                if pplan is None:
+                    mix_collective_blocked(seed, population, opt_state, mcfg,
+                                           layer_ids, tl, mesh, gate)
+                else:
+                    shardplan.mix_collective_sharded(
+                        seed, population, opt_state, mcfg, pplan, mesh, gate)
                 clock.add("mix", step, a, clock.mark())
-        if mesh.world > 1:
-            dist.all_reduce(loss, group=mesh.group)
-            loss = loss / mesh.world
-        return population, opt_state, loss
+        return population, opt_state, _mean_over(loss, loss_axes)
 
     return chunk_fn
 
@@ -169,47 +212,79 @@ def train_population_sharded(
         split_gate_runs: bool = True, param_specs=None,
         device: DeviceLike = "cuda") -> TrainResult:
     """:func:`repro_torch.train.loop.train_population` on the ensemble
-    engine.  ``mesh`` is this rank's :class:`~repro_torch.launch.mesh.EnsMesh`
-    (default: :func:`~repro_torch.launch.mesh.make_host_ensemble_mesh` on
-    ``device``, made before any parameter); ``init_fn`` must put the
-    parameters on its device.  ``async_staging`` (None: see
-    :func:`resolve_async_staging`) and ``split_gate_runs`` (see
-    :func:`repro_torch.train.schedule.build_schedule`) are the reference's.
-    ``record_fn(step, block)`` sees this rank's block.  The result holds
-    this rank's block of the population and of the optimizer state, from
-    global member ``member_offset`` on; losses, consensus and comm are the
-    whole population's, the same on every rank."""
+    engine.  ``mesh`` is this rank's
+    :class:`~repro_torch.launch.mesh.EnsMesh` (default:
+    :func:`~repro_torch.launch.mesh.make_host_ensemble_mesh` on
+    ``device``, made before any parameter) or
+    :class:`~repro_torch.launch.mesh.HostMesh` (the multi-axis body);
+    ``init_fn`` must put the parameters on its device.
+    ``async_staging`` (None: see :func:`resolve_async_staging`),
+    ``split_gate_runs`` (see
+    :func:`repro_torch.train.schedule.build_schedule`) and
+    ``param_specs`` (member-level :class:`repro_torch.sharding.rules.P`
+    specs, e.g. from ``rules.param_pspecs``; a multi-axis mesh only) are
+    the reference's.  ``record_fn(step, block)`` sees this rank's block.
+    The result holds this rank's block of the population and of the
+    optimizer state (member shards on a mesh whose model axes split
+    them: ``shard_dims`` names the split dims), from global member
+    ``member_offset`` on; losses, consensus and comm are the whole
+    population's, the same on every rank."""
     if mcfg.kind in ("wash", "wash_opt") and mcfg.mode != "bucketed":
         raise ValueError(
             f"engine='shard_map' only runs bucketed WASH plans; got "
             f"mode={mcfg.mode!r}.  Use mode='bucketed' (identical in "
             f"expectation, Eq. 4) or engine='vmap' for dense plans.")
-    if param_specs is not None:
-        raise NotImplementedError(
-            "param_specs (members sharded over data / model axes, "
-            "core/shardplan.py) are not ported yet: ROADMAP §1, "
-            "'Multi-device training'")
+    multi = mesh is not None and hasattr(mesh, "pop")
+    if param_specs is not None and not multi:
+        raise ValueError(
+            "param_specs shard members over mesh axes; pass a multi-axis "
+            "mesh (repro_torch.launch.mesh.make_host_mesh) along with them")
     n = tcfg.population
     if mesh is None:
         from repro_torch.launch.mesh import make_host_ensemble_mesh
 
         mesh = make_host_ensemble_mesh(n, device)
-    if mesh.n_local * mesh.world != n:
-        raise ValueError(f"population {n} is not {mesh.world} ranks x "
+    pop_world = mesh.pop.world if multi else mesh.world
+    if mesh.n_local * pop_world != n:
+        raise ValueError(f"population {n} is not {pop_world} ranks x "
                          f"{mesh.n_local} members")
+    if multi and param_specs is not None:
+        shardplan.check_spec_axes(param_specs, mesh, mesh.roles)
     dev = mesh.device
 
-    if tcfg.same_init:
-        population = pop.replicate(init_fn(seed), mesh.n_local)
-    else:
-        population = pop.stack([init_fn(fold_in(seed, g))
-                                for g in mesh.members])
-    for x in pop.tree_leaves(population):
+    first = init_fn(seed if tcfg.same_init
+                    else fold_in(seed, mesh.member_offset))
+    for x in pop.tree_leaves(first):
         if x.device != dev:
             raise ValueError(f"init_fn put parameters on {x.device}; the "
                              f"engine trains on {dev}")
-    lids = infer_layer_ids(pop.member(population, 0), num_blocks)
+    member_tpl = pop.tree_map(
+        lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), first)
+    lids = infer_layer_ids(member_tpl, num_blocks)
     tl = total_layers(num_blocks)
+    pplan = None
+    if multi:
+        from repro_torch.sharding.rules import P
+
+        specs = (param_specs if param_specs is not None
+                 else pop.tree_map(lambda _: P(), member_tpl))
+        pplan = shardplan.plan_population_mixing(mesh, member_tpl, specs,
+                                                 mcfg, lids, tl, n)
+
+    def shard(member: Tree) -> Tree:
+        """This rank's slice of a whole member, each leaf contiguous."""
+        if pplan is None or not pplan.any_sharded:
+            return member
+        return pop.member(shardplan.shard_population(
+            pop.tree_map(lambda x: x.unsqueeze(0), member), pplan, mesh), 0)
+
+    first = shard(first)
+    if tcfg.same_init:
+        population = pop.replicate(first, mesh.n_local)
+    else:
+        population = pop.stack([first] + [
+            shard(init_fn(fold_in(seed, g))) for g in mesh.members[1:]])
+    del first
 
     opt_init, opt_update = make_optimizer(
         tcfg.optimizer, momentum=tcfg.momentum, weight_decay=tcfg.weight_decay)
@@ -217,11 +292,23 @@ def train_population_sharded(
     opt_state["step"] = torch.zeros((mesh.n_local,), dtype=torch.int32,
                                     device=dev)
 
-    member_tpl = pop.tree_map(
-        lambda x: torch.empty(x.shape[1:], dtype=x.dtype, device="meta"),
-        population)
-    comm_per_mix_step = static_mix_comm(member_tpl, mcfg, lids, tl, n,
-                                        opt_state=opt_state)
+    split_rows = None
+    if pplan is not None:
+        comm_per_mix_step = shardplan.static_shard_mix_comm(
+            pplan, opt_state=opt_state)
+        # data axes split a member's batch only when every batch leaf's
+        # rows divide over them (all or nothing, as the reference probes);
+        # otherwise each data replica takes the whole batch
+        if pplan.dp_axes:
+            probe = data_fn(0, 0, fold_in(seed, 0))
+            d = mesh.data.world
+            if all(x.dim() and x.shape[0] % d == 0
+                   for x in pop.tree_leaves(probe)):
+                split_rows = (mesh.data.rank, d)
+            del probe
+    else:
+        comm_per_mix_step = static_mix_comm(member_tpl, mcfg, lids, tl, n,
+                                            opt_state=opt_state)
 
     sched = build_schedule(tcfg.total_steps, record_every, mcfg,
                            split_gate_runs=split_gate_runs)
@@ -232,14 +319,16 @@ def train_population_sharded(
         if chunk.mixing not in fused:
             fused[chunk.mixing] = make_fused_chunk_fn(
                 mesh, mcfg, lids, tl, opt_update, loss_fn,
-                with_mixing=chunk.mixing, clock=clock)
+                with_mixing=chunk.mixing, clock=clock, pplan=pplan)
         return fused[chunk.mixing]
 
     return _run_chunked_schedule(
         mesh=mesh, tcfg=tcfg, data_fn=data_fn, sched=sched,
         get_fused=get_fused, population=population, opt_state=opt_state,
         comm_per_mix_step=comm_per_mix_step, record_fn=record_fn, seed=seed,
-        async_staging=async_staging, clock=clock)
+        async_staging=async_staging, clock=clock, split_rows=split_rows,
+        shard_dims=(shardplan.shard_dims(pplan)
+                    if pplan is not None and pplan.any_sharded else None))
 
 
 def _run_chunked_schedule(*, mesh, tcfg: TrainConfig, data_fn: Callable,
@@ -247,20 +336,31 @@ def _run_chunked_schedule(*, mesh, tcfg: TrainConfig, data_fn: Callable,
                           population: Tree, opt_state: Tree,
                           comm_per_mix_step: float, record_fn, seed: int,
                           async_staging: Optional[bool],
-                          clock: _PhaseClock) -> TrainResult:
+                          clock: _PhaseClock, split_rows=None,
+                          shard_dims=None) -> TrainResult:
     """Stage each chunk's inputs (on a thread, one chunk ahead, when
     :func:`resolve_async_staging` allows), run its chunk function, add
     the exact float64 comm a mixing step, and record at the reference
-    loop's record steps."""
+    loop's record steps.  ``split_rows = (d, D)`` keeps rows
+    [d·B/D, (d+1)·B/D) of every batch leaf; ``shard_dims`` are the
+    model-split dims of the block's leaves (consensus and the result)."""
     base_seed = fold_in(seed, 1234)
     data_seed = fold_in(seed, 5678)
+
+    def rows(batch):
+        if split_rows is None:
+            return batch
+        d, parts = split_rows
+        return pop.tree_map(
+            lambda x: x[d * (x.shape[0] // parts):
+                        (d + 1) * (x.shape[0] // parts)], batch)
 
     def stage(chunk: ChunkPlan) -> Staged:
         steps = list(chunk.steps)
         batches = []
         for step in steps:
             ds = fold_in(data_seed, step)
-            batches.append([data_fn(g, step, fold_in(ds, g))
+            batches.append([rows(data_fn(g, step, fold_in(ds, g)))
                             for g in mesh.members])
         lrs = [cosine_lr(s, tcfg.total_steps, tcfg.lr, tcfg.min_lr,
                          tcfg.warmup_steps) for s in steps]
@@ -314,7 +414,8 @@ def _run_chunked_schedule(*, mesh, tcfg: TrainConfig, data_fn: Callable,
                 history["step"].append(step)
                 history["loss"].append(float(loss_last))
                 history["consensus"].append(float(
-                    avg_distance_to_consensus_blocked(population, mesh)))
+                    avg_distance_to_consensus_blocked(population, mesh,
+                                                      shard_dims)))
                 history["comm"].append(comm_total)
                 extras = {}
                 if record_fn is not None:
@@ -340,4 +441,5 @@ def _run_chunked_schedule(*, mesh, tcfg: TrainConfig, data_fn: Callable,
     if tel.enabled:
         tel.registry.gauge("train.wall_s").set(history["wall_s"][0])
     return TrainResult(population, opt_state, history, comm_total, phase_ms,
-                       member_offset=mesh.member_offset)
+                       member_offset=mesh.member_offset,
+                       shard_dims=shard_dims)

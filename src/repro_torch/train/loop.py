@@ -60,6 +60,9 @@ class TrainResult:
     #: the global index of ``population``'s first member: the ensemble
     #: engine's result holds this rank's block of members; the loop's, all
     member_offset: int = 0
+    #: on a mesh whose model axes split members, the member dims split in
+    #: each leaf (the block holds shards; ``gather_population`` takes it)
+    shard_dims: Optional[List[tuple]] = None
 
 
 class _PhaseClock:

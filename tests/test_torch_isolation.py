@@ -51,7 +51,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "launch.quickstart", "serving.driver",
                  "serving.speculative", "obs", "obs.metrics", "obs.events",
                  "obs.profiler", "train.engine", "train.schedule",
-                 "launch.mesh"):
+                 "launch.mesh", "core.shardplan", "sharding",
+                 "sharding.rules"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

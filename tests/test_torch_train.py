@@ -303,7 +303,7 @@ def test_train_population_refuses_what_it_does_not_run():
     args = (0, lambda s: TM.init_params(cfg, seed=s, device="cpu"),
             lambda p, b: TM.loss_fn(p, cfg, b)[0], None,
             TrainConfig(population=2, total_steps=1), mix.MixingConfig(), 2)
-    with pytest.raises(NotImplementedError, match="Multi-device training"):
+    with pytest.raises(ValueError, match="multi-axis"):
         tloop.train_population(*args[:5], mix.MixingConfig(mode="bucketed"),
                                2, engine="shard_map", device="cpu",
                                engine_opts={"param_specs": {}})

@@ -15,12 +15,13 @@ head 8x4; N = 4, 11 steps, a record every 5):
     ``none`` and PAPA (its mean is summed in float64, exactly, so the
     order of the adds across ranks does not show), with the same comm;
   * the train CLI at ``--reduced --device cpu``: ``--engine shard_map``
-    prints the loss, consensus and comm of ``--engine vmap``; dense WASH
-    is switched to bucketed with a note; the multi-axis meshes are
-    refused; its telemetry stream passes the schema checker;
+    prints the loss, consensus and comm of ``--engine vmap``, on the
+    ``ens`` mesh and on the (1, 1, 1) ``ens_dp_mp`` mesh; dense WASH is
+    switched to bucketed with a note; a pipe axis past 1 is refused; its
+    telemetry stream passes the schema checker;
   * refusals, before any parameter is made: a population that does not
     divide over the world, more ranks than cards on ``cuda``, dense WASH,
-    ``param_specs``.
+    ``param_specs`` without a multi-axis mesh, pipeline stages.
 """
 
 import jax
@@ -232,12 +233,16 @@ def test_train_cli_engines_print_the_same_run(capsys):
     assert _printed(sharded) == _printed(vmap)
     assert "engine=shard_map" in sharded and "mesh: ens=1" in sharded
 
+    train_cli.main(CLI + ["--mode", "bucketed", "--engine", "shard_map",
+                          "--mesh", "ens_dp_mp", "--record-every", "2"])
+    multi = capsys.readouterr().out
+    assert _printed(multi) == _printed(vmap)
+    assert "mesh: {'ens': 1, 'data': 1, 'model': 1}" in multi
+
     train_cli.main(CLI + ["--engine", "shard_map", "--steps", "1"])
     out = capsys.readouterr().out
     assert "switching --mode dense -> bucketed" in out
-    with pytest.raises(NotImplementedError, match="only the ens axis"):
-        train_cli.main(CLI + ["--engine", "shard_map", "--mesh", "ens_dp"])
-    with pytest.raises(NotImplementedError, match="only the ens axis"):
+    with pytest.raises(NotImplementedError, match="pipeline axis"):
         train_cli.main(CLI + ["--engine", "shard_map", "--mesh", "ens_pp",
                               "--pp-stages", "2"])
     with pytest.raises(SystemExit):
@@ -295,11 +300,11 @@ def test_refusals_come_before_any_parameter(monkeypatch):
     with pytest.raises(ValueError, match="bucketed"):
         tloop.train_population(*args, mix.MixingConfig(kind="wash"), 1,
                                engine="shard_map", device="cpu")
-    with pytest.raises(NotImplementedError, match="Multi-device training"):
+    with pytest.raises(ValueError, match="multi-axis"):
         tloop.train_population(*args, bucketed, 1, engine="shard_map",
                                device="cpu", engine_opts={"param_specs": {}})
-    with pytest.raises(NotImplementedError, match="Multi-device training"):
-        tmesh.make_host_mesh(4, "ens_dp", device="cpu")
+    with pytest.raises(NotImplementedError, match="pipeline axis"):
+        tmesh.make_host_mesh(4, "ens_pp", pp_stages=2, device="cpu")
     with pytest.raises(ValueError, match="mesh="):
         tloop.train_population(*args, bucketed, 1, device="cpu",
                                mesh=tmesh.make_host_ensemble_mesh(4, "cpu"))

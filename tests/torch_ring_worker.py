@@ -16,7 +16,13 @@ Scenarios:
               parent's plans, the plans each rank draws, and
               ``gather_population``;
   engine      the ensemble engine on the toy model at world 2 (two
-              subgroups of 2) and world 4, the population gathered.
+              subgroups of 2) and world 4, the population gathered;
+  multiaxis   the engine on ens×data×model meshes of the 4 ranks
+              (:data:`MX_RUNS`) on the multi-axis toy model
+              (:func:`mx_init`, :func:`mx_loss`, :func:`mx_data`, whose
+              leaves :func:`mx_specs` split), the population gathered on
+              rank 0 and written through ``checkpoint``; each rank's
+              shard-local plans; the train CLI on a (2, 1, 2) mesh.
 """
 
 from __future__ import annotations
@@ -219,6 +225,136 @@ def engine_runs(rank: int, world: int, data) -> dict:
     return out
 
 
+# the multi-axis toy: tests/test_shardplan.py's MEMBER shapes
+MX_STEPS, MX_RECORD = 7, 3
+# (tag, mesh shape, N, MixingConfig kwargs, optimizer, steps, record every)
+MX_RUNS = [(f"{kind}_{'x'.join(map(str, shape))}_{n}", shape, n,
+            dict(kind=kind, papa_every=3, papa_all_every=3, papa_alpha=0.9),
+            "sgd", MX_STEPS, MX_RECORD)
+           for shape, n in (((2, 1, 2), 2), ((2, 1, 2), 4), ((1, 1, 4), 2),
+                            ((2, 2, 1), 4))
+           for kind in ("none", "papa", "papa_all")]
+MX_RUNS += [(f"{kind}_{'x'.join(map(str, shape))}_{n}", shape, n,
+             dict(kind=kind, base_p=0.9, schedule="constant",
+                  mode="bucketed"),
+             "adamw" if kind == "wash_opt" else "sgd", 1, 1)
+            for shape, n in (((2, 1, 2), 2), ((1, 1, 4), 2), ((2, 1, 2), 4))
+            for kind in ("wash", "wash_opt")]
+MX_RUNS += [("wash_2x2x1_2", (2, 2, 1), 2,
+             dict(kind="wash", base_p=0.5, mode="bucketed"), "sgd", 5, 2)]
+MX_PLAN_SEED = 11
+MX_CLI = ["--arch", "llama3.2-3b", "--reduced", "--device", "cpu",
+          "--population", "2", "--mixing", "papa", "--steps", "3",
+          "--batch-size", "2", "--seq-len", "8", "--engine", "shard_map"]
+
+
+def mx_specs():
+    from repro_torch.sharding.rules import P
+
+    return {"embed": {"w": P(None, "model")},
+            "blocks": {"w1": P(None, None, "model")},
+            "head": {"w": P()}}
+
+
+def mx_init(seed: int):
+    """embed 32x16, two stacked 16x64 blocks, head 16x8, float32."""
+    g = torch.Generator().manual_seed(seed)
+    return {"embed": {"w": 0.3 * torch.randn(32, 16, generator=g)},
+            "blocks": {"w1": 0.3 * torch.randn(2, 16, 64, generator=g)},
+            "head": {"w": 0.3 * torch.randn(16, 8, generator=g)}}
+
+
+def mx_loss(p, b):
+    h = b["x"] @ p["embed"]["w"]
+    for w in p["blocks"]["w1"]:
+        h = torch.tanh(h @ w) @ w.T / 8
+    return torch.mean((h @ p["head"]["w"] - b["y"]) ** 2)
+
+
+def mx_data(m: int, step: int, seed: int):
+    g = torch.Generator().manual_seed(seed)
+    return {"x": torch.randn(4, 32, generator=g),
+            "y": torch.randn(4, 8, generator=g)}
+
+
+def mx_train(mcfg_kw: dict, optimizer: str, n: int, steps: int, every: int,
+             mesh=None, param_specs=None):
+    """The engine on the multi-axis toy, on the CPU: at world 1 with
+    ``mesh=None``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.mixing import MixingConfig
+    from repro_torch.train import engine
+
+    engine.reset_chunk_trace_count()
+    tcfg = TrainConfig(population=n, optimizer=optimizer,
+                       lr=3e-3 if optimizer == "adamw" else 0.05,
+                       total_steps=steps, batch_size=4)
+    return engine.train_population_sharded(
+        0, mx_init, mx_loss, mx_data, tcfg, MixingConfig(**mcfg_kw), 2,
+        record_every=every, mesh=mesh, param_specs=param_specs, device="cpu")
+
+
+def multiaxis(rank: int, world: int, data) -> dict:
+    from repro_torch.core import shardplan as sp
+    from repro_torch.core.layer_index import infer_layer_ids, total_layers
+    from repro_torch.core.mixing import MixingConfig
+    from repro_torch.core.population import gather_population
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import checkpoint, engine
+
+    out = {}
+    meshes = {}
+    for tag, shape, n, kw, optimizer, steps, every in MX_RUNS:
+        if (shape, n) not in meshes:  # every rank makes every mesh, in order
+            meshes[shape, n] = make_host_mesh(n, "ens_dp_mp",
+                                              mesh_shape=shape, device="cpu")
+        mesh = meshes[shape, n]
+        res = mx_train(kw, optimizer, n, steps, every, mesh, mx_specs())
+        traces = engine.chunk_trace_count()
+        full = gather_population(res.population, mesh,
+                                 shard_dims=res.shard_dims)
+        mu = gather_population(res.opt_state["mu"], mesh,
+                               shard_dims=res.shard_dims)
+        if rank == 0:
+            out.update(flat_tree(full, f"{tag}/p/"))
+            out.update(flat_tree(mu, f"{tag}/mu/"))
+            for k in ("loss", "consensus", "comm", "step"):
+                out[f"{tag}/{k}"] = np.asarray(res.history[k])
+            out[f"{tag}/traces"] = np.asarray(traces)
+            out[f"{tag}/roles"] = np.asarray(
+                [",".join(mesh.roles.pop_axes), ",".join(mesh.roles.dp_axes)])
+            if tag.startswith("wash_opt_2x1x2_2"):
+                path = checkpoint.save(os.path.join(data["dir"].item(),
+                                                    "mx_pop"), full)
+                back = checkpoint.restore(path, full)
+                out.update(flat_tree(back, f"{tag}/restored/"))
+
+    # this rank's plans on the model-split meshes
+    member = {"embed": {"w": torch.empty(32, 16, device="meta")},
+              "blocks": {"w1": torch.empty(2, 16, 64, device="meta")},
+              "head": {"w": torch.empty(16, 8, device="meta")}}
+    for shape in ((2, 1, 2), (1, 1, 4)):
+        mesh = meshes[shape, 2]
+        pplan = sp.plan_population_mixing(
+            mesh, member, mx_specs(),
+            MixingConfig(kind="wash", base_p=0.9, schedule="constant",
+                         mode="bucketed"),
+            infer_layer_ids(member, 2), total_layers(2), 2)
+        key = "x".join(map(str, shape))
+        for i, plan in enumerate(sp.build_local_plans(MX_PLAN_SEED, pplan,
+                                                      mesh)):
+            out[f"plan/{key}/{i}"] = plan.numpy()
+        out[f"coords/{key}"] = np.asarray([mesh.coords[a] for a in
+                                           mesh.axis_names])
+
+    # the train CLI on (2, 1, 2): the model axis from the rules' specs
+    train_cli.main(MX_CLI + ["--mesh", "ens_dp_mp", "--mesh-shape", "2,1,2",
+                             "--ckpt-population",
+                             os.path.join(data["dir"].item(), "cli_pop")])
+    return out
+
+
 def start(scenario: str, world: int, path: str, inputs: dict,
           timeout: float = 120.0):
     """Start SCENARIO on ``world`` ranks in fresh processes with
@@ -262,12 +398,13 @@ def start(scenario: str, world: int, path: str, inputs: dict,
 def main() -> int:
     scenario, rank, world, path = (sys.argv[1], int(sys.argv[2]),
                                    int(sys.argv[3]), sys.argv[4])
+    torch.set_num_threads(1)  # the ranks share the host's cores
     store = dist.FileStore(os.path.join(path, "store"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     try:
         data = np.load(os.path.join(path, "in.npz"))
-        out = {"collective": collective, "engine": engine_runs}[scenario](
-            rank, world, data)
+        out = {"collective": collective, "engine": engine_runs,
+               "multiaxis": multiaxis}[scenario](rank, world, data)
         np.savez(os.path.join(path, f"out_{rank}.npz"), **out)
         dist.barrier()
     finally:

@@ -8,7 +8,7 @@ cpu``, a process a CPU rank (``gloo``), from the root of a checkout:
     torchrun --standalone --nproc-per-node=4 tools/ensemble_ranks.py \\
         --device cpu --small
 
-Four ranks are needed.  Three parts, each failing the run on a mismatch:
+Four ranks are needed.  Four parts, each failing the run on a mismatch:
 
   1. ring: the blocked bucketed apply (``core/shuffle.py``) on
      llama3.2-3b's stacked ``blocks.mlp.w1`` (N = 4, bf16, the layered
@@ -26,7 +26,22 @@ Four ranks are needed.  Three parts, each failing the run on a mismatch:
      SGD, bucketed WASH at p = 0.01, 2 x 256 tokens a member, 4 steps)
      through the train CLI's ``main`` with ``--engine shard_map``, twice:
      the comm a step against ``static_mix_comm``, each rank's step split
-     (ms a step: forward+backward, optimizer, mixing) and peak memory.
+     (ms a step: forward+backward, optimizer, mixing) and peak memory;
+  4. meshes: (a) part 2's 4-layer float32 cut on the ens x data x model
+     meshes (2,1,2), (1,1,4) and (2,2,1) (``launch/mesh.py::
+     make_host_mesh``, members split over the model axis by
+     ``sharding/rules.py``), N = 2 and 4, against world 1 on rank 0: PAPA
+     (``papa_every=2``, 3 steps) bitwise where no data axis splits
+     batches, WASH (1 step) bitwise on the leaves no axis splits and the
+     same multiset per coordinate on the others, (2,2,1) at N = 2
+     (batches split over the data axis) within rtol 2e-5, atol 1e-6;
+     (b) full-width llama3.2-3b, N = 2, bf16, AdamW, WASH+Opt (bucketed
+     p = 0.01), 2 x 256 tokens a member, 4 steps, on (2,1,2) through the
+     train CLI: the comm a step (27,050,448.0), each rank's step split
+     with the first mixing step apart, peak memory and trained tokens/s;
+     (c) the same population on one card (rank 0 alone, the vmap loop),
+     run before every other part, while no NCCL communicator holds
+     memory on the card: where it runs out of memory.
 
 ``--small`` runs every part on the reduced config instead (a CPU run).
 Rank 0 prints the card's name and power limit, then the results as one
@@ -43,6 +58,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -55,6 +71,7 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.core import layer_index as tli  # noqa: E402
 from repro_torch.core import population as pop  # noqa: E402
+from repro_torch.core import shardplan  # noqa: E402
 from repro_torch.core import shuffle as shf  # noqa: E402
 from repro_torch.core.mixing import MixingConfig, static_mix_comm  # noqa: E402
 from repro_torch.core.prng import fold_in  # noqa: E402
@@ -63,8 +80,9 @@ from repro_torch.data import make_lm_task, sample_tokens  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
-    EnsMesh, make_host_ensemble_mesh)
+    EnsMesh, make_host_ensemble_mesh, make_host_mesh)
 from repro_torch.models import transformer as M  # noqa: E402
+from repro_torch.sharding import rules  # noqa: E402
 from repro_torch.train import engine  # noqa: E402
 
 WORLD, N, P = 4, 4, 0.01
@@ -271,6 +289,219 @@ def full_width(rank: int, dev, cfg_name: str, small: bool) -> dict:
     return out
 
 
+MESHES = ((2, 1, 2), (1, 1, 4), (2, 2, 1))
+COLUMNS = 1 << 24  # columns of a stacked leaf compared at a time
+
+
+def held(got: torch.Tensor, want: torch.Tensor, how: str) -> bool:
+    """``got`` against ``want`` (stacked leaves), column block by column
+    block so that a full-width leaf is never sorted or subtracted whole:
+    ``equal`` bitwise, ``permuted`` the same values in each column (a
+    shuffle across members), ``close`` within rtol 2e-5, atol 1e-6."""
+    a, b = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
+    for c in range(0, a.shape[1], COLUMNS):
+        x, y = a[:, c:c + COLUMNS], b[:, c:c + COLUMNS]
+        if how == "equal":
+            ok = torch.equal(x, y)
+        elif how == "permuted":
+            ok = torch.equal(torch.sort(x, 0)[0], torch.sort(y, 0)[0])
+        else:
+            ok = bool(((x - y).abs() <= 1e-6 + 2e-5 * y.abs()).all())
+        if not ok:
+            return False
+    return True
+
+
+def judge(full, ref, split_dims, kind: str, batches: bool, built: int
+          ) -> str:
+    """Part 4 (a)'s verdict on rank 0: "ok" or what failed."""
+    moved = False
+    for dims, a, b in zip(split_dims, pop.tree_leaves(full),
+                          pop.tree_leaves(ref)):
+        if batches:
+            if not held(a, b, "close"):
+                return "past rtol 2e-5, atol 1e-6"
+        elif kind == "wash" and dims:
+            if not held(a, b, "permuted"):
+                return "a split leaf is no permutation"
+            moved = moved or not held(a, b, "equal")
+        elif not held(a, b, "equal"):
+            return "differs from world 1"
+    if kind == "wash" and any(split_dims) and not batches and not moved:
+        return "the shard plans moved nothing new"
+    if built > 2:
+        return f"{built} chunk functions"
+    return "ok"
+
+
+def mesh_engine(rank: int, dev, cfg) -> dict:
+    """Part 4 (a): the engine on the multi-axis meshes against world 1."""
+    task = make_lm_task(fold_in(0, 1), vocab=min(cfg.vocab_size, 512),
+                        device=dev)
+    shapes = M.param_shapes(cfg)
+
+    def data_fn(m, step, s):
+        return {"tokens": sample_tokens(task, s, 2, 64)}
+
+    def train(mcfg, n, steps, mesh, specs=None):
+        tcfg = TrainConfig(population=n, optimizer="sgd", lr=0.05,
+                           total_steps=steps, seed=0)
+        engine.reset_chunk_trace_count()
+        res = engine.train_population_sharded(
+            0, lambda s: M.init_params(cfg, seed=s, device=dev),
+            lambda p, b: M.loss_fn(p, cfg, b)[0], data_fn, tcfg, mcfg,
+            cfg.num_layers, record_every=steps, mesh=mesh,
+            param_specs=specs, device=dev.type)
+        return res, engine.chunk_trace_count()
+
+    out, meshes = {}, {}
+    for n in (2, 4):
+        for kind, mcfg, steps in (
+                ("papa", MixingConfig(kind="papa", papa_every=2), 3),
+                ("wash", MixingConfig(kind="wash", base_p=P,
+                                      mode="bucketed"), 1)):
+            ref, flags = None, [None] * WORLD
+            try:
+                if rank == 0:  # world 1: the population whole on rank 0
+                    res, _ = train(mcfg, n, steps, EnsMesh(0, 1, n, 0, dev))
+                    ref = (res.population, res.comm_scalars)
+                    del res
+                verdict = "ok"
+            except Exception as e:  # noqa: BLE001 (reported, then failed)
+                verdict = f"{type(e).__name__}: {e}"[:500]
+            dist.all_gather_object(flags, verdict)
+            if flags[0] != "ok":
+                fail(f"meshes, {kind}, N={n}, world 1: {flags[0]}")
+            for shape in MESHES:
+                if (shape, n) not in meshes:  # every rank, in one order
+                    meshes[shape, n] = make_host_mesh(
+                        n, "ens_dp_mp", mesh_shape=shape, device=dev.type)
+                mesh = meshes[shape, n]
+                specs = (rules.param_pspecs(shapes, cfg, mesh)
+                         if shape[2] > 1 else None)
+                t0 = time.perf_counter()
+                res, built = train(mcfg, n, steps, mesh, specs)
+                wall = time.perf_counter() - t0
+                full = pop.gather_population(res.population, mesh,
+                                             shard_dims=res.shard_dims)
+                split_dims = res.shard_dims or [()] * len(
+                    pop.tree_leaves(res.population))
+                batches = bool(mesh.roles.dp_axes)
+                verdict = "ok"
+                try:  # a failure on rank 0 reaches every rank below
+                    if rank == 0:
+                        verdict = judge(full, ref[0], split_dims, kind,
+                                        batches, built)
+                except Exception as e:  # noqa: BLE001 (reported, then failed)
+                    verdict = f"{type(e).__name__}: {e}"[:500]
+                if rank == 0:
+                    key = f"{kind} N={n} {shape}"
+                    out[key] = {
+                        "check": ("within rtol 2e-5, atol 1e-6" if batches
+                                  else "bitwise" if kind == "papa"
+                                  or not res.shard_dims
+                                  else "split leaves permuted, others "
+                                  "bitwise"),
+                        "verdict": verdict, "s": wall,
+                        "comm": res.comm_scalars, "world_1_comm": ref[1],
+                        "roles": [mesh.roles.pop_axes, mesh.roles.dp_axes],
+                        "split_leaves": sum(bool(d) for d in split_dims),
+                        "chunk_functions": built}
+                flags = [None] * WORLD
+                dist.all_gather_object(flags, verdict)
+                if flags[0] != "ok":
+                    fail(f"meshes, {kind}, N={n}, {shape}: {flags[0]}")
+                del res, full
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            del ref
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def mesh_full_width(rank: int, dev, cfg_name: str, small: bool) -> dict:
+    """Part 4 (b): full-width WASH+Opt under AdamW, N = 2, each member
+    over two cards (the (2, 1, 2) mesh), through the train CLI."""
+    argv = ["--arch", cfg_name, "--population", "2", "--mixing", "wash_opt",
+            "--mode", "bucketed", "--base-p", str(P), "--optimizer", "adamw",
+            "--steps", "4", "--batch-size", "2", "--seq-len",
+            "16" if small else "256", "--record-every", "1", "--lr", "1e-4",
+            "--device", dev.type, "--engine", "shard_map", "--mesh",
+            "ens_dp_mp", "--mesh-shape", "2,1,2"]
+    if small:
+        argv.append("--reduced")
+    cfg = get_arch(cfg_name).reduced() if small else get_arch(cfg_name)
+    shapes = M.param_shapes(cfg)
+    layout = types.SimpleNamespace(axis_names=("ens", "data", "model"),
+                                   shape={"ens": 2, "data": 1, "model": 2})
+    pplan = shardplan.plan_population_mixing(
+        layout, shapes, rules.param_pspecs(shapes, cfg, layout),
+        MixingConfig(kind="wash_opt", base_p=P, mode="bucketed"),
+        tli.infer_layer_ids(shapes, cfg.num_layers),
+        tli.total_layers(cfg.num_layers), 2)
+    static = shardplan.static_shard_mix_comm(
+        pplan, {"mu": None, "nu": None, "step": None})
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    res = train_cli.main(argv)
+    sync(dev)
+    steps = np.diff([0.0] + res.history["comm"]).tolist()
+    if steps != [static] * 4:
+        fail(f"mesh full width: comm a step {steps}, the planner's {static}")
+    mine = {p: [round(v, 3) for v in res.phase_ms[p]] for p in res.phase_ms}
+    mine["first_mix_ms"] = mine["mix"][0]
+    mine["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                        if dev.type == "cuda" else None)
+    mine["wall_s"] = res.history["wall_s"][0]
+    each = [None] * WORLD
+    dist.all_gather_object(each, mine)
+    tokens = 4 * 2 * 2 * (16 if small else 256)
+    out = {"mesh": [2, 1, 2], "comm_a_step": static,
+           "split_leaves": sum(bool(i.sharded_dims) for i in pplan.infos),
+           "losses": res.history["loss"], "tokens": tokens,
+           "tok_s": tokens / max(e["wall_s"] for e in each), "ranks": each}
+    del res
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def one_card(rank: int, dev, cfg_name: str, small: bool) -> dict:
+    """Part 4 (c): the same population, N = 2 with AdamW, on one card
+    (rank 0 alone, the vmap loop): where it stops."""
+    out = {}
+    if rank == 0:
+        argv = ["--arch", cfg_name, "--population", "2", "--mixing",
+                "wash_opt", "--mode", "bucketed", "--base-p", str(P),
+                "--optimizer", "adamw", "--steps", "1", "--batch-size", "2",
+                "--seq-len", "16" if small else "256", "--lr", "1e-4",
+                "--device", str(dev)]
+        if small:
+            argv.append("--reduced")
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            res = train_cli.main(argv)
+            out = {"ran": True, "losses": res.history["loss"]}
+            del res
+        except Exception as e:  # noqa: BLE001 (the other ranks wait)
+            tb = e.__traceback__
+            frames = []
+            while tb is not None:
+                frames.append(tb.tb_frame.f_code.co_name)
+                tb = tb.tb_next
+            out = {"ran": False, "error": type(e).__name__,
+                   "message": str(e).splitlines()[0], "frames": frames[-6:]}
+            del e, tb
+        out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                           if dev.type == "cuda" else None)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
 def main() -> int:
     args = build_parser().parse_args()
     world = int(os.environ.get("WORLD_SIZE", "1"))
@@ -306,12 +537,19 @@ def main() -> int:
             name=f"{base.name}-4layers-f32"))
         t0 = time.perf_counter()
         res = {"device": dev.type, "world": WORLD, "torch": torch.__version__}
+        res["one_card"] = one_card(rank, dev, "llama3.2-3b", args.small)
+        say(rank, f"one card: {json.dumps(res['one_card'])}")
         res["ring"] = ring(rank, dev, small if args.small else base, groups)
         say(rank, f"ring: {json.dumps(res['ring'])}")
         res["engine"] = engine_worlds(rank, dev, cut, groups)
         say(rank, f"engine: {json.dumps(res['engine'])}")
         res["full_width"] = full_width(rank, dev, "llama3.2-3b", args.small)
         say(rank, f"full width: {json.dumps(res['full_width'])}")
+        res["meshes"] = mesh_engine(rank, dev, cut)
+        say(rank, f"meshes: {json.dumps(res['meshes'])}")
+        res["mesh_full_width"] = mesh_full_width(rank, dev, "llama3.2-3b",
+                                                 args.small)
+        say(rank, f"mesh full width: {json.dumps(res['mesh_full_width'])}")
         res["seconds"] = time.perf_counter() - t0
         dist.barrier()
         if rank == 0:
