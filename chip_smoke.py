@@ -260,6 +260,16 @@ and then, failing on the first phase that fails:
      chunk function, the peak memory; then, on the host, the planner's
      comm (held to the reference's to the last digit) and what a card
      holds for the four-card layouts (2,1,2), (1,1,4), (2,2,1).
+ 17. the pipeline axis in training: phase 15's full-width run through the
+     train CLI with ``--mesh ens_pp --microbatches 2`` at world 1 (the
+     fill gives (1, 1): the GPipe schedule runs on one stage with no
+     exchange), held to phase 15: 40 bucketed launches each bitwise,
+     9,016,867.0 scalars a step, one chunk function, losses within 1e-2
+     relative; the peak memory and the step split (forward and backward
+     ticks); then the 4-layer float32 cut through the CLI: one
+     microbatch bitwise equal to phase 15's engine, two within 2e-5 of
+     the vmap loop; finally ``--pp-stages 2`` on the one card is refused
+     before any weight is made.
 
 Kernels are built from the sources in the checkout, each ``nvcc`` started
 at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
@@ -2846,16 +2856,34 @@ def cnn_timing(torch, device, card):
     del res
     torch.cuda.empty_cache()
 
-    marks = []
-    with mixing_spans(torch), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-            schedule=schedule(wait=1, warmup=1, active=1)) as prof:
-        def record(step, population):
-            marks.append(time.perf_counter())
-            prof.step()
-            return {}
+    from repro_torch.kernels import ops
 
-        _cnn_train(device, cfg, data_fn, loss_fn, mcfg, 3, record_fn=record)
+    marks, masks = [], []
+    route = ops.wash_shuffle
+
+    def tallied(x, perm, mask):  # the profiled step's shuffles' shapes
+        if len(marks) == 2:
+            masks.append((x.shape[0], x[0].numel(), x.element_size(),
+                          mask.sum()))
+        return route(x, perm, mask)
+
+    ops.wash_shuffle = tallied
+    try:
+        with mixing_spans(torch), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+            def record(step, population):
+                marks.append(time.perf_counter())
+                prof.step()
+                return {}
+
+            _cnn_train(device, cfg, data_fn, loss_fn, mcfg, 3,
+                       record_fn=record)
+    finally:
+        ops.wash_shuffle = route
+    shuffle_bytes = sum(shuffle_bytes_dense(n, d, elt, int(c))
+                        for n, d, elt, c in masks)
+    shuffle_bound, shuffle_by = bound(shuffle_bytes, 0, "f32")
     wall_ms = (marks[2] - marks[1]) * 1e3
     busy_ms, spans, full, top = device_activity(prof)
     spans_ms = {a.key: (a.device_time_total / 1e3, a.cpu_time_total / 1e3)
@@ -2883,7 +2911,9 @@ def cnn_timing(torch, device, card):
         f"draw device {plan_dev:.3f} ms ({100 * plan_dev / mix_dev:.1f}% of "
         f"mixing's device time), host {spans_ms['wash.plan_draw'][1]:.3f} ms;"
         f" the dense shuffle kernel {shuffle_us / 1e3:.3f} ms x{launched} "
-        f"({100 * shuffle_us / 1e3 / mix_dev:.1f}%), its calls' host time "
+        f"({100 * shuffle_us / 1e3 / mix_dev:.1f}%; bound over those "
+        f"{len(masks)} calls {shuffle_bound:.4f} ms by {shuffle_by}, "
+        f"{shuffle_bytes} B), its calls' host time "
         f"{spans_ms['wash.shuffle'][1]:.3f} ms; device time by operator: "
         f"{top}")
 
@@ -4969,6 +4999,205 @@ def multi_axis_training(torch, device, kernels, phase15) -> None:
         f"paths so far {kernels['bucketed']['launches']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the pipeline axis in training, at world 1 on the card
+# ---------------------------------------------------------------------------
+
+PIPE_MICRO = 2          # (a): microbatches a step (1 x TRAIN_SEQ tokens)
+PIPE_PARAM_TOL = 2e-5   # (b): two microbatches against the vmap loop
+
+
+def pipeline_full_width(torch, device, kernels, phase15) -> None:
+    """(a) Full-width llama3.2-3b (bf16, N = 2, SGD, bucketed WASH at
+    p = 0.01, 2 x TRAIN_SEQ tokens a member, TRAIN_STEPS steps, a record
+    every ENGINE_RECORD_EVERY) through the train CLI's ``main`` with
+    ``--engine shard_map --mesh ens_pp --microbatches PIPE_MICRO``: the
+    fill is (1, 1), so ``train_population_pipelined`` runs the GPipe
+    schedule on one stage, every planned leaf through the bucketed kernel
+    (held bitwise against its plain version).  Held to phase 15
+    (``phase15``: its history): the comm exactly ``TRAIN_PLANS``' a step,
+    one chunk function, losses within ENGINE_LOSS_RTOL; the peak memory
+    and the step split.  Adds its bucketed launches to ``kernels``."""
+    import io
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.kernels import wash_shuffle as ws
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import engine
+
+    arch, n, steps = "llama3.2-3b", 2, TRAIN_STEPS
+    leaves, step_comm = TRAIN_PLANS[arch]
+    argv = training_argv(arch, device)
+    argv[argv.index("--record-every") + 1] = str(ENGINE_RECORD_EVERY)
+    argv += ["--engine", "shard_map", "--mesh", "ens_pp", "--microbatches",
+             str(PIPE_MICRO)]
+    seen, counts = {"plans": []}, {"dense": 0, "bucketed": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ws.bucketed_launches = ws.wash_launches = 0
+    _zero(fa, wkv, pa)
+    engine.reset_chunk_trace_count()
+    out = io.StringIO()
+    t1 = time.perf_counter()
+    with checked_shuffles(ops, ref, torch, counts), \
+            watch_bucketed_shuffles(ops, 0, seen), \
+            contextlib.redirect_stdout(out):
+        res = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    printed = out.getvalue()
+    for line in printed.splitlines():
+        log(f"  train CLI: {line}")
+    launches, built = ws.bucketed_launches, engine.chunk_trace_count()
+    other = _counts(fa, wkv, pa)
+    applied, recorded = comm_per_step(seen, res.history, n, leaves)
+    want_comm = [step_comm * (s + 1) for s in res.history["step"]]
+    rel = [abs(a - b) / abs(b)
+           for a, b in zip(res.history["loss"], phase15["loss"])]
+    split = {p: [round(v, 1) for v in res.phase_ms[p]]
+             for p in ("fwd_ticks", "bwd_ticks", "stage_compute", "opt",
+                       "mix")}
+    log(f"training ({arch}, 28 layers, bf16, N={n}, SGD, bucketed WASH "
+        f"p=0.01, 2 x {TRAIN_SEQ} tokens per member in {PIPE_MICRO} "
+        f"microbatches, {steps} steps, a record every {ENGINE_RECORD_EVERY})"
+        f" through launch.train.main --engine shard_map --mesh ens_pp "
+        f"--microbatches {PIPE_MICRO} (world 1), every shuffle held against "
+        f"its plain version: {wall:.2f} s; chunk functions built {built} "
+        f"(expected 1); bucketed shuffle launches {launches} (expected "
+        f"{leaves} x {steps}), {counts['bucketed']} of them bitwise equal to "
+        f"the plain version, dense {ws.wash_launches}; other kernels' "
+        f"launches {other} (expected none); comm per step of the plans "
+        f"applied {applied}, recorded {res.history['comm']} at steps "
+        f"{res.history['step']} (expected {want_comm}); losses "
+        f"{res.history['loss']} against phase 15's {phase15['loss']}: "
+        f"relative differences {rel} (tolerance {ENGINE_LOSS_RTOL:g}); step "
+        f"split (CUDA events, ms a step, both members) {split}; peak device "
+        f"memory {peak:.2f} GiB")
+    if ("mesh: {'ens': 1, 'pipe': 1}" not in printed
+            or f"{PIPE_MICRO} microbatch(es) a step" not in printed):
+        fail("pipeline training: the CLI did not run on the (1, 1) mesh")
+    if (launches != leaves * steps or counts["bucketed"] != launches
+            or ws.wash_launches or any(other.values())):
+        fail(f"pipeline training: {launches} bucketed launches "
+             f"({counts['bucketed']} checked), {ws.wash_launches} dense, "
+             f"other kernels {other}")
+    if (applied != [step_comm] * steps or res.history["comm"] != want_comm
+            or res.history["comm"] != phase15["comm"]):
+        fail(f"pipeline training: comm {applied} applied a step, "
+             f"{res.history['comm']} recorded, expected {want_comm}")
+    if (built != 1 or res.history["step"] != phase15["step"]
+            or not np.isfinite(res.history["loss"]).all()
+            or max(rel) > ENGINE_LOSS_RTOL):
+        fail(f"pipeline training: {built} chunk functions, losses "
+             f"{res.history['loss']} at {res.history['step']}, phase 15's "
+             f"{phase15['loss']} at {phase15['step']}")
+    kernels["bucketed"]["launches"] += launches
+    del res, seen
+    torch.cuda.empty_cache()
+
+
+def pipeline_reduced_f32(torch, device) -> None:
+    """(b) llama3.2-3b at full width and REDUCED_LAYERS layers in float32,
+    REDUCED_STEPS steps through the train CLI (``main(argv, cfg=...)``):
+    ``--mesh ens_pp --microbatches 1`` bitwise equal to phase 15's engine
+    (``--engine shard_map``: the pipelined engine delegates to it), and
+    ``--microbatches 2`` within PIPE_PARAM_TOL of the vmap loop (a mean
+    of microbatch means).  PyTorch's deterministic algorithms are on for
+    these runs: the embedding's backward otherwise adds with atomics, in
+    an order that changes from run to run."""
+    import io
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import population as pop
+    from repro_torch.launch import train as train_cli
+
+    base = get_arch("llama3.2-3b")
+    cfg = dataclasses.replace(base, num_layers=REDUCED_LAYERS, dtype="float32",
+                              name=f"{base.name}-{REDUCED_LAYERS}layers-f32")
+    argv = training_argv("llama3.2-3b", device)
+    argv[argv.index("--steps") + 1] = str(REDUCED_STEPS)
+    runs = {"vmap loop": [], "engine": ["--engine", "shard_map"],
+            "pipeline, M=1": ["--engine", "shard_map", "--mesh", "ens_pp"],
+            "pipeline, M=2": ["--engine", "shard_map", "--mesh", "ens_pp",
+                              "--microbatches", "2"]}
+    got = {}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for what, extra in runs.items():
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = train_cli.main(argv + extra, cfg=cfg)
+            torch.cuda.synchronize()
+            got[what] = (pop.tree_map(torch.clone, res.population),
+                         res.history["loss"])
+            del res
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+    def diff(a, b) -> float:
+        return max(float((x - y).abs().max()) for x, y in zip(
+            pop.tree_leaves(a), pop.tree_leaves(b)))
+
+    same = all(torch.equal(x, y) for x, y in zip(
+        pop.tree_leaves(got["pipeline, M=1"][0]),
+        pop.tree_leaves(got["engine"][0])))
+    d = diff(got["pipeline, M=2"][0], got["vmap loop"][0])
+    log(f"{cfg.name}, bucketed WASH, SGD, {REDUCED_STEPS} steps through the "
+        f"train CLI: --mesh ens_pp --microbatches 1 bitwise equal to the "
+        f"engine: {same} (losses {got['pipeline, M=1'][1]} vs "
+        f"{got['engine'][1]}); --microbatches 2 against the vmap loop: max "
+        f"|param pipeline - loop| = {d:.3e} (tolerance {PIPE_PARAM_TOL:g}; "
+        f"losses {got['pipeline, M=2'][1]} vs {got['vmap loop'][1]})")
+    if not same or got["pipeline, M=1"][1] != got["engine"][1]:
+        fail("reduced f32 pipeline: one microbatch differs from the engine")
+    if d > PIPE_PARAM_TOL:
+        fail(f"reduced f32 pipeline: two microbatches differ from the loop "
+             f"by {d}")
+    del got
+    torch.cuda.empty_cache()
+
+
+def pipeline_refuses_stages_past_the_ranks(torch, device) -> None:
+    """(c) ``--pp-stages 2`` on one rank is refused before any weight is
+    made: the pipe axis must divide the ranks left after the ens axis."""
+    from repro_torch.launch import train as train_cli
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        train_cli.main(training_argv("llama3.2-3b", device)
+                       + ["--engine", "shard_map", "--mesh", "ens_pp",
+                          "--pp-stages", "2"])
+    except ValueError as e:
+        reason = str(e)
+    else:
+        fail("two pipeline stages on one card were not refused")
+    after = torch.cuda.memory_allocated()
+    log(f"--pp-stages 2 on {torch.cuda.device_count()} card: refused: "
+        f"{reason}; device memory {before} -> {after} bytes")
+    if "pp_stages=2 must divide" not in reason or after != before:
+        fail(f"two stages on one card: refused with {reason!r}, memory "
+             f"{before} -> {after}")
+
+
+def pipeline_training(torch, device, kernels, phase15) -> None:
+    """Phase 17: the pipelined engine at world 1 on the card: (a) full
+    width against phase 15, (b) the reduced f32 cut against the engine
+    and the loop, (c) the refusal of two stages on one card."""
+    t0 = time.perf_counter()
+    pipeline_full_width(torch, device, kernels, phase15)
+    pipeline_reduced_f32(torch, device)
+    pipeline_refuses_stages_past_the_ranks(torch, device)
+    log(f"phase 17 (the pipeline axis in training, world 1): "
+        f"{time.perf_counter() - t0:.1f} s; bucketed launches on the main "
+        f"paths so far {kernels['bucketed']['launches']}")
+
+
 def build_kernels(*mods):
     """Every library, each nvcc started at once."""
     t0 = time.perf_counter()
@@ -5035,6 +5264,7 @@ def main() -> int:
     last_families(torch, F, device, kernels, card)
     phase15 = multi_device_training(torch, device, kernels, phase5)
     multi_axis_training(torch, device, kernels, phase15)
+    pipeline_training(torch, device, kernels, phase15)
     for entry in kernels.values():
         if entry["launches"] == 0:
             fail(f"kernel {entry['name']} was never launched on its path")

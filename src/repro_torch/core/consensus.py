@@ -55,46 +55,52 @@ def avg_distance_to_consensus(population: Tree) -> torch.Tensor:
     return torch.mean(torch.sqrt(per_member))
 
 
-def avg_distance_to_consensus_blocked(block: Tree, mesh,
-                                      shard_dims=None) -> torch.Tensor:
+def avg_distance_to_consensus_blocked(block: Tree, mesh, shard_dims=None,
+                                      stage_split=None) -> torch.Tensor:
     """:func:`avg_distance_to_consensus` of a population spread over the
     ranks of ``mesh``, each holding its ``(n_local, ...)`` block: the
     consensus by an all-reduce of the column sums over the population
     group, the members' distances summed by another.  On a
     :class:`repro_torch.launch.mesh.HostMesh` whose model group splits
     leaves (``shard_dims``: a tuple of member dims for each leaf, as
-    :func:`repro_torch.core.population.gather_population` takes it), a
-    member's squared distance over the split leaves is summed over the
-    model group before the square root, the replicated leaves counted
-    once; data replicas hold the same block and reduce nothing.  Every
-    rank gets the same value; at world 1 it is the stacked function
+    :func:`repro_torch.core.population.gather_population` takes it) or
+    whose pipe group splits leaves into stages (``stage_split``: a bool
+    for each leaf), a member's squared distance over the split leaves is
+    summed over that group before the square root, the replicated leaves
+    counted once; data replicas hold the same block and reduce nothing.
+    Every rank gets the same value; at world 1 it is the stacked function
     itself."""
     pop_mesh = getattr(mesh, "pop", mesh)
-    model = getattr(mesh, "model", None)
-    split = ([bool(d) for d in shard_dims]
-             if shard_dims is not None and model is not None
-             and model.world > 1 else None)
-    if pop_mesh.world == 1 and not (split and any(split)):
+    groups = []  # (the group that splits leaves, which leaves it splits)
+    model, pipe = getattr(mesh, "model", None), getattr(mesh, "pipe", None)
+    if shard_dims is not None and model is not None and model.world > 1:
+        groups.append((model, [bool(d) for d in shard_dims]))
+    if stage_split is not None and pipe is not None and pipe.world > 1:
+        groups.append((pipe, [bool(s) for s in stage_split]))
+    groups = [(g, split) for g, split in groups if any(split)]
+    if pop_mesh.world == 1 and not groups:
         return avg_distance_to_consensus(block)
     leaves = tree_leaves(block)
     n_local = leaves[0].shape[0]
     n = n_local * pop_mesh.world
     per_member = torch.zeros((n_local,), dtype=torch.float32,
                              device=leaves[0].device)
-    per_shard = torch.zeros_like(per_member)
+    per_group = [torch.zeros_like(per_member) for _ in groups]
     for i, x in enumerate(leaves):
         for xc in _chunks(x):
             mean = torch.sum(xc, dim=0, keepdim=True)
             if pop_mesh.world > 1:
                 dist.all_reduce(mean, group=pop_mesh.group)
             sq = torch.sum((xc - mean / n) ** 2, dim=1)
-            if split and split[i]:
-                per_shard = per_shard + sq
-            else:
+            j = next((j for j, (_, split) in enumerate(groups) if split[i]),
+                     None)
+            if j is None:
                 per_member = per_member + sq
-    if split and any(split):
-        dist.all_reduce(per_shard, group=model.group)
-        per_member = per_member + per_shard
+            else:
+                per_group[j] = per_group[j] + sq
+    for (g, _), part in zip(groups, per_group):
+        dist.all_reduce(part, group=g.group)
+        per_member = per_member + part
     total = torch.sum(torch.sqrt(per_member))
     if pop_mesh.world > 1:
         dist.all_reduce(total, group=pop_mesh.group)

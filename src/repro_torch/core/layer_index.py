@@ -1,8 +1,10 @@
 """Per-leaf layer indices for the layer-wise probability schedule (Eq. 6).
 
 Port of ``repro/core/layer_index.py`` (``leaf_depth``, ``infer_layer_ids``,
-``total_layers``, and the stage arithmetic the shard-local planner's
-pipeline accounting reads: ``stage_layer_bounds``, ``stage_of_depth``).  Every parameter gets a depth l in [0, L-1]:
+``total_layers``, the stage arithmetic of the pipeline's plans and
+accounting, ``stage_layer_bounds`` and ``stage_of_depth``, and the
+``depth_histogram`` diagnostic).  Every parameter gets a depth l in
+[0, L-1]:
 
   * token/patch/frame embeddings            -> depth 0
   * transformer block i (or conv stage i)   -> depth i + 1
@@ -105,3 +107,15 @@ def stage_of_depth(depth: int, num_blocks: int, num_stages: int) -> int:
         if lo <= b < hi:
             return s
     return num_stages - 1
+
+
+def depth_histogram(params: Tree, num_blocks: int) -> dict:
+    """Diagnostic: the scalar count at each depth (:func:`leaf_depth` of
+    each leaf's path; a stacked-blocks leaf counts whole at the depth its
+    path gives)."""
+    hist: dict = {}
+    for path, leaf in tree_paths(params):
+        d = leaf_depth(path, num_blocks)
+        size = int(np.prod(tuple(leaf.shape), dtype=np.int64))
+        hist[d] = hist.get(d, 0) + size
+    return hist

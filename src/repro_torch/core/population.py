@@ -126,27 +126,35 @@ def all_gather_dims(x: torch.Tensor, dims, group) -> torch.Tensor:
 
 
 def gather_population(block: Tree, mesh, dst: int = 0,
-                      shard_dims=None) -> Optional[Tree]:
+                      shard_dims=None, stage_split=None) -> Optional[Tree]:
     """The whole stacked population on rank ``dst`` from each rank's
     ``(n_local, ...)`` block, members in global order; None on the other
     ranks.  ``mesh`` is an ensemble mesh or a multi-axis
     :class:`repro_torch.launch.mesh.HostMesh`, whose ranks hold member
     shards: ``shard_dims`` (a tuple of member dims for each leaf, in leaf
-    order) names the dims its model group splits, which are gathered
-    first, leaf by leaf, then the members over the population group.  At
-    world 1 the block itself, with no copy.  Every rank of the mesh must
-    call it."""
+    order) names the dims its model group splits, and ``stage_split`` (a
+    bool for each leaf) the leaves whose layers its pipe group splits
+    into stages; each leaf is gathered over the model group, then its
+    stages concatenated along the layer dim over the pipe group, then
+    the members over the population group.  At world 1 the block itself,
+    with no copy.  Every rank of the mesh must call it."""
     pop_mesh = getattr(mesh, "pop", mesh)
     model = getattr(mesh, "model", None)
+    pipe = getattr(mesh, "pipe", None)
     if model is None or model.world == 1:
         shard_dims = None
-    if pop_mesh.world == 1 and shard_dims is None:
+    if pipe is None or pipe.world == 1:
+        stage_split = None
+    if pop_mesh.world == 1 and shard_dims is None and stage_split is None:
         return block
     dims = iter(shard_dims) if shard_dims is not None else None
+    stages = iter(stage_split) if stage_split is not None else None
 
     def gather(x):
         if dims is not None:
             x = all_gather_dims(x, next(dims), model)
+        if stages is not None and next(stages):
+            x = all_gather_dims(x, (0,), pipe)
         if pop_mesh.world == 1:
             return x if mesh.rank == dst else None
         parts = [torch.empty_like(x) for _ in range(pop_mesh.world)]

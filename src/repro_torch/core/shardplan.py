@@ -7,8 +7,9 @@ divides over them: every rank then holds whole members); leftover
 ``DATA`` axes split each member's batch (gradients are averaged over
 them); ``MODEL`` axes shard members, through the per-leaf partition
 specs (``sharding/rules.py``); a ``pipe`` axis larger than 1 splits the
-blocks into pipeline stages (only its accounting is ported here: the
-pipelined engine is not).  A size-1 ``pipe`` axis is dropped.
+stacked blocks into contiguous pipeline stages (``rules.
+stage_member_specs``), each with its own slice of the per-layer budget.
+A size-1 ``pipe`` axis is dropped.
 
 The planner (:func:`plan_population_mixing`) is host arithmetic on the
 member's shapes and specs: each leaf's local shard shape and its slice of
@@ -25,8 +26,11 @@ leaf that is not sharded draws the global plan bitwise.
 :func:`mix_collective_sharded` applies them over the population group
 (``core/shuffle.py``'s ring; at one population shard, the bucketed
 shuffle kernel), and PAPA's mean runs over the same group, elementwise,
-so it is exact on shards.  The standalone mixer (``make_shardlocal_mixer``,
-the dryrun's) and the pipeline's stage-split plans are not ported.
+so it is exact on shards.  A stage-split leaf's plan is this rank's
+stage's alone (:func:`build_local_plans`); every rank of a stage draws
+the same one, and the leaves replicated over the stages draw the same
+plan on every stage.  The standalone mixer (``make_shardlocal_mixer``,
+the dryrun's) is not ported.
 """
 
 from __future__ import annotations
@@ -387,16 +391,43 @@ def _shard_position(info: LeafShardInfo, pplan: PopulationPlan, mesh) -> int:
     return pos
 
 
+def check_even_stages(pplan: PopulationPlan) -> None:
+    """Refuse stage-split leaves whose layers do not divide over the
+    stages: the planner's accounting takes uneven stages, the engine's
+    stage shards must share one shape."""
+    for info in pplan.infos:
+        if info.stage_split and info.member_shape[0] % pplan.num_stages:
+            raise ValueError(
+                f"stacked-blocks leaf of {info.member_shape[0]} layers does "
+                f"not split evenly over {pplan.num_stages} pipeline stages")
+
+
+def stage_split_plan(seed: int, info: LeafShardInfo, pplan: PopulationPlan,
+                     stage: int, device) -> Optional[torch.Tensor]:
+    """Stage ``stage``'s plan of a stage-split leaf: the layered plan of
+    its layers ``[lo, hi)`` from ``fold_in(seed, stage)`` over
+    ``counts_local[lo:hi]``, indexing the stage's flat shard, ``(n,
+    stage_k_per[stage])`` (None when the stage draws nothing).  It is
+    the reference's column block of that stage in its concatenated plan;
+    the reference's other columns, masked to an out-of-range index, are
+    never built, so every index lies in the shard."""
+    lo, hi = info.stage_bounds[stage]
+    if info.stage_k_per[stage] == 0:
+        return None
+    return shf.bucketed_plan_layered(
+        fold_in(seed, stage), hi - lo, info.d_rest_local, pplan.n, None,
+        counts=info.counts_local[lo:hi], device=device)
+
+
 def build_local_plans(seed: int, pplan: PopulationPlan, mesh,
                       device=None) -> List[Optional[torch.Tensor]]:
     """This rank's bucketed plans, one a leaf in leaf order (None: no
     plan), each indexing the leaf's flat local member shard, on
     ``device`` (default: the mesh's).  Leaf i's seed is ``leaf_seed(seed,
-    i)``, folded with the shard position when an axis splits the leaf."""
-    if pplan.num_stages > 1:
-        raise NotImplementedError(
-            "stage-split plans belong to the pipeline, which is not ported "
-            "yet (ROADMAP §1, 'The pipeline axis')")
+    i)``, folded with the shard position when an axis splits the leaf;
+    a stage-split leaf takes this rank's stage's plan
+    (:func:`stage_split_plan`)."""
+    check_even_stages(pplan)
     device = mesh.device if device is None else device
     plans = []
     for info in pplan.infos:
@@ -406,7 +437,10 @@ def build_local_plans(seed: int, pplan: PopulationPlan, mesh,
         k = leaf_seed(seed, info.index)
         if info.sharded_dims:
             k = fold_in(k, _shard_position(info, pplan, mesh))
-        if info.layered:
+        if info.stage_split:
+            plans.append(stage_split_plan(
+                k, info, pplan, mesh.coords[pplan.roles.pipe_axis], device))
+        elif info.layered:
             plans.append(shf.bucketed_plan_layered(
                 k, len(info.counts_local), info.d_rest_local, pplan.n, None,
                 counts=info.counts_local, device=device))
@@ -428,6 +462,27 @@ def _model_group(info: LeafShardInfo, mesh):
 def shard_dims(pplan: PopulationPlan) -> List[Tuple[int, ...]]:
     """The member dims the model axes split, a tuple for each leaf."""
     return [tuple(d for d, _, _ in info.sharded_dims) for info in pplan.infos]
+
+
+def stage_split(pplan: PopulationPlan) -> List[bool]:
+    """For each leaf, whether the pipe axis splits its layer dim."""
+    return [info.stage_split for info in pplan.infos]
+
+
+def stage_population(tree: Tree, pplan: PopulationPlan, stage: int) -> Tree:
+    """Stage ``stage``'s shard of full member leaves (leaves ``(n_local,
+    L, ...)``): layers ``[lo, hi)`` of each stage-split leaf, each its
+    own contiguous tensor; the other leaves whole."""
+    it = iter(pplan.infos)
+
+    def slice_(x):
+        info = next(it)
+        if not info.stage_split:
+            return x
+        lo, hi = info.stage_bounds[stage]
+        return x.narrow(1, lo, hi - lo).contiguous()
+
+    return tree_map(slice_, tree)
 
 
 def all_gather_population(params: Tree, pplan: PopulationPlan, mesh) -> Tree:

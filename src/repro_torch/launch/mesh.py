@@ -18,12 +18,12 @@ the launcher fixes the world here, so a population that does not divide
 over it is refused.
 
 :func:`make_host_mesh` lays the multi-axis meshes (``ens_dp``: (E, D);
-``ens_dp_mp``: (E, D, M)) over the world with the reference's fill, one
+``ens_dp_mp``: (E, D, M); the pipeline's ``ens_pp``: (E, S) and
+``ens_dp_pp``: (E, D, S)) over the world with the reference's fill, one
 rank a device, ranks row-major over the axes (as the reference's
 ``make_mesh`` lays out the host's devices): a :class:`HostMesh`, with a
-process group for each set of axes the engine reduces over.  The
-pipeline kinds (``ens_pp``, ``ens_dp_pp``) take a pipe axis of size 1
-only: a larger one is not ported (ROADMAP §1, 'The pipeline axis').
+process group for each set of axes the engine reduces over, and on a
+pipe axis the global ranks of the neighbouring stages.
 """
 
 from __future__ import annotations
@@ -216,8 +216,13 @@ class HostMesh:
     groups: ``pop`` (an :class:`EnsMesh` over the population axes: the
     ring, PAPA's mean, the members this rank holds), ``data`` (the data
     axes that split batches: the gradient mean), ``model`` (the axes that
-    shard members: gather and slice) and ``loss`` (population and data:
-    the step's loss)."""
+    shard members: gather and slice), ``loss`` (population and data:
+    the step's loss) and ``pipe`` (the pipeline stages of this rank's
+    members: the replicated leaves' gradient sum, the stages' gather).
+    Every group but ``pipe`` keeps the pipe coordinate fixed, so rings
+    and means stay inside one stage.  ``prev_rank`` / ``next_rank`` are
+    the global ranks of the previous and next stage (None at the ends,
+    and without a pipe axis)."""
 
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
@@ -229,7 +234,20 @@ class HostMesh:
     data: AxisGroup
     model: AxisGroup
     loss: AxisGroup
+    pipe: AxisGroup = dataclasses.field(
+        default_factory=lambda: AxisGroup((), 0, 1))
+    prev_rank: Optional[int] = None
+    next_rank: Optional[int] = None
     owns_group: bool = False
+
+    @property
+    def stage(self) -> int:
+        """This rank's pipeline stage (0 without a pipe axis)."""
+        return self.pipe.rank
+
+    @property
+    def num_stages(self) -> int:
+        return self.pipe.world
 
     @property
     def n_local(self) -> int:
@@ -293,8 +311,8 @@ def make_host_mesh(population: int, kind: str = "ens", *, mesh_shape=None,
     :func:`host_mesh_shape`'s sizes, with the world as the device count,
     and give a :class:`HostMesh`.  Refused before any process group is
     made: a shape whose product is not the world, a population that does
-    not divide over the ens axis, a pipe axis larger than 1 (not ported:
-    ROADMAP §1, 'The pipeline axis'), more ranks than cards on the
+    not divide over the ens axis, a ``pp_stages`` that does not divide
+    the ranks left after the ens axis, more ranks than cards on the
     card."""
     if kind not in HOST_MESH_AXES:
         raise ValueError(f"unknown host mesh kind {kind!r}")
@@ -303,12 +321,6 @@ def make_host_mesh(population: int, kind: str = "ens", *, mesh_shape=None,
     if group is not None:
         raise ValueError("a multi-axis mesh spans the whole world")
     axes = HOST_MESH_AXES[kind]
-    stages = (pp_stages or 1) if mesh_shape is None else (
-        dict(zip(axes, mesh_shape)).get(PIPE_AXIS, 1))
-    if PIPE_AXIS in axes and int(stages) > 1:
-        raise NotImplementedError(
-            f"mesh {kind!r} with {stages} pipeline stages: the pipeline "
-            "axis is not ported yet (ROADMAP §1, 'The pipeline axis')")
     world, rank, init = _world_and_rank(None)
     shape = host_mesh_shape(population, kind, world, mesh_shape=mesh_shape,
                             pp_stages=pp_stages)
@@ -332,10 +344,23 @@ def make_host_mesh(population: int, kind: str = "ens", *, mesh_shape=None,
     model_g = _axis_group(axes, sizes, coords, roles.model_axes, world)
     loss_g = _axis_group(axes, sizes, coords,
                          roles.pop_axes + roles.dp_axes, world)
+    pipe = roles.pipe_axis
+    pipe_g = _axis_group(axes, sizes, coords, (pipe,) if pipe else (), world)
+    prev_rank = next_rank = None
+    if pipe:
+        # ranks are row-major over the axes: a stage apart is a stride of
+        # the sizes of the axes after the pipe axis
+        stride = int(np.prod([sizes[a] for a in axes[axes.index(pipe) + 1:]]))
+        if coords[pipe] > 0:
+            prev_rank = rank - stride
+        if coords[pipe] < sizes[pipe] - 1:
+            next_rank = rank + stride
     n_local = population // pop_g.world
     pop = EnsMesh(rank=pop_g.rank, world=pop_g.world, n_local=n_local,
                   member_offset=pop_g.rank * n_local, device=dev,
                   group=pop_g.group)
     return HostMesh(axis_names=axes, shape=sizes, coords=coords, roles=roles,
                     rank=rank, device=dev, pop=pop, data=data_g,
-                    model=model_g, loss=loss_g, owns_group=init)
+                    model=model_g, loss=loss_g, pipe=pipe_g,
+                    prev_rank=prev_rank, next_rank=next_rank,
+                    owns_group=init)

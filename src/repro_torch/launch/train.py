@@ -8,7 +8,13 @@ the whole population on one device); ``--mesh ens_dp`` / ``ens_dp_mp``
 an (E, D[, M]) mesh of the ranks (``launch/mesh.py``, the reference's
 fill, or ``--mesh-shape E,D,M``), where members split over the model
 axis by ``sharding/rules.py``'s specs and batches over a data axis that
-carries no members.
+carries no members; ``--mesh ens_pp`` / ``ens_dp_pp`` an (E[, D], S)
+mesh whose pipe axis cuts each member's stacked blocks into S stages
+(``--pp-stages S`` or the shape's last size), trained by the pipelined
+engine (``train_population_pipelined``: GPipe over ``--microbatches``
+microbatches a step) on ``models/transformer.py::pipeline_stage_fns``;
+a config the pipeline cannot stage-split is refused before any weight
+is made (``pipeline_supported``).
 WASH kinds on that engine take bucketed plans: ``--mode dense`` is
 switched to bucketed with a note, as in the reference.  On the card
 every WASH shuffle of a stacked block runs the hand-written CUDA kernels
@@ -45,17 +51,20 @@ weight moves there (``models/transformer.py::cuda_supported``).
       --optimizer adamw --mode bucketed --steps 4 --batch-size 2 \\
       --seq-len 256 --engine shard_map --mesh ens_dp_mp
 
+  torchrun --nproc-per-node=4 -m repro_torch.launch.train \\
+      --arch llama3.2-3b --population 2 --mode bucketed --steps 4 \\
+      --batch-size 4 --seq-len 256 --engine shard_map --mesh ens_pp \\
+      --mesh-shape 1,4 --microbatches 4
+
   python -m repro_torch.launch.train --arch rwkv6-3b --population 2 \\
       --mode bucketed --steps 4 --batch-size 2 --seq-len 256 \\
       --ckpt-population build/pop.npz
 
 Under ``torchrun`` every rank trains its block; rank 0 alone prints,
-gathers the population (``core.population.gather_population``) for the
-averaged-model loss and ``--ckpt`` / ``--ckpt-population`` (member
-shards gathered over the model axis first), and writes ``--history`` and
-``--metrics-out``.  The pipeline (``--mesh ens_pp`` / ``ens_dp_pp`` with
-``--pp-stages`` above 1, ``--microbatches`` above 1) is not ported yet
-and is refused before any weight is made.
+gathers the population (``core.population.gather_population``; member
+shards over the model axis and stages over the pipe axis first) for the
+averaged-model loss and ``--ckpt`` / ``--ckpt-population``, and writes
+``--history`` and ``--metrics-out``.
 
 ``--metrics-out`` writes the telemetry event stream (``repro_torch.obs``:
 the step or chunk spans, the ``train.comm_volume`` events, the final
@@ -89,7 +98,8 @@ from repro_torch.models import transformer as M
 from repro_torch.serving.engine import averaged_params
 from repro_torch.sharding import rules
 from repro_torch.train import checkpoint
-from repro_torch.train.loop import PHASES, train_population
+from repro_torch.train.engine import StageFns, train_population_pipelined
+from repro_torch.train.loop import train_population
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -140,17 +150,21 @@ def build_parser() -> argparse.ArgumentParser:
                     help="shard_map engine: mesh layout over the ranks; ens "
                          "(one block of members a rank), ens_dp (E, D), "
                          "ens_dp_mp (E, D, M: members split over the model "
-                         "axis); the pipeline kinds take a pipe axis of 1")
+                         "axis), ens_pp (E, S) and ens_dp_pp (E, D, S): "
+                         "members' blocks cut into S pipeline stages")
     ap.add_argument("--mesh-shape", default=None,
                     help="explicit comma-separated axis sizes for --mesh "
                          "(their product must be the world); default: E "
                          "the largest divisor of N that fits, then the "
                          "model axis, then the data axis")
     ap.add_argument("--pp-stages", type=int, default=None,
-                    help="pipeline stages (refused above 1: not ported)")
+                    help="--mesh ens_pp/ens_dp_pp: pipeline stages S (the "
+                         "pipe axis's size; default 1), which must divide "
+                         "the ranks left after the ens axis and the layers")
     ap.add_argument("--microbatches", type=int, default=1,
-                    help="pipelined engine's microbatches a step (refused "
-                         "above 1: not ported)")
+                    help="--mesh ens_pp/ens_dp_pp: GPipe microbatches M a "
+                         "step, which must divide each member's batch on "
+                         "a rank")
     ap.add_argument("--batch-size", type=int, default=8,
                     help="per-member batch size (synthetic LM task)")
     ap.add_argument("--seq-len", type=int, default=64,
@@ -213,14 +227,10 @@ def main(argv=None, cfg=None):
                         or args.mesh != "ens" or args.mesh_shape is not None):
         ap.error("--sync-staging/--no-gate-split/--mesh/--mesh-shape "
                  "require --engine shard_map")
-    if ((args.pp_stages is not None or args.microbatches > 1)
-            and args.mesh not in ("ens_pp", "ens_dp_pp")):
+    pipelined = args.mesh in ("ens_pp", "ens_dp_pp")
+    if (args.pp_stages is not None or args.microbatches > 1) and not pipelined:
         ap.error("--pp-stages/--microbatches require --mesh ens_pp or "
                  "ens_dp_pp")
-    if args.microbatches > 1:
-        raise NotImplementedError(
-            "--microbatches: the pipelined engine is not ported yet "
-            "(ROADMAP §1, 'The pipeline axis')")
     mesh_shape = None
     if args.mesh_shape is not None:
         try:
@@ -235,6 +245,7 @@ def main(argv=None, cfg=None):
     reason = M.train_supported(cfg)
     if reason is not None:
         raise NotImplementedError(f"training {cfg.name}: {reason}")
+    stage_fns = M.pipeline_stage_fns(cfg) if pipelined else None
     mesh = (make_host_mesh(args.population, args.mesh,
                            mesh_shape=mesh_shape,
                            pp_stages=args.pp_stages, device=args.device)
@@ -284,10 +295,13 @@ def main(argv=None, cfg=None):
             if lead:
                 r = mesh.roles
                 split = tuple(a for a in r.model_axes if mesh.shape[a] > 1)
+                stages = (f", blocks in {mesh.num_stages} stages, "
+                          f"{args.microbatches} microbatch(es) a step"
+                          if pipelined else "")
                 print(f"mesh: {mesh.shape} (population over {r.pop_axes}, "
                       f"batches split over {r.dp_axes or 'none'}, members "
-                      f"split over {split or 'none'}; {mesh.n_local} "
-                      f"members a rank, {device})")
+                      f"split over {split or 'none'}{stages}; "
+                      f"{mesh.n_local} members a rank, {device})")
         elif lead:
             print(f"mesh: ens={mesh.world} ({mesh.n_local} members a rank, "
                   f"{device})")
@@ -299,16 +313,27 @@ def main(argv=None, cfg=None):
                         console=args.metrics_summary and lead,
                         profile_dir=args.profile_dir if lead else None)
     try:
-        res = train_population(
-            args.seed, lambda s: M.init_params(cfg, seed=s, device=device),
-            loss_fn, data_fn, tcfg, mcfg, cfg.num_layers,
-            record_every=record_every, engine=args.engine, device=device,
-            mesh=mesh, engine_opts=engine_opts,
-        )
+        if pipelined:
+            res = train_population_pipelined(
+                args.seed,
+                lambda s: M.init_params(cfg, seed=s, device=device),
+                StageFns(*stage_fns), data_fn, tcfg, mcfg, cfg.num_layers,
+                record_every=record_every, mesh=mesh,
+                microbatches=args.microbatches,
+                member_tpl=M.param_shapes(cfg), device=device, **engine_opts)
+        else:
+            res = train_population(
+                args.seed,
+                lambda s: M.init_params(cfg, seed=s, device=device),
+                loss_fn, data_fn, tcfg, mcfg, cfg.num_layers,
+                record_every=record_every, engine=args.engine,
+                device=device, mesh=mesh, engine_opts=engine_opts,
+            )
     finally:
         tel.finalize()
     population = (gather_population(res.population, mesh,
-                                    shard_dims=res.shard_dims)
+                                    shard_dims=res.shard_dims,
+                                    stage_split=res.stage_split)
                   if sharded else res.population)
     if sharded:
         mesh.close()
@@ -325,8 +350,8 @@ def main(argv=None, cfg=None):
     print(f"scalars sent per member: {res.comm_scalars:.3e}")
     tokens = args.steps * args.population * args.batch_size * args.seq_len
     wall = res.history["wall_s"][0]
-    phases = ", ".join(f"{p} {sum(res.phase_ms[p]) / args.steps:.1f} ms"
-                       for p in PHASES)
+    phases = ", ".join(f"{p} {sum(v) / args.steps:.1f} ms"
+                       for p, v in res.phase_ms.items())
     print(f"trained tokens/s       : {tokens / wall:.1f} ({wall:.2f} s; "
           f"per step {phases}; device={device})")
     if device.type == "cuda":

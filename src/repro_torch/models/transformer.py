@@ -22,7 +22,9 @@ nothing.
 
 Which path takes which config, one gate each:
 :func:`scan_supported` (init, the scan engine), :func:`train_supported`
-(training) and :func:`paged_decode_supported` (continuous batching);
+(training), :func:`pipeline_supported` (the pipelined engine's stage
+functions, :func:`pipeline_stage_fns`) and :func:`paged_decode_supported`
+(continuous batching);
 :func:`cuda_supported` adds the card's kernel limits to each path, asked
 where a run on the card starts.
 """
@@ -36,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
-from repro_torch.core.population import tree_map
+from repro_torch.core.population import tree_leaves, tree_map
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rwkv6_scan as _wkv
@@ -454,6 +456,59 @@ def loss_fn(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor,
     nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
     loss = torch.mean(nll)
     return loss + cfg.router_aux_coef * aux, {"nll": loss, "aux": aux}
+
+
+def pipeline_supported(cfg: ModelConfig) -> Optional[str]:
+    """None if the pipelined training engine can stage-split this config,
+    else the reason.  The stage boundary carries ONE activation tensor, so
+    anything with extra cross-block state (SSM/hybrid recurrences, the
+    encoder output of enc-dec, modality prefixes) or a cross-stage loss
+    term (the MoE router aux, summed over *all* layers) is rejected loudly
+    rather than trained wrong."""
+    if cfg.block_kind != "attn":
+        return f"block_kind={cfg.block_kind!r} carries state across blocks"
+    if cfg.is_encdec:
+        return "encoder-decoder needs the encoder output on every stage"
+    if cfg.frontend is not None:
+        return f"frontend={cfg.frontend!r} prefixes are not stage-split"
+    if cfg.moe:
+        return "MoE router aux loss is not accumulated across stages"
+    return None
+
+
+def pipeline_stage_fns(cfg: ModelConfig):
+    """``(embed, blocks, head)`` for
+    :func:`repro_torch.train.engine.train_population_pipelined` (its
+    ``StageFns``).  ``blocks`` runs whatever layer slice of
+    ``params["blocks"]`` it is handed (a stage's), so one function serves
+    every stage; ``head`` is the LM head and the float32 next-token nll.
+    ``head(blocks(embed(..)))`` equals :func:`loss_fn`'s nll for the
+    supported (attention, non-MoE) families.  Raises for what
+    :func:`pipeline_supported` refuses."""
+    reason = pipeline_supported(cfg)
+    if reason is not None:
+        raise NotImplementedError(f"pipelined training: {reason}")
+
+    def embed(params, batch):
+        return _embed_tokens(params, cfg, batch["tokens"].long())
+
+    def blocks(params, x):
+        stage = params["blocks"]
+        for blk in _layer_views(stage, tree_leaves(stage)[0].shape[0]):
+            if cfg.remat_blocks:
+                x, _ = checkpoint(_block_train, blk, cfg, x,
+                                  use_reentrant=False)
+            else:
+                x, _ = _block_train(blk, cfg, x)
+        return x
+
+    def head(params, x, batch):
+        logits = _logits(params, cfg, x)
+        targets = batch["tokens"][:, 1:].long()
+        lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        return torch.mean(-torch.gather(lp, -1, targets[..., None])[..., 0])
+
+    return embed, blocks, head
 
 
 # ---------------------------------------------------------------------------

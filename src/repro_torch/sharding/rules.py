@@ -11,16 +11,20 @@ dim, each ``None`` (the dim is whole on every rank), an axis name, or a
 tuple of axis names.  Leaves are named by the paths of
 :func:`repro_torch.core.population.tree_paths` (dict keys are strings,
 list entries ints), which visit leaves in JAX's flattening order, so the
-specs agree with the reference leaf by leaf.  The batch, cache and
-serving specs and ``stage_member_specs`` (the pipeline) are not ported;
-nothing inside a model is laid out by a spec here: the ensemble engine
-gathers a member whole before its forward (``core/shardplan.py``).
+specs agree with the reference leaf by leaf.  ``stage_member_specs``
+cuts the stacked blocks into pipeline stages.  The batch, cache and
+serving specs are not ported; nothing inside a model is laid out by a
+spec here: the ensemble engine gathers a member whole before its forward
+(``core/shardplan.py``), and a pipeline stage runs its own slice of the
+blocks.
 """
 
 from __future__ import annotations
 
 import re
 from typing import Any, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch.core.population import tree_map, tree_paths
 
@@ -129,6 +133,29 @@ def param_pspecs(params: Tree, cfg, mesh) -> Tree:
 
 def _lead(pop_axes: Sequence[str]):
     return pop_axes[0] if len(pop_axes) == 1 else tuple(pop_axes)
+
+
+def stage_member_specs(member_specs: Tree, layer_ids: Tree,
+                       pipe_axis: str = "pipe") -> Tree:
+    """The member specs of a pipeline mesh: ``pipe_axis`` on the layer
+    axis (dim 0) of every stacked-blocks leaf, known by an array-valued
+    ``layer_ids`` leaf (:func:`repro_torch.core.layer_index.
+    infer_layer_ids`), not by its path, so the per-block leaves of a
+    list-of-blocks model stay replicated.  Everything else (embed, head,
+    norms) stays replicated over the pipe axis.  Raises when the layer
+    axis is already split by another axis."""
+
+    def one(spec, lid):
+        if isinstance(lid, (int, np.integer)):
+            return spec
+        entries = tuple(spec) if spec is not None else ()
+        if entries and entries[0] is not None:
+            raise ValueError(
+                f"scanned layer axis already sharded by {entries[0]!r}; "
+                "cannot also stage-split it")
+        return P(pipe_axis, *entries[1:])
+
+    return tree_map(one, member_specs, layer_ids, is_leaf=is_spec)
 
 
 def population_pspecs(member_specs: Tree, pop_axes=("ens",)) -> Tree:

@@ -63,6 +63,10 @@ class TrainResult:
     #: on a mesh whose model axes split members, the member dims split in
     #: each leaf (the block holds shards; ``gather_population`` takes it)
     shard_dims: Optional[List[tuple]] = None
+    #: on a pipeline mesh, whether each leaf's layers are split into
+    #: stages (the block holds this rank's stage; ``gather_population``
+    #: takes it)
+    stage_split: Optional[List[bool]] = None
 
 
 class _PhaseClock:
@@ -84,12 +88,14 @@ class _PhaseClock:
         self._spans.append((phase, step, start, end))
 
     def per_step(self, steps: int) -> Dict[str, List[float]]:
+        """Milliseconds a step in each of :data:`PHASES` and in any other
+        phase an engine marked (the pipelined engine's ticks)."""
         if self._cuda:
             torch.cuda.synchronize()
         out = {p: [0.0] * steps for p in PHASES}
         for phase, step, a, b in self._spans:
-            out[phase][step] += (a.elapsed_time(b) if self._cuda
-                                 else (b - a) * 1e3)
+            out.setdefault(phase, [0.0] * steps)[step] += (
+                a.elapsed_time(b) if self._cuda else (b - a) * 1e3)
         return out
 
 

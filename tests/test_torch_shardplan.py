@@ -299,10 +299,13 @@ def test_refusals_come_before_any_parameter(monkeypatch):
     with pytest.raises(ValueError, match="does not divide"):
         tmesh.make_host_mesh(3, "ens_dp_mp", mesh_shape=(3, 1, 1),
                              device="cpu")
-    for kind, kw in (("ens_pp", {"pp_stages": 2}),
-                     ("ens_dp_pp", {"mesh_shape": (1, 2, 2)})):
-        with pytest.raises(NotImplementedError, match="pipeline axis"):
-            tmesh.make_host_mesh(2, kind, device="cpu", **kw)
+    # the pipe axis's fill: stages that do not divide the ranks left after
+    # the ens axis, a shape larger than the world
+    with pytest.raises(ValueError, match="pp_stages=3 must divide"):
+        tmesh.make_host_mesh(2, "ens_pp", pp_stages=3, device="cpu")
+    with pytest.raises(ValueError, match="needs 8 devices"):
+        tmesh.make_host_mesh(2, "ens_dp_pp", mesh_shape=(1, 2, 4),
+                             device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "1")
     tcfg = TrainConfig(population=2, total_steps=1)
     wash = MixingConfig(kind="wash", mode="bucketed")
@@ -328,7 +331,8 @@ KINDS_FILLED = ("ens", "ens_dp", "ens_dp_mp", "ens_pp", "ens_dp_pp")
 def test_host_mesh_fill_matches_the_reference():
     """The reference's ``make_host_mesh`` on 1, 2, 4 and 8 of a forced
     8-device host (``jax.devices`` cut to the first k), every kind, N in
-    {1, 2, 3, 4, 8}, and pp_stages 2 where it divides."""
+    {1, 2, 3, 4, 8}, and the pipe kinds with pp_stages 2 and 4 (refused
+    where they do not divide)."""
     src = textwrap.dedent("""
         import json
         import jax
@@ -341,7 +345,7 @@ def test_host_mesh_fill_matches_the_reference():
             jax.devices = lambda k=k: real()[:k]
             for kind in %r:
                 for n in (1, 2, 3, 4, 8):
-                    for pp in (None, 2):
+                    for pp in (None, 2, 4):
                         if pp and "pipe" not in m.HOST_MESH_AXES[kind]:
                             continue
                         try:
@@ -358,7 +362,7 @@ def test_host_mesh_fill_matches_the_reference():
                        text=True, timeout=300, env=env, cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
     rows = json.loads(r.stdout.strip().splitlines()[-1])
-    assert len(rows) == 4 * len(KINDS_FILLED) * 5 + 4 * 2 * 5
+    assert len(rows) == 4 * len(KINDS_FILLED) * 5 + 4 * 2 * 5 * 2
     for k, kind, n, pp, want in rows:
         try:
             got = dict(zip(tmesh.HOST_MESH_AXES[kind],

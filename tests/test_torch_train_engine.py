@@ -242,7 +242,8 @@ def test_train_cli_engines_print_the_same_run(capsys):
     train_cli.main(CLI + ["--engine", "shard_map", "--steps", "1"])
     out = capsys.readouterr().out
     assert "switching --mode dense -> bucketed" in out
-    with pytest.raises(NotImplementedError, match="pipeline axis"):
+    # two pipeline stages need two ranks after the ens axis
+    with pytest.raises(ValueError, match="pp_stages=2 must divide"):
         train_cli.main(CLI + ["--engine", "shard_map", "--mesh", "ens_pp",
                               "--pp-stages", "2"])
     with pytest.raises(SystemExit):
@@ -303,7 +304,7 @@ def test_refusals_come_before_any_parameter(monkeypatch):
     with pytest.raises(ValueError, match="multi-axis"):
         tloop.train_population(*args, bucketed, 1, engine="shard_map",
                                device="cpu", engine_opts={"param_specs": {}})
-    with pytest.raises(NotImplementedError, match="pipeline axis"):
+    with pytest.raises(ValueError, match="pp_stages=2 must divide"):
         tmesh.make_host_mesh(4, "ens_pp", pp_stages=2, device="cpu")
     with pytest.raises(ValueError, match="mesh="):
         tloop.train_population(*args, bucketed, 1, device="cpu",

@@ -23,6 +23,12 @@ Scenarios:
               leaves :func:`mx_specs` split), the population gathered on
               rank 0 and written through ``checkpoint``; each rank's
               shard-local plans; the train CLI on a (2, 1, 2) mesh.
+  pipeline    the pipelined engine on (ens, pipe) and (ens, data, pipe)
+              meshes of the 4 ranks (:data:`PP_RUNS`) on
+              ``tests/test_pipeline.py``'s toy (:data:`PP_STAGE_FNS`,
+              :func:`pp_init`, :func:`pp_data`), the population gathered
+              on rank 0, each rank's replicated leaves, a population file
+              written and restored; the train CLI on a (2, 2) mesh.
 """
 
 from __future__ import annotations
@@ -355,6 +361,144 @@ def multiaxis(rank: int, world: int, data) -> dict:
     return out
 
 
+# tests/test_pipeline.py's toy: L = 4 stacked 8x8 blocks with a residual
+# tanh, embed 16x8, head 8x4, float32, batches of 8
+PP_L, PP_STEPS, PP_RECORD = 4, 6, 3
+PP_PAPA = dict(kind="papa", papa_every=2, papa_alpha=0.9)
+PP_WASH = dict(base_p=0.5, mode="bucketed")
+# (tag, mesh kind, mesh shape, N, microbatches, MixingConfig kwargs,
+#  optimizer, steps)
+PP_RUNS = [(f"{name}_{'x'.join(map(str, shape))}_{n}_m{micro}", kind, shape,
+            n, micro, kw, "sgd", PP_STEPS)
+           for kind, shape, n, micro in (("ens_pp", (1, 4), 2, 4),
+                                         ("ens_pp", (2, 2), 2, 1),
+                                         ("ens_pp", (2, 2), 2, 4),
+                                         ("ens_dp_pp", (1, 2, 2), 4, 2),
+                                         ("ens_dp_pp", (1, 2, 2), 1, 2))
+           for name, kw in (("none", dict(kind="none")), ("papa", PP_PAPA))
+           if n > 1 or name == "none"]
+# WASH and WASH+Opt one step, beside `none` under the same optimizer
+PP_RUNS += [(f"{name}_{'x'.join(map(str, shape))}_2_m2", "ens_pp", shape, 2,
+             2, kw, optimizer, 1)
+            for shape in ((1, 4), (2, 2))
+            for name, kw, optimizer in (
+                ("wash", dict(kind="wash", **PP_WASH), "sgd"),
+                ("wash0", dict(kind="none"), "sgd"),
+                ("washopt", dict(kind="wash_opt", **PP_WASH), "adamw"),
+                ("washopt0", dict(kind="none"), "adamw"))]
+PP_CLI = ["--arch", "llama3.2-3b", "--reduced", "--device", "cpu",
+          "--population", "2", "--mixing", "none", "--steps", "3",
+          "--batch-size", "2", "--seq-len", "8", "--engine", "shard_map"]
+
+
+def pp_init(seed: int):
+    g = torch.Generator().manual_seed(seed)
+    return {"embed": {"w": 0.3 * torch.randn(16, 8, generator=g)},
+            "blocks": {"w1": 0.3 * torch.randn(PP_L, 8, 8, generator=g)},
+            "head": {"w": 0.3 * torch.randn(8, 4, generator=g)}}
+
+
+def pp_embed(p, b):
+    return b["x"] @ p["embed"]["w"]
+
+
+def pp_blocks(p, x):
+    for w in p["blocks"]["w1"].unbind(0):  # this stage's layers
+        x = torch.tanh(x @ w) + x
+    return x
+
+
+def pp_head(p, x, b):
+    return torch.mean((x @ p["head"]["w"] - b["y"]) ** 2)
+
+
+def pp_loss(p, b):
+    return pp_head(p, pp_blocks(p, pp_embed(p, b)), b)
+
+
+PP_STAGE_FNS = (pp_embed, pp_blocks, pp_head)
+
+
+def pp_data(m: int, step: int, seed: int):
+    g = torch.Generator().manual_seed(seed)
+    return {"x": torch.randn(8, 16, generator=g),
+            "y": torch.randn(8, 4, generator=g)}
+
+
+def pp_tcfg(n: int, optimizer: str, steps: int):
+    from repro_torch.configs.base import TrainConfig
+
+    return TrainConfig(population=n, optimizer=optimizer,
+                       lr=3e-3 if optimizer == "adamw" else 0.05,
+                       total_steps=steps, batch_size=8)
+
+
+def pp_train(kw: dict, optimizer: str, n: int, steps: int, mesh=None,
+             micro: int = 1):
+    """The pipelined engine on the toy, on the CPU (``mesh=None``: the
+    world-1 engine, ``train_population_sharded`` on the composed loss)."""
+    from repro_torch.core.mixing import MixingConfig
+    from repro_torch.train import engine
+
+    engine.reset_chunk_trace_count()
+    if mesh is None:
+        return engine.train_population_sharded(
+            0, pp_init, pp_loss, pp_data, pp_tcfg(n, optimizer, steps),
+            MixingConfig(**kw), PP_L, record_every=PP_RECORD, device="cpu")
+    return engine.train_population_pipelined(
+        0, pp_init, PP_STAGE_FNS, pp_data, pp_tcfg(n, optimizer, steps),
+        MixingConfig(**kw), PP_L, record_every=PP_RECORD, mesh=mesh,
+        microbatches=micro, device="cpu")
+
+
+def pipeline(rank: int, world: int, data) -> dict:
+    from repro_torch.core.consensus import avg_distance_to_consensus
+    from repro_torch.core.population import gather_population
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import checkpoint, engine
+
+    out = {}
+    meshes = {}
+    for tag, kind, shape, n, micro, kw, optimizer, steps in PP_RUNS:
+        if (kind, shape, n) not in meshes:  # every rank, in one order
+            meshes[kind, shape, n] = make_host_mesh(
+                n, kind, mesh_shape=shape, device="cpu")
+        mesh = meshes[kind, shape, n]
+        res = pp_train(kw, optimizer, n, steps, mesh, micro)
+        traces = engine.chunk_trace_count()
+        for k, v in flat_tree(res.population).items():
+            if not k.startswith("blocks"):  # replicated over the stages
+                out[f"{tag}/rep{rank}/{k}"] = v.numpy()
+        out[f"{tag}/coords{rank}"] = np.asarray(
+            [mesh.coords[a] for a in mesh.axis_names])
+        full = gather_population(res.population, mesh,
+                                 stage_split=res.stage_split)
+        mu = (gather_population(res.opt_state["mu"], mesh,
+                                stage_split=res.stage_split)
+              if "mu" in res.opt_state else None)
+        if rank == 0:
+            out.update(flat_tree(full, f"{tag}/p/"))
+            if mu is not None:
+                out.update(flat_tree(mu, f"{tag}/mu/"))
+            for k in ("loss", "consensus", "comm", "step"):
+                out[f"{tag}/{k}"] = np.asarray(res.history[k])
+            out[f"{tag}/traces"] = np.asarray(traces)
+            out[f"{tag}/stacked_consensus"] = np.asarray(
+                float(avg_distance_to_consensus(full)))
+            if tag.startswith("washopt_2x2"):
+                path = checkpoint.save(os.path.join(data["dir"].item(),
+                                                    "pp_pop"), full)
+                out.update(flat_tree(checkpoint.restore(path, full),
+                                     f"{tag}/restored/"))
+
+    # the train CLI on (2, 2), two microbatches
+    train_cli.main(PP_CLI + ["--mesh", "ens_pp", "--pp-stages", "2",
+                             "--microbatches", "2", "--ckpt-population",
+                             os.path.join(data["dir"].item(), "pp_cli")])
+    return out
+
+
 def start(scenario: str, world: int, path: str, inputs: dict,
           timeout: float = 120.0):
     """Start SCENARIO on ``world`` ranks in fresh processes with
@@ -404,7 +548,8 @@ def main() -> int:
     try:
         data = np.load(os.path.join(path, "in.npz"))
         out = {"collective": collective, "engine": engine_runs,
-               "multiaxis": multiaxis}[scenario](rank, world, data)
+               "multiaxis": multiaxis,
+               "pipeline": pipeline}[scenario](rank, world, data)
         np.savez(os.path.join(path, f"out_{rank}.npz"), **out)
         dist.barrier()
     finally:

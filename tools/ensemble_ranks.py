@@ -8,7 +8,8 @@ cpu``, a process a CPU rank (``gloo``), from the root of a checkout:
     torchrun --standalone --nproc-per-node=4 tools/ensemble_ranks.py \\
         --device cpu --small
 
-Four ranks are needed.  Four parts, each failing the run on a mismatch:
+Four ranks are needed.  Five parts, each failing the run on a mismatch
+(``--parts`` runs some of them, e.g. ``--parts 5``):
 
   1. ring: the blocked bucketed apply (``core/shuffle.py``) on
      llama3.2-3b's stacked ``blocks.mlp.w1`` (N = 4, bf16, the layered
@@ -41,9 +42,29 @@ Four ranks are needed.  Four parts, each failing the run on a mismatch:
      with the first mixing step apart, peak memory and trained tokens/s;
      (c) the same population on one card (rank 0 alone, the vmap loop),
      run before every other part, while no NCCL communicator holds
-     memory on the card: where it runs out of memory.
+     memory on the card: where it runs out of memory;
+  5. the pipeline: (a) part 2's 4-layer float32 cut through the
+     pipelined engine (``train_population_pipelined``, each member's
+     blocks cut into stages over the pipe axis) on ``ens_pp`` (1,4) with
+     M = 4 microbatches, (2,2) with M = 1 and 4, and ``ens_dp_pp``
+     (1,2,2) at N = 4 with M = 2, against world 1 on rank 0: ``none``
+     and PAPA (``papa_every=2``, 3 steps) within rtol 2e-5, atol 2e-6;
+     WASH (1 step) on (1,4) and (2,2) the same multiset per coordinate
+     as the unmixed step, the leaves replicated over the stages bitwise
+     equal on every stage; (b) full-width llama3.2-3b on ``--mesh ens_pp
+     --mesh-shape 1,4`` through the train CLI: N = 2, bf16, SGD,
+     bucketed WASH at p = 0.01, 4 x 256 tokens a member, M = 4, 4 steps,
+     every bucketed launch held bitwise against its plain version: the
+     comm a step (9,016,861.0) and each stage's share, each rank's step
+     split (forward ticks, backward ticks, the pipe sum of the
+     replicated gradients, optimizer, mixing; the first step apart), the
+     measured bubble beside the schedule's (S - 1) / (M + S - 1), peak
+     memory on each card (training, and with the population gathered),
+     trained tokens/s; (c) the same on (2,2), where the ring runs inside
+     each stage (9,016,865.0).
 
-``--small`` runs every part on the reduced config instead (a CPU run).
+``--small`` runs every part on the reduced config instead (a CPU run;
+part 5 on the reduced config at 4 layers).
 Rank 0 prints the card's name and power limit, then the results as one
 JSON line, last.
 """
@@ -51,6 +72,7 @@ JSON line, last.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -77,7 +99,8 @@ from repro_torch.core.mixing import MixingConfig, static_mix_comm  # noqa: E402
 from repro_torch.core.prng import fold_in  # noqa: E402
 from repro_torch.core.schedules import layer_probability_array  # noqa: E402
 from repro_torch.data import make_lm_task, sample_tokens  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import wash_shuffle as ws  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
     EnsMesh, make_host_ensemble_mesh, make_host_mesh)
@@ -94,6 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (nccl, a card a rank) or cpu (gloo)")
     ap.add_argument("--small", action="store_true",
                     help="the reduced llama3.2-3b config in every part")
+    ap.add_argument("--parts", default="1,2,3,4,5",
+                    help="comma-separated parts to run (1-5)")
     return ap
 
 
@@ -293,11 +318,12 @@ MESHES = ((2, 1, 2), (1, 1, 4), (2, 2, 1))
 COLUMNS = 1 << 24  # columns of a stacked leaf compared at a time
 
 
-def held(got: torch.Tensor, want: torch.Tensor, how: str) -> bool:
+def held(got: torch.Tensor, want: torch.Tensor, how: str,
+         atol: float = 1e-6) -> bool:
     """``got`` against ``want`` (stacked leaves), column block by column
     block so that a full-width leaf is never sorted or subtracted whole:
     ``equal`` bitwise, ``permuted`` the same values in each column (a
-    shuffle across members), ``close`` within rtol 2e-5, atol 1e-6."""
+    shuffle across members), ``close`` within rtol 2e-5 and ``atol``."""
     a, b = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
     for c in range(0, a.shape[1], COLUMNS):
         x, y = a[:, c:c + COLUMNS], b[:, c:c + COLUMNS]
@@ -306,7 +332,7 @@ def held(got: torch.Tensor, want: torch.Tensor, how: str) -> bool:
         elif how == "permuted":
             ok = torch.equal(torch.sort(x, 0)[0], torch.sort(y, 0)[0])
         else:
-            ok = bool(((x - y).abs() <= 1e-6 + 2e-5 * y.abs()).all())
+            ok = bool(((x - y).abs() <= atol + 2e-5 * y.abs()).all())
         if not ok:
             return False
     return True
@@ -502,8 +528,246 @@ def one_card(rank: int, dev, cfg_name: str, small: bool) -> dict:
     return out
 
 
+# part 5 (a): (mesh kind, shape, N, microbatches)
+PIPE_MESHES = (("ens_pp", (1, 4), 2, 4), ("ens_pp", (2, 2), 2, 1),
+               ("ens_pp", (2, 2), 2, 4), ("ens_dp_pp", (1, 2, 2), 4, 2))
+
+
+def replicas_equal(block, stage_split, mesh) -> bool:
+    """Whether this rank's leaves replicated over the stages equal stage
+    0's bitwise (stage 0's copy broadcast over the pipe group)."""
+    first = (0 if mesh.pipe.group is dist.group.WORLD
+             else dist.get_global_rank(mesh.pipe.group, 0))
+    same = True
+    for x, split in zip(pop.tree_leaves(block), stage_split):
+        if split:
+            continue
+        y = x.clone()
+        dist.broadcast(y, first, group=mesh.pipe.group)
+        same = same and bool(torch.equal(x, y))
+        del y
+    return same
+
+
+def verdict_everywhere(rank: int, verdict: str, what: str) -> None:
+    """Rank 0's verdict reaches every rank before anyone fails."""
+    flags = [None] * WORLD
+    dist.all_gather_object(flags, verdict)
+    if flags[0] != "ok":
+        fail(f"{what}: {flags[0]}")
+
+
+def pipe_engine(rank: int, dev, cfg) -> dict:
+    """Part 5 (a): the pipelined engine on the 4-layer cut against world
+    1, and WASH's permutation on the stages."""
+    task = make_lm_task(fold_in(0, 1), vocab=min(cfg.vocab_size, 512),
+                        device=dev)
+    fns = M.pipeline_stage_fns(cfg)
+    tpl = M.param_shapes(cfg)
+
+    def data_fn(m, step, s):
+        return {"tokens": sample_tokens(task, s, 4, 64)}
+
+    def train(mcfg, n, steps, mesh, micro=None):
+        tcfg = TrainConfig(population=n, optimizer="sgd", lr=0.05,
+                           total_steps=steps, seed=0)
+        engine.reset_chunk_trace_count()
+        init = lambda s: M.init_params(cfg, seed=s, device=dev)  # noqa: E731
+        if micro is None:  # world 1
+            return engine.train_population_sharded(
+                0, init, lambda p, b: M.loss_fn(p, cfg, b)[0], data_fn,
+                tcfg, mcfg, cfg.num_layers, record_every=steps, mesh=mesh,
+                device=dev.type)
+        return engine.train_population_pipelined(
+            0, init, fns, data_fn, tcfg, mcfg, cfg.num_layers,
+            record_every=steps, mesh=mesh, microbatches=micro,
+            member_tpl=tpl, device=dev.type)
+
+    meshes = {(kind, shape, n): make_host_mesh(n, kind, mesh_shape=shape,
+                                               device=dev.type)
+              for kind, shape, n, _ in PIPE_MESHES}  # every rank, in order
+    out = {}
+    for n in (2, 4):
+        for kind, mcfg in (("papa", MixingConfig(kind="papa", papa_every=2)),
+                           ("none", MixingConfig(kind="none"))):
+            ref = None
+            if rank == 0:
+                res = train(mcfg, n, 3, EnsMesh(0, 1, n, 0, dev))
+                ref = (res.population, res.history["loss"], res.comm_scalars)
+                del res
+            for mkind, shape, nn, micro in PIPE_MESHES:
+                if nn != n:
+                    continue
+                mesh = meshes[mkind, shape, n]
+                t0 = time.perf_counter()
+                res = train(mcfg, n, 3, mesh, micro)
+                wall = time.perf_counter() - t0
+                full = pop.gather_population(res.population, mesh,
+                                             stage_split=res.stage_split)
+                verdict = "ok"
+                try:  # a failure on rank 0 reaches every rank below
+                    if rank == 0:
+                        close = all(held(a, b, "close", atol=2e-6) for a, b in
+                                    zip(pop.tree_leaves(full),
+                                        pop.tree_leaves(ref[0])))
+                        loss_ok = bool(np.allclose(res.history["loss"],
+                                                   ref[1], rtol=2e-5,
+                                                   atol=2e-6))
+                        if not (close and loss_ok):
+                            verdict = (f"params close {close}, losses "
+                                       f"{res.history['loss']} vs {ref[1]}")
+                        elif res.comm_scalars != ref[2]:
+                            verdict = f"comm {res.comm_scalars} vs {ref[2]}"
+                        out[f"{kind} N={n} {mkind} {shape} M={micro}"] = {
+                            "verdict": verdict, "s": wall,
+                            "losses": res.history["loss"],
+                            "world_1_losses": ref[1],
+                            "chunk_functions": engine.chunk_trace_count()}
+                except Exception as e:  # noqa: BLE001 (reported, then failed)
+                    verdict = f"{type(e).__name__}: {e}"[:500]
+                verdict_everywhere(rank, verdict, f"pipeline, {kind}, "
+                                   f"{shape}, M={micro}")
+                del res, full
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            del ref
+    wash = MixingConfig(kind="wash", base_p=P, mode="bucketed")
+    for mkind, shape, n, micro in PIPE_MESHES[:2]:
+        mesh = meshes[mkind, shape, n]
+        res0 = train(MixingConfig(kind="none"), n, 1, mesh, micro)
+        base = pop.gather_population(res0.population, mesh,
+                                     stage_split=res0.stage_split)
+        del res0
+        res = train(wash, n, 1, mesh, micro)
+        full = pop.gather_population(res.population, mesh,
+                                     stage_split=res.stage_split)
+        same = replicas_equal(res.population, res.stage_split, mesh)
+        flags = [None] * WORLD
+        dist.all_gather_object(flags, same)
+        verdict = "ok" if all(flags) else "replicated leaves differ"
+        if rank == 0 and verdict == "ok":
+            pairs = list(zip(pop.tree_leaves(full), pop.tree_leaves(base)))
+            if not all(held(a, b, "permuted") for a, b in pairs):
+                verdict = "a leaf is no permutation of the unmixed step's"
+            elif all(held(a, b, "equal") for a, b in pairs):
+                verdict = "WASH moved nothing"
+            out[f"wash N={n} {mkind} {shape} M={micro}"] = {
+                "verdict": verdict, "comm": res.comm_scalars,
+                "chunk_functions": engine.chunk_trace_count()}
+        verdict_everywhere(rank, verdict, f"pipeline, wash, {shape}")
+        del res, full, base
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def checked_bucketed(counts: dict):
+    """Every bucketed shuffle also through its plain version on the same
+    inputs, bitwise; ``counts`` tallies the comparisons."""
+    route = ops.bucketed_shuffle_
+
+    def checked(x, idx):
+        want = ref.bucketed_shuffle_ref(x, idx)
+        route(x, idx)
+        if not torch.equal(x, want):
+            fail("pipeline: a bucketed shuffle differs from its plain "
+                 "version")
+        counts["checked"] += 1
+        return x
+
+    ops.bucketed_shuffle_ = checked
+    try:
+        yield
+    finally:
+        ops.bucketed_shuffle_ = route
+
+
+def pipe_full_width(rank: int, dev, shape, small: bool) -> dict:
+    """Part 5 (b) and (c): full-width llama3.2-3b on an ``ens_pp`` mesh of
+    ``shape`` through the train CLI, M = 4."""
+    S, n, micro, steps, seq = shape[1], 2, 4, 4, 16 if small else 256
+    argv = ["--arch", "llama3.2-3b", "--population", str(n), "--mixing",
+            "wash", "--mode", "bucketed", "--base-p", str(P), "--optimizer",
+            "sgd", "--steps", str(steps), "--batch-size", "4", "--seq-len",
+            str(seq), "--record-every", "1", "--lr", "0.01", "--device",
+            dev.type, "--engine", "shard_map", "--mesh", "ens_pp",
+            "--mesh-shape", ",".join(map(str, shape)), "--microbatches",
+            str(micro)]
+    base = get_arch("llama3.2-3b")
+    cfg = base.reduced(num_layers=4) if small else base
+    shapes = M.param_shapes(cfg)
+    lids = tli.infer_layer_ids(shapes, cfg.num_layers)
+    layout = types.SimpleNamespace(axis_names=("ens", "pipe"),
+                                   shape={"ens": shape[0], "pipe": S})
+    pplan = shardplan.plan_population_mixing(
+        layout, shapes, rules.stage_member_specs(
+            pop.tree_map(lambda _: rules.P(), shapes), lids),
+        MixingConfig(kind="wash", base_p=P, mode="bucketed"), lids,
+        tli.total_layers(cfg.num_layers), n)
+    static = shardplan.static_shard_mix_comm(pplan)
+    stages = [shardplan.static_stage_mix_comm(pplan, s) for s in range(S)]
+    train_peak = {}
+    real_gather = train_cli.gather_population
+
+    def gather(block, mesh, **k):  # the training's peak, before the gather
+        if dev.type == "cuda":
+            sync(dev)
+            train_peak["gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        train_peak["replicas_equal"] = replicas_equal(
+            block, k["stage_split"], mesh)
+        return real_gather(block, mesh, **k)
+
+    counts = {"checked": 0}
+    ws.bucketed_launches = 0
+    train_cli.gather_population = gather
+    try:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        with checked_bucketed(counts):
+            res = train_cli.main(argv, cfg=cfg)
+        sync(dev)
+    finally:
+        train_cli.gather_population = real_gather
+    comm = np.diff([0.0] + res.history["comm"]).tolist()
+    if comm != [static] * steps:
+        fail(f"pipeline full width {shape}: comm a step {comm}, the "
+             f"planner's {static}")
+    if dev.type == "cuda" and counts["checked"] != ws.bucketed_launches:
+        fail(f"pipeline full width {shape}: {ws.bucketed_launches} launches, "
+             f"{counts['checked']} checked")
+    mine = {p: [round(v, 3) for v in res.phase_ms[p]] for p in res.phase_ms}
+    ticks = [f + b for f, b in zip(res.phase_ms["fwd_ticks"],
+                                   res.phase_ms["bwd_ticks"])]
+    mine["bubble_steps_2_on"] = 1.0 - (sum(res.phase_ms["stage_compute"][1:])
+                                       / sum(ticks[1:]))
+    mine["bucketed_launches"] = ws.bucketed_launches  # 0 on the CPU
+    mine["bucketed_checked"] = counts["checked"]
+    mine["peak_train_gib"] = train_peak.get("gib")
+    mine["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                        if dev.type == "cuda" else None)
+    mine["wall_s"] = res.history["wall_s"][0]
+    mine["replicas_equal"] = train_peak["replicas_equal"]
+    each = [None] * WORLD
+    dist.all_gather_object(each, mine)
+    if not all(e["replicas_equal"] for e in each):
+        fail(f"pipeline full width {shape}: the replicated leaves differ "
+             f"across the stages")
+    tokens = steps * n * 4 * seq
+    out = {"mesh": list(shape), "microbatches": micro,
+           "comm_a_step": static, "stage_comm": stages,
+           "schedule_bubble": (S - 1) / (micro + S - 1),
+           "losses": res.history["loss"], "tokens": tokens,
+           "tok_s": tokens / max(e["wall_s"] for e in each), "ranks": each}
+    del res
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     args = build_parser().parse_args()
+    parts = {int(p) for p in args.parts.split(",")}
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world != WORLD:
         print(f"ensemble_ranks: needs {WORLD} ranks under torchrun, got "
@@ -537,19 +801,29 @@ def main() -> int:
             name=f"{base.name}-4layers-f32"))
         t0 = time.perf_counter()
         res = {"device": dev.type, "world": WORLD, "torch": torch.__version__}
-        res["one_card"] = one_card(rank, dev, "llama3.2-3b", args.small)
-        say(rank, f"one card: {json.dumps(res['one_card'])}")
-        res["ring"] = ring(rank, dev, small if args.small else base, groups)
-        say(rank, f"ring: {json.dumps(res['ring'])}")
-        res["engine"] = engine_worlds(rank, dev, cut, groups)
-        say(rank, f"engine: {json.dumps(res['engine'])}")
-        res["full_width"] = full_width(rank, dev, "llama3.2-3b", args.small)
-        say(rank, f"full width: {json.dumps(res['full_width'])}")
-        res["meshes"] = mesh_engine(rank, dev, cut)
-        say(rank, f"meshes: {json.dumps(res['meshes'])}")
-        res["mesh_full_width"] = mesh_full_width(rank, dev, "llama3.2-3b",
-                                                 args.small)
-        say(rank, f"mesh full width: {json.dumps(res['mesh_full_width'])}")
+        runs = [  # (part, result key, run); part 4 (c) first: a fresh card
+            (4, "one_card", lambda: one_card(rank, dev, "llama3.2-3b",
+                                             args.small)),
+            (1, "ring", lambda: ring(rank, dev, small if args.small else base,
+                                     groups)),
+            (2, "engine", lambda: engine_worlds(rank, dev, cut, groups)),
+            (3, "full_width", lambda: full_width(rank, dev, "llama3.2-3b",
+                                                 args.small)),
+            (4, "meshes", lambda: mesh_engine(rank, dev, cut)),
+            (4, "mesh_full_width", lambda: mesh_full_width(
+                rank, dev, "llama3.2-3b", args.small)),
+            (5, "pipeline", lambda: pipe_engine(
+                rank, dev, base.reduced(num_layers=4) if args.small
+                else cut)),
+            (5, "pipeline_full_width_1x4", lambda: pipe_full_width(
+                rank, dev, (1, 4), args.small)),
+            (5, "pipeline_full_width_2x2", lambda: pipe_full_width(
+                rank, dev, (2, 2), args.small)),
+        ]
+        for part, key, run in runs:
+            if part in parts:
+                res[key] = run()
+                say(rank, f"{key}: {json.dumps(res[key])}")
         res["seconds"] = time.perf_counter() - t0
         dist.barrier()
         if rank == 0:
