@@ -191,11 +191,11 @@ and then, failing on the first phase that fails:
      registers, shared memory and spills; holds the flash kernel at
      hymba's prefill attention (bf16, 25 heads over 5 kv heads, head dim
      64, causal, window 1024) and times it beside SDPA with the window
-     as a mask; serves full-width hymba-1.5b (32 layers, bf16, a random
-     N=2 population) through the serve CLI's scan engine (``--compare``,
-     B=4, S=2048, 32 new): selective-scan launches == 2 requests x 32
-     layers x 4 member-runs x (1 prefill + 31 decode steps), flash
-     launches == 2 x 32 x 4; a teacher-forced prefill + decode step on
+     as a mask; serves full-width hymba-1.5b (8 of its 32 layers, bf16,
+     a random N=2 population) through the serve CLI's scan engine
+     (``--compare``, B=4, S=2048, 32 new): selective-scan launches == 2
+     requests x 8 layers x 4 member-runs x (1 prefill + 31 decode steps),
+     flash launches == 2 x 8 x 4; a teacher-forced prefill + decode step on
      the kernel path against the plain path (logits, every layer's output
      and Mamba ``h`` and ``conv``), profiled; trains it through the train
      CLI (bf16, N=2, SGD, bucketed WASH at p=0.01, 2 x 256 tokens a
@@ -270,6 +270,18 @@ and then, failing on the first phase that fails:
      microbatch bitwise equal to phase 15's engine, two within 2e-5 of
      the vmap loop; finally ``--pp-stages 2`` on the one card is refused
      before any weight is made.
+ 18. stage-split and data-mesh serving at world 1: full-width llama3.2-3b
+     (bf16, the soup of a random N=2 population, B=4, S=2048, 32 new)
+     through the serve CLI without a mesh, with ``--mesh data`` (the (1,)
+     data group) and with ``--pp-stages 1``: tokens equal, flash launches
+     == 2 requests x 28 layers each run; the stage functions composed
+     over 4 virtual stages of 7 layers on the one card, the prefill's
+     logits and 31 greedy tokens bitwise the unstaged engine's, flash
+     launches == 28 a prefill; the serve CLI's ``--pp-stages 2`` on the
+     one card refused before any weight is made.
+
+Phase 13's full-width hymba serve and teacher-forced step run 8 of its 32
+layers (``HYMBA_SERVE_LAYERS``), to make room for phase 18.
 
 Kernels are built from the sources in the checkout, each ``nvcc`` started
 at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
@@ -2079,11 +2091,12 @@ def _zero(fa, wkv, pa):
     fa.launch_shapes.clear()
 
 
-def serve_full_width(torch, device, arch, card, seq=SCAN_S):
+def serve_full_width(torch, device, arch, card, seq=SCAN_S, cfg=None):
     """The serve CLI without --continuous, --compare: each mode served
     twice (its first request and the timed one) from a random N = 2
-    population, B = SCAN_B prompts of ``seq`` tokens.  Returns the
-    launches of the run, checked exactly."""
+    population, B = SCAN_B prompts of ``seq`` tokens, of ``arch``'s
+    config or of ``cfg`` (a depth cut of it, through ``main(argv,
+    cfg=...)``).  Returns the launches of the run, checked exactly."""
     from repro_torch.configs import get_arch
     from repro_torch.core.prng import fold_in
     from repro_torch.kernels import flash_attention as fa
@@ -2094,7 +2107,7 @@ def serve_full_width(torch, device, arch, card, seq=SCAN_S):
     from repro_torch.launch.specs import concrete_batch
     from repro_torch.models import transformer as M
 
-    cfg = get_arch(arch)
+    cfg = get_arch(arch) if cfg is None else cfg
     members = sum(MODE_MEMBERS.values())
     shapes = tree_leaves(M.param_shapes(cfg))
     one_model = sum(x.numel() * x.element_size() for x in shapes)
@@ -2116,7 +2129,7 @@ def serve_full_width(torch, device, arch, card, seq=SCAN_S):
     outs = serve_cli.main(["--arch", arch, "--population", "2", "--seed", "0",
                            "--batch-size", str(SCAN_B), "--seq-len",
                            str(seq), "--max-new", str(SCAN_NEW),
-                           "--compare"])
+                           "--compare"], cfg=cfg)
     torch.cuda.synchronize()
     counts = _counts(fa, wkv, pa)
     dt = time.perf_counter() - t0
@@ -3831,6 +3844,10 @@ SSM_FWD_OPS, SSM_BWD_OPS = 8, 28
 SSM_BWD_EARLIER_MS = {"train": 0.2086, "prefill": 2.7419}
 HYMBA_FLASH = (4, 2048, 25, 5, 64, 1024)  # B, S, H, KV, hd, window
 HYMBA_REDUCED_SEQ = 128  # twice the reduced window: the window bites
+# the full-width serve and teacher-forced step run 8 of hymba's 32 (alike)
+# layers: phase 18 needed the time, and every layer repeats the same
+# kernel calls at the same shapes (training keeps all 32)
+HYMBA_SERVE_LAYERS = 8
 
 
 def ssm_inputs(torch, B, T, DI, S, device, seed, extreme=False):
@@ -4256,10 +4273,14 @@ def hybrid_family(torch, F, device, kernels, card):
     kernels.update(check_selective_scan(torch, ssk, ref, device))
     kernels.update(check_flash_hymba(torch, fa, ref, F, device))
     t1 = time.perf_counter()
-    counts = serve_full_width(torch, device, HYMBA, card)
+    from repro_torch.configs import get_arch
+
+    cut = dataclasses.replace(get_arch(HYMBA), num_layers=HYMBA_SERVE_LAYERS,
+                              name=f"{HYMBA}-{HYMBA_SERVE_LAYERS}layers")
+    counts = serve_full_width(torch, device, HYMBA, card, cfg=cut)
     kernels["ssm"]["launches"] += counts["ssm"]
     kernels["flash_bf16_hymba"]["launches"] += counts["flash"]
-    teacher_forced(torch, device, HYMBA)
+    teacher_forced(torch, device, HYMBA, cfg=cut)
     train_full_width(torch, device, HYMBA, kernels)
     reduced = hymba_reduced_f32(torch, device)
     kernels["ssm"]["launches"] += reduced["ssm"]
@@ -5198,6 +5219,196 @@ def pipeline_training(torch, device, kernels, phase15) -> None:
         f"paths so far {kernels['bucketed']['launches']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: stage-split and data-mesh serving, at world 1 on the card
+# ---------------------------------------------------------------------------
+
+VIRTUAL_STAGES = 4  # (b): llama3.2-3b's 28 layers as 4 stages of 7
+
+
+def mesh_serving_cli(torch, device, card) -> int:
+    """(a) Full-width llama3.2-3b (bf16, a random N = 2 population, the
+    soup) through the serve CLI's scan engine at phase 8's request shape,
+    three times: without a mesh, with ``--mesh data`` (the (1,) data
+    group: every row on the one rank) and with ``--pp-stages 1`` (one
+    stage: served unstaged).  Each run's tokens must equal the first's,
+    and its flash launches be exact (REQUESTS_PER_MODE requests x 28
+    layers, nothing else).  Returns the flash launches."""
+    import io
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.launch import serve as serve_cli
+
+    arch, layers = "llama3.2-3b", 28
+    argv = ["--arch", arch, "--population", "2", "--seed", "0",
+            "--batch-size", str(SCAN_B), "--seq-len", str(SCAN_S),
+            "--max-new", str(SCAN_NEW), "--mode", "soup"]
+    expect = {"flash": REQUESTS_PER_MODE * layers, "paged": 0, "wkv": 0,
+              "ssm": 0}
+    runs = {"no mesh": [], "--mesh data": ["--mesh", "data"],
+            "--pp-stages 1": ["--pp-stages", "1"]}
+    tokens, flash = {}, 0
+    for what, extra in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(fa, wkv, pa)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = serve_cli.main(argv + extra)["soup"]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _counts(fa, wkv, pa)
+        printed = out.getvalue()
+        for line in printed.splitlines():
+            log(f"  serve CLI {what}: {line}")
+        tokens[what] = res["tokens"]
+        log(f"serve CLI {what} ({arch}, full width, bf16, N=2 soup, B="
+            f"{SCAN_B}, S={SCAN_S}, {SCAN_NEW} new): {dt:.2f} s with the "
+            f"population's init; kernel launches {counts} (expected "
+            f"{expect}); prefill {res['prefill_s']:.3f} s, decode step "
+            f"{res['decode_step_ms']:.2f} ms, {res['tok_s']:.2f} tok/s; "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; tokens "
+            f"equal the run without a mesh: "
+            f"{torch.equal(res['tokens'], tokens['no mesh'])} on {card}")
+        if counts != expect:
+            fail(f"mesh serving {what}: kernel launches {counts}, expected "
+                 f"{expect}")
+        if not torch.equal(res["tokens"], tokens["no mesh"]):
+            fail(f"mesh serving {what}: tokens differ from the run without "
+                 f"a mesh")
+        mesh_line = {"--mesh data": "mesh: {'data': 1}",
+                     "--pp-stages 1": "mesh: {'pipe': 1}"}.get(what)
+        if mesh_line is not None and mesh_line not in printed:
+            fail(f"mesh serving {what}: the CLI printed no {mesh_line!r}")
+        flash += counts["flash"]
+        del res
+        torch.cuda.empty_cache()
+    return flash
+
+
+def virtual_stages(torch, device, card) -> None:
+    """(b) The stage functions composed over VIRTUAL_STAGES slices of
+    full-width llama3.2-3b's blocks (7 layers each, a cache each) on the
+    one card, held bitwise to the unstaged engine on the soup of a random
+    N = 2 population: the prefill's logits (``M.prefill``, with exactly
+    28 flash launches on either side) and SCAN_NEW - 1 greedy decode
+    steps' tokens (``engine.generate``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import averaging
+    from repro_torch.core import population as pop
+    from repro_torch.core.prng import fold_in
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.launch.serve import init_population
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models import transformer as M
+    from repro_torch.serving import engine
+
+    cfg = get_arch("llama3.2-3b")
+    n = cfg.num_layers // VIRTUAL_STAGES
+    local = dataclasses.replace(cfg, num_layers=n)
+    soup = averaging.uniform_soup_(init_population(cfg, 2, 0, device))
+    batch = concrete_batch(cfg, fold_in(0, 2), SCAN_B, SCAN_S, device=device)
+    cap = SCAN_S + SCAN_NEW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        _zero(fa, wkv, pa)
+        want_logits, _ = M.prefill(soup, cfg, batch, capacity=cap)
+        unstaged = _counts(fa, wkv, pa)
+        want = engine.generate(soup, cfg, batch, SCAN_NEW, device=device)
+        _zero(fa, wkv, pa)
+        t0 = time.perf_counter()
+        blocks = [pop.tree_map(lambda x: x[s * n:(s + 1) * n],
+                               soup["blocks"]) for s in range(VIRTUAL_STAGES)]
+        caches = [M.init_cache(local, SCAN_B, cap, device=device)
+                  for _ in range(VIRTUAL_STAGES)]
+        h = M.prefill_embed(soup, cfg, batch)
+        for s in range(VIRTUAL_STAGES):
+            h, caches[s] = M.prefill_blocks(blocks[s], local, h, caches[s])
+        logits = M.lm_logits(soup, cfg, h[:, -1:])
+        staged = _counts(fa, wkv, pa)
+        toks = [logits[:, -1].argmax(-1).to(torch.int32)]
+        for i in range(SCAN_NEW - 1):
+            h = M.decode_embed(soup, cfg, toks[-1][:, None], SCAN_S + i)
+            for s in range(VIRTUAL_STAGES):
+                h, caches[s] = M.decode_blocks(blocks[s], local, h,
+                                               caches[s], SCAN_S + i)
+            toks.append(M.lm_logits(soup, cfg, h)[:, -1].argmax(-1).to(
+                torch.int32))
+        got = torch.stack(toks, dim=1)
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    same_logits = torch.equal(logits, want_logits)
+    same_tokens = torch.equal(got, want[:, SCAN_S:])
+    log(f"virtual stages (llama3.2-3b, full width, bf16, the soup of N=2, "
+        f"{VIRTUAL_STAGES} stages of {n} layers on the one card, B={SCAN_B}, "
+        f"S={SCAN_S}, {SCAN_NEW} greedy tokens): {dt:.2f} s; prefill logits "
+        f"bitwise equal to the unstaged prefill: {same_logits}; tokens "
+        f"bitwise equal to engine.generate's: {same_tokens}; flash launches "
+        f"{staged['flash']} staged, {unstaged['flash']} unstaged a prefill "
+        f"(expected {cfg.num_layers}); other kernels {staged}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
+        f"{card}")
+    if not (same_logits and same_tokens):
+        fail("virtual stages: the staged prefill or tokens differ from the "
+             "unstaged engine")
+    expect = {"flash": cfg.num_layers, "paged": 0, "wkv": 0, "ssm": 0}
+    if staged != expect or unstaged != expect:
+        fail(f"virtual stages: launches {staged} staged, {unstaged} "
+             f"unstaged, expected {expect}")
+    del soup, caches, blocks
+    torch.cuda.empty_cache()
+
+
+def serve_refuses_stages_past_the_ranks(torch, device) -> None:
+    """(c) The serve CLI's ``--pp-stages 2`` on one rank is refused before
+    any weight is made: a stage a rank, and the world is one."""
+    import io
+
+    from repro_torch.launch import serve as serve_cli
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            serve_cli.main(["--arch", "llama3.2-3b", "--population", "2",
+                            "--pp-stages", "2"])
+    except SystemExit as e:
+        code = e.code
+    else:
+        fail("the serve CLI's --pp-stages 2 on one card was not refused")
+    after = torch.cuda.memory_allocated()
+    reason = err.getvalue().strip().splitlines()[-1]
+    log(f"serve CLI --pp-stages 2 on {torch.cuda.device_count()} card: "
+        f"refused (exit {code}): {reason}; device memory {before} -> "
+        f"{after} bytes")
+    if "needs that many ranks" not in reason or after != before:
+        fail(f"serve --pp-stages 2 on one card: refused with {reason!r}, "
+             f"memory {before} -> {after}")
+
+
+def mesh_serving(torch, device, kernels, card) -> None:
+    """Phase 18: stage-split and data-mesh serving at world 1 on the card:
+    (a) the serve CLI on the (1,) data mesh and one stage against no mesh,
+    (b) four virtual stages against the unstaged engine, (c) the refusal
+    of two stages on one card."""
+    t0 = time.perf_counter()
+    kernels["flash_bf16"]["launches"] += mesh_serving_cli(torch, device,
+                                                          card)
+    virtual_stages(torch, device, card)
+    serve_refuses_stages_past_the_ranks(torch, device)
+    log(f"phase 18 (stage-split and data-mesh serving, world 1): "
+        f"{time.perf_counter() - t0:.1f} s; flash bf16 launches on the main "
+        f"paths so far {kernels['flash_bf16']['launches']}")
+
+
 def build_kernels(*mods):
     """Every library, each nvcc started at once."""
     t0 = time.perf_counter()
@@ -5265,6 +5476,7 @@ def main() -> int:
     phase15 = multi_device_training(torch, device, kernels, phase5)
     multi_axis_training(torch, device, kernels, phase15)
     pipeline_training(torch, device, kernels, phase15)
+    mesh_serving(torch, device, kernels, card)
     for entry in kernels.values():
         if entry["launches"] == 0:
             fail(f"kernel {entry['name']} was never launched on its path")

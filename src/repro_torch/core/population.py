@@ -125,11 +125,12 @@ def all_gather_dims(x: torch.Tensor, dims, group) -> torch.Tensor:
     return x
 
 
-def gather_population(block: Tree, mesh, dst: int = 0,
+def gather_population(block: Tree, mesh, dst: Optional[int] = 0,
                       shard_dims=None, stage_split=None) -> Optional[Tree]:
-    """The whole stacked population on rank ``dst`` from each rank's
-    ``(n_local, ...)`` block, members in global order; None on the other
-    ranks.  ``mesh`` is an ensemble mesh or a multi-axis
+    """The whole stacked population on rank ``dst`` (on every rank when
+    ``dst`` is None) from each rank's ``(n_local, ...)`` block, members in
+    global order; None on the other ranks.  ``mesh`` is an ensemble mesh
+    or a multi-axis
     :class:`repro_torch.launch.mesh.HostMesh`, whose ranks hold member
     shards: ``shard_dims`` (a tuple of member dims for each leaf, in leaf
     order) names the dims its model group splits, and ``stage_split`` (a
@@ -147,6 +148,7 @@ def gather_population(block: Tree, mesh, dst: int = 0,
         stage_split = None
     if pop_mesh.world == 1 and shard_dims is None and stage_split is None:
         return block
+    here = dst is None or mesh.rank == dst
     dims = iter(shard_dims) if shard_dims is not None else None
     stages = iter(stage_split) if stage_split is not None else None
 
@@ -156,10 +158,10 @@ def gather_population(block: Tree, mesh, dst: int = 0,
         if stages is not None and next(stages):
             x = all_gather_dims(x, (0,), pipe)
         if pop_mesh.world == 1:
-            return x if mesh.rank == dst else None
+            return x if here else None
         parts = [torch.empty_like(x) for _ in range(pop_mesh.world)]
         dist.all_gather(parts, x.contiguous(), group=pop_mesh.group)
-        return torch.cat(parts) if mesh.rank == dst else None
+        return torch.cat(parts) if here else None
 
     full = tree_map(gather, block)
-    return full if mesh.rank == dst else None
+    return full if here else None

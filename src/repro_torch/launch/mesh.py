@@ -24,6 +24,12 @@ rank a device, ranks row-major over the axes (as the reference's
 ``make_mesh`` lays out the host's devices): a :class:`HostMesh`, with a
 process group for each set of axes the engine reduces over, and on a
 pipe axis the global ranks of the neighbouring stages.
+
+Serving lays one axis over the world, or over a subgroup of it
+(:class:`ServeMesh`): :func:`make_host_data_mesh` a ``data`` group that
+splits a request's rows (the reference's ``make_host_data_mesh``; at
+world 1 the (1,) mesh), :func:`make_host_pipe_mesh` S pipeline stages
+that each hold a contiguous slice of the blocks.
 """
 
 from __future__ import annotations
@@ -94,6 +100,12 @@ def _world_and_rank(group) -> tuple:
     world = int(os.environ.get("WORLD_SIZE", "1"))
     rank = int(os.environ.get("RANK", "0"))
     return world, rank, world > 1
+
+
+def host_world() -> int:
+    """The number of ranks this process runs among: the initialized
+    default group's, else ``torchrun``'s ``WORLD_SIZE``, else 1."""
+    return _world_and_rank(None)[0]
 
 
 def _rank_device(device: DeviceLike, world: int, rank: int) -> torch.device:
@@ -364,3 +376,89 @@ def make_host_mesh(population: int, kind: str = "ens", *, mesh_shape=None,
                     model=model_g, loss=loss_g, pipe=pipe_g,
                     prev_rank=prev_rank, next_rank=next_rank,
                     owns_group=init)
+
+
+@dataclasses.dataclass
+class ServeMesh:
+    """This process's place on a serving mesh of one axis, ``data`` or
+    ``pipe``: ``axis_names`` and ``shape`` as the serving engine and
+    ``sharding.rules`` read them, the ``data`` and ``pipe`` groups (the
+    axis the mesh lacks is one rank), and on the pipe axis the global
+    ranks of the neighbouring stages (None at the ends)."""
+
+    axis_names: Tuple[str, ...]
+    shape: Dict[str, int]
+    rank: int
+    device: torch.device
+    data: AxisGroup
+    pipe: AxisGroup
+    prev_rank: Optional[int] = None
+    next_rank: Optional[int] = None
+    owns_group: bool = False
+
+    @property
+    def stage(self) -> int:
+        return self.pipe.rank
+
+    @property
+    def num_stages(self) -> int:
+        return self.pipe.world
+
+    def global_rank(self, axis: AxisGroup, rank: int) -> int:
+        """The default group's rank of ``rank`` in ``axis``'s group."""
+        if axis.group is None or axis.group is dist.group.WORLD:
+            return rank
+        return dist.get_global_rank(axis.group, rank)
+
+    def close(self) -> None:
+        """Destroy the default group if this mesh made it."""
+        if self.owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+        self.owns_group = False
+
+
+def _serve_mesh(axis: str, size: Optional[int], device: DeviceLike,
+                group) -> ServeMesh:
+    world, rank, init = _world_and_rank(group)
+    if size is not None and size != world:
+        raise ValueError(f"{size} pipeline stages need {size} ranks; the "
+                         f"{'group' if group is not None else 'world'} has "
+                         f"{world}")
+    dev = _rank_device(device, world, rank)
+    if init:
+        _init(dev, world, rank)
+    if world > 1 and group is None:
+        group = dist.group.WORLD
+    mine = AxisGroup((axis,), rank, world, group if world > 1 else None)
+    one = AxisGroup((), 0, 1)
+    mesh = ServeMesh(axis_names=(axis,), shape={axis: world},
+                     rank=dist.get_rank() if world > 1 else 0, device=dev,
+                     data=mine if axis == "data" else one,
+                     pipe=mine if axis == PIPE_AXIS else one,
+                     owns_group=init)
+    if axis == PIPE_AXIS:
+        if rank > 0:
+            mesh.prev_rank = mesh.global_rank(mine, rank - 1)
+        if rank < world - 1:
+            mesh.next_rank = mesh.global_rank(mine, rank + 1)
+    return mesh
+
+
+def make_host_data_mesh(device: DeviceLike = "cuda", group=None) -> ServeMesh:
+    """The serving ``data`` mesh over the world ``torchrun`` starts (or
+    over ``group``): one rank a card, each holding the whole model and
+    serving its rows of a request.  A world of 1 gives the (1,) mesh and
+    makes no process group."""
+    return _serve_mesh("data", None, device, group)
+
+
+def make_host_pipe_mesh(stages: int, device: DeviceLike = "cuda",
+                        group=None) -> ServeMesh:
+    """The serving ``pipe`` mesh of ``stages`` stages, one rank each, over
+    the world ``torchrun`` starts (or over ``group``): stage s is the
+    group's rank s.  Refused, before any process group is made, when the
+    world (the group) is not ``stages`` ranks or has more ranks than the
+    host has cards."""
+    if stages < 1:
+        raise ValueError(f"pp_stages={stages} must be >= 1")
+    return _serve_mesh(PIPE_AXIS, stages, device, group)

@@ -1,7 +1,6 @@
 """CLI launcher: serve a WASH population (scan engine or continuous batching).
 
-Port of ``repro/launch/serve.py`` without the mesh and pipeline options
-(``--mesh``, ``--pp-stages``).  Loads a population (random-init from
+Port of ``repro/launch/serve.py``.  Loads a population (random-init from
 ``--seed``, ``--ckpt``, a stacked population ``.npz`` written by either
 package's ``train.checkpoint.save``, for example the JAX train CLI's
 ``--ckpt-population``, or quick-trained ``--train-steps`` steps), turns it
@@ -26,6 +25,19 @@ runtimes:
     interleaved with decode (``--prefill-chunk``), LRU page retention
     (``--retain-pages``), reporting TTFT p50/p99, inter-token p99, latency
     p99 and tokens/s.
+
+The scan engine also serves across ranks (``torchrun``; NCCL on the
+card, one card a rank; gloo with ``--device cpu``): ``--mesh data`` gives
+every rank the whole population and its rows of the batch (the output
+gathered in order), ``--pp-stages S`` splits the blocks over S ranks, each
+holding (and restoring from ``--ckpt``) only its stage's layers.  Rank 0
+prints.  Both are refused with ``--continuous`` and ``--driver``, and
+``--pp-stages`` with ``--mesh``, with a world other than S, and with
+``--train-steps``, before any weight is made.
+
+  torchrun --standalone --nproc-per-node=4 -m repro_torch.launch.serve \\
+      --arch llama3.2-3b --population 2 --batch-size 4 --seq-len 2048 \\
+      --max-new 32 --pp-stages 4
 
 ``--metrics-out`` writes the telemetry event stream (``repro_torch.obs``)
 as JSONL, which ``tools/check_metrics_schema.py`` checks;
@@ -74,6 +86,8 @@ from repro_torch.core.mixing import MixingConfig
 from repro_torch.core.prng import fold_in
 from repro_torch.kernels import (flash_attention, paged_attention, rwkv6_scan,
                                  selective_scan)
+from repro_torch.launch.mesh import (host_world, make_host_data_mesh,
+                                     make_host_pipe_mesh)
 from repro_torch.launch.specs import concrete_batch
 from repro_torch.models import transformer as M
 from repro_torch.serving import batching
@@ -84,31 +98,53 @@ from repro_torch.train import checkpoint
 from repro_torch.train.loop import train_population
 
 
-def init_population(cfg, n: int, seed: int, device):
+def _member_shapes(cfg, mesh=None):
+    """A member's ``param_shapes``; on a pipe ``mesh``, this rank's stage
+    of them."""
+    shapes = M.param_shapes(cfg)
+    return shapes if mesh is None else serving.stage_params(shapes, cfg,
+                                                            mesh)
+
+
+def init_population(cfg, n: int, seed: int, device, mesh=None):
     """N independently initialized members, stacked: member i is
     ``M.init_params(cfg, seed=seed * 1000 + i)``, drawn straight into its
-    slot of the stacked leaves (no member is built whole beside them)."""
+    slot of the stacked leaves (no member is built whole beside them).
+    On a pipe ``mesh`` the population holds this rank's stage of each
+    member (``engine.stage_params``): each member is drawn whole, its
+    stage kept, the rest freed."""
     dev = resolve_device(device)
     popn = pop.tree_map(
         lambda m: torch.empty((n,) + tuple(m.shape), dtype=m.dtype,
-                              device=dev), M.param_shapes(cfg))
+                              device=dev), _member_shapes(cfg, mesh))
     for i in range(n):
-        M.init_params(cfg, seed=seed * 1000 + i, device=dev,
-                      out=pop.member(popn, i))
+        if mesh is None:
+            M.init_params(cfg, seed=seed * 1000 + i, device=dev,
+                          out=pop.member(popn, i))
+            continue
+        whole = M.init_params(cfg, seed=seed * 1000 + i, device=dev)
+        pop.tree_map(lambda d, x: d.copy_(x), pop.member(popn, i),
+                     serving.stage_params(whole, cfg, mesh))
+        del whole
     return popn
 
 
-def _population(args, cfg, device):
+def _population(args, cfg, device, mesh=None, lead=True):
+    """The population to serve: restored, quick-trained or drawn; on a
+    pipe ``mesh`` only this rank's stage of it."""
     if args.ckpt:
         like = pop.tree_map(
             lambda x: x.unsqueeze(0).expand((args.population,) + x.shape),
-            M.param_shapes(cfg))
-        popn = checkpoint.restore(args.ckpt, like, device=device)
-        print(f"restored population <- {args.ckpt}")
+            _member_shapes(cfg, mesh))
+        popn = checkpoint.restore(
+            args.ckpt, like, device=device,
+            stage=None if mesh is None else (mesh.stage, mesh.num_stages))
+        if lead:
+            print(f"restored population <- {args.ckpt}")
         return popn
     if args.train_steps > 0:
         return _quick_train(cfg, args, device)
-    return init_population(cfg, args.population, args.seed, device)
+    return init_population(cfg, args.population, args.seed, device, mesh)
 
 
 def _quick_train(cfg, args, device):
@@ -146,7 +182,8 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _serve_once(popn, cfg, batch, args, mode, sample_seed, device):
+def _serve_once(popn, cfg, batch, args, mode, sample_seed, device,
+                mesh=None):
     """Serve ``batch`` in ``mode`` through the scan engine twice: the first
     request builds the programs (and the kernels, on a fresh card), the
     second is timed.  Resolves the mode's params once (soup averaging and
@@ -156,7 +193,8 @@ def _serve_once(popn, cfg, batch, args, mode, sample_seed, device):
     "decode_step_ms"}``: the timed request's tokens, tok/s and seconds,
     the first request's seconds, and the timed request's prefill seconds
     and mean decode-step milliseconds (``serving.generate``'s
-    ``timings``, each timed to the device's end)."""
+    ``timings``, each timed to the device's end; on a mesh, this rank's,
+    and rank 0 prints)."""
     params = (averaging.uniform_soup_(popn) if mode == "soup" else
               serving.serving_params(popn, mode, args.member))
     gen_mode = "ensemble" if mode == "ensemble" else "soup"
@@ -164,7 +202,8 @@ def _serve_once(popn, cfg, batch, args, mode, sample_seed, device):
     def request(timings=None):
         out = serving.generate(params, cfg, batch, args.max_new,
                                temperature=args.temperature, seed=sample_seed,
-                               mode=gen_mode, device=device, timings=timings)
+                               mode=gen_mode, device=device, timings=timings,
+                               mesh=mesh)
         _sync(device)
         return out
 
@@ -177,37 +216,50 @@ def _serve_once(popn, cfg, batch, args, mode, sample_seed, device):
     dt = max(time.perf_counter() - t0, 1e-9)
     toks = args.batch_size * args.max_new
     step_ms = split["decode_s"] * 1e3 / max(args.max_new - 1, 1)
-    print(f"mode={mode:9s} {toks / dt:9.1f} tok/s  (first request "
-          f"{first:.2f}s, steady {dt:.3f}s/req: prefill "
-          f"{split['prefill_s']:.3f}s, decode step {step_ms:.1f}ms; decode "
-          f"programs {serving.decode_trace_count()}, programs cached "
-          f"{serving.executable_cache_size()}, device={device})")
+    if mesh is None or mesh.rank == 0:
+        print(f"mode={mode:9s} {toks / dt:9.1f} tok/s  (first request "
+              f"{first:.2f}s, steady {dt:.3f}s/req: prefill "
+              f"{split['prefill_s']:.3f}s, decode step {step_ms:.1f}ms; "
+              f"decode programs {serving.decode_trace_count()}, programs "
+              f"cached {serving.executable_cache_size()}, device={device})")
     return {"tokens": out, "tok_s": toks / dt, "first_s": first,
             "steady_s": dt, "prefill_s": split["prefill_s"],
             "decode_step_ms": step_ms}
 
 
-def _serve_scan(popn, cfg, args, device):
+def _serve_scan(popn, cfg, args, device, mesh=None):
     """The default runtime: one shape-uniform batch through the scan
-    engine in ``--mode`` (every mode with ``--compare``)."""
+    engine in ``--mode`` (every mode with ``--compare``), on ``mesh``
+    when given (rank 0 prints)."""
+    lead = mesh is None or mesh.rank == 0
     batch = concrete_batch(cfg, fold_in(args.seed, 2), args.batch_size,
                            args.seq_len, device=device)
     sample_seed = fold_in(args.seed, 999) if args.temperature > 0.0 else None
-    print(f"arch={cfg.name} population={args.population} "
-          f"B={args.batch_size} S={args.seq_len} new={args.max_new} "
-          f"temperature={args.temperature}")
+    if lead and mesh is not None:
+        print(f"mesh: {dict(mesh.shape)}")
+        if "data" in mesh.axis_names:
+            layout = serving.data_layout(cfg, mesh, args.batch_size)
+            rows = (args.batch_size // mesh.data.world if layout == "split"
+                    else args.batch_size)
+            print(f"batch {layout} over the data group: {rows} rows a rank")
+    if lead:
+        print(f"arch={cfg.name} population={args.population} "
+              f"B={args.batch_size} S={args.seq_len} new={args.max_new} "
+              f"temperature={args.temperature}")
     serving.reset_trace_counts()
     # the soup last: it is made in place, from the population's memory
     modes = ["member", "ensemble", "soup"] if args.compare else [args.mode]
     launches0 = (flash_attention.launches, rwkv6_scan.launches,
                  selective_scan.launches)
-    outs = {m: _serve_once(popn, cfg, batch, args, m, sample_seed, device)
+    outs = {m: _serve_once(popn, cfg, batch, args, m, sample_seed, device,
+                           mesh)
             for m in modes}
-    print(f"kernel launches: flash attention "
-          f"{flash_attention.launches - launches0[0]}, rwkv6 scan "
-          f"{rwkv6_scan.launches - launches0[1]}, selective scan "
-          f"{selective_scan.launches - launches0[2]}")
-    if args.compare:
+    if lead:
+        print(f"kernel launches: flash attention "
+              f"{flash_attention.launches - launches0[0]}, rwkv6 scan "
+              f"{rwkv6_scan.launches - launches0[1]}, selective scan "
+              f"{selective_scan.launches - launches0[2]}")
+    if args.compare and lead:
         soup = outs["soup"]["tokens"][:, args.seq_len:]
         ens = outs["ensemble"]["tokens"][:, args.seq_len:]
         agree = float((soup == ens).float().mean())
@@ -359,6 +411,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "ensemble (Nx decode, averaged logits)")
     ap.add_argument("--member", type=int, default=0,
                     help="which member --mode member serves")
+    ap.add_argument("--mesh", default="none", choices=["none", "data"],
+                    help="data: every rank (torchrun) holds the whole "
+                         "population and serves its rows of the batch "
+                         "(launch.mesh.make_host_data_mesh); scan engine "
+                         "only")
+    ap.add_argument("--pp-stages", type=int, default=0,
+                    help="stage-split serving over this many pipeline "
+                         "stages, one rank each (torchrun with as many "
+                         "ranks): each rank holds L/S of the blocks and of "
+                         "the KV cache, the tokens are the unstaged "
+                         "engine's; scan engine only, attention families, "
+                         "num_layers %% S == 0")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature; 0 = greedy")
     ap.add_argument("--max-new", type=int, default=32,
@@ -436,10 +500,12 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
+def main(argv=None, cfg=None):
     """Serve as the flags say.  Returns what the runtime served: the
     driver's ``(metrics, summary)``, the continuous server's results, or
-    per mode the scan engine's tokens and timings."""
+    per mode the scan engine's tokens and timings.  ``cfg``, when given,
+    is served in place of ``--arch``'s config (a caller's depth cut,
+    which no flag expresses, as the train CLI's ``main`` takes one)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     paged = args.continuous or args.driver
@@ -451,10 +517,26 @@ def main(argv=None):
                  "add --continuous or --driver")
     if args.draft_k < 1:
         ap.error("--draft-k must be >= 1")
+    meshed = args.mesh != "none" or args.pp_stages
+    if meshed and paged:
+        ap.error(f"--{'driver' if args.driver else 'continuous'} does not "
+                 "take --mesh/--pp-stages (single-host runtime)")
+    if args.pp_stages and args.mesh != "none":
+        ap.error("--pp-stages builds its own (pipe,) mesh; drop --mesh")
+    if meshed and args.train_steps > 0 and not args.ckpt:
+        ap.error("--train-steps does not take --mesh/--pp-stages: train "
+                 "with the train CLI's --ckpt-population and serve --ckpt")
+    if args.pp_stages:
+        world = host_world()
+        if args.pp_stages < 1 or args.pp_stages != world:
+            ap.error(f"--pp-stages {args.pp_stages} needs that many ranks, "
+                     f"one a stage (torchrun --nproc-per-node="
+                     f"{args.pp_stages}); the world has {world}")
     device = resolve_device(args.device)
-    cfg = get_arch(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_arch(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     if device.type == "cuda":  # before any weight reaches the card
         path = "continuous" if paged else "scan"
         reason = M.cuda_supported(cfg, path)
@@ -466,20 +548,35 @@ def main(argv=None):
             if reason is not None:
                 raise NotImplementedError(
                     f"quick-training {cfg.name} on the card: {reason}")
-    tel = obs.configure(jsonl=args.metrics_out,
-                        console=args.metrics_summary,
-                        profile_dir=args.profile_dir)
+    mesh = None
+    if args.pp_stages:
+        mesh = make_host_pipe_mesh(args.pp_stages, device)
+    elif args.mesh == "data":
+        mesh = make_host_data_mesh(device)
+    lead = mesh is None or mesh.rank == 0
     try:
-        popn = _population(args, cfg, device)
-        if args.driver:
-            return _serve_driver(popn, cfg, args, device)
-        if args.continuous:
-            return _serve_continuous(popn, cfg, args, device)
-        return _serve_scan(popn, cfg, args, device)
+        if mesh is not None:
+            device = mesh.device
+            if mesh.num_stages > 1:  # the reference's refusals, up front
+                serving.check_staged_request(cfg, args.mode, mesh)
+        tel = obs.configure(jsonl=args.metrics_out if lead else None,
+                            console=args.metrics_summary and lead,
+                            profile_dir=args.profile_dir if lead else None)
+        try:
+            staged = mesh if mesh is not None and mesh.num_stages > 1 else None
+            popn = _population(args, cfg, device, staged, lead)
+            if args.driver:
+                return _serve_driver(popn, cfg, args, device)
+            if args.continuous:
+                return _serve_continuous(popn, cfg, args, device)
+            return _serve_scan(popn, cfg, args, device, mesh)
+        finally:
+            tel.finalize()
+            if args.metrics_out and lead:
+                print(f"wrote telemetry stream -> {args.metrics_out}")
     finally:
-        tel.finalize()
-        if args.metrics_out:
-            print(f"wrote telemetry stream -> {args.metrics_out}")
+        if mesh is not None:
+            mesh.close()
 
 
 if __name__ == "__main__":

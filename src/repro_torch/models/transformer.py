@@ -23,8 +23,10 @@ nothing.
 Which path takes which config, one gate each:
 :func:`scan_supported` (init, the scan engine), :func:`train_supported`
 (training), :func:`pipeline_supported` (the pipelined engine's stage
-functions, :func:`pipeline_stage_fns`) and :func:`paged_decode_supported`
-(continuous batching);
+functions, :func:`pipeline_stage_fns`), :func:`staged_decode_supported`
+(stage-split serving's :func:`prefill_embed` / :func:`prefill_blocks`,
+:func:`decode_embed` / :func:`decode_blocks` and :func:`lm_logits`) and
+:func:`paged_decode_supported` (continuous batching);
 :func:`cuda_supported` adds the card's kernel limits to each path, asked
 where a run on the card starts.
 """
@@ -608,17 +610,81 @@ def _attn_serve(block_l, cfg: ModelConfig, x, cache_l, pos: Optional[int]):
     return x + _fuse(block_l, a, m), {"kv": kv, "ssm": ssm}
 
 
+def _serve_blocks(blocks, cfg: ModelConfig, x, cache, pos: Optional[int],
+                  enc_out=None):
+    """``cfg.num_layers`` layers of ``blocks`` in order (a whole model's
+    or a stage's contiguous slice) through :func:`_block_serve`, each
+    layer's new state written into ``cache``: prefill with ``pos`` None,
+    one-token decode at ``pos`` otherwise.  Returns ``(x, cache)``."""
+    for l in range(cfg.num_layers):
+        x, new_l = _block_serve(tree_map(lambda t: t[l], blocks), cfg, x,
+                                _cache_layer(cache, l), pos, enc_out)
+        _store_layer(cache, l, new_l)
+    return x, cache
+
+
 def decode_step(params, cfg: ModelConfig, tokens, cache, pos: int):
     """ONE new token per row, ``tokens`` (B, 1), at absolute position
     ``pos`` (a Python int, shared by the batch) against ``cache``, which is
     written in place.  Returns ``(logits (B, 1, V), cache)``."""
-    pos = int(pos)
-    x = _embed_tokens(params, cfg, tokens.long(), pos0=pos)
-    for l in range(cfg.num_layers):
-        x, new_l = _block_serve(_block(params, l), cfg, x,
-                                _cache_layer(cache, l), pos)
-        _store_layer(cache, l, new_l)
+    x = decode_embed(params, cfg, tokens, pos)
+    x, cache = _serve_blocks(params["blocks"], cfg, x, cache, int(pos))
     return _logits(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# stage-split serving: the embedding, a stage's blocks, the head
+# ---------------------------------------------------------------------------
+
+
+def staged_decode_supported(cfg: ModelConfig) -> Optional[str]:
+    """None if the stage-split serving path can serve this config, else
+    the reason (the reference's reasons).  A stage holds a contiguous
+    slice of ``params["blocks"]`` and of the layer-leading cache and
+    hands ONE activation to the next, which only composes for the plain
+    attention families (GQA or MLA, dense or MoE) whose whole decode
+    state is the KV ring: recurrent state, the cross-attention cache and
+    modality prefixes are refused rather than served wrong."""
+    if cfg.block_kind != "attn":
+        return f"block_kind={cfg.block_kind!r} state is not stage-split"
+    if cfg.is_encdec:
+        return "encoder-decoder cross-attention cache is not stage-split"
+    if cfg.frontend is not None:
+        return f"frontend={cfg.frontend!r} prefixes are not stage-split"
+    return None
+
+
+def decode_embed(params, cfg: ModelConfig, tokens, pos: int):
+    """The embedding half of :func:`decode_step`: ``tokens`` (B, 1) at
+    position ``pos`` -> (B, 1, D)."""
+    return _embed_tokens(params, cfg, tokens.long(), pos0=int(pos))
+
+
+def decode_blocks(blocks, cfg: ModelConfig, x, cache, pos: int):
+    """One-token decode at ``pos`` through the ``cfg.num_layers`` layers
+    of ``blocks`` and ``cache`` (a stage's slice, with a config patched to
+    the stage's layer count): the per-layer function :func:`decode_step`
+    runs, so the stages composed are the unstaged step bitwise.  Returns
+    ``(x, cache)``; the cache is written in place."""
+    return _serve_blocks(blocks, cfg, x, cache, int(pos))
+
+
+def prefill_embed(params, cfg: ModelConfig, batch):
+    """The prompt's embeddings (the families
+    :func:`staged_decode_supported` takes have no prefix)."""
+    return _embed_tokens(params, cfg, batch["tokens"].long())
+
+
+def prefill_blocks(blocks, cfg: ModelConfig, x, cache):
+    """Whole-prompt prefill through the ``cfg.num_layers`` layers of
+    ``blocks`` into ``cache`` (a stage's slice), by :func:`prefill`'s own
+    per-layer function.  Returns ``(x, cache)``."""
+    return _serve_blocks(blocks, cfg, x, cache, None)
+
+
+def lm_logits(params, cfg: ModelConfig, x):
+    """The final norm and the LM head (the last stage's)."""
+    return _logits(params, cfg, x)
 
 
 def decode_scan(params, cfg: ModelConfig, first, cache, start_pos: int,
@@ -661,10 +727,7 @@ def prefill(params, cfg: ModelConfig, batch, capacity: Optional[int] = None):
     enc_out = (_encode(params, cfg, batch["frames"], serve=True)
                if cfg.is_encdec else None)
     x, _ = _embed_inputs(params, cfg, batch)
-    for l in range(cfg.num_layers):
-        x, new_l = _block_serve(_block(params, l), cfg, x,
-                                _cache_layer(cache, l), None, enc_out)
-        _store_layer(cache, l, new_l)
+    x, cache = _serve_blocks(params["blocks"], cfg, x, cache, None, enc_out)
     return _logits(params, cfg, x[:, -1:]), cache
 
 

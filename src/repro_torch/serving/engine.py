@@ -1,7 +1,6 @@
 """The scan serving engine: prefill once, then decode a static batch.
 
-Port of ``repro/serving/engine.py`` without the mesh and stage-split
-parts.  A request is a shape-uniform batch ``{"tokens": (B, S)}``, with
+Port of ``repro/serving/engine.py``.  A request is a shape-uniform batch ``{"tokens": (B, S)}``, with
 the frontend's ``"patches"`` (B, num_patches, D) or ``"frames"`` (B,
 num_frames, D) where the config has one; the engine prefills the whole
 prompt (``models.transformer.prefill``, whose
@@ -12,7 +11,8 @@ rwkv6 time mix is the hand-written WKV kernel), then decodes
 
 Where the reference jits one prefill and one decode executable per shape
 and keeps them in an executable cache, the port keeps a **program cache**
-keyed the same way, ``(cfg, mode, B, S, max_new, capacity, greedy)``: a
+keyed the same way, ``(cfg, mode, B, S, max_new, capacity, greedy,
+stages, data size)``: a
 program is the Python closure the engine runs for that shape, built once
 and reused.  The counters (:func:`decode_trace_count`,
 :func:`prefill_trace_count`) count programs built, one per shape, as the
@@ -36,14 +36,46 @@ Serving modes:
   member    member *i* unaveraged.
   ensemble  every member decodes, logits averaged (``averaging.balanced_mean``)
             before sampling — N× the cost.
+
+A trained population comes from either training engine: the ensemble
+engine's :class:`repro_torch.train.loop.TrainResult` holds a rank's
+block of members (or of their shards and stages), so
+:func:`serving_params` first gathers the whole population over the mesh
+it came from, to every rank, as the reference gathers every leaf.
+
+**Meshes** (``generate(mesh=)``, the serve CLI's ``--mesh data`` and
+``--pp-stages``; ``launch/mesh.py``'s :class:`ServeMesh`):
+
+  data  every rank holds the whole model (the whole population for
+        ``ensemble``) and serves its rows of the request when the batch
+        divides over the data group (``sharding.rules.batch_pspecs``),
+        the whole batch otherwise; the output is all-gathered in global
+        order.  Sample seeds come from the global request index, so a
+        request's stream does not depend on its rank.  An MoE config with
+        ``moe_impl="global"`` routes all of a call's tokens as one
+        capacity group, so its batch is never split
+        (:func:`data_layout`).
+  pipe  S stages, one a rank: rank s holds ``params["blocks"]`` rows
+        [s·L/S, (s+1)·L/S) and their slice of the cache; the other leaves
+        on every rank.  In prefill and each decode step stage 0 embeds,
+        each stage runs its layers once (``models.transformer``'s
+        ``prefill_blocks`` / ``decode_blocks``, the unstaged engine's
+        per-layer function) and sends the activation to the next, the
+        last stage computes the logits and samples, and its ids are
+        broadcast over the stages, so every stage ends the step holding
+        the same token and the tokens are the unstaged engine's bitwise.
+        The reference's refusals: a pipe-only mesh, no ``ensemble``,
+        ``L % S == 0``, ``staged_decode_supported``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
@@ -52,6 +84,7 @@ from repro_torch.core import population as pop
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.prng import fold_in, generator, stream_seed
 from repro_torch.models import transformer as M
+from repro_torch.sharding import rules
 
 Tree = Any
 Seeds = Optional[Union[int, Sequence[int]]]
@@ -209,14 +242,180 @@ def _build_decode(cfg: ModelConfig, ensemble: bool, S: int, max_new: int,
     return program
 
 
+# ---------------------------------------------------------------------------
+# stage-split programs (a pipe mesh)
+# ---------------------------------------------------------------------------
+
+
+def _hop_in(mesh, like_shape, dtype, device) -> torch.Tensor:
+    """Stage s > 0's input: the previous stage's activation."""
+    x = torch.empty(like_shape, dtype=dtype, device=device)
+    dist.recv(x, src=mesh.prev_rank, group=mesh.pipe.group)
+    return x
+
+
+def _hop_out(mesh, y: torch.Tensor, dtype) -> None:
+    """Hand this stage's activation to the next stage (if any)."""
+    if mesh.next_rank is None:
+        return
+    if y.dtype != dtype:
+        raise ValueError(f"a stage's output is {y.dtype}, the next stage "
+                         f"expects {dtype}")
+    dist.send(y.contiguous(), dst=mesh.next_rank, group=mesh.pipe.group)
+
+
+def _staged_sample(mesh, logits, B: int, seeds, step: int, temperature,
+                   greedy: bool, device) -> torch.Tensor:
+    """The last stage samples (B,) int32 ids from its logits, as
+    :func:`_sample` does, and broadcasts them over the stages."""
+    last = mesh.num_stages - 1
+    ids = (_sample(logits, seeds, step, temperature, greedy)
+           if mesh.stage == last
+           else torch.empty((B,), dtype=torch.int32, device=device))
+    dist.broadcast(ids, src=mesh.global_rank(mesh.pipe, last),
+                   group=mesh.pipe.group)
+    return ids
+
+
+def _build_staged(cfg: ModelConfig, stages: int, B: int, S: int,
+                  max_new: int, capacity: int, greedy: bool):
+    """The staged (prefill, decode) pair for one shape, each called with
+    this rank's stage params and its ``mesh``."""
+    local_cfg = dataclasses.replace(cfg, num_layers=cfg.num_layers // stages)
+    _PREFILL_TRACES[0] += 1
+    obs.get().record_compile("serve_prefill_staged", stages=stages,
+                             capacity=capacity)
+    _DECODE_TRACES[0] += 1
+    obs.get().record_compile("serve_decode_staged", stages=stages, S=S,
+                             max_new=max_new)
+
+    def stage(mesh, params, x_fn, blocks_fn, shape, dev):
+        dtype = params["embed"]["tok"].dtype
+        h = x_fn() if mesh.stage == 0 else _hop_in(mesh, shape, dtype, dev)
+        y = blocks_fn(h)
+        _hop_out(mesh, y, dtype)
+        return y
+
+    def prefill(params, batch, mesh):
+        tokens = batch["tokens"]
+        dev = tokens.device
+        cache = M.init_cache(local_cfg, B, capacity, device=dev)
+
+        def blocks(h):
+            return M.prefill_blocks(params["blocks"], local_cfg, h, cache)[0]
+
+        y = stage(mesh, params, lambda: M.prefill_embed(params, cfg, batch),
+                  blocks, (B, S, cfg.d_model), dev)
+        last = mesh.stage == mesh.num_stages - 1
+        return (M.lm_logits(params, cfg, y[:, -1:]) if last else None), cache
+
+    def decode(params, tokens, cache, first_logits, seeds, temperature,
+               mesh):
+        dev = tokens.device
+        last = mesh.stage == mesh.num_stages - 1
+
+        def step_fn(p, c, t, pos):
+            def blocks(h):
+                return M.decode_blocks(p["blocks"], local_cfg, h, c, pos)[0]
+
+            y = stage(mesh, p, lambda: M.decode_embed(p, cfg, t, pos),
+                      blocks, (B, 1, cfg.d_model), dev)
+            return (M.lm_logits(p, cfg, y) if last else None), c
+
+        def next_fn(lg, i):
+            return _staged_sample(mesh, lg, B, seeds, i, temperature, greedy,
+                                  dev)
+
+        nxt = next_fn(first_logits, 0)
+        buf = torch.zeros((B, S + max_new), dtype=torch.int32, device=dev)
+        buf[:, :S] = tokens
+        buf[:, S] = nxt
+        new_toks, cache = M.decode_scan(
+            params, cfg, nxt, cache, S, max_new - 1,
+            lambda lg, i: next_fn(lg, i + 1), step_fn=step_fn)
+        buf[:, S + 1:] = new_toks
+        return buf, cache
+
+    return prefill, decode
+
+
 def _programs(cfg: ModelConfig, ensemble: bool, B: int, S: int, max_new: int,
-              capacity: int, greedy: bool):
-    """Program-cache lookup: one (prefill, decode) pair per shape key."""
-    key = ("serve", cfg, ensemble, B, S, max_new, capacity, greedy)
+              capacity: int, greedy: bool, stages: int = 1, data: int = 1):
+    """Program-cache lookup: one (prefill, decode) pair per shape key,
+    the stage count and the data size part of it.  Staged programs take
+    the mesh as their last argument."""
+    key = ("serve", cfg, ensemble, B, S, max_new, capacity, greedy, stages,
+           data)
     if key not in _PROGRAMS:
-        _PROGRAMS[key] = (_build_prefill(cfg, ensemble, capacity),
-                          _build_decode(cfg, ensemble, S, max_new, greedy))
+        _PROGRAMS[key] = (
+            _build_staged(cfg, stages, B, S, max_new, capacity, greedy)
+            if stages > 1 else
+            (_build_prefill(cfg, ensemble, capacity),
+             _build_decode(cfg, ensemble, S, max_new, greedy)))
     return _PROGRAMS[key]
+
+
+def _mesh_axes(mesh) -> Tuple[str, ...]:
+    return tuple(getattr(mesh, "axis_names", ())) if mesh is not None else ()
+
+
+def check_staged_request(cfg: ModelConfig, mode: str, mesh) -> None:
+    """Validate a pipe-mesh request (stage count >= 2), with the
+    reference's messages; raises on every rank alike, before any
+    exchange."""
+    extra = [a for a in _mesh_axes(mesh) if a != "pipe" and mesh.shape[a] > 1]
+    if extra:
+        raise ValueError(
+            f"stage-split serving wants a pipe-only mesh; axes {extra} have "
+            "size > 1 (shard the batch on a separate data mesh instead)"
+        )
+    if mode == "ensemble":
+        raise ValueError(
+            "mode='ensemble' is not supported with stage-split decode: the "
+            "vmapped population step and the pipe hops do not compose; "
+            "serve the soup or a member on the pipe mesh"
+        )
+    reason = M.staged_decode_supported(cfg)
+    if reason is not None:
+        raise NotImplementedError(f"staged decode: {reason}")
+    stages = mesh.shape["pipe"]
+    if cfg.num_layers % stages:
+        raise ValueError(
+            f"num_layers={cfg.num_layers} does not split evenly over "
+            f"{stages} pipeline stages"
+        )
+
+
+def stage_params(params: Tree, cfg: ModelConfig, mesh) -> Tree:
+    """This rank's stage of ``params``: the ``blocks`` leaves' rows
+    [s·L/S, (s+1)·L/S) (views; leaves that already hold L/S rows are
+    taken as they are), every other leaf as it is."""
+    stages, s = mesh.num_stages, mesh.stage
+    n = cfg.num_layers // stages
+
+    def rows(x):
+        if x.shape[0] == cfg.num_layers:
+            return x[s * n:(s + 1) * n]
+        if x.shape[0] == n:
+            return x
+        raise ValueError(f"a blocks leaf of {x.shape[0]} layers is neither "
+                         f"the model's {cfg.num_layers} nor a stage's {n}")
+
+    return {**params, "blocks": pop.tree_map(rows, params["blocks"])}
+
+
+def data_layout(cfg: ModelConfig, mesh, batch_size: int) -> str:
+    """How a request of ``batch_size`` rows lies on a serving mesh:
+    ``"split"`` (each data rank serves its rows, as
+    ``rules.batch_pspecs`` splits the batch) or ``"replicated"`` (every
+    rank serves the whole batch: the batch does not divide, the mesh has
+    no data axis, or an MoE config routes with ``moe_impl="global"``,
+    where the capacity group is the whole call and splitting rows would
+    change which tokens are dropped)."""
+    if cfg.moe and cfg.moe_impl == "global":
+        return "replicated"
+    spec = rules.batch_pspecs(cfg, mesh, batch_size)["tokens"]
+    return "split" if spec[0] is not None else "replicated"
 
 
 def _place(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -243,21 +442,55 @@ def _place(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def averaged_params(trained: Any) -> Tree:
-    """The uniform soup of a stacked population (or of an object with a
-    ``.population`` attribute)."""
+def _whole_population(trained: Any) -> Tree:
+    """The whole stacked population of ``trained`` (a population tree, or
+    an object with ``.population``).  A ``TrainResult`` of the ensemble
+    engine holds this rank's block of members (or of their shards and
+    stages): it is gathered over the mesh it came from to every rank, a
+    collective that every rank of that mesh must call (at world 1 the
+    block itself)."""
     population = getattr(trained, "population", trained)
-    return averaging.uniform_soup(population)
+    mesh = getattr(trained, "mesh", None)
+    if mesh is None:
+        return population
+    shard_dims = getattr(trained, "shard_dims", None)
+    stage_split = getattr(trained, "stage_split", None)
+    split = [getattr(mesh, "pop", mesh).world > 1,
+             shard_dims is not None and getattr(mesh, "model", None)
+             is not None and mesh.model.world > 1,
+             stage_split is not None and getattr(mesh, "pipe", None)
+             is not None and mesh.pipe.world > 1]
+    if any(split) and not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            "this TrainResult holds one rank's block of the population and "
+            "its process group is gone: gather it with "
+            "repro_torch.core.population.gather_population over its mesh, "
+            "on every rank, before the mesh closes, and serve that")
+    return pop.gather_population(population, mesh, dst=None,
+                                 shard_dims=shard_dims,
+                                 stage_split=stage_split)
+
+
+def averaged_params(trained: Any) -> Tree:
+    """The uniform soup of a stacked population, or of a ``TrainResult``
+    of either training engine (the whole population, gathered as
+    :func:`serving_params` gathers it)."""
+    return averaging.uniform_soup(_whole_population(trained))
 
 
 def serving_params(trained: Any, mode: str = "soup", member: int = 0) -> Tree:
     """soup → averaged member; member → member *i* (views, no copy);
-    ensemble → the stacked population as it is."""
+    ensemble → the stacked population as it is.  ``trained`` is a stacked
+    population or a ``TrainResult`` of either training engine; an
+    ensemble-engine result on a world > 1 is gathered whole over its mesh
+    first, to every rank (so every rank of that mesh must call this), and
+    raises a ValueError naming ``gather_population`` when its process
+    group is gone: a rank's block is never served as the population."""
     if mode not in MODES:
         raise ValueError(f"unknown serving mode {mode!r}; expected one of {MODES}")
-    population = getattr(trained, "population", trained)
+    population = _whole_population(trained)
     if mode == "soup":
-        return averaged_params(population)
+        return averaging.uniform_soup(population)
     if mode == "member":
         return pop.member(population, member)
     return population
@@ -267,7 +500,8 @@ def generate(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
              max_new_tokens: int, temperature: float = 0.0,
              seed: Seeds = None, mode: str = "soup",
              device: DeviceLike = "cuda",
-             timings: Optional[Dict[str, float]] = None) -> torch.Tensor:
+             timings: Optional[Dict[str, float]] = None,
+             mesh=None) -> torch.Tensor:
     """batch ``{"tokens": (B, S)}`` (with ``"patches"`` or ``"frames"``
     for a frontend) -> (B, S + max_new_tokens) int32 on
     ``device`` (the card unless the caller asks for the CPU; ``params``
@@ -283,11 +517,24 @@ def generate(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     expects a stacked (N, ...) population and averages member logits
     before sampling.  ``seed``: an int (request b draws from
     ``fold_in(seed, b)``) or one seed per request; needed when
-    ``temperature > 0``."""
+    ``temperature > 0``.
+
+    ``mesh`` (a ``launch.mesh.ServeMesh``; every rank of it calls
+    ``generate`` with the same request) serves on ``mesh.device``: a
+    ``data`` mesh splits the rows (:func:`data_layout`) and returns the
+    whole output on every rank; a ``pipe`` mesh of S > 1 stages runs this
+    rank's stage of ``params`` (whole params, or already a stage's
+    :func:`stage_params`) and returns the tokens on every stage."""
     if mode not in MODES:
         raise ValueError(f"unknown serving mode {mode!r}; expected one of {MODES}")
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
+    stages = mesh.shape["pipe"] if "pipe" in _mesh_axes(mesh) else 1
+    if stages > 1:
+        check_staged_request(cfg, mode, mesh)
+        params = stage_params(params, cfg, mesh)
+    if mesh is not None:
+        device = mesh.device
     batch = _place(params, cfg, batch, device)
     ensemble = mode == "ensemble"
     tokens = batch["tokens"]
@@ -295,8 +542,17 @@ def generate(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     capacity = internal_prefix(cfg) + S + max_new_tokens
     greedy = temperature <= 0.0
     seeds = _request_seeds(seed, B, temperature)
+    data = mesh.data.world if mesh is not None and stages == 1 else 1
+    split = data > 1 and data_layout(cfg, mesh, B) == "split"
     prefill_fn, decode_fn = _programs(cfg, ensemble, B, S, max_new_tokens,
-                                      capacity, greedy)
+                                      capacity, greedy, stages, data)
+    extra = (mesh,) if stages > 1 else ()
+    if split:  # this rank's rows; seeds from the global request index
+        n = B // data
+        rows = slice(mesh.data.rank * n, (mesh.data.rank + 1) * n)
+        batch = {k: v[rows] for k, v in batch.items()}
+        tokens = batch["tokens"]
+        seeds = seeds[rows] if seeds is not None else None
     tel = obs.get()
 
     def mark(key, t0):
@@ -312,12 +568,16 @@ def generate(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     with torch.no_grad():
         t0 = mark(None, 0.0)
         with tel.span("serve.prefill", S=S, B=B):
-            logits, cache = prefill_fn(params, batch)
+            logits, cache = prefill_fn(params, batch, *extra)
         t0 = mark("prefill_s", t0)
         with tel.span("serve.decode", S=S, max_new=max_new_tokens):
             out, _ = decode_fn(params, tokens, cache, logits, seeds,
-                               max(temperature, 1e-6))
+                               max(temperature, 1e-6), *extra)
         mark("decode_s", t0)
+    if split:  # every rank's rows, in global order
+        parts = [torch.empty_like(out) for _ in range(data)]
+        dist.all_gather(parts, out, group=mesh.data.group)
+        out = torch.cat(parts)
     return out
 
 
@@ -326,12 +586,14 @@ def generate_from_population(trained: Any, cfg: ModelConfig,
                              max_new_tokens: int, temperature: float = 0.0,
                              seed: Seeds = None, mode: str = "soup",
                              member: int = 0,
-                             device: DeviceLike = "cuda") -> torch.Tensor:
-    """Serve a trained population under a serving mode."""
+                             device: DeviceLike = "cuda",
+                             mesh=None) -> torch.Tensor:
+    """Serve a trained population (either engine) under a serving mode,
+    on ``mesh`` when given."""
     return generate(serving_params(trained, mode, member), cfg, batch,
                     max_new_tokens, temperature=temperature, seed=seed,
                     mode="ensemble" if mode == "ensemble" else "soup",
-                    device=device)
+                    device=device, mesh=mesh)
 
 
 def generate_reference(params: Tree, cfg: ModelConfig,

@@ -2,7 +2,8 @@
 
 Port of the training half of ``repro/sharding/rules.py``
 (``param_pspec``, ``param_pspecs``, ``population_pspecs``,
-``opt_pspecs``).  A small table of name-based rules (column-parallel in,
+``opt_pspecs``) and of its serving specs (``batch_pspecs``,
+``cache_pspecs``).  A small table of name-based rules (column-parallel in,
 row-parallel out, expert-parallel MoE) backed by a divisibility heuristic
 for everything else; scanned-block leading axes are never sharded.
 
@@ -12,11 +13,13 @@ tuple of axis names.  Leaves are named by the paths of
 :func:`repro_torch.core.population.tree_paths` (dict keys are strings,
 list entries ints), which visit leaves in JAX's flattening order, so the
 specs agree with the reference leaf by leaf.  ``stage_member_specs``
-cuts the stacked blocks into pipeline stages.  The batch, cache and
-serving specs are not ported; nothing inside a model is laid out by a
-spec here: the ensemble engine gathers a member whole before its forward
-(``core/shardplan.py``), and a pipeline stage runs its own slice of the
-blocks.
+cuts the stacked blocks into pipeline stages.  Nothing inside a model is
+laid out by a spec here: the ensemble engine gathers a member whole
+before its forward (``core/shardplan.py``), a pipeline stage runs its own
+slice of the blocks, and the serving engine reads ``batch_pspecs`` only
+to decide whether a request's rows split over the data group
+(``serving/engine.py``).  The reference's ``named`` (JAX shardings from
+specs) has no counterpart.
 """
 
 from __future__ import annotations
@@ -175,3 +178,76 @@ def opt_pspecs(opt_state: dict, pop_specs: Tree, pop_axes=("ens",)) -> dict:
     return {k: pop_specs if k in ("mu", "nu")
             else tree_map(lambda _: P(lead), opt_state[k])
             for k in opt_state}
+
+
+def _data_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _entry(axes: Tuple[str, ...]):
+    """A spec entry over ``axes``: one axis as its name, as JAX's
+    ``PartitionSpec`` normalizes it."""
+    return axes[0] if len(axes) == 1 else axes
+
+
+def batch_pspecs(cfg, mesh, batch_size: int) -> dict:
+    """Specs of a request's inputs: the batch dim over the pod and data
+    axes when ``batch_size`` divides over them, else ``None`` (every rank
+    holds the whole batch)."""
+    dax = _data_axes(mesh)
+    nd = int(np.prod([mesh.shape[a] for a in dax]))
+    bspec = _entry(dax) if (dax and batch_size % nd == 0) else None
+    out = {"tokens": P(bspec, None)}
+    if cfg.frontend == "audio":
+        out["frames"] = P(bspec, None, None)
+    if cfg.frontend == "vision":
+        out["patches"] = P(bspec, None, None)
+    return out
+
+
+def cache_pspecs(cache_shapes: Tree, cfg, mesh, batch: int) -> Tree:
+    """Specs of the decode cache (leaves with a ``shape``, named as
+    ``models.transformer.init_cache`` names them): the KV ring (L, B, cap,
+    kv, hd) and MLA's latent ring (L, B, cap, r) over the data axes by
+    batch when it divides, else their context axis over every data and
+    model rank (context parallelism); the cross-attention, Mamba and
+    rwkv6 states by batch, their inner dim over ``model`` where it
+    divides; ``pos_ids`` replicated."""
+    del cfg
+    dax = _data_axes(mesh)
+    nd = int(np.prod([mesh.shape[a] for a in dax])) if dax else 1
+    model = int(mesh.shape["model"])
+    batch_ok = bool(dax) and batch % nd == 0
+    bax = _entry(dax) if batch_ok else None
+
+    def ring(shape, trailing: int) -> P:
+        if batch_ok:
+            return P(None, bax, "model" if shape[2] % model == 0 else None,
+                     *(None,) * trailing)
+        ctx = _entry(dax + ("model",))
+        return P(None, None, ctx if shape[2] % (nd * model) == 0 else None,
+                 *(None,) * trailing)
+
+    def spec_for(path, leaf) -> P:
+        name = _leaf_name(path)
+        shape = tuple(int(s) for s in leaf.shape)
+        if name in ("k", "v"):  # (L, B, cap, kv, hd)
+            return ring(shape, 2)
+        if name in ("ckv", "krope"):  # (L, B, cap, r)
+            return ring(shape, 1)
+        if name in ("xk", "xv"):  # (L, B, frames, kv, hd)
+            return P(None, bax, None, None, None)
+        if name == "h":  # mamba (L, B, DI, S)
+            return P(None, bax, "model" if shape[2] % model == 0 else None,
+                     None)
+        if name == "conv":  # (L, B, k-1, DI)
+            return P(None, bax, None,
+                     "model" if shape[3] % model == 0 else None)
+        if name == "S":  # rwkv (L, B, H, hd, hd)
+            return P(None, bax, None, None, None)
+        if name in ("x_tm", "x_cm"):  # (L, B, D)
+            return P(None, bax, "model" if shape[2] % model == 0 else None)
+        return P()  # pos_ids and anything else
+
+    specs = iter([spec_for(p, leaf) for p, leaf in tree_paths(cache_shapes)])
+    return tree_map(lambda _: next(specs), cache_shapes)

@@ -780,4 +780,5 @@ def _run_chunked_schedule(*, mesh, tcfg: TrainConfig, data_fn: Callable,
         tel.registry.gauge("train.wall_s").set(history["wall_s"][0])
     return TrainResult(population, opt_state, history, comm_total, phase_ms,
                        member_offset=mesh.member_offset,
-                       shard_dims=shard_dims, stage_split=stage_split)
+                       shard_dims=shard_dims, stage_split=stage_split,
+                       mesh=mesh)

@@ -67,6 +67,10 @@ class TrainResult:
     #: stages (the block holds this rank's stage; ``gather_population``
     #: takes it)
     stage_split: Optional[List[bool]] = None
+    #: the ensemble engine's mesh (None from the loop): the serving
+    #: functions gather the whole population over it before they soup,
+    #: pick a member or serve the ensemble
+    mesh: Any = None
 
 
 class _PhaseClock:

@@ -29,6 +29,14 @@ Scenarios:
               :func:`pp_init`, :func:`pp_data`), the population gathered
               on rank 0, each rank's replicated leaves, a population file
               written and restored; the train CLI on a (2, 2) mesh.
+  serving     stage-split serving over 4 stages and over 2 (the rank
+              pairs [0, 1] and [2, 3]), GQA and MLA, greedy and sampled
+              (:data:`SV_RUNS`), a request served twice; the data mesh
+              of 4 on split and replicated batches, soup and ensemble,
+              and a global-MoE config; an ensemble-engine result of N = 4
+              on each pair (two members a rank) through the serving
+              functions; the serve CLI with ``--pp-stages 4`` (drawn and
+              restored) and ``--mesh data`` (:func:`sv_cli_cfg`).
 """
 
 from __future__ import annotations
@@ -499,6 +507,133 @@ def pipeline(rank: int, world: int, data) -> dict:
     return out
 
 
+SV_TINY = dict(name="tiny", d_model=32, d_ff=64, num_layers=4, num_heads=4,
+               num_kv_heads=2, vocab_size=64, max_position=128,
+               dtype="float32")
+SV_CFGS = {"gqa": SV_TINY,
+           "mla": dict(SV_TINY, name="tinymla", num_kv_heads=4, mla=True,
+                       kv_lora_rank=8, qk_rope_dim=4, qk_nope_dim=4,
+                       v_head_dim=8),
+           "moe": dict(SV_TINY, name="tinymoe", moe=True,
+                       n_routed_experts=4, top_k=2, capacity_factor=0.5)}
+SV_PROMPT, SV_NEW, SV_SEED, SV_TEMP = 6, 5, 5, 0.8
+# staged runs: (tag, config, stages, temperature)
+SV_RUNS = [("pp4_gqa", "gqa", 4, 0.0), ("pp4_gqa_t", "gqa", 4, SV_TEMP),
+           ("pp2_gqa", "gqa", 2, 0.0), ("pp2_gqa_t", "gqa", 2, SV_TEMP),
+           ("pp4_mla", "mla", 4, 0.0), ("pp2_mla_t", "mla", 2, SV_TEMP)]
+# data-mesh runs: (tag, config, batch, mode, temperature)
+SV_DATA = [("d_b8_soup", "gqa", 8, "soup", 0.0),
+           ("d_b8_soup_t", "gqa", 8, "soup", SV_TEMP),
+           ("d_b8_ens", "gqa", 8, "ensemble", 0.0),
+           ("d_b6_soup", "gqa", 6, "soup", 0.0),
+           ("d_b6_ens_t", "gqa", 6, "ensemble", SV_TEMP),
+           ("d_b8_moe", "moe", 8, "soup", 0.0)]
+SV_CLI = ["--arch", "llama3.2-3b", "--reduced", "--device", "cpu",
+          "--population", "2", "--batch-size", "4", "--seq-len", "8",
+          "--max-new", "4"]
+
+
+def sv_cli_cfg():
+    """Reduced llama3.2-3b cut to 4 layers, so that 4 stages divide it."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch("llama3.2-3b").reduced(),
+                               num_layers=4)
+
+
+def sv_model(name: str):
+    """(cfg, a population of 2 from seeds 0 and 1) of ``SV_CFGS[name]``."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import population as pop
+    from repro_torch.models import transformer as M
+
+    cfg = ModelConfig(**SV_CFGS[name])
+    return cfg, pop.stack([M.init_params(cfg, seed=s, device="cpu")
+                           for s in range(2)])
+
+
+def sv_tokens(batch: int) -> torch.Tensor:
+    g = torch.Generator().manual_seed(batch)
+    return torch.randint(0, 64, (batch, SV_PROMPT), generator=g,
+                         dtype=torch.int32)
+
+
+def sv_generate(name, batch, mode, temp, mesh=None, seeds=None, rows=None):
+    """The request of a run, at world 1 when ``mesh`` is None; ``rows``
+    serves those rows of the batch alone (with ``seeds`` one a row)."""
+    from repro_torch.serving import engine
+
+    cfg, popn = sv_model(name)
+    tokens = sv_tokens(batch)
+    if rows is not None:
+        tokens = tokens[rows]
+    seed = seeds if seeds is not None else (SV_SEED if temp > 0 else None)
+    return engine.generate(engine.serving_params(popn, mode), cfg,
+                           {"tokens": tokens}, SV_NEW, temperature=temp,
+                           seed=seed, mode=mode, device="cpu", mesh=mesh)
+
+
+def serving(rank: int, world: int, data) -> dict:
+    from repro_torch import obs
+    from repro_torch.core import averaging
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import (make_host_data_mesh,
+                                         make_host_ensemble_mesh,
+                                         make_host_pipe_mesh)
+    from repro_torch.serving import engine
+
+    out = {}
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    pair = pairs[rank // 2]
+    meshes = {4: make_host_pipe_mesh(4, "cpu"),
+              2: make_host_pipe_mesh(2, "cpu", group=pair)}
+    for tag, name, stages, temp in SV_RUNS:
+        out[tag] = sv_generate(name, 4, "soup", temp, meshes[stages]).numpy()
+    # one program pair serves two requests of one shape, each reported
+    engine.reset_trace_counts()
+    engine.clear_executable_cache()
+    tel = obs.configure(memory=True)
+    try:
+        for _ in range(2):
+            sv_generate("gqa", 4, "soup", 0.0, meshes[4])
+        compiles = [tel.registry.counter(f"compile.{k}").value for k in (
+            "serve_prefill_staged", "serve_decode_staged", "serve_prefill",
+            "serve_decode")]
+    finally:
+        obs.reset()
+    out["programs"] = np.asarray([engine.prefill_trace_count(),
+                                  engine.decode_trace_count(),
+                                  engine.executable_cache_size(), *compiles])
+
+    dmesh = make_host_data_mesh("cpu")
+    for tag, name, batch, mode, temp in SV_DATA:
+        out[tag] = sv_generate(name, batch, mode, temp, dmesh).numpy()
+        cfg = sv_model(name)[0]
+        out[f"{tag}/layout"] = np.asarray(engine.data_layout(cfg, dmesh,
+                                                             batch))
+
+    # an ensemble-engine result: N = 4, two members on each rank of a pair
+    res = toy_train(dict(kind="wash", base_p=0.5, mode="bucketed"),
+                    make_host_ensemble_mesh(TOY_N, "cpu", group=pair))
+    out.update(flat_tree(averaging.uniform_soup(res.population),
+                         "block_soup/"))
+    out.update(flat_tree(engine.serving_params(res, "soup"), "soup/"))
+    out.update(flat_tree(engine.averaged_params(res), "averaged/"))
+    out.update(flat_tree(engine.serving_params(res, "member", 3), "member3/"))
+    out.update(flat_tree(engine.serving_params(res, "ensemble"), "ens/"))
+
+    cfg = sv_cli_cfg()
+    ckpt = data["ckpt"].item()
+    for tag, extra in (("cli_pp4", ["--pp-stages", "4"]),
+                       ("cli_pp4_ckpt", ["--pp-stages", "4", "--ckpt", ckpt]),
+                       ("cli_data", ["--mesh", "data"])):
+        outs = serve.main(SV_CLI + extra, cfg=cfg)
+        out[tag] = outs["soup"]["tokens"].numpy()
+    return out
+
+
 def start(scenario: str, world: int, path: str, inputs: dict,
           timeout: float = 120.0):
     """Start SCENARIO on ``world`` ranks in fresh processes with
@@ -548,8 +683,8 @@ def main() -> int:
     try:
         data = np.load(os.path.join(path, "in.npz"))
         out = {"collective": collective, "engine": engine_runs,
-               "multiaxis": multiaxis,
-               "pipeline": pipeline}[scenario](rank, world, data)
+               "multiaxis": multiaxis, "pipeline": pipeline,
+               "serving": serving}[scenario](rank, world, data)
         np.savez(os.path.join(path, f"out_{rank}.npz"), **out)
         dist.barrier()
     finally:

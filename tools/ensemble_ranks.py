@@ -8,7 +8,7 @@ cpu``, a process a CPU rank (``gloo``), from the root of a checkout:
     torchrun --standalone --nproc-per-node=4 tools/ensemble_ranks.py \\
         --device cpu --small
 
-Four ranks are needed.  Five parts, each failing the run on a mismatch
+Four ranks are needed.  Six parts, each failing the run on a mismatch
 (``--parts`` runs some of them, e.g. ``--parts 5``):
 
   1. ring: the blocked bucketed apply (``core/shuffle.py``) on
@@ -61,10 +61,29 @@ Four ranks are needed.  Five parts, each failing the run on a mismatch
      measured bubble beside the schedule's (S - 1) / (M + S - 1), peak
      memory on each card (training, and with the population gathered),
      trained tokens/s; (c) the same on (2,2), where the ring runs inside
-     each stage (9,016,865.0).
+     each stage (9,016,865.0);
+  6. serving: (a) part 2's 4-layer float32 cut, the soup of a random N =
+     2 population (B = 4 prompts of 64 tokens, 8 new), served stage-split
+     over 4 stages and over 2 (ranks [0, 1] and [2, 3]), greedy and at
+     temperature 0.8, and on the data mesh of 4 (B = 8 split, soup and
+     ensemble; B = 6 replicated), each rank's tokens bitwise equal to its
+     world-1 run; then the serve CLI with ``--pp-stages 4`` and with
+     ``--mesh data`` against the CLI without a mesh; (b) full-width
+     llama3.2-3b (bf16, the soup of a random N = 2 population, B = 4 x
+     2048 prompt tokens, 32 new): at world 1 on every card, then staged
+     over 4 stages (7 layers a card) and over 2 (14): tokens bitwise equal
+     to world 1's, and on each card the peak memory (drawing, and the
+     timed request), the bytes of its weights, the prefill s and the
+     decode-step ms, and at world 1 and S=4 one more request under
+     ``torch.profiler``: the ops where the host spends its time; then
+     the data mesh of 4 at B = 16 (4 rows a rank),
+     ensemble and soup: each rank's rows bitwise equal to world 1 serving
+     them alone, the agreement with a one-card B = 16 run, tokens/s
+     against that one card.  Every timed number is a request's second
+     run (the first builds the programs and sets NCCL's communicators up).
 
 ``--small`` runs every part on the reduced config instead (a CPU run;
-part 5 on the reduced config at 4 layers).
+parts 5 and 6 on the reduced config at 4 layers).
 Rank 0 prints the card's name and power limit, then the results as one
 JSON line, last.
 """
@@ -91,6 +110,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.core import averaging  # noqa: E402
 from repro_torch.core import layer_index as tli  # noqa: E402
 from repro_torch.core import population as pop  # noqa: E402
 from repro_torch.core import shardplan  # noqa: E402
@@ -101,10 +121,14 @@ from repro_torch.core.schedules import layer_probability_array  # noqa: E402
 from repro_torch.data import make_lm_task, sample_tokens  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import wash_shuffle as ws  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
-    EnsMesh, make_host_ensemble_mesh, make_host_mesh)
+    EnsMesh, make_host_data_mesh, make_host_ensemble_mesh, make_host_mesh,
+    make_host_pipe_mesh)
+from repro_torch.launch.specs import concrete_batch  # noqa: E402
 from repro_torch.models import transformer as M  # noqa: E402
+from repro_torch.serving import engine as serving  # noqa: E402
 from repro_torch.sharding import rules  # noqa: E402
 from repro_torch.train import engine  # noqa: E402
 
@@ -117,8 +141,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (nccl, a card a rank) or cpu (gloo)")
     ap.add_argument("--small", action="store_true",
                     help="the reduced llama3.2-3b config in every part")
-    ap.add_argument("--parts", default="1,2,3,4,5",
-                    help="comma-separated parts to run (1-5)")
+    ap.add_argument("--parts", default="1,2,3,4,5,6",
+                    help="comma-separated parts to run (1-6)")
     return ap
 
 
@@ -765,6 +789,173 @@ def pipe_full_width(rank: int, dev, shape, small: bool) -> dict:
     return out
 
 
+def timed_request(params, cfg, batch, mode, dev, mesh=None,
+                  temperature=0.0, new=32):
+    """A request served twice through ``engine.generate``: the first
+    builds the programs (and, on a mesh, NCCL's communicators); the
+    second is timed.  Returns (its tokens, {prefill_s, decode_step_ms,
+    wall_s, tok_s, peak_gib}); the peak is the card's from the second
+    request's start (the weights and what the request adds)."""
+    def request(timings=None):
+        return serving.generate(params, cfg, batch, new,
+                                temperature=temperature,
+                                seed=7 if temperature > 0 else None,
+                                mode=mode, device=dev, timings=timings,
+                                mesh=mesh)
+
+    request()
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    split = {}
+    t0 = time.perf_counter()
+    out = request(split)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    return out, {"prefill_s": split["prefill_s"],
+                 "decode_step_ms": split["decode_s"] * 1e3 / (new - 1),
+                 "wall_s": wall,
+                 "tok_s": batch["tokens"].shape[0] * new / wall,
+                 "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                              if dev.type == "cuda" else None)}
+
+
+def host_profile(fn, dev, top: int = 8) -> dict:
+    """``fn()`` under ``torch.profiler``: the host's wall ms, and the ops
+    with the most self host time (ms and calls), so an op in which the
+    host waits shows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev.type == "cuda" else [])
+    sync(dev)
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        fn()
+        sync(dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {"wall_ms": wall, "host_self_ms": {
+        e.key: [round(e.self_cpu_time_total / 1e3, 3), e.count]
+        for e in ops[:top]}}
+
+
+def serve_cut(rank: int, dev, cfg, groups) -> dict:
+    """Part 6 (a): the cut's soup staged over 4 and 2 ranks and on the
+    data mesh of 4, each rank's tokens against its world-1 run; the serve
+    CLI over the 4 ranks against the CLI without a mesh."""
+    popn = serve_cli.init_population(cfg, 2, 0, dev)
+    soup = averaging.uniform_soup(popn)
+    meshes = {4: make_host_pipe_mesh(4, dev),
+              2: make_host_pipe_mesh(2, dev, group=groups[1][rank // 2]),
+              "data": make_host_data_mesh(dev)}
+    runs = [("pp4", 4, 4, "soup", 0.0), ("pp4_t", 4, 4, "soup", 0.8),
+            ("pp2", 2, 4, "soup", 0.0), ("pp2_t", 2, 4, "soup", 0.8),
+            ("data_b8", "data", 8, "soup", 0.0),
+            ("data_b8_t", "data", 8, "soup", 0.8),
+            ("data_b8_ens", "data", 8, "ensemble", 0.0),
+            ("data_b6", "data", 6, "soup", 0.0)]
+    verdicts = {}
+    for tag, mesh, b, mode, temp in runs:
+        batch = concrete_batch(cfg, fold_in(0, 2), b, 64, device=dev)
+        params = popn if mode == "ensemble" else soup
+        want, _ = timed_request(params, cfg, batch, mode, dev,
+                                temperature=temp, new=8)
+        got, _ = timed_request(params, cfg, batch, mode, dev, meshes[mesh],
+                               temperature=temp, new=8)
+        verdicts[tag] = bool(torch.equal(got, want))
+    argv = ["--arch", "llama3.2-3b", "--population", "2", "--batch-size",
+            "4", "--seq-len", "64", "--max-new", "8", "--device", dev.type]
+    with contextlib.redirect_stdout(sys.stdout if rank == 0 else None):
+        plain = serve_cli.main(argv, cfg=cfg)["soup"]["tokens"]
+        for extra in (["--pp-stages", "4"], ["--mesh", "data"]):
+            got = serve_cli.main(argv + extra, cfg=cfg)["soup"]["tokens"]
+            verdicts["cli " + " ".join(extra)] = bool(torch.equal(got, plain))
+    each = [None] * WORLD
+    dist.all_gather_object(each, verdicts)
+    bad = sorted({k for e in each for k, v in e.items() if not v})
+    verdict_everywhere(rank, "ok" if not bad else f"differ from world 1: "
+                       f"{bad}", "serving the cut")
+    del popn, soup
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"config": cfg.name, "runs": sorted(verdicts),
+            "bitwise_on_every_rank": True}
+
+
+def weights_gib(params) -> float:
+    return sum(x.numel() * x.element_size()
+               for x in pop.tree_leaves(params)) / 2**30
+
+
+def serve_full(rank: int, dev, small: bool, groups) -> dict:
+    """Part 6 (b): full-width llama3.2-3b's soup at world 1 and staged
+    over 4 and 2 ranks; the data mesh of 4 at B = 16, ensemble and
+    soup."""
+    base = get_arch("llama3.2-3b")
+    cfg = base.reduced(num_layers=4) if small else base
+    seq = 32 if small else 2048
+    out = {"config": cfg.name, "prompt": seq}
+    batch = concrete_batch(cfg, fold_in(0, 2), 4, seq, device=dev)
+    soup = averaging.uniform_soup(serve_cli.init_population(cfg, 2, 0, dev))
+    if dev.type == "cuda":  # the population is gone: only the soup is held
+        torch.cuda.empty_cache()
+    want, world1 = timed_request(soup, cfg, batch, "soup", dev)
+    world1["weights_gib"] = weights_gib(soup)
+    world1["profile"] = host_profile(lambda: serving.generate(
+        soup, cfg, batch, 32, device=dev), dev)
+    del soup
+    mine = {"world1": world1}
+    for stages in (4, 2):
+        mesh = (make_host_pipe_mesh(4, dev) if stages == 4 else
+                make_host_pipe_mesh(2, dev, group=groups[1][rank // 2]))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        soup = averaging.uniform_soup(serve_cli.init_population(
+            cfg, 2, 0, dev, mesh))
+        draw = None  # the peak of drawing the stage's population
+        if dev.type == "cuda":
+            draw = torch.cuda.max_memory_allocated(dev) / 2**30
+            torch.cuda.empty_cache()
+        got, m = timed_request(soup, cfg, batch, "soup", dev, mesh)
+        m.update(weights_gib=weights_gib(soup), draw_peak_gib=draw,
+                 stage=mesh.stage, tokens_equal=bool(torch.equal(got, want)))
+        if stages == 4:  # where a stage's host spends a request
+            m["profile"] = host_profile(lambda: serving.generate(
+                soup, cfg, batch, 32, device=dev, mesh=mesh), dev)
+        mine[f"pp{stages}"] = m
+        del soup
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dmesh = make_host_data_mesh(dev)
+    popn = serve_cli.init_population(cfg, 2, 0, dev)
+    big = concrete_batch(cfg, fold_in(0, 2), 16, seq, device=dev)
+    rows = slice(4 * rank, 4 * rank + 4)
+    for mode in ("ensemble", "soup"):  # the soup is made in place, last
+        params = popn if mode == "ensemble" else averaging.uniform_soup_(popn)
+        got, m = timed_request(params, cfg, big, mode, dev, dmesh)
+        one, m1 = timed_request(params, cfg, big, mode, dev)
+        mine_rows, _ = timed_request(
+            params, cfg, {k: v[rows] for k, v in big.items()}, mode, dev)
+        m.update(rows_equal=bool(torch.equal(got[rows], mine_rows)),
+                 one_card_agreement=float(
+                     (got[:, seq:] == one[:, seq:]).float().mean()),
+                 one_card=m1)
+        mine[f"data_{mode}"] = m
+    del popn, params
+    each = [None] * WORLD
+    dist.all_gather_object(each, mine)
+    bad = [(r, k) for r, e in enumerate(each) for k, v in e.items()
+           if v.get("tokens_equal") is False or v.get("rows_equal") is False]
+    verdict_everywhere(rank, "ok" if not bad else f"tokens differ: {bad}",
+                       "serving at full width")
+    out["ranks"] = each
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     args = build_parser().parse_args()
     parts = {int(p) for p in args.parts.split(",")}
@@ -819,6 +1010,11 @@ def main() -> int:
                 rank, dev, (1, 4), args.small)),
             (5, "pipeline_full_width_2x2", lambda: pipe_full_width(
                 rank, dev, (2, 2), args.small)),
+            (6, "serving", lambda: serve_cut(
+                rank, dev, base.reduced(num_layers=4) if args.small
+                else cut, groups)),
+            (6, "serving_full_width", lambda: serve_full(
+                rank, dev, args.small, groups)),
         ]
         for part, key, run in runs:
             if part in parts:
