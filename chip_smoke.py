@@ -132,7 +132,7 @@ and then, failing on the first phase that fails:
      split, images/s and peak memory, one step profiled (the plan draw's
      and the dense shuffle kernel's shares of mixing);
  11. serves under live traffic at full width (llama3.2-3b, bf16, a random
-     N = 2 population): 24 requests (prompts of 256-2048 tokens, every
+     N = 2 population): 16 requests (prompts of 256-2048 tokens, every
      other on one 512-token prefix, 16-48 new) arriving as a Poisson
      stream at 2 a second through ``serving.driver.RequestDriver`` over a
      soup ``ContinuousServer`` (8 slots, 2048 pages, retained), once with
@@ -279,9 +279,18 @@ and then, failing on the first phase that fails:
      logits and 31 greedy tokens bitwise the unstaged engine's, flash
      launches == 28 a prefill; the serve CLI's ``--pp-stages 2`` on the
      one card refused before any weight is made.
+ 19. the dry run and the analysis lane: ``launch/dryrun.py`` on meta
+     tensors predicts the per-card peak of phases 5, 8 and 15 at full
+     width, printed beside each measured peak, with
+     ``torch.cuda.memory_allocated()`` unchanged across it; the serving
+     entries of ``analysis/matrix.py`` (scan, continuous and speculative
+     decode) held to their contracts on the card, with their host syncs
+     per decode step; the syncs per decode step of phase 8's llama3.2-3b
+     request, by call site; the lints over ``src/repro_torch``.
 
 Phase 13's full-width hymba serve and teacher-forced step run 8 of its 32
-layers (``HYMBA_SERVE_LAYERS``), to make room for phase 18.
+layers (``HYMBA_SERVE_LAYERS``), to make room for phase 18; phase 11
+serves 16 requests (24 before phase 19), at the same rate.
 
 Kernels are built from the sources in the checkout, each ``nvcc`` started
 at once.  It prints one JSON line ``{"kernels": [...]}``, the card's name
@@ -310,6 +319,11 @@ ROOT = Path(__file__).resolve().parent
 # both accumulate in f32; bf16 outputs differ by the final rounding
 # (one bf16 ulp is 2**-8 relative), f32 and int8 outputs by summation order
 KERNEL_TOL = {"bf16": 2e-2, "int8": 2e-2, "f32": 2e-5, "f32-int8": 2e-5}
+
+# peak device memory (GiB) of the runs phase 19's dry run predicts, by
+# phase: 5 (the llama3.2-3b training re-run), 8 (the llama3.2-3b scan
+# request, every mode), 15 (the engine's re-runs)
+PEAK_GIB: dict = {}
 
 # phase 6: params after 3 float32 steps on the kernels against the plain
 # versions; the shuffles are bitwise, but the embedding's backward adds
@@ -816,14 +830,19 @@ def _w1_plan(shf, sch, n, device):
 
 def shuffle_bytes_dense(n, d, elt, mask_count):
     """x read and out written once, the mask once, perm only where the
-    mask is set (the function needs no other perm entry)."""
-    return 2 * n * d * elt + d + 4 * n * mask_count
+    mask is set (the function needs no other perm entry):
+    ``kernels/work.py``, which the dry run counts with too."""
+    from repro_torch.kernels import work
+
+    return work.shuffle_bytes_dense(n, d, elt, mask_count)
 
 
 def shuffle_bytes_bucketed(n, k_per, elt):
     """Each selected column of buckets 1..N-1 read and written once (N
-    values each), plus its plan entry."""
-    return 2 * n * (n - 1) * k_per * elt + 4 * (n - 1) * k_per
+    values each), plus its plan entry (``kernels/work.py``)."""
+    from repro_torch.kernels import work
+
+    return work.shuffle_bytes_bucketed(n, k_per, elt)
 
 
 def shuffle_sector_floor_bytes(n, k_per):
@@ -1610,19 +1629,11 @@ def flash_inputs(torch, B, S, H, KV, hd, dt, device, seed, hv=None):
 def flash_work(B, S, H, KV, hd, dt, causal, window=None, hv=None):
     """Bytes (q, k, v read once, out written once) and operations (QK^T
     over hd and PV over hv = hd unless given, a multiply and an add each,
-    over the visible pairs only)."""
-    i = np.arange(S)[:, None]
-    j = np.arange(S)[None, :]
-    visible = np.ones((S, S), bool)
-    if causal:
-        visible &= j <= i
-    if window is not None:
-        visible &= j > i - window
-    elt = 2 if dt == "bf16" else 4
-    hv = hd if hv is None else hv
-    nbytes = elt * (B * S * H * (hd + hv) + B * S * KV * (hd + hv))
-    ops = 2 * B * H * (hd + hv) * int(visible.sum())
-    return nbytes, ops
+    over the visible pairs only): ``kernels/work.py``."""
+    from repro_torch.kernels import work
+
+    return work.flash_work(B, S, H, KV, hd, 2 if dt == "bf16" else 4,
+                           causal, window, hv)
 
 
 def bound(nbytes, ops, dt):
@@ -1766,9 +1777,11 @@ def wkv_work(B, T, H, hd):
     """Bytes (r, k, v, w, u and the state read once, y and the state
     written once, f32) and operations (5 per state element and step: the
     r S multiply-add for y, k v and the w S + kv multiply-add; the bonus
-    factors as v_j * sum_i r_i u_i k_i, O(hd) per step)."""
-    nbytes = 4 * (5 * B * T * H * hd + H * hd + 2 * B * H * hd * hd)
-    return nbytes, 5 * B * T * H * hd * hd
+    factors as v_j * sum_i r_i u_i k_i, O(hd) per step):
+    ``kernels/work.py``."""
+    from repro_torch.kernels import work
+
+    return work.wkv_work(B, T, H, hd)
 
 
 def check_wkv(torch, wkv, ref, device):
@@ -1890,10 +1903,10 @@ def wkv_bwd_work(B, T, H, hd, carried: bool):
     f32 (the kernel's workspace is its design's cost, not the
     function's).  Operations: 14 a state element and
     step (the state w S + k v and its adjoint w G + r dy, 3 each; the
-    four sums G v, k G, G S and S dy, 2 each)."""
-    nbytes = 4 * (9 * B * T * H * hd + 2 * H * hd
-                  + (3 * B * H * hd * hd if carried else 0))
-    return nbytes, 14 * B * T * H * hd * hd
+    four sums G v, k G, G S and S dy, 2 each): ``kernels/work.py``."""
+    from repro_torch.kernels import work
+
+    return work.wkv_bwd_work(B, T, H, hd, carried)
 
 
 def check_wkv_backward(torch, wkv, ref, device):
@@ -2148,6 +2161,7 @@ def serve_full_width(torch, device, arch, card, seq=SCAN_S, cfg=None):
         f"{sum(x.numel() for x in shapes)} parameters, {one_model} B a "
         f"member ({one_model / 2**30:.2f} GiB): a decode step's floor "
         f"{one_model / HBM_BYTES_PER_S * 1e3:.3f} ms a model")
+    PEAK_GIB[f"scan {arch}"] = torch.cuda.max_memory_allocated() / 2**30
     if counts != expect:
         fail(f"{arch}: kernel launches {counts}, expected {expect}")
     prompts = concrete_batch(cfg, fold_in(0, 2), SCAN_B, seq,
@@ -2951,7 +2965,8 @@ def image_classification(torch, device, kernels, card):
 # speculative decoding, the whole-prompt admit, telemetry)
 # ---------------------------------------------------------------------------
 
-TRAFFIC_N, TRAFFIC_RATE = 24, 2.0     # requests, Poisson arrivals a second
+TRAFFIC_N, TRAFFIC_RATE = 16, 2.0     # requests, Poisson arrivals a second
+# (24 requests before phase 19; fewer at the same rate make its room)
 TRAFFIC_PREFIX = 512                  # tokens shared by every other prompt
 TRAFFIC_S, TRAFFIC_NEW = (256, 2048), (16, 48)   # prompt, new-token ranges
 SPEC_K = 4                            # full-width draft length
@@ -3833,11 +3848,6 @@ SSM_DECODE_LAYERS = 32  # hymba-1.5b: one selective-scan call a layer a step
 # max |plain| (both keep the state in float32 and sum over the states,
 # the channels and time in another order)
 SSM_TOL = 1e-4
-# operations an element (b, t, d, s): the forward's dt A, its exp, dt B u
-# (2), the multiply-add into h (2), h C and its sum over s (2); the
-# backward's recomputed state (6) and its own 22 (g = carry + C dy; du's,
-# ddt's, dB's, dC's and dA's products and sums; the carry a g)
-SSM_FWD_OPS, SSM_BWD_OPS = 8, 28
 # the selective-scan backward's device ms before its redesign in segments
 # (one thread a state walking 3T steps; chip_smoke.py phase 13, H100 80GB
 # HBM3 at 700.00 W): training shape, prefill shape
@@ -3878,17 +3888,11 @@ def ssm_inputs(torch, B, T, DI, S, device, seed, extreme=False):
 def ssm_work(B, T, DI, S, carried, backward=False):
     """Bytes the function must move (float32; each input read once, each
     output written once; the backward's workspaces are its design's cost,
-    not the function's) and its operations (``SSM_FWD_OPS`` or
-    ``SSM_BWD_OPS`` an element)."""
-    elems = B * T * DI * S
-    if backward:  # u, dt, dy, B, C, A (+ state, final grad) in; du, ddt,
-        # dB, dC, dA (+ dstate0) out
-        nbytes = 4 * (5 * B * T * DI + 4 * B * T * S + 2 * DI * S
-                      + (3 * B * DI * S if carried else 0))
-        return nbytes, SSM_BWD_OPS * elems
-    nbytes = 4 * (3 * B * T * DI + 2 * B * T * S + DI * S
-                  + (2 * B * DI * S if carried else 0))
-    return nbytes, SSM_FWD_OPS * elems
+    not the function's) and its operations (``kernels/work.py``'s
+    ``SSM_FWD_OPS`` or ``SSM_BWD_OPS`` an element)."""
+    from repro_torch.kernels import work
+
+    return work.ssm_work(B, T, DI, S, carried, backward)
 
 
 def _rel(torch, got, want, what):
@@ -4720,6 +4724,8 @@ def engine_full_width(torch, device, kernels, phase5) -> dict:
             f"peak {max(t['peak_gib'] for t in runs):.2f} GiB (phase 5's "
             f"loop: {p5['steps2_ms']:.1f} ms, {p5['tok_s']:.1f} tokens/s, "
             f"{p5['peak_gib']:.2f} GiB)")
+    PEAK_GIB["engine"] = max(t["peak_gib"] for name, runs in timing.items()
+                             if name != "vmap loop" for t in runs)
     return history
 
 
@@ -5409,6 +5415,107 @@ def mesh_serving(torch, device, kernels, card) -> None:
         f"paths so far {kernels['flash_bf16']['launches']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the dry run and the analysis lane on the card
+# ---------------------------------------------------------------------------
+
+def dry_run_predictions(torch, device, phase5) -> None:
+    """(a) The dry run (``launch/dryrun.py``, meta tensors only) predicts
+    the per-card peak of phases 5, 8 and 15 at full width; each is
+    printed beside the peak that phase measured, and
+    ``torch.cuda.memory_allocated()`` must not move across the dry run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.mixing import MixingConfig
+    from repro_torch.launch import dryrun
+
+    cfg = get_arch("llama3.2-3b")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    train = dryrun.account_train(
+        cfg, 2, TRAIN_SEQ, {"ens": 1}, 2,
+        MixingConfig(kind="wash", base_p=0.01, mode="bucketed"), "sgd")
+    scan = dryrun.account_request(cfg, SCAN_B, SCAN_S, SCAN_NEW, members=2,
+                                  held_models=3)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    log(f"dry run (meta tensors): {dt:.2f} s; memory_allocated {before} B "
+        f"before, {after} B after")
+    if after != before:
+        fail(f"the dry run moved memory_allocated: {before} -> {after} B")
+    gib = 2 ** 30
+    rows = [("phase 5 (llama3.2-3b, bf16, N=2, SGD, 2 x 256, the loop)",
+             train, phase5["timing"]["peak_gib"]),
+            ("phase 8 (llama3.2-3b scan request, B=4 x 2048, 32 new, N=2 "
+             "and its soup held, the ensemble's two caches)", scan,
+             PEAK_GIB.get("scan llama3.2-3b")),
+            ("phase 15 (the same run through the engine at world 1)", train,
+             PEAK_GIB.get("engine"))]
+    for what, acc, measured in rows:
+        c = acc["counter"]
+        predicted = (acc["resident"] + c.peak_bytes) / gib
+        rel = (None if measured is None
+               else abs(predicted - measured) / measured)
+        log(f"dry run {what}: predicted per-card peak {predicted:.2f} GiB "
+            f"(resident {acc['resident'] / gib:.2f} + step "
+            f"{c.peak_bytes / gib:.2f}; {c.flops / 1e12:.3f} TFLOP, "
+            f"{c.bytes / 1e9:.1f} GB through aten ops and kernels); "
+            f"measured {measured if measured is None else round(measured, 2)}"
+            f" GiB; |predicted - measured| / measured "
+            f"{rel if rel is None else round(rel, 4)}")
+
+
+def serving_contracts_on_card(torch, device) -> None:
+    """(b) The three serving entries of the contract matrix on the card,
+    with their host syncs per decode step; then the syncs per decode step
+    of phase 8's llama3.2-3b request (the soup, B=4 x 2048, 32 new), by
+    call site."""
+    from repro_torch.analysis import matrix
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models import transformer as M
+
+    results = matrix.run_matrix(("scan_decode", "continuous_decode",
+                                 "speculative_decode"), device=device)
+    for name, r in results.items():
+        syncs = r["syncs"]
+        log(f"contract {name} on the card: OK, {r['compiles']} programs, "
+            f"{len(r['reports'])} calls checked; host syncs per decode step "
+            f"{syncs['per_decode_step']:g} over {syncs['decode_steps']} "
+            f"steps: {dict(syncs['sites'])}")
+    cfg = get_arch("llama3.2-3b")
+    params = M.init_params(cfg, seed=0, device=device)
+    batch = concrete_batch(cfg, 2, SCAN_B, SCAN_S, device=device)
+    reading = matrix.request_syncs(params, cfg, batch, SCAN_NEW, device)
+    del params
+    torch.cuda.empty_cache()
+    log(f"phase 8's llama3.2-3b request (soup, B={SCAN_B} x {SCAN_S}, "
+        f"{SCAN_NEW} new): host syncs per decode step "
+        f"{reading['per_decode_step']:g} ({cfg.num_layers} layers; "
+        f"{reading['decode_steps']} decode steps), by call site "
+        f"{dict(reading['sites'])}")
+
+
+def lint_lane() -> None:
+    """(c) The lints over src/repro_torch, modulo the checked baseline."""
+    from repro_torch.analysis import __main__ as runner
+
+    if runner.run_lints(ROOT, runner.BASELINE) != 0:
+        fail("the lint lane found violations or stale waivers")
+
+
+def dry_run_and_analysis(torch, device, phase5) -> None:
+    """Phase 19: the dry run's predictions against phases 5, 8 and 15,
+    the serving contracts on the card, the lints."""
+    t0 = time.perf_counter()
+    dry_run_predictions(torch, device, phase5)
+    serving_contracts_on_card(torch, device)
+    lint_lane()
+    log(f"phase 19 (the dry run and the analysis lane): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def build_kernels(*mods):
     """Every library, each nvcc started at once."""
     t0 = time.perf_counter()
@@ -5477,6 +5584,7 @@ def main() -> int:
     multi_axis_training(torch, device, kernels, phase15)
     pipeline_training(torch, device, kernels, phase15)
     mesh_serving(torch, device, kernels, card)
+    dry_run_and_analysis(torch, device, phase5)
     for entry in kernels.values():
         if entry["launches"] == 0:
             fail(f"kernel {entry['name']} was never launched on its path")

@@ -11,8 +11,8 @@ from __future__ import annotations
 from typing import Any, Iterator
 
 import torch
-import torch.distributed as dist
 
+from repro_torch.core import collectives as coll
 from repro_torch.core.population import tree_leaves, tree_map
 
 Tree = Any
@@ -90,7 +90,7 @@ def avg_distance_to_consensus_blocked(block: Tree, mesh, shard_dims=None,
         for xc in _chunks(x):
             mean = torch.sum(xc, dim=0, keepdim=True)
             if pop_mesh.world > 1:
-                dist.all_reduce(mean, group=pop_mesh.group)
+                coll.all_reduce(mean, group=pop_mesh.group)
             sq = torch.sum((xc - mean / n) ** 2, dim=1)
             j = next((j for j, (_, split) in enumerate(groups) if split[i]),
                      None)
@@ -99,11 +99,11 @@ def avg_distance_to_consensus_blocked(block: Tree, mesh, shard_dims=None,
             else:
                 per_group[j] = per_group[j] + sq
     for (g, _), part in zip(groups, per_group):
-        dist.all_reduce(part, group=g.group)
+        coll.all_reduce(part, group=g.group)
         per_member = per_member + part
     total = torch.sum(torch.sqrt(per_member))
     if pop_mesh.world > 1:
-        dist.all_reduce(total, group=pop_mesh.group)
+        coll.all_reduce(total, group=pop_mesh.group)
     return total / n
 
 

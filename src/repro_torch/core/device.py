@@ -2,7 +2,9 @@
 
 Every entry point takes ``device`` (default ``"cuda"``) and passes it
 through :func:`resolve_device`, which raises when no card is present
-instead of running on the CPU behind the caller's back.
+instead of running on the CPU behind the caller's back.  ``"meta"`` is
+the dry run's device (``launch/dryrun.py``): shapes and dtypes only,
+nothing allocated, no card needed.
 """
 
 from __future__ import annotations
@@ -18,9 +20,9 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     """``device`` as a ``torch.device`` with its index filled in (so it
     compares equal to a tensor's ``.device``)."""
     dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
     if not torch.cuda.is_available():
         raise RuntimeError(

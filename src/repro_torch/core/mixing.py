@@ -27,8 +27,8 @@ import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
+from repro_torch.core import collectives as coll
 from repro_torch.core import shuffle as shf
 from repro_torch.core.population import tree_leaves, tree_map
 from repro_torch.core.schedules import active_window
@@ -93,7 +93,7 @@ def _mean0(x: torch.Tensor, mesh=None) -> torch.Tensor:
     for a in range(0, flat.shape[1], CHUNK):
         s = torch.sum(flat[:, a:a + CHUNK], dim=0, dtype=torch.float64)
         if world > 1:
-            dist.all_reduce(s, group=mesh.group)
+            coll.all_reduce(s, group=mesh.group)
         out[0, a:a + CHUNK] = s / (x.shape[0] * world)
     return out.view((1,) + tuple(x.shape[1:]))
 

@@ -13,8 +13,8 @@ from __future__ import annotations
 from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
+from repro_torch.core import collectives as coll
 from repro_torch.core.prng import fold_in
 
 Tree = Any
@@ -120,7 +120,7 @@ def all_gather_dims(x: torch.Tensor, dims, group) -> torch.Tensor:
     values, computes nothing."""
     for d in dims:
         parts = [torch.empty_like(x) for _ in range(group.world)]
-        dist.all_gather(parts, x.contiguous(), group=group.group)
+        coll.all_gather(parts, x.contiguous(), group=group.group)
         x = torch.cat(parts, dim=d + 1)
     return x
 
@@ -160,7 +160,7 @@ def gather_population(block: Tree, mesh, dst: Optional[int] = 0,
         if pop_mesh.world == 1:
             return x if here else None
         parts = [torch.empty_like(x) for _ in range(pop_mesh.world)]
-        dist.all_gather(parts, x.contiguous(), group=pop_mesh.group)
+        coll.all_gather(parts, x.contiguous(), group=pop_mesh.group)
         return torch.cat(parts) if here else None
 
     full = tree_map(gather, block)

@@ -12,6 +12,8 @@ compare the two packages carry JAX's plans and data across as arrays.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -50,8 +52,11 @@ def stream_seed(seed: int, step: int) -> int:
                .generate_state(1, np.uint64)[0])
 
 
-def generator(seed: int, device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
+def generator(seed: int, device) -> Optional[torch.Generator]:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; None on
+    ``meta``, which draws nothing (the dry run)."""
+    if torch.device(device).type == "meta":
+        return None
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return gen

@@ -43,7 +43,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import shuffle as shf
-from repro_torch.core.layer_index import stage_layer_bounds, stage_of_depth
+from repro_torch.core.layer_index import (infer_layer_ids, stage_layer_bounds,
+                                         stage_of_depth, total_layers)
 from repro_torch.core.mixing import (MixingConfig, momentum_like_leaves,
                                      papa_blocked)
 from repro_torch.core.population import all_gather_dims, tree_leaves, tree_map
@@ -613,3 +614,61 @@ def static_shard_mix_comm(pplan: PopulationPlan,
         return float(sum(_numel(i.member_shape) for i in pplan.infos))
     comm = sum(sent * num for sent, num in shard_leaf_volumes(pplan).values())
     return float(comm * _opt_replay_factor(pplan, opt_state))
+
+
+# ---------------------------------------------------------------------------
+# standalone mixer (launch/dryrun.py's ``--mixing *_local``)
+# ---------------------------------------------------------------------------
+
+
+def make_shardlocal_mixer(mesh, mcfg: MixingConfig, num_blocks: int,
+                          pop_specs: Tree, opt_specs: Tree):
+    """A shard-local WASH / PAPA mixing step over this rank's block of
+    member shards, the reference's standalone mixer
+    (``repro/core/shardplan.py::make_shardlocal_mixer``) as a closure
+    over :func:`mix_collective_sharded`.
+
+    ``pop_specs`` are the stacked population's specs (the leading entry
+    the population axes, the rest the member's sharding): the member
+    specs and the population axes come from them.  Member shapes and the
+    population size are read off the block passed in (each local shard
+    times the sizes of the axes that split it), so one mixer serves any
+    tree matching ``pop_specs``.
+
+    Returns ``mixer(pop_local, opt_local, seed) -> (pop, opt,
+    comm_total)``, mixing in place; ``comm_total`` is the scalars the
+    whole population sends on the step, exact host float64
+    (:func:`static_shard_mix_comm` times the population; the reference
+    returns it as a float32 device scalar)."""
+    member_specs = tree_map(lambda s: type(s)(*tuple(s)[1:]), pop_specs,
+                            is_leaf=is_spec)
+    first = tree_leaves(pop_specs, is_leaf=is_spec)[0]
+    lead = tuple(first)[0]
+    pop_axes = (lead,) if isinstance(lead, str) else tuple(lead)
+    m_pop = int(np.prod([int(mesh.shape[a]) for a in pop_axes]))
+
+    def global_member(pop_local: Tree) -> Tree:
+        def one(leaf, spec):
+            shape = list(leaf.shape[1:])
+            for dim, e in enumerate(tuple(spec) if spec is not None else ()):
+                for a in () if e is None else (e,) if isinstance(e, str) \
+                        else tuple(e):
+                    shape[dim] *= int(mesh.shape[a])
+            return torch.empty(shape, dtype=leaf.dtype, device="meta")
+
+        return tree_map(one, pop_local, member_specs)
+
+    def mixer(pop_local: Tree, opt_local: Optional[Tree], seed: int):
+        member_tpl = global_member(pop_local)
+        n = tree_leaves(pop_local)[0].shape[0] * m_pop
+        lids = infer_layer_ids(member_tpl, num_blocks)
+        pplan = plan_population_mixing(mesh, member_tpl, member_specs, mcfg,
+                                       lids, total_layers(num_blocks), n)
+        comm = static_shard_mix_comm(
+            pplan, opt_state=opt_specs if isinstance(opt_specs, dict)
+            else None)
+        pop_local, opt_local = mix_collective_sharded(
+            seed, pop_local, opt_local, mcfg, pplan, mesh, True)
+        return pop_local, opt_local, float(n * comm)
+
+    return mixer

@@ -34,8 +34,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
+from repro_torch.core import collectives as coll
 from repro_torch.core.device import resolve_device
 from repro_torch.core.population import tree_leaves, tree_map
 from repro_torch.core.prng import fold_in, generator, leaf_seed
@@ -231,12 +231,9 @@ def _block_from(vals: torch.Tensor, mesh, q: int) -> torch.Tensor:
         return vals
     send = vals.contiguous()
     recv = torch.empty_like(send)
-    p2p = [dist.P2POp(dist.isend, send,
-                      mesh.global_rank((mesh.rank - q) % m), mesh.group),
-           dist.P2POp(dist.irecv, recv,
-                      mesh.global_rank((mesh.rank + q) % m), mesh.group)]
-    for req in dist.batch_isend_irecv(p2p):
-        req.wait()
+    coll.exchange([("send", send, mesh.global_rank((mesh.rank - q) % m)),
+                   ("recv", recv, mesh.global_rank((mesh.rank + q) % m))],
+                  mesh.group)
     return recv
 
 

@@ -6,11 +6,17 @@ the hand-written Hopper kernel and a CPU tensor to the plain PyTorch
 version.  There is no switch that turns the kernel off on the card and no
 fallback from the kernel to the plain version: a CUDA call the kernel
 cannot take raises.
+
+A ``meta`` tensor (the dry run, ``launch/dryrun.py``) takes a third
+route: empty outputs of the kernel's shapes and dtypes, and the
+kernel's bytes and operations (``kernels/work.py``) reported to every
+counter in :data:`work_counters` (``launch/op_stats.py`` pushes one for
+a step it counts).  Nothing is computed and nothing is allocated.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -19,6 +25,7 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rwkv6_scan as _wkv
 from repro_torch.kernels import selective_scan as _ssm
 from repro_torch.kernels import wash_shuffle as _ws
+from repro_torch.kernels import work as _work
 from repro_torch.kernels.ref import (bucketed_shuffle_ref_,
                                      flash_attention_ref,
                                      paged_attention_ref, rwkv6_scan_bwd_ref,
@@ -26,10 +33,21 @@ from repro_torch.kernels.ref import (bucketed_shuffle_ref_,
                                      selective_scan_ref, wash_shuffle_ref)
 
 
+#: callables ``(kernel, bytes, operations)`` that a meta route reports
+#: its kernel's work to
+work_counters: List[Callable[[str, int, int], None]] = []
+
+
 def _route(t: torch.Tensor, what: str) -> str:
-    if t.device.type not in ("cuda", "cpu"):
+    if t.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"{what}: no route for device {t.device}")
     return t.device.type
+
+
+def _report(kernel: str, work) -> None:
+    nbytes, nops = work
+    for count in work_counters:
+        count(kernel, int(nbytes), int(nops))
 
 
 def wash_shuffle(x: torch.Tensor, perm: torch.Tensor,
@@ -37,8 +55,14 @@ def wash_shuffle(x: torch.Tensor, perm: torch.Tensor,
     """Dense WASH apply on a stacked leaf: x (N,D), perm (N,D) int32,
     mask (D,) bool -> a new (N,D) tensor with
     ``out[n,i] = x[perm[n,i], i]`` where ``mask[i]``, else ``x[n,i]``."""
-    if _route(x, "wash_shuffle") == "cuda":
+    route = _route(x, "wash_shuffle")
+    if route == "cuda":
         return _ws.wash_shuffle_cuda(x, perm, mask)
+    if route == "meta":  # every column masked: the most it could move
+        n, d = x.shape
+        _report("wash_shuffle", (_work.shuffle_bytes_dense(
+            n, d, x.element_size(), d), 0))
+        return torch.empty_like(x)
     return wash_shuffle_ref(x, perm, mask)
 
 
@@ -46,8 +70,13 @@ def bucketed_shuffle_(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Bucketed WASH apply on a stacked leaf x (N,D), **in place**: bucket
     s of the (N,k_per) plan ``idx`` moves its columns by the cyclic shift
     ``x[n] <- x[(n+s) mod N]``.  Returns ``x``."""
-    if _route(x, "bucketed_shuffle") == "cuda":
+    route = _route(x, "bucketed_shuffle")
+    if route == "cuda":
         return _ws.bucketed_shuffle_cuda_(x, idx)
+    if route == "meta":
+        _report("bucketed_shuffle", (_work.shuffle_bytes_bucketed(
+            x.shape[0], idx.shape[-1], x.element_size()), 0))
+        return x
     return bucketed_shuffle_ref_(x, idx)
 
 
@@ -69,9 +98,16 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     both or neither.  Returns (B,H,hd) in q's dtype."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale, or neither")
-    if _route(q, "paged_attention") == "cuda":
+    route = _route(q, "paged_attention")
+    if route == "cuda":
         return _pa.paged_attention_cuda(q, k_pool, v_pool, page_table,
                                         lengths, k_scale, v_scale)
+    if route == "meta":  # every slot at its table's full length
+        B, H, hd = q.shape
+        _report("paged_attention", _work.paged_work_most(
+            B, H, k_pool.shape[2], hd, k_pool.shape[1], page_table.shape[1],
+            q.element_size(), k_pool.element_size(), k_scale is not None))
+        return torch.empty_like(q)
     return paged_attention_ref(q, k_pool, v_pool, page_table, lengths,
                                k_scale, v_scale)
 
@@ -82,15 +118,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Whole-sequence GQA self-attention: q (B,S,H,hd), k (B,S,KV,hd), v
     (B,S,KV,hd_v) -> (B,S,H,hd_v) in q's dtype, scaled by ``hd**-0.5``;
     causal and/or a sliding ``window``."""
-    if _route(q, "flash_attention") == "cuda":
+    route = _route(q, "flash_attention")
+    if route == "cuda":
         return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    if route == "meta":
+        B, S, H, hd = q.shape
+        _report("flash_attention", _work.flash_work(
+            B, S, H, k.shape[2], hd, q.element_size(), causal, window,
+            v.shape[-1]))
+        return q.new_empty((B, S, H, v.shape[-1]))
     return flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
 def _rwkv6_scan_forward(r, k, v, w, u, state):
-    if _route(r, "rwkv6_scan") == "cuda":
+    route = _route(r, "rwkv6_scan")
+    if route == "cuda":
         return _wkv.rwkv6_scan_cuda(r, k, v, w, u, state=state)
+    if route == "meta":
+        B, T, H, hd = r.shape
+        _report("rwkv6_scan", _work.wkv_work(B, T, H, hd))
+        y = torch.empty_like(r)
+        return y if state is None else (y, torch.empty_like(state))
     return rwkv6_scan_ref(r, k, v, w, u, state=state)
+
+
+def _grads_meta(kernel: str, work, inputs, state):
+    """The meta route of a backward: the work reported, an empty gradient
+    of each input's shape and dtype (None for an absent state)."""
+    _report(kernel, work)
+    return tuple(torch.empty_like(x) for x in inputs) + (
+        None if state is None else torch.empty_like(state),)
 
 
 class _RWKV6Scan(torch.autograd.Function):
@@ -110,6 +167,10 @@ class _RWKV6Scan(torch.autograd.Function):
         r, k, v, w, u, state = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(r)
+        if r.device.type == "meta":
+            B, T, H, hd = r.shape
+            return _grads_meta("rwkv6_scan_bwd", _work.wkv_bwd_work(
+                B, T, H, hd, state is not None), (r, k, v, w, u), state)
         fn = (_wkv.rwkv6_scan_bwd_cuda if r.device.type == "cuda"
               else rwkv6_scan_bwd_ref)
         return fn(r, k, v, w, u, state, dy.contiguous(),
@@ -136,8 +197,15 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _selective_scan_forward(u, dt, Bm, Cm, A, state):
-    if _route(u, "selective_scan") == "cuda":
+    route = _route(u, "selective_scan")
+    if route == "cuda":
         return _ssm.selective_scan_cuda(u, dt, Bm, Cm, A, state=state)
+    if route == "meta":
+        B, T, DI = u.shape
+        _report("selective_scan", _work.ssm_work(
+            B, T, DI, A.shape[-1], state is not None))
+        y = u.new_empty(u.shape, dtype=torch.float32)
+        return y if state is None else (y, torch.empty_like(state))
     return selective_scan_ref(u, dt, Bm, Cm, A, state=state)
 
 
@@ -158,6 +226,11 @@ class _SelectiveScan(torch.autograd.Function):
         u, dt, Bm, Cm, A, state = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(u)
+        if u.device.type == "meta":
+            B, T, DI = u.shape
+            return _grads_meta("selective_scan_bwd", _work.ssm_work(
+                B, T, DI, A.shape[-1], state is not None, backward=True),
+                (u, dt, Bm, Cm, A), state)
         fn = (_ssm.selective_scan_bwd_cuda if u.device.type == "cuda"
               else selective_scan_bwd_ref)
         return fn(u, dt, Bm, Cm, A, state, dy.contiguous(),

@@ -83,6 +83,8 @@ class EnsMesh:
         point-to-point op names its peer by global rank)."""
         if self.group is None or self.group is dist.group.WORLD:
             return rank
+        if hasattr(self.group, "ranks"):  # a dry run's stand-in group
+            return self.group.ranks[rank]
         return dist.get_global_rank(self.group, rank)
 
     def close(self) -> None:

@@ -79,6 +79,7 @@ import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as coll
 from repro_torch.core import averaging
 from repro_torch.core import population as pop
 from repro_torch.core.device import DeviceLike, resolve_device
@@ -250,7 +251,7 @@ def _build_decode(cfg: ModelConfig, ensemble: bool, S: int, max_new: int,
 def _hop_in(mesh, like_shape, dtype, device) -> torch.Tensor:
     """Stage s > 0's input: the previous stage's activation."""
     x = torch.empty(like_shape, dtype=dtype, device=device)
-    dist.recv(x, src=mesh.prev_rank, group=mesh.pipe.group)
+    coll.recv(x, src=mesh.prev_rank, group=mesh.pipe.group)
     return x
 
 
@@ -261,7 +262,7 @@ def _hop_out(mesh, y: torch.Tensor, dtype) -> None:
     if y.dtype != dtype:
         raise ValueError(f"a stage's output is {y.dtype}, the next stage "
                          f"expects {dtype}")
-    dist.send(y.contiguous(), dst=mesh.next_rank, group=mesh.pipe.group)
+    coll.send(y.contiguous(), dst=mesh.next_rank, group=mesh.pipe.group)
 
 
 def _staged_sample(mesh, logits, B: int, seeds, step: int, temperature,
@@ -272,7 +273,7 @@ def _staged_sample(mesh, logits, B: int, seeds, step: int, temperature,
     ids = (_sample(logits, seeds, step, temperature, greedy)
            if mesh.stage == last
            else torch.empty((B,), dtype=torch.int32, device=device))
-    dist.broadcast(ids, src=mesh.global_rank(mesh.pipe, last),
+    coll.broadcast(ids, src=mesh.global_rank(mesh.pipe, last),
                    group=mesh.pipe.group)
     return ids
 
@@ -576,7 +577,7 @@ def generate(params: Tree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         mark("decode_s", t0)
     if split:  # every rank's rows, in global order
         parts = [torch.empty_like(out) for _ in range(data)]
-        dist.all_gather(parts, out, group=mesh.data.group)
+        coll.all_gather(parts, out, group=mesh.data.group)
         out = torch.cat(parts)
     return out
 

@@ -68,10 +68,10 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core import collectives as coll
 from repro_torch.core import population as pop
 from repro_torch.core import shardplan
 from repro_torch.core.consensus import avg_distance_to_consensus_blocked
@@ -145,7 +145,7 @@ def _mean_over(x: torch.Tensor, axes) -> torch.Tensor:
     """The mean of ``x`` over the ranks of the axis group ``axes``."""
     if axes.world > 1:
         x = x.contiguous()
-        dist.all_reduce(x, group=axes.group)
+        coll.all_reduce(x, group=axes.group)
         x = x / axes.world
     return x
 
@@ -370,10 +370,8 @@ class StageFns(NamedTuple):
 def _p2p(tensor: torch.Tensor, peer: int, recv: bool, mesh) -> None:
     """Send ``tensor`` to, or receive it from, global rank ``peer`` over
     the pipe group: one matched point-to-point op, waited on."""
-    op = dist.P2POp(dist.irecv if recv else dist.isend, tensor, peer,
-                    mesh.pipe.group)
-    for req in dist.batch_isend_irecv([op]):
-        req.wait()
+    coll.exchange([("recv" if recv else "send", tensor, peer)],
+                  mesh.pipe.group)
 
 
 def _empty(like: torch.Tensor, device) -> torch.Tensor:
@@ -480,7 +478,7 @@ def make_pipelined_chunk_fn(mesh, mcfg: MixingConfig, opt_update: Callable,
             a = clock.mark()
             for g, rep in zip(pop.tree_leaves(grads), replicated):
                 if rep:
-                    dist.all_reduce(g, group=mesh.pipe.group)
+                    coll.all_reduce(g, group=mesh.pipe.group)
             clock.add("pipe_sum", step, a, clock.mark())
         if pplan.dp_axes:
             a = clock.mark()
@@ -504,7 +502,7 @@ def make_pipelined_chunk_fn(mesh, mcfg: MixingConfig, opt_update: Callable,
                 del grads
             loss = torch.stack(losses)
             if mesh.pipe.world > 1:
-                dist.all_reduce(loss, group=mesh.pipe.group)
+                coll.all_reduce(loss, group=mesh.pipe.group)
             loss = torch.mean(loss)
             if with_mixing and gate:
                 a = clock.mark()

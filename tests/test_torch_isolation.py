@@ -52,7 +52,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                  "serving.speculative", "obs", "obs.metrics", "obs.events",
                  "obs.profiler", "train.engine", "train.schedule",
                  "launch.mesh", "core.shardplan", "sharding",
-                 "sharding.rules"):
+                 "sharding.rules", "core.collectives", "launch.dryrun",
+                 "launch.op_stats", "kernels.work", "analysis",
+                 "analysis.contracts", "analysis.matrix", "analysis.lint",
+                 "analysis.__main__"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -190,3 +193,17 @@ def test_image_path_defaults_to_the_card(no_card):
     params = cnn.init_classifier(0, cfg, device="cpu")
     assert all(x.device.type == "cpu" for x in tree_leaves(params))
     assert make_image_task(0, hw=6, device="cpu").prototypes.device.type == "cpu"
+
+
+def test_the_dry_run_is_the_one_entry_point_that_needs_no_card(no_card):
+    """``launch/dryrun.py`` allocates on ``meta`` only, so it runs with no
+    card and without being asked for the CPU: a training pair (the
+    engine's gather, gradient mean and shard-local ring on a stand-in
+    mesh) and a decode pair, each at one layer."""
+    from repro_torch.launch import dryrun
+
+    for shape in ("train_4k", "decode_32k"):
+        rec = dryrun.account_pair("llama3.2-3b", shape, False,
+                                  wash=2 if shape == "train_4k" else 0,
+                                  layers=1)
+        assert rec["status"] == "ok" and rec["per_card_bytes"] > 0

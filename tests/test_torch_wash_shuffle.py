@@ -122,9 +122,20 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building(monkeypatch):
 
 
 def test_routes_refuse_other_devices():
-    x = torch.empty(2, 8, device="meta")
+    """A device with no route raises before anything runs (a stand-in for
+    a tensor on a device this build has no backend for); ``meta`` is the
+    dry run's route: the kernel's shapes, nothing computed."""
+    class Elsewhere:
+        device = torch.device("xpu")
+        shape = (2, 8)
+
+    x = Elsewhere()
     with pytest.raises(ValueError, match="no route"):
-        ops.wash_shuffle(x, x.int(), x[0].bool())
+        ops.wash_shuffle(x, None, None)
     with pytest.raises(ValueError, match="no route"):
-        ops.bucketed_shuffle_(x, torch.empty(2, 1, dtype=torch.int32,
-                                             device="meta"))
+        ops.bucketed_shuffle_(x, None)
+    m = torch.empty(2, 8, device="meta")
+    out = ops.wash_shuffle(m, m.int(), m[0].bool())
+    assert out.device.type == "meta" and out.shape == m.shape
+    assert ops.bucketed_shuffle_(m, torch.empty(
+        2, 1, dtype=torch.int32, device="meta")) is m

@@ -37,6 +37,10 @@ Scenarios:
               on each pair (two members a rank) through the serving
               functions; the serve CLI with ``--pp-stages 4`` (drawn and
               restored) and ``--mesh data`` (:func:`sv_cli_cfg`).
+  analysis    the contract matrix's two training entries
+              (``repro_torch.analysis.matrix``) on the 4 ranks: the
+              engine's chunk on the rank pairs, the pipelined chunk on
+              (ens=2, pipe=2); each rank's checked calls, pairs and comm.
 """
 
 from __future__ import annotations
@@ -674,6 +678,24 @@ def start(scenario: str, world: int, path: str, inputs: dict,
     return wait
 
 
+def analysis(rank, world, data):
+    from repro_torch.analysis import matrix
+
+    res = matrix.run_matrix(("train_chunk", "pipelined_train"),
+                            device="cpu")
+    out = {}
+    for name, r in res.items():
+        pairs = [p for rep in r["reports"] for p in rep.pairs]
+        out[f"{name}_calls"] = np.array(len(r["reports"]))
+        out[f"{name}_compiles"] = np.array(r["compiles"])
+        out[f"{name}_world"] = np.array(r["world"])
+        out[f"{name}_comm"] = np.array(r["comm_scalars"])
+        out[f"{name}_pairs"] = np.array(pairs, np.int64).reshape(-1, 2)
+        out[f"{name}_kinds"] = np.array(sorted(
+            k for rep in r["reports"] for k, n in rep.counts.items() if n))
+    return out
+
+
 def main() -> int:
     scenario, rank, world, path = (sys.argv[1], int(sys.argv[2]),
                                    int(sys.argv[3]), sys.argv[4])
@@ -684,7 +706,8 @@ def main() -> int:
         data = np.load(os.path.join(path, "in.npz"))
         out = {"collective": collective, "engine": engine_runs,
                "multiaxis": multiaxis, "pipeline": pipeline,
-               "serving": serving}[scenario](rank, world, data)
+               "serving": serving, "analysis": analysis}[scenario](
+                   rank, world, data)
         np.savez(os.path.join(path, f"out_{rank}.npz"), **out)
         dist.barrier()
     finally:
