@@ -789,6 +789,10 @@ def reduced_f32(torch, device, kernels):
 # ---------------------------------------------------------------------------
 
 ODD_D = 1_000_003                       # a multiple of no block size
+# the dense kernel's device ms before its redesign (a word a row a thread,
+# a launch a leaf; proof run 29, H100 80GB HBM3 at 700.00 W): phase 6's
+# blocks.mlp.w1 out of place, and the profiled ResNet step's 30 launches
+DENSE_EARLIER_MS = {"w1": 1.0208, "resnet_step": 0.180}
 W1_LAYERS, W1_REST = 28, 3072 * 8192    # blocks.mlp.w1 of llama3.2-3b
 W1_D = W1_LAYERS * W1_REST              # its scalars per member
 
@@ -828,13 +832,14 @@ def _w1_plan(shf, sch, n, device):
                                      device=device)
 
 
-def shuffle_bytes_dense(n, d, elt, mask_count):
+def shuffle_bytes_dense(n, d, elt, mask_count, in_place=False):
     """x read and out written once, the mask once, perm only where the
-    mask is set (the function needs no other perm entry):
-    ``kernels/work.py``, which the dry run counts with too."""
+    mask is set (the function needs no other perm entry); ``in_place``,
+    only the masked columns read and written: ``kernels/work.py``, which
+    the dry run counts with too."""
     from repro_torch.kernels import work
 
-    return work.shuffle_bytes_dense(n, d, elt, mask_count)
+    return work.shuffle_bytes_dense(n, d, elt, mask_count, in_place)
 
 
 def shuffle_bytes_bucketed(n, k_per, elt):
@@ -902,6 +907,32 @@ def check_shuffle_kernels(torch, device):
     log(f"shuffle kernels: bitwise equal to their plain versions for "
         f"float32 and bfloat16 at N in (2, 3, 4, 8), D = {d} (bucketed: "
         f"on the ascending rows the plans draw and on each row shuffled)")
+    # the dense kernel grouped and in place: vector-path and scalar-path
+    # leaves of both word sizes in one call, one launch a word size
+    widths = (1, 7, 64, 1000, 4099, 4096, 65536, d)
+    for n in (2, 3, 16):
+        xs, perms, masks, wants = [], [], [], []
+        for i, (dtype, w) in enumerate((dt, w) for dt in (torch.float32,
+                                                          torch.bfloat16)
+                                       for w in widths):
+            xs.append(_randn(torch, n, w, dtype, device, seed=70 + i))
+            perm, mask = shf.dense_plan(70 + i, (w,), n, 0.3, device)
+            perms.append(perm)
+            masks.append(mask)
+            wants.append(ref.wash_shuffle_ref(xs[-1], perm, mask))
+        n0 = (ws.wash_launches, ws.wash_leaves)
+        ws.wash_shuffle_many_cuda_(xs, perms, masks)
+        torch.cuda.synchronize()
+        grouped = (ws.wash_launches - n0[0], ws.wash_leaves - n0[1])
+        for x, want, w in zip(xs, wants, widths * 2):
+            hold("dense", x, want, f"grouped in place, N={n} {x.dtype} D={w}")
+        if grouped != (2, len(xs)):
+            fail(f"grouped dense shuffle: {grouped} launches and leaves, "
+                 f"expected (2, {len(xs)})")
+    ws.wash_launches = ws.wash_leaves = 0
+    log(f"dense shuffle grouped and in place: bitwise equal to its plain "
+        f"version leaf by leaf at N in (2, 3, 16), D in {widths}, f32 and "
+        f"bf16 leaves in one call, one launch a word size")
 
     w1_d = W1_D
     # the real stacked leaf, N = 4: 2.82e9 bf16 elements
@@ -998,7 +1029,7 @@ def check_shuffle_kernels(torch, device):
                                         device)
     perm, mask = perm.reshape(2, -1), mask.reshape(-1)
     perm64 = perm.long()
-    n0 = ws.wash_launches
+    n0 = (ws.wash_launches, ws.wash_leaves)
     ms = device_ms(torch, lambda _: ws.wash_shuffle_cuda(x, perm, mask), 1)
     plain_ms = device_ms(torch, lambda _: ref.wash_shuffle_ref(x, perm, mask),
                          1)
@@ -1006,25 +1037,35 @@ def check_shuffle_kernels(torch, device):
         mask, torch.gather(x, 0, perm64), x), 1)
     ms2 = device_ms(torch, lambda _: ws.wash_shuffle_cuda(x, perm, mask), 1)
     call_ms = wall_ms(torch, lambda: ws.wash_shuffle_cuda(x, perm, mask), 20, 2)
-    ws.wash_launches = n0
+    # in place (the training path's call): only the masked columns move
+    place_ms = device_ms(torch, lambda _: ws.wash_shuffle_many_cuda_(
+        [x], [perm], [mask]), 1)
+    ws.wash_launches, ws.wash_leaves = n0
     nnz = int(mask.sum())
     nbytes = shuffle_bytes_dense(2, x.shape[1], 4, nnz)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
+    place_bytes = shuffle_bytes_dense(2, x.shape[1], 4, nnz, in_place=True)
+    place_bound = place_bytes / HBM_BYTES_PER_S * 1e3
     log(f"dense shuffle, blocks.mlp.w1 at {layers} layers N=2 f32 ({nnz} of "
-        f"{x.shape[1]} columns masked), device time: kernel {ms:.4f} ms "
-        f"(again {ms2:.4f}; {call_ms:.4f} ms a call through the Python "
-        f"wrapper), plain {plain_ms:.4f} ms, yardstick gather+where on an "
-        f"int64 perm {yard_ms:.4f} ms (no single PyTorch call computes the "
-        f"function), "
-        f"bound {bound:.4f} ms by bytes ({nbytes} B); achieved "
-        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+        f"{x.shape[1]} columns masked), device time: kernel {ms:.4f} ms out "
+        f"of place (again {ms2:.4f}; {call_ms:.4f} ms a call through the "
+        f"Python wrapper; before the redesign {DENSE_EARLIER_MS['w1']:.4f} "
+        f"ms, proof run 29), in place {place_ms:.4f} ms (bound "
+        f"{place_bound:.4f} ms by bytes, {place_bytes} B: the mask, and the "
+        f"masked columns read and written), plain {plain_ms:.4f} ms, "
+        f"yardstick gather+where on an int64 perm {yard_ms:.4f} ms (no "
+        f"single PyTorch call computes the function), bound {bound:.4f} ms "
+        f"by bytes out of place ({nbytes} B); achieved "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s; "
+        f"{attributes_line(ws.kernel_attributes(4, 2))}")
     entries["dense"] = {
         "name": "wash_shuffle[f32,N=2,blocks.mlp.w1 at 4 layers]",
         "route": "cuda", "source": "src/repro_torch/kernels/csrc/wash_shuffle.cu",
         "replaces": "src/repro/kernels/wash_shuffle.py:40",
-        "launches": 0, "max_abs_err": err["dense"], "ms": ms,
+        "launches": 0, "leaves": 0, "max_abs_err": err["dense"], "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-        "library_ms": None, "yardstick_ms": yard_ms}
+        "library_ms": None, "yardstick_ms": yard_ms,
+        "in_place_ms": place_ms, "in_place_bound_ms": place_bound}
     del x, perm, mask, perm64
     torch.cuda.empty_cache()
     return entries
@@ -1047,9 +1088,10 @@ TRAIN_PLANS = {"llama3.2-3b": (10, 9016867.0), "rwkv6-3b": (18, 7670170.0),
 def checked_shuffles(ops, ref, torch, counts):
     """Every shuffle on the kernel route is also run through the plain
     version on the same inputs and must be bitwise equal; ``counts``
-    tallies the comparisons (the kernels' launch counters move as they
-    would without the check)."""
+    tallies the comparisons, a leaf each (the kernels' launch counters
+    move as they would without the check)."""
     dense, bucketed = ops.wash_shuffle, ops.bucketed_shuffle_
+    many = ops.wash_shuffle_many_
 
     def dense_checked(x, perm, mask):
         out = dense(x, perm, mask)
@@ -1057,6 +1099,14 @@ def checked_shuffles(ops, ref, torch, counts):
             fail("training: a dense shuffle differs from its plain version")
         counts["dense"] += 1
         return out
+
+    def many_checked(xs, perms, masks):
+        wants = [ref.wash_shuffle_ref(*a) for a in zip(xs, perms, masks)]
+        many(xs, perms, masks)
+        if not all(_same(torch, x, w) for x, w in zip(xs, wants)):
+            fail("training: a dense shuffle differs from its plain version")
+        counts["dense"] += len(xs)
+        return xs
 
     def bucketed_checked(x, idx):
         want = ref.bucketed_shuffle_ref(x, idx)
@@ -1067,10 +1117,12 @@ def checked_shuffles(ops, ref, torch, counts):
         return x
 
     ops.wash_shuffle, ops.bucketed_shuffle_ = dense_checked, bucketed_checked
+    ops.wash_shuffle_many_ = many_checked
     try:
         yield
     finally:
         ops.wash_shuffle, ops.bucketed_shuffle_ = dense, bucketed
+        ops.wash_shuffle_many_ = many
 
 
 @contextlib.contextmanager
@@ -1380,15 +1432,18 @@ def profile_training_step(torch, device, cfg, kernels):
             f"(the earlier two-pass kernel: _RWKV6ScanBackward 28.1 ms x 64)")
     if cfg.block_kind == "hybrid":
         from repro_torch.kernels import selective_scan as ssk
-        bwd = backward_profile(prof, "_SelectiveScanBackward", ssk.KERNELS)
+        bwd = backward_profile(prof, "_SelectiveScanBackward",
+                               ssk.BACKWARD_KERNELS)
         log(f"profiled {cfg.name} training step: the selective scan {bwd} "
             f"(the backward before its redesign in segments: "
             f"_SelectiveScanBackward 13.22 ms x 64)")
         calls = op_calls(prof, "_SelectiveScanBackward")
-        launched = sum(n for _, n in kernel_us(prof, ssk.KERNELS[1:]).values())
+        launched = sum(n for _, n in kernel_us(
+            prof, ssk.BACKWARD_KERNELS).values())
         if not calls or not launched:
             fail(f"profiled {cfg.name} training step: {calls} selective-scan "
-                 f"backward calls, {launched} launches of {ssk.KERNELS[1:]}")
+                 f"backward calls, {launched} launches of "
+                 f"{ssk.BACKWARD_KERNELS}")
         kernels["ssm_bwd"]["launches_per_call"] = launched / calls
 
 
@@ -1461,13 +1516,14 @@ REDUCED_LAYERS, REDUCED_STEPS = 4, 3   # phase 6: depth, steps
 @contextlib.contextmanager
 def plain_shuffles(ops, ref):
     """Route every shuffle through the plain versions for the block."""
-    dense, bucketed = ops.wash_shuffle, ops.bucketed_shuffle_
-    ops.wash_shuffle, ops.bucketed_shuffle_ = (ref.wash_shuffle_ref,
-                                               ref.bucketed_shuffle_ref_)
+    saved = ops.wash_shuffle, ops.bucketed_shuffle_, ops.wash_shuffle_many_
+    ops.wash_shuffle, ops.bucketed_shuffle_, ops.wash_shuffle_many_ = (
+        ref.wash_shuffle_ref, ref.bucketed_shuffle_ref_,
+        ref.wash_shuffle_many_ref_)
     try:
         yield
     finally:
-        ops.wash_shuffle, ops.bucketed_shuffle_ = dense, bucketed
+        ops.wash_shuffle, ops.bucketed_shuffle_, ops.wash_shuffle_many_ = saved
 
 
 def _train(cfg, mcfg, optimizer, steps, device, seq=64, record_fn=None,
@@ -1529,18 +1585,21 @@ def reduced_paths(torch, device, kernels):
     for what, mcfg, optimizer, kernel in runs:
         counts = {"dense": 0, "bucketed": 0}
         torch.cuda.synchronize()
-        ws.wash_launches = ws.bucketed_launches = 0
+        ws.wash_launches = ws.bucketed_launches = ws.wash_leaves = 0
         t0 = time.perf_counter()
         with checked_shuffles(ops, ref, torch, counts):
             res = _train(cfg, mcfg, optimizer, steps, device)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = {"dense": ws.wash_launches, "bucketed": ws.bucketed_launches}
+        leaves = ws.wash_leaves
         moments = 2 if optimizer == "adamw" else 1
         per_step = TRAIN_PLANS[base.name][0] * (
             1 + moments if mcfg.kind == "wash_opt" else 1)
         expected = {"dense": 0, "bucketed": 0}
-        expected[kernel] = per_step * steps
+        # dense: a step's planned leaves (all f32) in one launch
+        expected[kernel] = steps if kernel == "dense" else per_step * steps
+        want_leaves = per_step * steps if kernel == "dense" else 0
         kept = pop.tree_map(torch.clone, res.population)
         losses = res.history["loss"]
         del res
@@ -1549,17 +1608,20 @@ def reduced_paths(torch, device, kernels):
         diff = max(float((a - b).abs().max()) for a, b in zip(
             pop.tree_leaves(kept), pop.tree_leaves(plain.population)))
         log(f"{cfg.name}, {what}, {steps} steps: {dt:.2f} s; kernel launches "
-            f"{launches} (expected {expected}); {counts[kernel]} shuffles "
+            f"{launches} (expected {expected}), dense leaves {leaves} "
+            f"(expected {want_leaves}); {counts[kernel]} shuffled leaves "
             f"bitwise equal to their plain versions on the training inputs; "
             f"max |param kernel run - plain run| = {diff:.3e} (tolerance "
             f"{PARAM_TOL:g}); losses {losses} vs {plain.history['loss']}")
-        if launches != expected or counts[kernel] != expected[kernel]:
-            fail(f"{what}: launches {launches}, checks {counts}, expected "
-                 f"{expected}")
+        if (launches != expected or leaves != want_leaves
+                or counts[kernel] != per_step * steps):
+            fail(f"{what}: launches {launches}, dense leaves {leaves}, "
+                 f"checks {counts}, expected {expected}, {want_leaves}")
         if diff > PARAM_TOL or not np.isfinite(losses).all():
             fail(f"{what}: kernel and plain runs differ by {diff}")
         if kernel == "dense":  # the dense kernel's path is this run
             kernels["dense"]["launches"] = launches["dense"]
+            kernels["dense"]["leaves"] = leaves
         del kept, plain
         torch.cuda.empty_cache()
 
@@ -2551,24 +2613,25 @@ def dense_planned_leaves(params, num_blocks: int, base_p: float) -> int:
 
 @contextlib.contextmanager
 def tally_dense_masks(ops, tally):
-    """Keep each dense shuffle's mask count (a device tensor, read after
-    the run); the shuffle runs as it would."""
-    route = ops.wash_shuffle
+    """Keep each dense shuffle's mask count, a leaf's each (a device
+    tensor, read after the run); the shuffle runs as it would."""
+    route = ops.wash_shuffle_many_
 
-    def tallied(x, perm, mask):
-        tally.append(mask.sum())
-        return route(x, perm, mask)
+    def tallied(xs, perms, masks):
+        tally.extend(mask.sum() for mask in masks)
+        return route(xs, perms, masks)
 
-    ops.wash_shuffle = tallied
+    ops.wash_shuffle_many_ = tallied
     try:
         yield
     finally:
-        ops.wash_shuffle = route
+        ops.wash_shuffle_many_ = route
 
 
 def cnn_quickstart(torch, device):
     """The quickstart (``launch.quickstart.main``) on the card, at its own
-    configuration: its pattern must hold.  Returns its dense launches."""
+    configuration: its pattern must hold.  Returns its dense launches and
+    the leaves they shuffled."""
     from repro_torch.kernels import wash_shuffle as ws
     from repro_torch.launch import quickstart
     from repro_torch.models.cnn import ClassifierConfig, init_classifier
@@ -2578,30 +2641,31 @@ def cnn_quickstart(torch, device):
     planned = dense_planned_leaves(init_classifier(0, cfg, device),
                                    cfg.num_blocks, 0.05)
     torch.cuda.synchronize()
-    ws.wash_launches = ws.bucketed_launches = 0
+    ws.wash_launches = ws.bucketed_launches = ws.wash_leaves = 0
     t0 = time.perf_counter()
     rows = quickstart.main(["--device", str(device)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ws.wash_launches
+    launches, leaves = ws.wash_launches, ws.wash_leaves
     base, wash = {r["method"]: r for r in rows}.values()
     log(f"quickstart on the card (mlp 64 x 3, hw 12, N=4, 400 steps, batch "
         f"48, two populations): {wall:.2f} s; dense shuffle launches "
-        f"{launches} (expected {planned} planned leaves x 400 steps), "
-        f"bucketed {ws.bucketed_launches}; WASH ensemble "
+        f"{launches} (expected one a step, 400), leaves {leaves} (expected "
+        f"{planned} planned leaves x 400 steps), bucketed "
+        f"{ws.bucketed_launches}; WASH ensemble "
         f"{wash['ensemble']:.4f}, soup {wash['averaged']:.4f}, consensus "
         f"{wash['consensus']:.6g}; baseline ensemble {base['ensemble']:.4f}, "
         f"soup {base['averaged']:.4f} (the collapse: "
         f"{base['averaged'] - base['ensemble']:+.4f}), consensus "
         f"{base['consensus']:.6g}")
-    if launches != planned * 400 or ws.bucketed_launches:
-        fail(f"quickstart: {launches} dense launches, expected "
-             f"{planned * 400}")
+    if launches != 400 or leaves != planned * 400 or ws.bucketed_launches:
+        fail(f"quickstart: {launches} dense launches of {leaves} leaves, "
+             f"expected 400 of {planned * 400}")
     if not (wash["averaged"] >= wash["ensemble"] - 0.08
             and wash["ensemble"] > 0.5
             and wash["consensus"] < base["consensus"]):
         fail(f"quickstart: the pattern does not hold: {rows}")
-    return launches
+    return launches, leaves
 
 
 def _cnn_setup(torch, device, kind):
@@ -2674,9 +2738,10 @@ def cnn_evaluate(torch, cfg, population, ex, ey) -> dict:
 def cnn_full_width(torch, device):
     """The full-width ResNet population, dense WASH and baseline, CNN_STEPS
     steps: every shuffle through the dense kernel and bitwise equal to its
-    plain version, launches == planned leaves x steps, comm == the float64
-    count of the masks applied, finite losses; then the accuracies and
-    the pattern.  Returns the run's dense launches."""
+    plain version, one launch a step of all planned leaves (launches ==
+    steps, leaves == planned leaves x steps), comm == the float64 count of
+    the masks applied, finite losses; then the accuracies and the
+    pattern.  Returns the run's dense launches and leaves."""
     from repro_torch.core.mixing import MixingConfig
     from repro_torch.core.population import num_params
     from repro_torch.kernels import ops, ref
@@ -2693,14 +2758,14 @@ def cnn_full_width(torch, device):
     wash_cfg = MixingConfig(kind="wash", base_p=CNN_P, mode="dense")
     counts, tally = {"dense": 0, "bucketed": 0}, []
     torch.cuda.synchronize()
-    ws.wash_launches = ws.bucketed_launches = 0
+    ws.wash_launches = ws.bucketed_launches = ws.wash_leaves = 0
     t0 = time.perf_counter()
     with checked_shuffles(ops, ref, torch, counts), \
             tally_dense_masks(ops, tally):
         wash = _cnn_train(device, cfg, data_fn, loss_fn, wash_cfg, steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ws.wash_launches
+    launches, leaves = ws.wash_launches, ws.wash_leaves
     per_step = torch.stack(tally).view(steps, planned).sum(1).tolist() \
         if len(tally) == steps * planned else []
     applied = 0.0
@@ -2713,15 +2778,16 @@ def cnn_full_width(torch, device):
         f"{[dataclasses.astuple(p) for p in pols]} (mixup, smooth, cutmix, "
         f"erase), SGD lr 0.05, dense WASH p={CNN_P}, {steps} steps, every "
         f"shuffle held against its plain version: {wall:.2f} s; dense "
-        f"launches {launches} (expected {planned} planned leaves x {steps}), "
+        f"launches {launches} (expected one a step, {steps}), leaves "
+        f"{leaves} (expected {planned} planned leaves x {steps}), "
         f"{counts['dense']} bitwise equal to the plain version; comm of the "
         f"masks applied {applied!r}, recorded {wash.history['comm'][-1]!r}; "
         f"losses {wash.history['loss']}")
-    if (launches != planned * steps or counts["dense"] != launches
-            or ws.bucketed_launches):
-        fail(f"resnet WASH: {launches} dense launches ({counts['dense']} "
-             f"checked, {ws.bucketed_launches} bucketed), expected "
-             f"{planned * steps}")
+    if (launches != steps or leaves != planned * steps
+            or counts["dense"] != leaves or ws.bucketed_launches):
+        fail(f"resnet WASH: {launches} dense launches of {leaves} leaves "
+             f"({counts['dense']} checked, {ws.bucketed_launches} bucketed), "
+             f"expected {steps} of {planned * steps}")
     if applied != wash.history["comm"][-1] or applied <= 0:
         fail(f"resnet WASH: comm {wash.history['comm'][-1]} recorded, the "
              f"masks applied give {applied}")
@@ -2754,7 +2820,7 @@ def cnn_full_width(torch, device):
     if result["WASH"]["consensus"] >= result["baseline"]["consensus"]:
         fail(f"resnet: WASH consensus {result['WASH']['consensus']} not "
              f"below the baseline's {result['baseline']['consensus']}")
-    return launches
+    return launches, leaves
 
 
 def cnn_vgg_bucketed(torch, device):
@@ -2821,13 +2887,13 @@ def cnn_vgg_bucketed(torch, device):
 @contextlib.contextmanager
 def mixing_spans(torch):
     """``torch.profiler`` ranges around each mixing op (``wash.mix``), each
-    plan draw (``wash.plan_draw``) and each dense shuffle
+    plan draw (``wash.plan_draw``) and each grouped dense shuffle call
     (``wash.shuffle``), for one profiled step (observation only)."""
     from repro_torch.core import shuffle as shf
     from repro_torch.kernels import ops
     from repro_torch.train import loop
 
-    saved = (loop.mix_once, shf.make_plan, ops.wash_shuffle)
+    saved = (loop.mix_once, shf.make_plan, ops.wash_shuffle_many_)
 
     def spanned(name, fn):
         def call(*args, **kwargs):
@@ -2837,11 +2903,11 @@ def mixing_spans(torch):
 
     loop.mix_once = spanned("wash.mix", saved[0])
     shf.make_plan = spanned("wash.plan_draw", saved[1])
-    ops.wash_shuffle = spanned("wash.shuffle", saved[2])
+    ops.wash_shuffle_many_ = spanned("wash.shuffle", saved[2])
     try:
         yield
     finally:
-        loop.mix_once, shf.make_plan, ops.wash_shuffle = saved
+        loop.mix_once, shf.make_plan, ops.wash_shuffle_many_ = saved
 
 
 def cnn_timing(torch, device, card):
@@ -2886,15 +2952,15 @@ def cnn_timing(torch, device, card):
     from repro_torch.kernels import ops
 
     marks, masks = [], []
-    route = ops.wash_shuffle
+    route = ops.wash_shuffle_many_
 
-    def tallied(x, perm, mask):  # the profiled step's shuffles' shapes
+    def tallied(xs, perms, ms):  # the profiled step's shuffles' shapes
         if len(marks) == 2:
-            masks.append((x.shape[0], x[0].numel(), x.element_size(),
-                          mask.sum()))
-        return route(x, perm, mask)
+            masks.extend((x.shape[0], x[0].numel(), x.element_size(),
+                          mask.sum()) for x, mask in zip(xs, ms))
+        return route(xs, perms, ms)
 
-    ops.wash_shuffle = tallied
+    ops.wash_shuffle_many_ = tallied
     try:
         with mixing_spans(torch), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -2907,10 +2973,14 @@ def cnn_timing(torch, device, card):
             _cnn_train(device, cfg, data_fn, loss_fn, mcfg, 3,
                        record_fn=record)
     finally:
-        ops.wash_shuffle = route
-    shuffle_bytes = sum(shuffle_bytes_dense(n, d, elt, int(c))
+        ops.wash_shuffle_many_ = route
+    # the step's leaves in place (what the kernel must move), and out of
+    # place (the bound before the redesign)
+    shuffle_bytes = sum(shuffle_bytes_dense(n, d, elt, int(c), in_place=True)
                         for n, d, elt, c in masks)
     shuffle_bound, shuffle_by = bound(shuffle_bytes, 0, "f32")
+    copy_bound = sum(shuffle_bytes_dense(n, d, elt, int(c))
+                     for n, d, elt, c in masks) / HBM_BYTES_PER_S * 1e3
     wall_ms = (marks[2] - marks[1]) * 1e3
     busy_ms, spans, full, top = device_activity(prof)
     spans_ms = {a.key: (a.device_time_total / 1e3, a.cpu_time_total / 1e3)
@@ -2924,9 +2994,10 @@ def cnn_timing(torch, device, card):
         "wash_shuffle_kernel"]
     planned = dense_planned_leaves(init_classifier(0, cfg, device),
                                    cfg.num_blocks, CNN_P)
-    if launched != planned:
-        fail(f"profiled resnet step: {launched} dense shuffle kernels seen, "
-             f"{planned} planned leaves")
+    if launched != 1 or len(masks) != planned:
+        fail(f"profiled resnet step: {launched} dense shuffle kernels seen "
+             f"for {len(masks)} leaves, expected one for {planned} planned "
+             f"leaves")
     mix_dev = spans_ms["wash.mix"][0] + shuffle_us / 1e3
     plan_dev = spans_ms["wash.plan_draw"][0]
     log(f"profiled resnet WASH step (full width, N={CNN_N}, under "
@@ -2937,27 +3008,31 @@ def cnn_timing(torch, device, card):
         f"{mix_dev:.3f} ms, host {spans_ms['wash.mix'][1]:.3f} ms; the plan "
         f"draw device {plan_dev:.3f} ms ({100 * plan_dev / mix_dev:.1f}% of "
         f"mixing's device time), host {spans_ms['wash.plan_draw'][1]:.3f} ms;"
-        f" the dense shuffle kernel {shuffle_us / 1e3:.3f} ms x{launched} "
-        f"({100 * shuffle_us / 1e3 / mix_dev:.1f}%; bound over those "
-        f"{len(masks)} calls {shuffle_bound:.4f} ms by {shuffle_by}, "
-        f"{shuffle_bytes} B), its calls' host time "
+        f" the dense shuffle kernel {shuffle_us / 1e3:.4f} ms x{launched} "
+        f"for {len(masks)} leaves (before the redesign "
+        f"{DENSE_EARLIER_MS['resnet_step']:.3f} ms for 30 launches, proof "
+        f"run 29; {100 * shuffle_us / 1e3 / mix_dev:.1f}% of mixing; bound "
+        f"in place {shuffle_bound:.4f} ms by {shuffle_by}, {shuffle_bytes} "
+        f"B; out of place {copy_bound:.4f} ms), its calls' host time "
         f"{spans_ms['wash.shuffle'][1]:.3f} ms; device time by operator: "
         f"{top}")
 
 
 def image_classification(torch, device, kernels, card):
     """Phase 10.  Adds its launches to the two shuffle kernels' entries of
-    the JSON line: the quickstart's and the ResNet's dense launches, the
-    VGG's bucketed ones."""
+    the JSON line: the quickstart's and the ResNet's dense launches (and
+    the leaves they shuffled), the VGG's bucketed ones."""
     t0 = time.perf_counter()
-    dense = cnn_quickstart(torch, device)
-    dense += cnn_full_width(torch, device)
+    quick = cnn_quickstart(torch, device)
+    resnet = cnn_full_width(torch, device)
+    dense, leaves = quick[0] + resnet[0], quick[1] + resnet[1]
     bucketed = cnn_vgg_bucketed(torch, device)
     cnn_timing(torch, device, card)
     kernels["dense"]["launches"] += dense
+    kernels["dense"]["leaves"] = kernels["dense"].get("leaves", 0) + leaves
     kernels["bucketed"]["launches"] += bucketed
     log(f"phase 10 (image classification): {time.perf_counter() - t0:.1f} s; "
-        f"dense launches {dense}, bucketed {bucketed}")
+        f"dense launches {dense} of {leaves} leaves, bucketed {bucketed}")
 
 
 # ---------------------------------------------------------------------------
@@ -3852,12 +3927,28 @@ SSM_TOL = 1e-4
 # (one thread a state walking 3T steps; chip_smoke.py phase 13, H100 80GB
 # HBM3 at 700.00 W): training shape, prefill shape
 SSM_BWD_EARLIER_MS = {"train": 0.2086, "prefill": 2.7419}
+# the forward's device ms before its redesign in segments (8 lanes a
+# channel, 2-buffer 4-byte cp.async staging; proof run 29, H100 80GB HBM3
+# at 700.00 W): prefill shape, a decode call over 32 layers' calls
+SSM_FWD_EARLIER_MS = {"prefill": 0.3719, "decode_step": 0.0030}
+SSM_FWD_SWEEP = (1, 2, 4, 8)  # segment counts the forward is timed at
+SSM_SMALL_SHAPE = (1, 4096, 128)  # B, T, DI: a few channels, a long T
+SSM_LONG_T = 32768           # a forward with no limit on T
 HYMBA_FLASH = (4, 2048, 25, 5, 64, 1024)  # B, S, H, KV, hd, window
 HYMBA_REDUCED_SEQ = 128  # twice the reduced window: the window bites
 # the full-width serve and teacher-forced step run 8 of hymba's 32 (alike)
 # layers: phase 18 needed the time, and every layer repeats the same
 # kernel calls at the same shapes (training keeps all 32)
 HYMBA_SERVE_LAYERS = 8
+
+
+def _sweep_shape(key):
+    """(B, T, DI) of a segment sweep's shape by its name."""
+    if key == "prefill":
+        return SSM_SHAPE[:3]
+    if key == "train":
+        return SSM_TRAIN_SHAPE[:3]
+    return SSM_SMALL_SHAPE
 
 
 def ssm_inputs(torch, B, T, DI, S, device, seed, extreme=False):
@@ -3905,8 +3996,10 @@ def _rel(torch, got, want, what):
 def check_selective_scan(torch, ssk, ref, device):
     """Phase 13, the selective-scan kernels alone: the forward against
     ``selective_scan_ref`` at hymba's prefill shape from zero and from a
-    carried state (y and the final state), at T = 1, at a ragged T = 1000
-    and with extreme dt; the backward against ``selective_scan_bwd_ref``
+    carried state (y and the final state), at T = 1 (the step kernel), at
+    a ragged T = 1000, with extreme dt, at the training shape and at T =
+    32,768, two calls bitwise equal, and in each of 1..8 segments at the
+    prefill and training shapes; the backward against ``selective_scan_bwd_ref``
     at the training shape (from zero; and from a carried state with a
     final-state grad and extreme dt), and from a carried state with a
     final-state grad at the prefill shape, at a ragged T = 1000 over eight
@@ -3914,8 +4007,9 @@ def check_selective_scan(torch, ssk, ref, device):
     (B = 1, DI = 40; both past 48 KB of dynamic shared memory), every
     value finite and within SSM_TOL of max |plain|, two calls bitwise
     equal; then each timed (CUDA-graph replays) beside its bound, its
-    plain version, the backward beside its time before the redesign, and
-    the registers, shared memory and spills of each kernel.  Returns the
+    plain version and its time before its redesign (the forward at the
+    prefill, decode and training shapes, and by segment count), and the
+    registers, shared memory and spills of each kernel.  Returns the
     JSON line's entries (launches, and the backward's launches a call,
     filled in by the main path)."""
     B, T, DI, S = SSM_SHAPE
@@ -3924,18 +4018,27 @@ def check_selective_scan(torch, ssk, ref, device):
              ("from a carried state", B, T, True, False),
              ("T=1 (decode), carried state", B, 1, True, False),
              ("ragged T=1000, carried state", B, 1000, True, False),
-             ("extreme dt, carried state", B, T, True, True)]
+             ("extreme dt, carried state", B, T, True, True),
+             ("the training shape, from zero", TB, TT, False, False),
+             ("T=32,768 (no limit), carried state", 1, SSM_LONG_T, True,
+              False)]
     err_main = 0.0
     for n, (what, b, t, carried, extreme) in enumerate(cases):
         u, dt, Bm, Cm, A, h0, _, _ = ssm_inputs(torch, b, t, DI, S, device,
                                                 150 + n, extreme)
         state = h0 if carried else None
         got = ssk.selective_scan_cuda(u, dt, Bm, Cm, A, state=state)
+        again = ssk.selective_scan_cuda(u, dt, Bm, Cm, A, state=state)
         torch.cuda.synchronize()
         want = ref.selective_scan_ref(u, dt, Bm, Cm, A, state=state)
         if not carried:
-            got, want = (got,), (want,)
-        name = f"selective scan f32 (B={b}, T={t}, DI={DI}, S={S}) {what}"
+            got, again, want = (got,), (again,), (want,)
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        nseg = 0 if t == 1 else ssk.forward_segments(b, t, DI)
+        name = (f"selective scan f32 (B={b}, T={t}, DI={DI}, S={S}; "
+                + (f"{nseg} segment{'s' if nseg > 1 else ''} of "
+                   f"{ssk.forward_segment_length(t, nseg)}" if nseg else
+                   "the step kernel") + f") {what}")
         errs = {k: _rel(torch, g, w, f"{name}: {k}")
                 for k, g, w in zip(("y", "final state"), got, want)}
         decay = ""
@@ -3945,13 +4048,38 @@ def check_selective_scan(torch, ssk, ref, device):
             decay = f"; exp(dt A) from {hi:.6f} down to {lo:g}"
         log(f"{name}: max |kernel - plain| / max |plain| "
             + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
-            + f" (tolerance {SSM_TOL:g}); every value finite{decay}")
+            + f" (tolerance {SSM_TOL:g}); every value finite{decay}; two "
+            f"calls bitwise equal: {same}")
         if max(errs.values()) > SSM_TOL:
             fail(f"{name} disagrees with its plain version: {errs}")
+        if not same:
+            fail(f"{name}: two calls on the same inputs differ")
         if what == "from a carried state":
             err_main = max(float((g - w).abs().max())
                            for g, w in zip(got, want))
-        del u, dt, Bm, Cm, A, h0, got, want
+        del u, dt, Bm, Cm, A, h0, got, again, want
+    torch.cuda.empty_cache()
+    # every segment count at a shape that fills the card with one and at
+    # one that does not
+    for b, t, seed in ((B, T, 158), (TB, TT, 159)):
+        u, dt, Bm, Cm, A, h0, _, _ = ssm_inputs(torch, b, t, DI, S, device,
+                                                seed, True)
+        want = ref.selective_scan_ref(u, dt, Bm, Cm, A, state=h0)
+        worst = 0.0
+        for nseg in range(1, ssk.SEGMENTS + 1):
+            got = ssk.selective_scan_cuda(u, dt, Bm, Cm, A, state=h0,
+                                          segments=nseg)
+            errs = [_rel(torch, g, w, f"selective scan {nseg} segments")
+                    for g, w in zip(got, want)]
+            worst = max(worst, *errs)
+            if max(errs) > SSM_TOL:
+                fail(f"selective scan (B={b}, T={t}) in {nseg} segments "
+                     f"disagrees with its plain version: {errs}")
+        log(f"selective scan f32 (B={b}, T={t}, DI={DI}), extreme dt, "
+            f"carried state, in each of 1..{ssk.SEGMENTS} segments: worst "
+            f"max |kernel - plain| / max |plain| {worst:.3e} (tolerance "
+            f"{SSM_TOL:g})")
+        del u, dt, Bm, Cm, A, h0, want
     torch.cuda.empty_cache()
 
     grads = ("du", "ddt", "dB", "dC", "dA", "dstate0")
@@ -4005,10 +4133,16 @@ def check_selective_scan(torch, ssk, ref, device):
     def fwd(fn, xs):
         return lambda i: fn(*xs[i][:5], state=xs[i][5])
 
+    def fwd_at(xs, nseg):
+        return lambda i: ssk.selective_scan_cuda(*xs[i][:5], state=xs[i][5],
+                                                 segments=nseg)
+
     n0, nb0 = ssk.launches, ssk.backward_launches
     ms = device_ms(torch, fwd(ssk.selective_scan_cuda, sets), 2)
     plain_ms = device_ms(torch, fwd(ref.selective_scan_ref, sets), 2, reps=3)
     ms2 = device_ms(torch, fwd(ssk.selective_scan_cuda, sets), 2)
+    sweep = {"prefill": {n: device_ms(torch, fwd_at(sets, n), 2)
+                         for n in SSM_FWD_SWEEP}}
     del sets
     dec = [ssm_inputs(torch, B, 1, DI, S, device, 172 + i) for i in range(2)]
     dec_ms = device_ms(torch, fwd(ssk.selective_scan_cuda, dec), 2)
@@ -4018,11 +4152,31 @@ def check_selective_scan(torch, ssk, ref, device):
     dec_step_ms = device_ms(torch, fwd(ssk.selective_scan_cuda, dec_layers),
                             SSM_DECODE_LAYERS)
     del dec, dec_layers
+    # the training shape: the forward of a training step, from zero
+    tsets = [ssm_inputs(torch, TB, TT, DI, S, device, 176 + i)[:5] + (None,)
+             for i in range(2)]
+    train_ms = device_ms(torch, fwd(ssk.selective_scan_cuda, tsets), 2)
+    train_plain_ms = device_ms(torch, fwd(ref.selective_scan_ref, tsets), 2,
+                               reps=3)
+    sweep["train"] = {n: device_ms(torch, fwd_at(tsets, n), 2)
+                      for n in SSM_FWD_SWEEP}
+    del tsets
+    # a long sequence over few channels, where one segment's blocks leave
+    # most SMs idle
+    sb, st_, sd = SSM_SMALL_SHAPE
+    ssets = [ssm_inputs(torch, sb, st_, sd, S, device, 178 + i)
+             for i in range(2)]
+    sweep[f"small (B={sb}, T={st_}, DI={sd})"] = {
+        n: device_ms(torch, fwd_at(ssets, n), 2) for n in SSM_FWD_SWEEP}
+    del ssets
     nbytes, ops = ssm_work(B, T, DI, S, True)
     bound_ms, bound_by = bound(nbytes, ops, "f32 FFMA")
+    nseg = ssk.forward_segments(B, T, DI)
     log(f"selective scan f32 with a carried state at hymba-1.5b's prefill "
-        f"shape (B={B}, T={T}, DI={DI}, S={S}): {ms:.4f} ms on the device "
-        f"(again {ms2:.4f}), plain {plain_ms:.4f} ms, library none, bound "
+        f"shape (B={B}, T={T}, DI={DI}, S={S}; {nseg} segment(s)): "
+        f"{ms:.4f} ms on the device (again {ms2:.4f}; before the redesign "
+        f"{SSM_FWD_EARLIER_MS['prefill']:.4f}, proof run 29), plain "
+        f"{plain_ms:.4f} ms, library none, bound "
         f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B: "
         f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {ops} ops at the FFMA "
         f"rate: {ops / FFMA_OPS * 1e3:.4f} ms); achieved "
@@ -4031,10 +4185,23 @@ def check_selective_scan(torch, ssk, ref, device):
     dec_bytes, dec_ops = ssm_work(B, 1, DI, S, True)
     dec_bound, dec_by = bound(dec_bytes, dec_ops, "f32 FFMA")
     log(f"selective scan f32 with a carried state at the decode shape (B={B}, "
-        f"T=1): {dec_ms:.4f} ms on the device (two input sets cycled), plain "
-        f"{dec_plain_ms:.4f} ms, {dec_step_ms:.4f} ms a call over "
-        f"{SSM_DECODE_LAYERS} layers' calls, a state each; bound "
-        f"{dec_bound:.4f} ms by {dec_by} ({dec_bytes} B, {dec_ops} ops)")
+        f"T=1, the step kernel): {dec_ms:.4f} ms on the device (two input "
+        f"sets cycled), plain {dec_plain_ms:.4f} ms, {dec_step_ms:.4f} ms a "
+        f"call over {SSM_DECODE_LAYERS} layers' calls, a state each (before "
+        f"the redesign {SSM_FWD_EARLIER_MS['decode_step']:.4f}, proof run "
+        f"29); bound {dec_bound:.4f} ms by {dec_by} ({dec_bytes} B, {dec_ops} "
+        f"ops); {ssk.KERNELS[3]}: {attrs[3]}")
+    t_bytes, t_ops = ssm_work(TB, TT, DI, S, False)
+    train_bound, train_by = bound(t_bytes, t_ops, "f32 FFMA")
+    log(f"selective scan f32 from zero at the training shape (B={TB}, "
+        f"T={TT}; {ssk.forward_segments(TB, TT, DI)} segment(s)): "
+        f"{train_ms:.4f} ms on the device, plain {train_plain_ms:.4f} ms, "
+        f"bound {train_bound:.4f} ms by {train_by} ({t_bytes} B, {t_ops} "
+        f"ops)")
+    for key, times in sweep.items():
+        log(f"selective scan forward at the {key} shape by segments: "
+            + ", ".join(f"{n}: {t:.4f} ms" for n, t in times.items())
+            + f" (the wrapper's choice {ssk.forward_segments(*_sweep_shape(key))})")
 
     times = {}
     for key, (b, t, carried) in (("train", (TB, TT, False)),
@@ -4074,7 +4241,7 @@ def check_selective_scan(torch, ssk, ref, device):
         del sets
         torch.cuda.empty_cache()
     ssk.launches, ssk.backward_launches = n0, nb0  # comparison launches
-    for name, line in zip(ssk.KERNELS[1:], attrs[1:]):
+    for name, line in zip(ssk.KERNELS[1:3], attrs[1:3]):
         log(f"selective scan backward {name}: {line}")
     bms, bplain, bbound, bby = times["train"]
     return {"ssm": {
@@ -4093,6 +4260,11 @@ def check_selective_scan(torch, ssk, ref, device):
         "decode_plain_ms": dec_plain_ms,
         "decode_step_ms": dec_step_ms,
         "decode_bound_ms": dec_bound,
+        "train_ms": train_ms,
+        "train_plain_ms": train_plain_ms,
+        "train_bound_ms": train_bound,
+        "segments_ms": {k: {str(n): t for n, t in v.items()}
+                        for k, v in sweep.items()},
     }, "ssm_bwd": {
         "name": "selective_scan_bwd[f32,training shape]",
         "route": "cuda",

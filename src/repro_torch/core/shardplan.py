@@ -29,8 +29,9 @@ shuffle kernel), and PAPA's mean runs over the same group, elementwise,
 so it is exact on shards.  A stage-split leaf's plan is this rank's
 stage's alone (:func:`build_local_plans`); every rank of a stage draws
 the same one, and the leaves replicated over the stages draw the same
-plan on every stage.  The standalone mixer (``make_shardlocal_mixer``,
-the dryrun's) is not ported.
+plan on every stage.  The standalone mixer
+(:func:`make_shardlocal_mixer`, the dry run's) builds those plans and
+mixes one rank's shards by itself.
 """
 
 from __future__ import annotations
@@ -112,8 +113,10 @@ def classify_roles(mesh, n: int) -> AxisRoles:
     a ``shape`` dict) for a population of ``n``.  Data axes join the
     population when it divides over ens×data (each rank then holds whole
     members, and a member's update needs no gradient collective);
-    otherwise they split batches.  (The reference's pinned split serves
-    its standalone mixer, which is not ported.)"""
+    otherwise they split batches.  (The reference lets its standalone
+    mixer pin the split, derived from its population specs; the port's
+    :func:`make_shardlocal_mixer` takes the roles from here, through
+    :func:`plan_population_mixing`.)"""
     names = tuple(mesh.axis_names)
     if "ens" not in names:
         raise ValueError(f"population mesh needs an 'ens' axis; got {names}")

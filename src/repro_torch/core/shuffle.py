@@ -21,8 +21,8 @@ moves), a bucketed ``(N, k_per)`` int32 index tensor, or a dense
 Randomness comes from integer seeds (``core.prng``), not ``jax.random``:
 the port's plans hold the reference's contracts but not its numbers.
 :func:`apply_plan_stacked` picks the kernel by device, with no flag: a
-CUDA leaf goes to the hand-written Hopper kernels, a CPU leaf to their
-plain versions.  The ``*_collective*`` applies run the same plans on a
+CUDA leaf goes to the hand-written Hopper kernels (a tree's dense leaves
+together, in place), a CPU leaf to their plain versions.  The ``*_collective*`` applies run the same plans on a
 block of members per rank of the ensemble mesh (``launch/mesh.py``),
 rows crossing ranks over a ring of ``torch.distributed`` sends and
 receives where the reference ``ppermute``s.
@@ -363,9 +363,11 @@ def apply_plan_stacked(plan: Tree, tree: Tree, mode: str = "dense") -> Tree:
     **in place**: each planned leaf (contiguous, leading ens axis) is
     shuffled where it lies, and the tree is returned.
 
-    The leaf's device picks the kernel: ``ops.bucketed_shuffle_`` (sparse,
-    in place) for bucketed plans, ``ops.wash_shuffle`` (a new tensor,
-    copied back) for dense ones."""
+    The leaves' device picks the kernel: ``ops.bucketed_shuffle_`` (sparse,
+    in place) a leaf for bucketed plans; for dense ones every planned
+    leaf goes in one ``ops.wash_shuffle_many_`` call (in place, one launch
+    a word size on the card)."""
+    dense: Tuple[list, list, list] = ([], [], [])
 
     def _one(p, leaf):
         if p is None:
@@ -374,13 +376,17 @@ def apply_plan_stacked(plan: Tree, tree: Tree, mode: str = "dense") -> Tree:
         flat = leaf.view(n, -1)
         if mode == "dense":
             perm, mask = p
-            flat.copy_(ops.wash_shuffle(flat, perm.reshape(n, -1),
-                                        mask.reshape(-1)))
+            for group, t in zip(dense, (flat, perm.reshape(n, -1),
+                                        mask.reshape(-1))):
+                group.append(t)
         else:
             ops.bucketed_shuffle_(flat, p)
         return leaf
 
-    return tree_map(_one, plan, tree, is_leaf=_is_plan_leaf)
+    out = tree_map(_one, plan, tree, is_leaf=_is_plan_leaf)
+    if dense[0]:
+        ops.wash_shuffle_many_(*dense)
+    return out
 
 
 def apply_plan_collective(plan: Tree, tree: Tree, mesh) -> Tree:

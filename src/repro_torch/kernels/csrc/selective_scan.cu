@@ -17,33 +17,64 @@
 // What bounds it on the H100: at hymba-1.5b's prefill shape (B=4, T=2048,
 // DI=3200, S=16) the call must read u and dt and write y (3 x 105 MB, f32),
 // read B and C (1 MB) and the states (1.6 MB): ~317 MB, 0.095 ms at
-// 3.35 TB/s, against ~3.4e9 operations (0.02 ms at the f32 rate).  So
-// bytes bound it, but step t needs the state of step t - 1: a channel is a
-// serial chain of T steps, and one thread a (b, d) channel gives only
-// B*DI = 12,800 threads for 132 SMs.
+// 3.35 TB/s, against ~3.4e9 operations (0.05 ms at the f32 FFMA rate).
+// But a (b, d, s) is a serial chain of T steps, and every (b, t, d, s)
+// takes one exp (4.2e8 on the SMs' 16 MUFU lanes each: 0.11 ms) and about
+// seven other instructions a lane.  On the card the staging alone (every
+// input through shared memory, no arithmetic) takes 0.076 ms at that shape,
+// and the walk, not the memory, sets the time: an SM's warps issue their
+// steps' instructions and exps at near the rate the SM allows
+// (chip_smoke.py phase 13; PERF.md §6).
 //
-// What this design does about it (the forward):
-//   * a channel's 16 states are spread over 8 lanes of a warp, two states
-//     a lane, each its own chain: 102,400 threads at the prefill shape, a
-//     block 16 channels x 8 lanes, every block resident at once (at most
-//     40 registers a thread, 12 blocks an SM);
-//   * the sequence is staged through shared memory 16 steps at a time (u
-//     and dt rows of the block's 16 channels, B and C rows of the batch),
-//     by cp.async into two buffers, so the next chunk's loads are in
-//     flight while a chunk runs: a staging that waits on its loads leaves
-//     a block idle for the memory latency every chunk, and the other
-//     blocks of its SM do not cover it.  y is staged back and written a
-//     row of 16 channels at a time;
-//   * the step is a handful of instructions: the full chunk runs unrolled
-//     with no bound check; exp(dt A) is one multiply by A log2(e) and the
-//     hardware exp2 (a decay below 2^-126 is flushed to 0, which changes h
-//     by less than 2^-126 of its size); each lane leaves its two states'
-//     share of y_t in shared memory, and after the chunk lane q adds up
-//     steps q and q + 8 of its channel (one store a step and one load a
-//     step amortized, where a butterfly of shuffles takes three of each);
-//   * no decay is divided or logged: exp(dt A) may underflow to exactly 0
-//     (A down to -16, dt up to softplus's range), and the backward keeps
-//     the states instead of walking them back (below).
+// What this design does about it (the forward, T > 1):
+//   * a channel's 16 states are spread over 4 lanes, four states a lane,
+//     a block 32 channels (128 threads): u and dt rows of 128 bytes, one
+//     shared-memory load of each a step for four states, B and C as one
+//     float4 each a lane; a lane keeps its four states' share of y for a
+//     whole stage, then three xor-shuffles a group of four steps fold the
+//     four lanes' shares so that lane q stores step q's y (8 channels x 4
+//     steps of a warp: whole 32-byte sectors).  A step is ~29 issued
+//     instructions a warp and 4 exps; a stage's copies, its visit's chunk
+//     and stage (counters, no division) and its stores add little;
+//   * the sequence is staged through shared memory 32 steps a stage, in
+//     kFwdStages stages, by 16-byte cp.async (4-byte copies where DI is
+//     not a multiple of 4 or a base is off 16 bytes), kFwdStages - 1
+//     stages in flight ahead of the step being walked; up to 128
+//     registers a thread, 4 blocks an SM;
+//   * segments in a cluster, as the backward: the sequence is cut into
+//     `nseg` segments of L steps, one block each, a (batch, channel
+//     block)'s segments one cluster (the last padded with dt = u = 0, so a
+//     = 1 and the padding is the identity).  Segment 0 walks from the
+//     carried state, writing y, and keeps its end state; segments 1 ..
+//     nseg-2 meanwhile walk from a zero state and keep (hloc, Gamma =
+//     exp(A sum dt)) at their end.  The blocks then hop through distributed
+//     shared memory: block k reads segment 0's end state and the (Gamma,
+//     hloc) of segments 1 .. k-1 and folds h_in = Gamma_j h_in + hloc_j in
+//     segment order.  Segments 1 .. nseg-1 then walk again from h_in,
+//     writing y; the last writes the final state.  The last segment has no
+//     first walk (no one reads it), and segment 0 no second: (2 nseg - 2)
+//     walks of L steps, against nseg for one block a (b, channel block),
+//     on a path 2L steps long.  So segments pay only where the blocks of
+//     one segment leave SMs idle: the wrapper takes 4 or 8 where the
+//     segments' blocks still fit two an SM (a long sequence over few
+//     channels: 3.7x faster at B=1, DI=128, T=4096), and one at hymba's
+//     prefill, training and train_4k shapes, where more are slower;
+//   * a segment of at most kFwdStages chunks (96 steps) stays in its
+//     stages between the two walks, so its inputs cross HBM once; a longer
+//     one reads them again for the second walk;
+//   * exp(dt A) is one multiply by A log2(e) and the hardware exp2 (a decay
+//     below 2^-126 is flushed to 0, which changes h by less than 2^-126 of
+//     its size); no decay is divided or logged: exp(dt A) may underflow to
+//     exactly 0 (A down to -16, dt up to softplus's range), and Gamma then
+//     is 0.  Gamma is exp2(A log2(e) sum dt), one exp a state a segment;
+//   * T = 1 (decode) runs selective_scan_step_kernel: a thread four states
+//     of a (b, d), every input read directly with float4 loads (no
+//     staging, no barrier), y folded by two xor-shuffles over the
+//     channel's 4 lanes.
+// No float atomics: two calls on the same inputs give the same bits.  The
+// hop associates the state differently from a sequential walk, so the
+// result is not one walk's bits; the tolerance against the plain
+// recurrence is the contract.  Nothing limits T.
 //
 // The backward (training): the grads of u, dt, B, C, A and, with a carried
 // state, of the initial state, for dy and an optional final-state grad.
@@ -90,7 +121,7 @@
 // and dC partials (ceil(DI / 16) B T S floats each) and the dA terms (B
 // segments DI S).  Nothing is divided and no logarithm is taken: an a_t
 // that underflows to exactly 0 gives Gamma = 0 and exact grads.  The lanes
-// are the forward's (8 a channel, 2 states each), at most 102 registers a
+// are 8 a channel, 2 states each, at most 102 registers a
 // thread so that 5 blocks share an SM.  A step's sums over a channel's
 // states (du, ddt) and over a warp's 4 channels (dB, dC) are xor-shuffle
 // folds, each level halving the values a lane carries (three shuffles for
@@ -113,12 +144,14 @@
 namespace {
 
 constexpr int kS = 16;               // states a channel (STATE_DIMS)
-constexpr int kFwdLanes = 8;         // forward lanes a channel, 2 states each
-constexpr int kFwdCh = 16;           // forward channels a block
+constexpr int kFwdLanes = 4;         // forward lanes a channel, 4 states each
+constexpr int kFwdCh = 32;           // forward channels a block
 constexpr int kFwdThreads = kFwdLanes * kFwdCh;  // 128
-constexpr int kFwdBlocks = 12;       // forward blocks an SM (<= 40 registers)
-constexpr int kFwdChunk = 16;        // steps the forward stages at once
-constexpr int kFwdPartStride = kFwdCh * kFwdLanes + 1;  // a step's, padded
+constexpr int kFwdBlocks = 4;        // forward blocks an SM (<= 128 registers)
+constexpr int kFwdChunk = 32;        // steps a stage
+constexpr int kFwdStages = 3;        // stages (kFwdStages - 1 in flight)
+constexpr int kStepLanes = 4;        // T = 1: lanes a channel, 4 states each
+constexpr int kStepThreads = 256;    // threads a block of the T = 1 kernel
 constexpr int kCh = 16;              // backward channels a block (CHANNELS)
 constexpr int kLanes = 8;            // backward lanes a channel, 2 states each
 constexpr int kThreads = kCh * kLanes;  // backward threads a block, 128
@@ -140,61 +173,91 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                : "memory");
 }
 
-// The forward's copies of one chunk, kFwdChunk rows of u and dt (the
-// block's kFwdCh channels), B and C, into one of two buffers: kCopies
-// elements of each a thread, at a fixed (row, column) of the chunk, u's
-// and dt's at one offset, B's and C's at another (int: the wrapper holds
-// (B T + 16) DI below 2^31).  The offsets advance a chunk at a time; past T or
-// DI a zero is written and nothing read.
-struct ChunkCopies {
-  static constexpr int kCopies = kFwdChunk * kFwdCh / kFwdThreads;
-  static_assert(kFwdCh == kS && kFwdChunk * kFwdCh % kFwdThreads == 0,
-                "u, dt, B and C rows are equally wide");
-  int off_ud[kCopies], off_bc[kCopies];
-  bool in_d[kCopies];  // the column is a channel < DI
+// One stage of the forward: kFwdChunk rows of u and dt (the block's kFwdCh
+// channels), of B and of C, in dynamic shared memory.
+struct FwdStage {
+  float u[kFwdChunk][kFwdCh];
+  float dt[kFwdChunk][kFwdCh];
+  float B[kFwdChunk][kS];
+  float C[kFwdChunk][kS];
+};
+constexpr int kFwdSmem = kFwdStages * static_cast<int>(sizeof(FwdStage));
 
-  __device__ __forceinline__ ChunkCopies(int b, int T, int DI, int d0) {
+// The copies of the chunk at row t0 into `st`: with `vec`, 16 bytes a copy,
+// else 4 bytes; every loop's trip count is fixed, so a thread's copies are
+// a few instructions each.  Past T or DI a zero is written and nothing
+// read.  int offsets: a row that is read lies inside its tensor, which the
+// wrapper holds below 2^31 elements.
+__device__ __forceinline__ void copy_fwd_chunk(
+    FwdStage& st, const float* __restrict__ u, const float* __restrict__ dt,
+    const float* __restrict__ Bm, const float* __restrict__ Cm, int b, int t0,
+    int T, int d0, int DI, bool vec) {
+  const int tid = threadIdx.x, rows = T - t0, row0 = b * T + t0;
+  constexpr int kUV = kFwdChunk * kFwdCh, kBC = kFwdChunk * kS;
+  static_assert(kUV % (4 * kFwdThreads) == 0 && kBC % (4 * kFwdThreads) == 0,
+                "whole vectors a thread");
+  if (vec) {  // a vector of 4 floats a copy
+    const int col = tid % (kFwdCh / 4) * 4;
+    const bool in_d = d0 + col < DI;
 #pragma unroll
-    for (int k = 0; k < kCopies; ++k) {
-      const int i = threadIdx.x + k * kFwdThreads;
-      const int r = i / kFwdCh, col = i % kFwdCh;
-      off_ud[k] = (b * T + r) * DI + d0 + col;
-      off_bc[k] = (b * T + r) * kS + col;
-      in_d[k] = d0 + col < DI;
+    for (int k = 0; k < kUV / 4 / kFwdThreads; ++k) {
+      const int r = (tid + k * kFwdThreads) / (kFwdCh / 4);
+      const bool ok = r < rows && in_d;
+      const int o = ok ? (row0 + r) * DI + d0 + col : 0;
+      sm90::cp_async16(&st.u[r][col], u + o, ok);
+      sm90::cp_async16(&st.dt[r][col], dt + o, ok);
+    }
+    const int bcol = tid % (kS / 4) * 4;
+#pragma unroll
+    for (int k = 0; k < kBC / 4 / kFwdThreads; ++k) {
+      const int r = (tid + k * kFwdThreads) / (kS / 4);
+      const bool ok = r < rows;
+      const int o = ok ? (row0 + r) * kS + bcol : 0;
+      sm90::cp_async16(&st.B[r][bcol], Bm + o, ok);
+      sm90::cp_async16(&st.C[r][bcol], Cm + o, ok);
+    }
+  } else {
+    const int col = tid % kFwdCh;
+    const bool in_d = d0 + col < DI;
+#pragma unroll
+    for (int k = 0; k < kUV / kFwdThreads; ++k) {
+      const int r = (tid + k * kFwdThreads) / kFwdCh;
+      const bool ok = r < rows && in_d;
+      const int o = ok ? (row0 + r) * DI + d0 + col : 0;
+      cp_async4(&st.u[r][col], u + o, ok);
+      cp_async4(&st.dt[r][col], dt + o, ok);
+    }
+    const int bcol = tid % kS;
+#pragma unroll
+    for (int k = 0; k < kBC / kFwdThreads; ++k) {
+      const int r = (tid + k * kFwdThreads) / kS;
+      const bool ok = r < rows;
+      const int o = ok ? (row0 + r) * kS + bcol : 0;
+      cp_async4(&st.B[r][bcol], Bm + o, ok);
+      cp_async4(&st.C[r][bcol], Cm + o, ok);
     }
   }
+}
 
-  // the copies of the chunk at t0 into buf (u, dt, B, C one after the
-  // other, kFwdChunk x kFwdCh each), then advance
-  __device__ __forceinline__ void copy_chunk(
-      float* buf, const float* __restrict__ u, const float* __restrict__ dt,
-      const float* __restrict__ Bm, const float* __restrict__ Cm, int t0,
-      int T, int DI) {
-    constexpr int kArray = kFwdChunk * kFwdCh;
-#pragma unroll
-    for (int k = 0; k < kCopies; ++k) {
-      const int i = threadIdx.x + k * kFwdThreads;
-      const bool in_t = t0 + i / kFwdCh < T, ok = in_t && in_d[k];
-      cp_async4(buf + i, ok ? u + off_ud[k] : u, ok);
-      cp_async4(buf + kArray + i, ok ? dt + off_ud[k] : dt, ok);
-      cp_async4(buf + 2 * kArray + i, in_t ? Bm + off_bc[k] : Bm, in_t);
-      cp_async4(buf + 3 * kArray + i, in_t ? Cm + off_bc[k] : Cm, in_t);
-      off_ud[k] += kFwdChunk * DI;
-      off_bc[k] += kFwdChunk * kS;
-    }
+// A forward visit, its chunk of the segment and its stage, kept as counters
+// (no division a visit).
+struct Cursor {
+  int v = 0, chunk = 0, st = 0;
+  __device__ __forceinline__ void next(int nch) {
+    ++v;
+    if (++chunk == nch) chunk = 0;
+    if (++st == kFwdStages) st = 0;
   }
 };
 
-// grid (ceil(DI / kFwdCh), B), kFwdThreads threads; thread (c, q) =
-// (threadIdx.x / kFwdLanes, threadIdx.x % kFwdLanes) owns channel d0 + c,
-// states 2q and 2q + 1.  A chunk's inputs arrive by cp.async into one of
-// two buffers while the chunk before runs from the other.  The chunk's 16
-// steps run unrolled; each lane leaves its two states' share of y_t in
-// shared memory, and after the chunk lane q adds up steps q and q + 8 of
-// its channel over the 8 lanes (a transpose through shared memory: one
-// store a step and one load a step amortized, where a butterfly of
-// shuffles takes three of each).  The channel's 8 lanes are a quarter of
-// a warp, so a warp barrier orders them.
+// grid (segments, ceil(DI / kFwdCh), B), a cluster of all the segments of a
+// (channel block, batch); kFwdThreads threads; thread (c, q) = (threadIdx.x
+// / kFwdLanes, threadIdx.x % kFwdLanes) owns channel d0 + c, states 4q ..
+// 4q + 3 (four chains), of the L steps of segment blockIdx.x.  Dynamic
+// shared memory: kFwdStages stages (kFwdSmem bytes).  Visits: the block's
+// chunks once a walk it takes (segment 0 and the last one walk once, the
+// others twice), visit v's stage v % kFwdStages, or chunk j's stage j when
+// the segment fits its stages (then loaded once).
 __global__ void __launch_bounds__(kFwdThreads, kFwdBlocks)
 selective_scan_fwd_kernel(const float* __restrict__ u,
                           const float* __restrict__ dt,
@@ -203,79 +266,174 @@ selective_scan_fwd_kernel(const float* __restrict__ u,
                           const float* __restrict__ A,
                           const float* __restrict__ h0,
                           float* __restrict__ hT, float* __restrict__ y,
-                          int T, int DI) {
-  static_assert(kFwdChunk == 2 * kFwdLanes, "a lane sums two steps");
-  // [buffer][u, dt, B, C][step][column]
-  __shared__ __align__(16) float stage_in[2][4][kFwdChunk * kFwdCh];
-  __shared__ float sy[kFwdChunk][kFwdCh + 1];
-  __shared__ float part[kFwdChunk * kFwdPartStride];  // [step][channel][lane]
-  const int b = blockIdx.y, d0 = blockIdx.x * kFwdCh;
-  const int c = threadIdx.x / kFwdLanes, q = threadIdx.x % kFwdLanes;
+                          int T, int DI, int L, int vec) {
+  extern __shared__ __align__(16) float fwd_smem[];
+  FwdStage* const stage = reinterpret_cast<FwdStage*>(fwd_smem);
+  // a segment's end, read by the later blocks in the hop: segment 0's
+  // state, or another's (hloc, Gamma)
+  __shared__ float4 pub_h[kFwdThreads], pub_g[kFwdThreads];
+  const int seg = blockIdx.x, nseg = gridDim.x, b = blockIdx.z;
+  const int d0 = blockIdx.y * kFwdCh;
+  const int tid = threadIdx.x, c = tid / kFwdLanes, q = tid % kFwdLanes;
   const int d = d0 + c;
   const bool live = d < DI;
-  const size_t sidx = (static_cast<size_t>(b) * DI + d) * kS + 2 * q;
+  const size_t sidx = (static_cast<size_t>(b) * DI + d) * kS + 4 * q;
   // exp(dt A) as exp2(dt A log2 e): one multiply and the hardware exp2
-  const float2 a2 = live ? make_float2(A[d * kS + 2 * q] * kLog2e,
-                                       A[d * kS + 2 * q + 1] * kLog2e)
-                         : make_float2(0.f, 0.f);
-  float2 h = (live && h0 != nullptr) ? make_float2(h0[sidx], h0[sidx + 1])
-                                     : make_float2(0.f, 0.f);
-  float* const mine = part + c * kFwdLanes + q;  // this lane's share
-  const int chunks = (T + kFwdChunk - 1) / kFwdChunk;
-  ChunkCopies copies(b, T, DI, d0);
-  copies.copy_chunk(stage_in[0][0], u, dt, Bm, Cm, 0, T, DI);
-  sm90::cp_async_commit();
-  for (int k = 0; k < chunks; ++k) {
-    const int t0 = k * kFwdChunk, n = min(kFwdChunk, T - t0);
-    if (k + 1 < chunks)  // the next chunk, into the buffer read last chunk
-      copies.copy_chunk(stage_in[(k + 1) & 1][0], u, dt, Bm, Cm,
-                        t0 + kFwdChunk, T, DI);
+  float a2[4] = {0.f, 0.f, 0.f, 0.f};
+  float h[4] = {0.f, 0.f, 0.f, 0.f};
+  if (live) {
+    const float4 Av = *reinterpret_cast<const float4*>(A + d * kS + 4 * q);
+    a2[0] = Av.x * kLog2e, a2[1] = Av.y * kLog2e;
+    a2[2] = Av.z * kLog2e, a2[3] = Av.w * kLog2e;
+    if (seg == 0 && h0 != nullptr) {
+      const float4 hv = *reinterpret_cast<const float4*>(h0 + sidx);
+      h[0] = hv.x, h[1] = hv.y, h[2] = hv.z, h[3] = hv.w;
+    }
+  }
+  const int nch = L / kFwdChunk, t_seg = seg * L;
+  const bool last = seg == nseg - 1;
+  // the walks: segment 0 walks once, first; the last (nseg > 1) once,
+  // second; the others a zero-state walk, then the walk that writes y
+  const int first = (nseg > 1 && last) ? 0 : 1;
+  const int second = seg > 0 ? 1 : 0;
+  const int visits = (first + second) * nch, hook_at = first * nch;
+  const bool resident = nch <= kFwdStages;
+  auto slot = [&](const Cursor& k) { return resident ? k.chunk : k.st; };
+  Cursor load;  // the next visit to copy
+  auto start_copies = [&]() {
+    if (load.v < visits && (!resident || load.v < nch))
+      copy_fwd_chunk(stage[slot(load)], u, dt, Bm, Cm, b,
+                     t_seg + load.chunk * kFwdChunk, T, d0, DI, vec != 0);
     sm90::cp_async_commit();
-    sm90::cp_async_wait<1>();  // this chunk's copies have landed
-    __syncthreads();
-    // this chunk's rows, the channel's u and dt, the lane's B and C pair
-    const float* const cu = stage_in[k & 1][0] + c;
-    const float* const cdt = stage_in[k & 1][1] + c;
-    const float2* const cB =
-        reinterpret_cast<const float2*>(stage_in[k & 1][2]) + q;
-    const float2* const cC =
-        reinterpret_cast<const float2*>(stage_in[k & 1][3]) + q;
-    auto step = [&](int r) {
-      const float dtv = cdt[r * kFwdCh], uv = cu[r * kFwdCh];
-      const float2 Bv = cB[r * kS / 2], Cv = cC[r * kS / 2];
-      h.x = sm90::exp2_approx(dtv * a2.x) * h.x + dtv * Bv.x * uv;
-      h.y = sm90::exp2_approx(dtv * a2.y) * h.y + dtv * Bv.y * uv;
-      mine[r * kFwdPartStride] = h.x * Cv.x + h.y * Cv.y;
-    };
-    if (n == kFwdChunk) {
-#pragma unroll
-      for (int r = 0; r < kFwdChunk; ++r) step(r);
-    } else {
-      for (int r = 0; r < n; ++r) step(r);
+    load.next(nch);
+  };
+  float sum_dt = 0.f;  // the zero-state walk's, for Gamma
+  // the hop: publish this segment's end, fold the earlier ones' into h
+  auto hop = [&]() {
+    if (nseg == 1) return;
+    if (seg == 0) {
+      pub_h[tid] = make_float4(h[0], h[1], h[2], h[3]);
+    } else if (!last) {
+      pub_h[tid] = make_float4(h[0], h[1], h[2], h[3]);
+      pub_g[tid] = make_float4(sm90::exp2_approx(a2[0] * sum_dt),
+                               sm90::exp2_approx(a2[1] * sum_dt),
+                               sm90::exp2_approx(a2[2] * sum_dt),
+                               sm90::exp2_approx(a2[3] * sum_dt));
     }
-    __syncwarp();
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = q + half * kFwdLanes;
-      if (r < n) {
-        const float* const row = part + r * kFwdPartStride + c * kFwdLanes;
-        float yv = 0.f;
-#pragma unroll
-        for (int i = 0; i < kFwdLanes; ++i) yv += row[i];
-        sy[r][c] = yv;
+    sm90::cluster_sync();
+    if (seg > 0) {
+      float4 hin = sm90::ld_cluster(&pub_h[tid], 0);
+      for (int k = 1; k < seg; ++k) {
+        const float4 g = sm90::ld_cluster(&pub_g[tid], k);
+        const float4 hl = sm90::ld_cluster(&pub_h[tid], k);
+        hin = make_float4(fmaf(g.x, hin.x, hl.x), fmaf(g.y, hin.y, hl.y),
+                          fmaf(g.z, hin.z, hl.z), fmaf(g.w, hin.w, hl.w));
       }
+      h[0] = hin.x, h[1] = hin.y, h[2] = hin.z, h[3] = hin.w;
     }
-    __syncthreads();  // y complete, and both buffers' reads done
-    for (int i = threadIdx.x; i < n * kFwdCh; i += kFwdThreads) {
-      const int r = i / kFwdCh, col = i % kFwdCh;
-      if (d0 + col < DI)
-        y[(static_cast<size_t>(b) * T + t0 + r) * DI + d0 + col] = sy[r][col];
+    sm90::cluster_arrive();  // this block's reads of the others are done
+  };
+
+  float* const y_col = y + static_cast<size_t>(b) * T * DI + d;
+#pragma unroll
+  for (int k = 0; k < kFwdStages - 1; ++k) start_copies();
+  Cursor walk;  // the visit walked
+  for (; walk.v < visits; walk.next(nch)) {
+    const int v = walk.v;
+    if (v == hook_at) hop();
+    sm90::cp_async_wait<kFwdStages - 2>();  // visit v's copies have landed
+    __syncthreads();  // and every thread is done with visit v - 1's stage
+    start_copies();   // visit v + kFwdStages - 1
+    const FwdStage& st = stage[slot(walk)];
+    const float* const cu = &st.u[0][c];
+    const float* const cdt = &st.dt[0][c];
+    const float4* const cB = reinterpret_cast<const float4*>(&st.B[0][0]) + q;
+    const float4* const cC = reinterpret_cast<const float4*>(&st.C[0][0]) + q;
+    if (v < hook_at && seg > 0) {  // the zero-state walk: hloc, sum dt
+#pragma unroll
+      for (int r = 0; r < kFwdChunk; ++r) {
+        const float dtv = cdt[r * kFwdCh], x = dtv * cu[r * kFwdCh];
+        const float4 Bv = cB[r * (kS / 4)];
+        sum_dt += dtv;
+        h[0] = fmaf(sm90::exp2_approx(dtv * a2[0]), h[0], x * Bv.x);
+        h[1] = fmaf(sm90::exp2_approx(dtv * a2[1]), h[1], x * Bv.y);
+        h[2] = fmaf(sm90::exp2_approx(dtv * a2[2]), h[2], x * Bv.z);
+        h[3] = fmaf(sm90::exp2_approx(dtv * a2[3]), h[3], x * Bv.w);
+      }
+      continue;
+    }
+    // the walk that writes y: every step's share of y first, then the
+    // folds, independent of each other
+    float p[kFwdChunk];
+#pragma unroll
+    for (int r = 0; r < kFwdChunk; ++r) {
+      const float dtv = cdt[r * kFwdCh], x = dtv * cu[r * kFwdCh];
+      const float4 Bv = cB[r * (kS / 4)], Cv = cC[r * (kS / 4)];
+      h[0] = fmaf(sm90::exp2_approx(dtv * a2[0]), h[0], x * Bv.x);
+      h[1] = fmaf(sm90::exp2_approx(dtv * a2[1]), h[1], x * Bv.y);
+      h[2] = fmaf(sm90::exp2_approx(dtv * a2[2]), h[2], x * Bv.z);
+      h[3] = fmaf(sm90::exp2_approx(dtv * a2[3]), h[3], x * Bv.w);
+      p[r] = fmaf(h[3], Cv.w, fmaf(h[2], Cv.z, fmaf(h[1], Cv.y,
+                                                    h[0] * Cv.x)));
+    }
+    // fold the channel's 4 lanes a group of four steps: lane q keeps step
+    // 4g + q's y
+    const int t0 = t_seg + walk.chunk * kFwdChunk;
+    float* const y_rows = y_col + static_cast<size_t>(t0 + q) * DI;
+    const bool hi2 = q & 2, hi1 = q & 1;
+#pragma unroll
+    for (int g = 0; g < kFwdChunk / 4; ++g) {
+      const float* const pg = p + 4 * g;
+      float k0 = hi2 ? pg[2] : pg[0], k1 = hi2 ? pg[3] : pg[1];
+      k0 += __shfl_xor_sync(0xffffffffu, hi2 ? pg[0] : pg[2], 2);
+      k1 += __shfl_xor_sync(0xffffffffu, hi2 ? pg[1] : pg[3], 2);
+      float yv = hi1 ? k1 : k0;
+      yv += __shfl_xor_sync(0xffffffffu, hi1 ? k0 : k1, 1);
+      if (live && t0 + 4 * g + q < T)
+        y_rows[static_cast<size_t>(4 * g) * DI] = yv;
     }
   }
-  if (live && hT != nullptr) {
-    hT[sidx] = h.x;
-    hT[sidx + 1] = h.y;
-  }
+  if (visits == hook_at) hop();  // segment 0: after its walk
+  if (last && live && hT != nullptr)
+    *reinterpret_cast<float4*>(hT + sidx) = make_float4(h[0], h[1], h[2], h[3]);
+  if (nseg > 1) sm90::cluster_wait();  // no block leaves while another reads
+}
+
+// T = 1: grid ceil(4 B DI / kStepThreads); thread g the states 4q .. 4q + 3
+// (q = g % 4) of (b, d) = divmod(g / 4, DI).  Every base is 16-byte aligned
+// (the wrapper's check).
+__global__ void __launch_bounds__(kStepThreads)
+selective_scan_step_kernel(const float* __restrict__ u,
+                           const float* __restrict__ dt,
+                           const float* __restrict__ Bm,
+                           const float* __restrict__ Cm,
+                           const float* __restrict__ A,
+                           const float* __restrict__ h0,
+                           float* __restrict__ hT, float* __restrict__ y,
+                           int DI, int items) {
+  const int g = blockIdx.x * kStepThreads + threadIdx.x;
+  const int item = g / kStepLanes, q = g % kStepLanes;
+  // a whole warp folds, so every lane runs; those past the end store nothing
+  const bool live = item < items;
+  const int it = live ? item : 0, b = it / DI, d = it % DI;
+  const float dtv = dt[it], x = dtv * u[it];
+  const float4 Av = reinterpret_cast<const float4*>(A)[d * 4 + q];
+  const float4 Bv = reinterpret_cast<const float4*>(Bm)[b * 4 + q];
+  const float4 Cv = reinterpret_cast<const float4*>(Cm)[b * 4 + q];
+  float4 h = h0 != nullptr
+                 ? reinterpret_cast<const float4*>(h0)[static_cast<size_t>(it) * 4 + q]
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  h.x = fmaf(sm90::exp2_approx(dtv * Av.x * kLog2e), h.x, x * Bv.x);
+  h.y = fmaf(sm90::exp2_approx(dtv * Av.y * kLog2e), h.y, x * Bv.y);
+  h.z = fmaf(sm90::exp2_approx(dtv * Av.z * kLog2e), h.z, x * Bv.z);
+  h.w = fmaf(sm90::exp2_approx(dtv * Av.w * kLog2e), h.w, x * Bv.w);
+  float p = fmaf(h.w, Cv.w, fmaf(h.z, Cv.z, fmaf(h.y, Cv.y, h.x * Cv.x)));
+  p += __shfl_xor_sync(0xffffffffu, p, 2);
+  p += __shfl_xor_sync(0xffffffffu, p, 1);
+  if (!live) return;
+  if (q == 0) y[it] = p;
+  if (hT != nullptr)
+    reinterpret_cast<float4*>(hT)[static_cast<size_t>(it) * 4 + q] = h;
 }
 
 // The backward's copies of the 16-step chunk at row t0: the rows of u, dt
@@ -614,22 +772,66 @@ int attributes(K kernel, int* out) {
 
 // The forward, float32: u, dt (B, T, DI), Bm, Cm (B, T, S), A (DI, S) ->
 // y (B, T, DI); state_in (B, DI, S) or null (zero); state_out (B, DI, S) or
-// null (not written).  One launch; returns cudaGetLastError() after it (0
-// on success).
+// null (not written).  `segment` (L, a multiple of kFwdChunk) cuts T into
+// ceil(T / L) <= kSegs segments, one cluster; `vec`: u, dt, Bm and Cm start
+// on 16 bytes and DI is a multiple of 4 (16-byte copies).  A and the states
+// start on 16 bytes.  One launch; returns its error (0 on success).
 extern "C" int repro_selective_scan(const void* u, const void* dt,
                                     const void* Bm, const void* Cm,
                                     const void* A, const void* state_in,
                                     void* state_out, void* y, int B, int T,
-                                    int DI, int S, void* stream) {
-  if (B <= 0 || T <= 0 || DI <= 0 || B > 65535 || S != kS)
+                                    int DI, int S, int segment, int vec,
+                                    void* stream) {
+  const int blocks = (DI + kFwdCh - 1) / kFwdCh;
+  if (B <= 0 || T <= 0 || DI <= 0 || B > 65535 || blocks > 65535 ||
+      S != kS || segment <= 0 || segment % kFwdChunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((DI + kFwdCh - 1) / kFwdCh, B);
-  selective_scan_fwd_kernel<<<grid, kFwdThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  const long long nseg = (static_cast<long long>(T) + segment - 1) / segment;
+  if (nseg > kSegs) return static_cast<int>(cudaErrorInvalidValue);
+  // the opt-in beyond 48 KB, set on every call (it is per device)
+  cudaError_t rc = cudaFuncSetAttribute(
+      selective_scan_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFwdSmem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto m = [](void* p) { return static_cast<float*>(p); };
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(nseg), blocks, B);
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.dynamicSmemBytes = kFwdSmem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(nseg);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  rc = cudaLaunchKernelEx(
+      &cfg, selective_scan_fwd_kernel, f(u), f(dt), f(Bm), f(Cm), f(A),
+      f(state_in), m(state_out), m(y), T, DI, segment, vec);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward at T = 1 (a decode step): the same contract as
+// repro_selective_scan with T = 1, every base on 16 bytes.  One launch.
+extern "C" int repro_selective_scan_step(const void* u, const void* dt,
+                                         const void* Bm, const void* Cm,
+                                         const void* A, const void* state_in,
+                                         void* state_out, void* y, int B,
+                                         int DI, int S, void* stream) {
+  if (B <= 0 || DI <= 0 || S != kS ||
+      static_cast<long long>(B) * DI * kStepLanes >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int items = B * DI;
+  const int grid = (items * kStepLanes + kStepThreads - 1) / kStepThreads;
+  selective_scan_step_kernel<<<grid, kStepThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(u), static_cast<const float*>(dt),
       static_cast<const float*>(Bm), static_cast<const float*>(Cm),
       static_cast<const float*>(A), static_cast<const float*>(state_in),
-      static_cast<float*>(state_out), static_cast<float*>(y), T, DI);
+      static_cast<float*>(state_out), static_cast<float*>(y), DI, items);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -696,12 +898,14 @@ extern "C" int repro_selective_scan_bwd(
 }
 
 // What the compiler gave kernel `which` (0 the forward, 1 the backward's
-// segments, 2 its reduction): registers a thread, static shared bytes, local
-// (stack and spill) bytes, 0 (the backward's dynamic shared bytes depend on
-// the segment length: bwd_dynamic_smem).
+// segments, 2 its reduction, 3 the forward's T = 1 step): registers a
+// thread, static shared bytes, local (stack and spill) bytes, 0 (the
+// backward's dynamic shared bytes depend on the segment length:
+// bwd_dynamic_smem).
 extern "C" int repro_selective_scan_attributes(int which, int* out) {
   if (which == 0) return attributes(selective_scan_fwd_kernel, out);
   if (which == 1) return attributes(selective_scan_bwd_kernel, out);
   if (which == 2) return attributes(selective_scan_bwd_reduce_kernel, out);
+  if (which == 3) return attributes(selective_scan_step_kernel, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -259,6 +259,15 @@ __device__ __forceinline__ float2 ld_cluster(const float2* p,
                : "memory");
   return v;
 }
+// four floats from the shared memory of block `rank` of the cluster
+__device__ __forceinline__ float4 ld_cluster(const float4* p, uint32_t rank) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(map_rank(p, rank))
+               : "memory");
+  return v;
+}
 __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n"

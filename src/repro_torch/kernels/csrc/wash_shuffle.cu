@@ -1,5 +1,5 @@
-// The WASH shuffle of a stacked population leaf for Hopper (sm_90a):
-// two kernels over x, a contiguous (N, D) view of one leaf of N members.
+// The WASH shuffle of stacked population leaves for Hopper (sm_90a): two
+// kernels over x, a contiguous (N, D) view of one leaf of N members.
 //
 // Replaces the TPU kernels repro/kernels/wash_shuffle.py
 // `wash_shuffle_pallas` (body `_shuffle_kernel`) and
@@ -15,19 +15,42 @@
 // for bfloat16, float16 and float32 alike.
 //
 // What bounds them on the H100: bytes.  Neither does arithmetic beyond
-// addresses.  The dense kernel must read the N x D leaf and write N x D
-// outputs; the bucketed one only the N values of each selected column.
+// addresses.  The dense kernel out of place must read the N x D leaf and
+// write N x D outputs; in place (out is x) only the masked columns change,
+// so it must read the mask and, where it is set, the column's N values and
+// perm entries, and write the N values.  The bucketed one moves only the N
+// values of each selected column.
 //
 // What the design does about it:
-//   * dense: one thread per column i, grid-stride over D.  A thread loads
-//     the column's N values into registers (neighbouring threads read
-//     neighbouring addresses of each row, so every row is read coalesced),
-//     reads the mask byte, reads the N perm entries only where the mask is
-//     set (at p = 0.01 that skips almost all of the perm's N x D int32s,
-//     the largest input), picks each output from the registers by an
-//     N-way select, and writes N outputs.  The TPU kernel's 128-lane
-//     blocks and N-way VPU select over whole tiles have no reason to exist
-//     here; no shared memory, no block barrier;
+//   * dense: one launch shuffles up to kMaxLeaves leaves of one word size
+//     (a step's planned leaves: 30 for the ResNet, where 19 hold at most
+//     2,048 elements and a launch of its own would be all ramp and tail).
+//     The leaves travel as a table of descriptors in the kernel's parameter
+//     space (__grid_constant__, 3 KB of the 4 KB a launch takes): no
+//     host-to-device copy, no host sync.  A descriptor holds the leaf's
+//     pointers, D, N, whether it takes the vector path, and its first
+//     block; a block finds its leaf by a binary search over the first
+//     blocks;
+//   * vector path: a thread owns 16 bytes of columns (4 f32 or 8 bf16 /
+//     f16 words) in every one of the N rows: it reads the mask for those
+//     columns as one 4- or 8-byte word, loads the N 16-byte vectors, reads
+//     the N perm vectors only where a mask byte is set (at p = 0.05 for
+//     ~19% of f32 vectors), selects each output word in registers by an
+//     N-way select, and stores N vectors: 16 bytes a load and a store, the
+//     widest a thread has, where a word a row left too few bytes in
+//     flight to reach the memory's rate.  (Four vectors a thread, the
+//     mask read 16 bytes at once, was several times slower out of place
+//     on the card.)  A leaf whose
+//     rows do not all start on 16 bytes (a base off 16 bytes, or D not a
+//     multiple of the vector's words) takes the scalar path: a thread a
+//     column, a word a row;
+//   * in place: a thread reads all N values of its columns before it
+//     writes any, and no two threads share a column, so `out` may be `x`.
+//     In place, columns whose mask is clear keep their values: the thread
+//     reads the mask first and leaves such a vector (or scalar column)
+//     alone, neither read nor written, so a step's apply reads its leaves'
+//     masks and moves only the masked columns' vectors.  The stacked apply
+//     shuffles a leaf where it lies, with no copy back;
 //   * bucketed: sparse and in place.  One thread per selected column of
 //     buckets s >= 1 (bucket 0 is the identity and is not touched): it
 //     reads the column's N values and writes them back rotated by s.  The
@@ -53,7 +76,6 @@
 //     versions raise on an entry past the end and wrap a negative one):
 //     a silent skip would look like a sparser shuffle.  core.shuffle's
 //     plans are in range by construction.
-// No vector loads, no tensor memory accelerator: later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,39 +84,166 @@ namespace {
 
 constexpr int kMaxN = 16;
 constexpr int kThreads = 256;
+constexpr int kMaxLeaves = 64;  // leaves a dense launch
+constexpr int kVecBytes = 16;   // bytes of a row a thread moves at once
 
+// One leaf of a dense launch, 48 bytes.  out == x shuffles in place.
+struct Leaf {
+  void* out;
+  const void* x;
+  const int32_t* perm;
+  const uint8_t* mask;
+  long long d;
+  int first_block;  // the leaf's blocks are [first_block, next's first)
+  int16_t n;
+  int16_t vector;   // 1: the vector path (rows start on 16 bytes)
+};
+static_assert(sizeof(Leaf) == 48, "a leaf's descriptor is 48 bytes");
+
+struct Table {
+  Leaf leaf[kMaxLeaves];
+  int count;
+};
+static_assert(sizeof(Table) <= 4096 - 64, "the table fits a launch's "
+              "parameters");
+
+// a vector of 16 bytes as words
 template <typename W>
-__global__ void __launch_bounds__(kThreads)
-    wash_shuffle_kernel(const W* __restrict__ x, const int32_t* __restrict__ perm,
-                        const uint8_t* __restrict__ mask, W* __restrict__ out,
-                        int n, long long d) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < d; i += stride) {
-    W v[kMaxN];
+union Vec {
+  uint4 q;
+  W w[kVecBytes / sizeof(W)];
+};
+
+// the mask bytes of a vector's columns, as one word
+template <int VW>
+struct MaskWord;
+template <>
+struct MaskWord<4> {
+  using type = uint32_t;
+};
+template <>
+struct MaskWord<8> {
+  using type = unsigned long long;
+};
+
+// the word of row `src` among v[0..NB) (src < n <= NB, checked before)
+template <typename W, int NB>
+__device__ __forceinline__ W pick(const Vec<W> (&v)[NB], int src, int j) {
+  W r = v[0].w[j];
 #pragma unroll
-    for (int m = 0; m < kMaxN; ++m)
-      if (m < n) v[m] = x[m * d + i];
-    if (mask[i]) {
+  for (int k = 1; k < NB; ++k)
+    if (k == src) r = v[k].w[j];
+  return r;
+}
+
+// One 16-byte vector of columns [c, c + VW) of every row, its mask bytes
+// `mw` (a word each).
+template <typename W, int NB>
+__device__ __forceinline__ void vector_of_rows(
+    const Leaf& L, long long c, typename MaskWord<kVecBytes / sizeof(W)>::type mw) {
+  constexpr int VW = kVecBytes / sizeof(W);
+  const long long d = L.d;
+  const int n = L.n;
+  const W* x = static_cast<const W*>(L.x);
+  W* out = static_cast<W*>(L.out);
+  Vec<W> v[NB];
 #pragma unroll
-      for (int m = 0; m < kMaxN; ++m) {
-        if (m < n) {
-          const int src = perm[m * d + i];
+  for (int m = 0; m < NB; ++m)
+    if (m < n) v[m].q = *reinterpret_cast<const uint4*>(x + m * d + c);
+  if (mw == 0) {
+#pragma unroll
+    for (int m = 0; m < NB; ++m)
+      if (m < n) *reinterpret_cast<uint4*>(out + m * d + c) = v[m].q;
+    return;
+  }
+#pragma unroll
+  for (int m = 0; m < NB; ++m) {
+    if (m < n) {
+      int p[VW];
+#pragma unroll
+      for (int h = 0; h < VW / 4; ++h) {
+        const int4 pv =
+            *reinterpret_cast<const int4*>(L.perm + m * d + c + 4 * h);
+        p[4 * h] = pv.x, p[4 * h + 1] = pv.y, p[4 * h + 2] = pv.z,
+                p[4 * h + 3] = pv.w;
+      }
+      Vec<W> r;
+#pragma unroll
+      for (int j = 0; j < VW; ++j) {
+        if ((mw >> (8 * j)) & 0xff) {
+          const int src = p[j];
           if (src < 0 || src >= n) __trap();  // not a permutation of N
-          W r = v[0];
-#pragma unroll
-          for (int k = 1; k < kMaxN; ++k)
-            if (k < n && k == src) r = v[k];
-          out[m * d + i] = r;
+          r.w[j] = pick<W, NB>(v, src, j);
+        } else {
+          r.w[j] = v[m].w[j];
         }
       }
-    } else {
-#pragma unroll
-      for (int m = 0; m < kMaxN; ++m)
-        if (m < n) out[m * d + i] = v[m];
+      *reinterpret_cast<uint4*>(out + m * d + c) = r.q;
     }
   }
+}
+
+// A thread's 16-byte vector of columns: its mask as one 4- or 8-byte word,
+// then its rows; in place, a vector whose mask word is 0 is neither read
+// nor written.
+template <typename W, int NB>
+__device__ __forceinline__ void vector_columns(const Leaf& L, long long i) {
+  constexpr int VW = kVecBytes / sizeof(W);
+  using M = typename MaskWord<VW>::type;
+  const long long c = i * VW;
+  if (c >= L.d) return;
+  const M mw = *reinterpret_cast<const M*>(L.mask + c);
+  if (L.out == L.x && mw == 0) return;  // nothing of these columns moves
+  vector_of_rows<W, NB>(L, c, mw);
+}
+
+template <typename W, int NB>
+__device__ __forceinline__ void scalar_column(const Leaf& L, long long i) {
+  const long long d = L.d;
+  if (i >= d) return;
+  const int n = L.n;
+  const bool masked = L.mask[i] != 0;
+  if (L.out == L.x && !masked) return;
+  const W* x = static_cast<const W*>(L.x);
+  W* out = static_cast<W*>(L.out);
+  W v[NB];
+#pragma unroll
+  for (int m = 0; m < NB; ++m)
+    if (m < n) v[m] = x[m * d + i];
+#pragma unroll
+  for (int m = 0; m < NB; ++m) {
+    if (m < n) {
+      W r = v[m];
+      if (masked) {
+        const int src = L.perm[m * d + i];
+        if (src < 0 || src >= n) __trap();  // not a permutation of N
+        r = v[0];
+#pragma unroll
+        for (int k = 1; k < NB; ++k)
+          if (k == src) r = v[k];
+      }
+      out[m * d + i] = r;
+    }
+  }
+}
+
+// grid: the table's blocks; NB >= every leaf's N.  x and out may alias, so
+// neither is __restrict__.
+template <typename W, int NB>
+__global__ void __launch_bounds__(kThreads)
+    wash_shuffle_kernel(const __grid_constant__ Table t) {
+  const int b = blockIdx.x;
+  int lo = 0, hi = t.count - 1;  // the last leaf whose first block <= b
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (t.leaf[mid].first_block <= b) lo = mid;
+    else hi = mid - 1;
+  }
+  const Leaf& L = t.leaf[lo];
+  const long long i =
+      static_cast<long long>(b - L.first_block) * kThreads + threadIdx.x;
+  if (L.vector) vector_columns<W, NB>(L, i);
+  else scalar_column<W, NB>(L, i);
 }
 
 template <typename W>
@@ -136,29 +285,52 @@ int grid_for(long long work) {
   return static_cast<int>(blocks < 1 ? 1 : blocks);
 }
 
+// the dense kernel for rows up to nb (2, 4, 8 or 16), or null
+template <typename W>
+const void* dense_kernel(int nb) {
+  if (nb == 2) return reinterpret_cast<const void*>(wash_shuffle_kernel<W, 2>);
+  if (nb == 4) return reinterpret_cast<const void*>(wash_shuffle_kernel<W, 4>);
+  if (nb == 8) return reinterpret_cast<const void*>(wash_shuffle_kernel<W, 8>);
+  if (nb == 16) return reinterpret_cast<const void*>(wash_shuffle_kernel<W, 16>);
+  return nullptr;
+}
+
+template <typename W>
+int launch_dense(const Table& t, int max_n, int blocks, cudaStream_t st) {
+  if (max_n <= 2) wash_shuffle_kernel<W, 2><<<blocks, kThreads, 0, st>>>(t);
+  else if (max_n <= 4) wash_shuffle_kernel<W, 4><<<blocks, kThreads, 0, st>>>(t);
+  else if (max_n <= 8) wash_shuffle_kernel<W, 8><<<blocks, kThreads, 0, st>>>(t);
+  else wash_shuffle_kernel<W, 16><<<blocks, kThreads, 0, st>>>(t);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Returns 0 or the CUDA error of the launch.
-extern "C" int repro_wash_shuffle(int elt_bytes, const void* x,
-                                  const void* perm, const void* mask,
-                                  void* out, int n, long long d,
-                                  void* stream) {
-  if (n < 1 || n > kMaxN || d < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (d == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int grid = grid_for(d);
-  const int32_t* p = static_cast<const int32_t*>(perm);
-  const uint8_t* mk = static_cast<const uint8_t*>(mask);
-  if (elt_bytes == 2) {
-    wash_shuffle_kernel<uint16_t><<<grid, kThreads, 0, st>>>(
-        static_cast<const uint16_t*>(x), p, mk, static_cast<uint16_t*>(out), n, d);
-  } else if (elt_bytes == 4) {
-    wash_shuffle_kernel<uint32_t><<<grid, kThreads, 0, st>>>(
-        static_cast<const uint32_t*>(x), p, mk, static_cast<uint32_t*>(out), n, d);
-  } else {
+// One dense launch over `count` leaves of `elt_bytes`-byte words: the
+// descriptors as the Leaf struct lays them out (the wrapper builds them),
+// their first blocks ascending from 0, `blocks` the launch's.  Returns 0 or
+// the CUDA error of the launch.
+extern "C" int repro_wash_shuffle_many(int elt_bytes, const void* leaves,
+                                       int count, int blocks, void* stream) {
+  if (count < 1 || count > kMaxLeaves || blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  Table t = {};
+  const Leaf* in = static_cast<const Leaf*>(leaves);
+  int max_n = 1;
+  for (int k = 0; k < count; ++k) {
+    t.leaf[k] = in[k];
+    if (in[k].n < 1 || in[k].n > kMaxN || in[k].d < 1 ||
+        in[k].first_block < 0 || in[k].first_block >= blocks ||
+        (k > 0 && in[k].first_block <= in[k - 1].first_block) ||
+        (k == 0 && in[k].first_block != 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (in[k].n > max_n) max_n = in[k].n;
   }
-  return static_cast<int>(cudaGetLastError());
+  t.count = count;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (elt_bytes == 2) return launch_dense<uint16_t>(t, max_n, blocks, st);
+  if (elt_bytes == 4) return launch_dense<uint32_t>(t, max_n, blocks, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int repro_bucketed_shuffle(int elt_bytes, void* x, const void* idx,
@@ -180,4 +352,22 @@ extern "C" int repro_bucketed_shuffle(int elt_bytes, void* x, const void* idx,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the compiler gave the dense kernel for `elt_bytes`-byte words and
+// rows up to `nb` (2, 4, 8, 16): registers a thread, static shared bytes,
+// local (stack and spill) bytes, its parameter bytes.
+extern "C" int repro_wash_shuffle_attributes(int elt_bytes, int nb, int* out) {
+  const void* f = nullptr;
+  if (elt_bytes == 2) f = dense_kernel<uint16_t>(nb);
+  else if (elt_bytes == 4) f = dense_kernel<uint32_t>(nb);
+  if (f == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  const int rc = static_cast<int>(cudaFuncGetAttributes(&attr, f));
+  if (rc != 0) return rc;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = static_cast<int>(sizeof(Table));
+  return 0;
 }

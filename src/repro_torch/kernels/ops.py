@@ -16,7 +16,7 @@ a step it counts).  Nothing is computed and nothing is allocated.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -30,7 +30,8 @@ from repro_torch.kernels.ref import (bucketed_shuffle_ref_,
                                      flash_attention_ref,
                                      paged_attention_ref, rwkv6_scan_bwd_ref,
                                      rwkv6_scan_ref, selective_scan_bwd_ref,
-                                     selective_scan_ref, wash_shuffle_ref)
+                                     selective_scan_ref, wash_shuffle_many_ref_,
+                                     wash_shuffle_ref)
 
 
 #: callables ``(kernel, bytes, operations)`` that a meta route reports
@@ -64,6 +65,26 @@ def wash_shuffle(x: torch.Tensor, perm: torch.Tensor,
             n, d, x.element_size(), d), 0))
         return torch.empty_like(x)
     return wash_shuffle_ref(x, perm, mask)
+
+
+def wash_shuffle_many_(xs: Sequence[torch.Tensor],
+                       perms: Sequence[torch.Tensor],
+                       masks: Sequence[torch.Tensor]):
+    """Dense WASH apply on many stacked leaves **in place**: each
+    ``xs[i]`` (N,D) takes :func:`wash_shuffle` of ``(xs[i], perms[i],
+    masks[i])``; on the card one launch a word size for up to 64 leaves.
+    Returns ``xs``."""
+    if not xs:
+        return xs
+    route = _route(xs[0], "wash_shuffle_many_")
+    if route == "cuda":
+        return _ws.wash_shuffle_many_cuda_(xs, perms, masks)
+    if route == "meta":  # every column masked: the most it could move
+        _report("wash_shuffle", (sum(_work.shuffle_bytes_dense(
+            x.shape[0], x.shape[1], x.element_size(), x.shape[1],
+            in_place=True) for x in xs), 0))
+        return xs
+    return wash_shuffle_many_ref_(xs, perms, masks)
 
 
 def bucketed_shuffle_(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

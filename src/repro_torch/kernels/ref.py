@@ -12,7 +12,8 @@ it), and the WKV recurrence's gradient as its reverse recurrence
 the CUDA backward computes it (``rwkv6_scan_bwd_chunked_ref``; nothing on
 a main path runs it), and the selective-scan (Mamba) recurrence
 (``selective_scan_ref``, the reference's ``_mamba_core`` scan, which has
-no Pallas kernel) with its gradient as the reverse recurrence
+no Pallas kernel; ``selective_scan_segmented_ref`` as the CUDA forward
+computes it, in segments) with its gradient as the reverse recurrence
 (``selective_scan_bwd_ref``) and as the CUDA backward computes it, in
 segments (``selective_scan_bwd_segmented_ref``; nothing on a main path
 runs it).  The CPU paths of
@@ -42,6 +43,15 @@ def wash_shuffle_ref(x: torch.Tensor, perm: torch.Tensor,
     ``out[n, i] = x[perm[n, i], i]`` where ``mask[i]``, else ``x[n, i]``."""
     shuffled = torch.gather(x, 0, perm)
     return torch.where(mask[None, :], shuffled, x)
+
+
+def wash_shuffle_many_ref_(xs, perms, masks):
+    """:func:`wash_shuffle_ref` on each leaf ``(xs[i], perms[i],
+    masks[i])``, copied back into ``xs[i]``: the grouped in-place apply.
+    Returns ``xs``."""
+    for x, perm, mask in zip(xs, perms, masks):
+        x.copy_(wash_shuffle_ref(x, perm, mask))
+    return xs
 
 
 def bucketed_shuffle_ref_(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -483,6 +493,65 @@ def selective_scan_ref(u: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
         ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t].float()))
     y = torch.stack(ys, dim=1)
     return y if state is None else (y, h)
+
+
+def selective_scan_segmented_ref(u: torch.Tensor, dt: torch.Tensor,
+                                 Bm: torch.Tensor, Cm: torch.Tensor,
+                                 A: torch.Tensor,
+                                 state: Optional[torch.Tensor] = None,
+                                 segment: int = 16):
+    """:func:`selective_scan_ref` computed as the CUDA forward kernel
+    computes it (T > 1): a plain model of its arithmetic, same contract.
+
+    The sequence is cut into segments of ``segment`` steps, the last padded
+    with dt = u = 0 and B = C = 0 (a = 1: the padding is the identity).
+
+    1. every segment walks at once: segment 0 from the carried state (its
+       y and its end state are the true ones), the others from a zero
+       state, keeping their end ``hloc`` and ``G = exp(A sum dt)`` (one
+       exp, not the product of the steps' decays);
+    2. the hop, in segment order: ``h_in[1]`` is segment 0's end state,
+       ``h_in[k+1] = G_k h_in[k] + hloc_k``;
+    3. segments 1 .. n-1 walk again from ``h_in``, writing y; the last
+       one's end is the final state.
+
+    Nothing is divided and no logarithm taken: a decay that underflows to
+    0 gives ``G = 0`` and an exact hop."""
+    assert segment > 0, segment
+    Bsz, T, DI = u.shape
+    S = A.shape[-1]
+    nseg = -(-T // segment)
+    pad = nseg * segment - T
+
+    def split(x):  # (B, T, W) -> (B, nseg, segment, W), zero-padded
+        x = torch.cat([x.float(), x.new_zeros((Bsz, pad, x.shape[-1]),
+                                              dtype=torch.float32)], 1)
+        return x.reshape(Bsz, nseg, segment, x.shape[-1])
+
+    u_, dt_, B_, C_ = (split(x) for x in (u, dt, Bm, Cm))
+    A_ = A.float()
+
+    def walk(h):  # every segment from h (B, nseg, DI, S): y and the ends
+        ys = []
+        for t in range(segment):
+            dt_t = dt_[:, :, t, :, None]
+            h = (torch.exp(dt_t * A_) * h
+                 + dt_t * B_[:, :, t, None, :] * u_[:, :, t, :, None])
+            ys.append(torch.einsum("bkds,bks->bkd", h, C_[:, :, t]))
+        return torch.stack(ys, 2), h
+
+    start = u_.new_zeros((Bsz, nseg, DI, S))
+    if state is not None:
+        start[:, 0] = state.float()
+    _, ends = walk(start)
+    G = torch.exp(A_ * dt_.sum(2)[..., None])       # (B, nseg, DI, S)
+    h = ends[:, 0]
+    for k in range(1, nseg):
+        start[:, k] = h
+        h = G[:, k] * h + ends[:, k]
+    y, ends = walk(start)
+    y = y.reshape(Bsz, nseg * segment, DI)[:, :T]
+    return y if state is None else (y, ends[:, -1])
 
 
 def selective_scan_bwd_ref(u: torch.Tensor, dt: torch.Tensor,

@@ -10,9 +10,12 @@ hand-written kernel, forward and backward, from ``csrc/selective_scan.cu``
 it), built at first use by ``kernels/build.py``.  Nothing is compiled or
 loaded when this module is imported.
 
-:func:`selective_scan_cuda` is one launch a call, for any T (T = 1 is a
-decode step), from a carried state or from zero, writing the final state
-when asked.  :func:`selective_scan_bwd_cuda` is training's backward, two
+:func:`selective_scan_cuda` is one launch a call, for any T, from a
+carried state or from zero, writing the final state when asked: T = 1 (a
+decode step) runs the step kernel, a longer T the chunked kernel, its
+sequence cut into :func:`forward_segments` segments that walk at once in
+one cluster and hop their ends through distributed shared memory.
+:func:`selective_scan_bwd_cuda` is training's backward, two
 launches a call, counted once a call in :data:`backward_launches`: the
 sequence cut into at most :data:`SEGMENTS` segments of
 :func:`segment_length` steps, one cluster of blocks a (batch, channel
@@ -20,9 +23,10 @@ block) that walks every segment at once and passes the segments' ends
 through distributed shared memory; then a fixed-order reduction of the
 channel blocks' and segments' partial sums.
 ``kernels.ref.selective_scan_ref`` and ``selective_scan_bwd_ref`` are the
-plain versions they are held to; ``selective_scan_bwd_segmented_ref``
-models the backward's arithmetic.  Both take CUDA tensors only; the CPU
-path of ``kernels.ops.selective_scan`` never reaches this module's build.
+plain versions they are held to; ``selective_scan_segmented_ref`` models
+the forward's arithmetic, ``selective_scan_bwd_segmented_ref`` the
+backward's.  Both take CUDA tensors only; the CPU path of
+``kernels.ops.selective_scan`` never reaches this module's build.
 """
 
 from __future__ import annotations
@@ -64,9 +68,16 @@ MAX_SEGMENT = 96 * SSM_BWD_CHUNK
 MAX_BACKWARD_T = SEGMENTS * MAX_SEGMENT
 
 #: the kernels, in the order of ``kernel_attributes``' ``which``: the
-#: forward, then the backward's two launches (the segments, the reduction)
+#: forward, the backward's two launches (the segments, the reduction), the
+#: forward's T = 1 step
 KERNELS = ("selective_scan_fwd_kernel", "selective_scan_bwd_kernel",
-           "selective_scan_bwd_reduce_kernel")
+           "selective_scan_bwd_reduce_kernel", "selective_scan_step_kernel")
+#: the backward's kernels (a call launches both)
+BACKWARD_KERNELS = KERNELS[1:3]
+
+FWD_CHANNELS = 32   # channels a forward block (``kFwdCh``)
+FWD_CHUNK = 32      # steps a forward stage (``kFwdChunk``)
+SMS = 132           # the H100 SXM's streaming multiprocessors
 
 _lib = None
 
@@ -79,7 +90,9 @@ def build() -> ctypes.CDLL:
     lib, build_seconds, build_log = _build.load(SOURCE)
     ci, vp = ctypes.c_int, ctypes.c_void_p
     lib.repro_selective_scan.restype = ci
-    lib.repro_selective_scan.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+    lib.repro_selective_scan.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+    lib.repro_selective_scan_step.restype = ci
+    lib.repro_selective_scan_step.argtypes = [vp] * 8 + [ci] * 3 + [vp]
     lib.repro_selective_scan_bwd.restype = ci
     lib.repro_selective_scan_bwd.argtypes = [vp] * 17 + [ci] * 5 + [vp]
     lib.repro_selective_scan_attributes.restype = ci
@@ -113,6 +126,32 @@ def segment_length(T: int) -> int:
     while n < SEGMENTS and chunks >= 2 * n * MIN_CHUNKS:
         n *= 2
     return SSM_BWD_CHUNK * -(-chunks // n)
+
+
+def forward_segment_length(T: int, nseg: int) -> int:
+    """The forward's segment length for ``nseg`` segments of a T-step
+    sequence: the fewest whole ``FWD_CHUNK``-step chunks that cover T in
+    ``nseg`` segments (``ceil(T / length)`` of them are used)."""
+    chunks = -(-T // FWD_CHUNK)
+    return FWD_CHUNK * -(-chunks // nseg)
+
+
+def forward_segments(B: int, T: int, DI: int) -> int:
+    """The forward's segments for a (B, T, DI) call: the most of 1, 4 and 8
+    whose blocks (a segment of a (batch, 32-channel block) each) fit two
+    an SM, ``2 x SMS``, and no more than T has chunks.  A segment's blocks
+    walk their steps twice, so segments pay only where one segment's
+    blocks leave SMs idle (PERF.md §6: at hymba's prefill, training and
+    train_4k shapes one segment is fastest); two never pay, the second
+    waiting for the first's end.  A T = 1 call runs the step kernel,
+    unsegmented."""
+    blocks = B * -(-DI // FWD_CHANNELS)
+    chunks = -(-T // FWD_CHUNK)
+    best = 1
+    for n in (4, 8):
+        if n * blocks <= 2 * SMS and n <= chunks:
+            best = n
+    return best
 
 
 def segments(T: int, segment: int) -> int:
@@ -183,9 +222,17 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t``, or a copy of it that starts on 16 bytes (a contiguous view
+    into a larger tensor may not): the kernels read A, the states, and at
+    T = 1 B and C, as float4."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                         Cm: torch.Tensor, A: torch.Tensor,
-                        state: Optional[torch.Tensor] = None):
+                        state: Optional[torch.Tensor] = None,
+                        segments: Optional[int] = None):
     """Launch the forward on the current stream; same contract as
     ``kernels.ref.selective_scan_ref``, float32 only.
 
@@ -193,6 +240,8 @@ def selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
       Bm, Cm : (B, T, S) float32, contiguous, S in :data:`STATE_DIMS`
       A      : (DI, S) float32, contiguous
       state  : None, or the initial state (B, DI, S) float32, contiguous
+      segments : T > 1 only: the segments to cut T into, 1 to
+               :data:`SEGMENTS` (default :func:`forward_segments`)
 
     Returns y, a new (B, T, DI) float32 tensor; with a ``state``, ``(y,
     final_state)``, the final state a new tensor."""
@@ -201,10 +250,24 @@ def selective_scan_cuda(u: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                                 () if state is None else (state,))
     y = torch.empty_like(u)
     final = None if state is None else torch.empty_like(state)
-    rc = build().repro_selective_scan(
-        u.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        A.data_ptr(), _ptr(state), _ptr(final), y.data_ptr(), B, T, DI, S,
-        torch.cuda.current_stream(u.device).cuda_stream)
+    A, state = _aligned(A), _aligned(state)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    if T == 1 and segments is None:
+        Bm, Cm = _aligned(Bm), _aligned(Cm)
+        rc = build().repro_selective_scan_step(
+            u.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            A.data_ptr(), _ptr(state), _ptr(final), y.data_ptr(), B, DI, S,
+            stream)
+    else:
+        nseg = forward_segments(B, T, DI) if segments is None else segments
+        _check(1 <= nseg <= SEGMENTS, f"segments={nseg} not in 1.."
+               f"{SEGMENTS}", "selective_scan_cuda")
+        vec = DI % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                  for t in (u, dt, Bm, Cm))
+        rc = build().repro_selective_scan(
+            u.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            A.data_ptr(), _ptr(state), _ptr(final), y.data_ptr(), B, T, DI,
+            S, forward_segment_length(T, nseg), 1 if vec else 0, stream)
     if rc != 0:
         raise RuntimeError(f"selective scan kernel launch failed: CUDA "
                            f"error {rc}")

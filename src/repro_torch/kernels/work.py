@@ -102,9 +102,14 @@ def ssm_work(B: int, T: int, DI: int, S: int, carried: bool,
     return nbytes, SSM_FWD_OPS * elems
 
 
-def shuffle_bytes_dense(n: int, d: int, elt: int, mask_count: int) -> int:
+def shuffle_bytes_dense(n: int, d: int, elt: int, mask_count: int,
+                        in_place: bool = False) -> int:
     """x read and out written once, the mask once, perm only where the
-    mask is set."""
+    mask is set.  ``in_place`` (out is x): only the masked columns change,
+    so only their N values are read and written (with every column masked,
+    the most it could move, both counts agree)."""
+    if in_place:
+        return d + n * mask_count * (2 * elt + 4)
     return 2 * n * d * elt + d + 4 * n * mask_count
 
 

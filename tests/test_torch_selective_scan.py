@@ -224,6 +224,77 @@ def test_segmented_bwd_ref_matches_the_reverse_recurrence(T, segment, carried,
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max()), name
 
 
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 150, 1000])
+@pytest.mark.parametrize("nseg", range(1, 9))
+@pytest.mark.parametrize("variant", ["zero-normal", "carried-extreme"])
+def test_segmented_forward_matches_the_plain_scan(T, nseg, variant):
+    """The model of the CUDA forward (segments walked at once, joined by
+    the hop, walked again) against the step-by-step scan: y and the final
+    state within 1e-4 of max |plain| and finite, from zero or a carried
+    state; with extreme step sizes exp(dt A) reaches an exact 0."""
+    extreme = variant == "carried-extreme"
+    u, dt, Bm, Cm, A, h0, _, _ = _scan_inputs(T + nseg, 2, T, 24,
+                                              extreme=extreme)
+    state = h0 if variant.startswith("carried") else None
+    L = ssk.forward_segment_length(T, nseg)
+    assert L % ssk.FWD_CHUNK == 0 and -(-T // L) <= nseg
+    got = ref.selective_scan_segmented_ref(u, dt, Bm, Cm, A, state,
+                                           segment=L)
+    want = ref.selective_scan_ref(u, dt, Bm, Cm, A, state=state)
+    if state is None:
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    if extreme and T > 1:
+        assert float(torch.exp(dt[..., None] * A).min()) == 0.0
+
+
+@pytest.mark.parametrize("T,nseg", [(7, 1), (33, 3), (64, 4)])
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "carried"])
+def test_segmented_forward_matches_jax_mamba_core(T, nseg, carried,
+                                                  monkeypatch):
+    """The port's ``_mamba_core`` with the route's CPU forward replaced by
+    the model of the CUDA forward, against JAX's ``_mamba_core`` scan
+    (within 1e-4)."""
+    monkeypatch.setattr(ops, "selective_scan_ref", functools.partial(
+        ref.selective_scan_segmented_ref,
+        segment=ssk.forward_segment_length(T, nseg)))
+    jcfg, tcfg = _configs()
+    p, u, h0 = _core_inputs(jcfg, 40 + T, 2, T)
+    if not carried:
+        h0 = np.zeros_like(h0)
+    jy, jh = JSSM._mamba_core(_jtree(p), jcfg, jnp.asarray(u),
+                              jnp.asarray(h0))
+    ty, th = TSSM._mamba_core(params_from_numpy(p, "cpu"), tcfg,
+                              torch.from_numpy(u), torch.from_numpy(h0))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("B,T,DI,want", [
+    (4, 2048, 3200, 1),      # hymba's prefill: 400 blocks fill the card
+    (2, 256, 3200, 1),       # hymba's training shape: 200 blocks
+    (1, 4096, 3200, 1),      # train_4k: 100 blocks, 4 x 100 past two an SM
+    (1, 4096, 128, 8),       # 4 blocks: 8 segments each
+    (1, 2048, 1024, 8),      # 32 blocks: 256 segment blocks, under 264
+    (2, 16, 40, 1),          # one chunk: one segment
+    (2, 96, 40, 1),          # three chunks of 32: fewer than four
+    (2, 128, 40, 4),         # four chunks of 32: four segments
+    (2, 1000, 40, 8)])
+def test_forward_segments_fill_the_card_and_no_more(B, T, DI, want):
+    n = ssk.forward_segments(B, T, DI)
+    assert n == want and n in (1, 4, 8)
+    blocks = B * -(-DI // ssk.FWD_CHANNELS)
+    assert n == 1 or n * blocks <= 2 * ssk.SMS
+    L = ssk.forward_segment_length(T, n)
+    used = -(-T // L)
+    assert L % ssk.FWD_CHUNK == 0 and (used - 1) * L < T <= used * L
+    assert used <= n
+
+
 def test_extreme_step_sizes_stay_finite_through_the_route():
     """dt from 1e-4 to 30 (exp(dt A) down to an exact 0 at A = -16): y,
     the final state and every grad through ``ops.selective_scan`` stay
@@ -326,6 +397,16 @@ def test_segments_cover_the_sequence(T):
     assert n == ssk.SEGMENTS or chunks < 2 * n * ssk.MIN_CHUNKS
     assert n // 2 * L < T <= n * L
     assert ssk.backward_dynamic_shared_bytes(L) == L // 16 * 128 * 16
+
+
+def test_forward_constants_are_the_sources():
+    """The forward's channels a block and steps a stage are the source's;
+    its T = 1 kernel has its own launch bounds."""
+    assert ssk.FWD_CHANNELS == _constant("kFwdCh")
+    assert ssk.FWD_CHUNK == _constant("kFwdChunk")
+    assert ssk.BACKWARD_KERNELS == ("selective_scan_bwd_kernel",
+                                    "selective_scan_bwd_reduce_kernel")
+    assert "selective_scan_step_kernel" in ssk.KERNELS
 
 
 def test_source_adds_no_float_atomics():

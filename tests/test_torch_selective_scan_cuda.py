@@ -15,12 +15,15 @@ carried state; dt the softplus of a normal shifted by -2 (the model's
 to an exact 0); A = -exp(log(1..16) + 0.1 normal).  Tolerance: 1e-4 of
 max |plain| for every output and grad (both keep the state in float32 and
 sum over the states, the channels and time in another order).  The
-forward stages 16 steps at a time and the backward walks 16-step chunks
-in at most 8 segments of at least four chunks (unless one segment), so
-T = 1, 15, 16, 17 and 33 cover ragged, whole and several chunks in one
-segment, T = 150 two segments of 80, T = 300 four, and T = 1000 at full
-width eight of 128, each with a ragged last one; DI = 40 and 3200 a
-ragged and a whole last block of 16 channels.
+backward walks 16-step chunks in at most 8 segments of at least four
+chunks (unless one segment), so T = 1, 15, 16, 17 and 33 cover ragged,
+whole and several chunks in one segment, T = 150 two segments of 80, T =
+300 four, and T = 1000 at full width eight of 128, each with a ragged
+last one; DI = 40 and 3200 a ragged and a whole last block of 16
+channels.  The forward stages 16 steps at a time in blocks of 32
+channels, in 1 to 8 segments (each count is held at four shapes, two
+calls bitwise equal), with no limit on T (32,768); T = 1 runs its step
+kernel.
 """
 
 import numpy as np
@@ -184,3 +187,58 @@ def test_kernel_attributes_report_no_spill(cuda_device):
     for which, name in enumerate(ssk.KERNELS):
         attrs = ssk.kernel_attributes(which)
         assert attrs["registers"] > 0 and attrs["local_bytes"] == 0, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,DI", [(2, 150, 40), (1, 300, 48),
+                                    (2, 1000, 3200), (2, 64, 3200)])
+@pytest.mark.parametrize("nseg", range(1, 9))
+def test_forward_in_any_segment_count(cuda_device, B, T, DI, nseg):
+    """The forward cut into 1 .. 8 segments (a cluster; the segments' ends
+    hopped through distributed shared memory), from a carried state with
+    extreme step sizes: y and the final state within TOL, and two calls
+    bitwise equal."""
+    u, dt, Bm, Cm, A, h0, _, _ = _inputs(cuda_device, B, T, DI, seed=nseg,
+                                         extreme=True)
+    got = ssk.selective_scan_cuda(u, dt, Bm, Cm, A, state=h0, segments=nseg)
+    again = ssk.selective_scan_cuda(u, dt, Bm, Cm, A, state=h0,
+                                    segments=nseg)
+    torch.cuda.synchronize()
+    want = selective_scan_ref(u, dt, Bm, Cm, A, state=h0)
+    for name, g, a, w in zip(("y", "final state"), got, again, want):
+        _close(g, w, name)
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.gpu
+def test_forward_takes_a_long_sequence(cuda_device):
+    """T = 32,768 (no limit on the forward's T): from a carried state,
+    within TOL, two calls bitwise equal."""
+    u, dt, Bm, Cm, A, h0, _, _ = _inputs(cuda_device, 1, 32768, 64, seed=3)
+    got = ssk.selective_scan_cuda(u, dt, Bm, Cm, A, state=h0)
+    again = ssk.selective_scan_cuda(u, dt, Bm, Cm, A, state=h0)
+    torch.cuda.synchronize()
+    want = selective_scan_ref(u, dt, Bm, Cm, A, state=h0)
+    for name, g, a, w in zip(("y", "final state"), got, again, want):
+        _close(g, w, name)
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,DI", [(4, 3200), (3, 40), (1, 7)])
+def test_step_kernel_from_a_carried_state(cuda_device, B, DI):
+    """T = 1 runs the step kernel (one launch): y and the final state
+    within TOL from a carried state; an input off 16 bytes is copied to
+    an aligned one first, not refused."""
+    u, dt, Bm, Cm, A, h0, _, _ = _inputs(cuda_device, B, 1, DI, seed=DI)
+    want = selective_scan_ref(u, dt, Bm, Cm, A, state=h0)
+    n0 = ssk.launches
+    got = ssk.selective_scan_cuda(u, dt, Bm, Cm, A, state=h0)
+    off = torch.empty(h0.numel() + 1, device=cuda_device)[1:].view(h0.shape)
+    off.copy_(h0)
+    shifted = ssk.selective_scan_cuda(u, dt, Bm, Cm, A, state=off)
+    torch.cuda.synchronize()
+    assert ssk.launches == n0 + 2
+    for name, g, s, w in zip(("y", "final state"), got, shifted, want):
+        _close(g, w, name)
+        assert torch.equal(g, s), name

@@ -211,6 +211,48 @@ def test_apply_plan_stacked_on_jax_plans_bitwise(mode, dtype):
         assert torch.is_tensor(sent) and sent.dtype == torch.float64
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_apply_is_in_place_and_one_call_a_tree(dtype, monkeypatch):
+    """WASH+Opt's dense step: the plan applied to the params and then to
+    each moment tree (AdamW's mu and nu) through ``apply_plan_stacked``,
+    in place, one ``ops.wash_shuffle_many_`` call a tree, every leaf
+    bitwise JAX's ``apply_plan_stacked`` on the same arrays."""
+    from repro_torch.kernels import ops
+
+    cfg, jpopn = _jax_population(dtype)
+    lids = jli.infer_layer_ids(jax.tree_util.tree_map(lambda x: x[0], jpopn),
+                               cfg.num_layers)
+    plan = jshf.make_plan(jax.random.key(4), jpopn, lids,
+                          jli.total_layers(cfg.num_layers), 0.4, mode="dense")
+    rng = np.random.default_rng(5)
+    jmoments = [jax.tree_util.tree_map(
+        lambda x: jnp.asarray(rng.standard_normal(x.shape), jnp.float32),
+        jpopn) for _ in range(2)]
+    tplan = _to_torch_plan(plan)
+    calls = []
+    route = ops.wash_shuffle_many_
+
+    def counted(xs, perms, masks):
+        calls.append(len(xs))
+        return route(xs, perms, masks)
+
+    monkeypatch.setattr(ops, "wash_shuffle_many_", counted)
+    planned = sum(p is not None for p in jax.tree_util.tree_leaves(
+        plan, is_leaf=lambda x: x is None or isinstance(x, tuple)))
+    for jtree in [jpopn] + jmoments:
+        want = jshf.apply_plan_stacked(plan, jtree, "dense")
+        ttree = params_from_numpy(jax.tree_util.tree_map(np.asarray, jtree),
+                                  "cpu")
+        storages = [t.data_ptr() for t in pop.tree_leaves(ttree)]
+        shf.apply_plan_stacked(tplan, ttree, "dense")
+        assert [t.data_ptr() for t in pop.tree_leaves(ttree)] == storages
+        for (path, g), w in zip(pop.tree_paths(ttree),
+                                jax.tree_util.tree_leaves(want)):
+            np.testing.assert_array_equal(_bits(g), _bits(w),
+                                          err_msg=str(path))
+    assert calls == [planned] * 3
+
+
 def test_functional_applies_leave_the_leaf():
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((N, 4, 5)).astype(np.float32))

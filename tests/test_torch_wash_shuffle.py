@@ -139,3 +139,115 @@ def test_routes_refuse_other_devices():
     assert out.device.type == "meta" and out.shape == m.shape
     assert ops.bucketed_shuffle_(m, torch.empty(
         2, 1, dtype=torch.int32, device="meta")) is m
+
+
+# ---------------------------------------------------------------------------
+# the grouped dense apply (one launch a word size on the card)
+# ---------------------------------------------------------------------------
+
+WIDTHS = (1, 7, 64, 1000, 4099)  # vector-path and scalar-path leaves mixed
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("n", [2, 3, 16])
+def test_grouped_plain_route_matches_jax_kernel_bitwise(n, dtype):
+    """``ops.wash_shuffle_many_`` on CPU tensors, in place, leaf by leaf
+    against JAX's ``wash_shuffle_pallas`` (interpret mode, as the JAX
+    tests run it) on the same numpy draws."""
+    rng = np.random.default_rng(100 + n)
+    xs, perms, masks, wants = [], [], [], []
+    for d in WIDTHS:
+        x = jnp.asarray(rng.standard_normal((n, d)).astype(np.float32),
+                        DTYPES[dtype])
+        perm = np.argsort(rng.random((n, d)), axis=0).astype(np.int32)
+        mask = rng.random(d) < 0.4
+        wants.append(jops.wash_shuffle(x, jnp.asarray(perm),
+                                       jnp.asarray(mask), block_d=256))
+        xs.append(tensor_from_numpy(np.asarray(x), "cpu"))
+        perms.append(torch.from_numpy(perm))
+        masks.append(torch.from_numpy(mask))
+    views = [x.view(x.shape) for x in xs]  # the route writes through them
+    assert ops.wash_shuffle_many_(views, perms, masks) is views
+    for d, x, want in zip(WIDTHS, xs, wants):
+        np.testing.assert_array_equal(_bits(x), _bits(want), err_msg=str(d))
+
+
+def test_launch_tables_group_by_word_size():
+    """The table packing: leaves grouped by word size in the order each
+    size first appears, at most MAX_LEAVES a launch in call order, each
+    leaf's first block the blocks of those before it in its launch (a
+    vector of 16 bytes or a column a thread), no place for an empty leaf."""
+    T = ws.THREADS
+    leaves = [(4, 4096, True), (2, 4096, True), (4, 7, False),
+              (2, 0, True), (4, 1000, True), (2, 4099, False)]
+    got = ws.plan_launches(leaves)
+    assert got == [
+        ws.Launch(4, (0, 2, 4), (0, 4, 5), 4 + 1 + 1),
+        ws.Launch(2, (1, 5), (0, 2), 2 + -(-4099 // T))]
+    assert ws.leaf_blocks(4, 4096, True) == 4096 // 4 // T
+    assert ws.leaf_blocks(2, 4096, True) == 4096 // 8 // T
+    assert ws.leaf_blocks(4, 4096, False) == 4096 // T
+    many = ws.plan_launches([(4, 64, True)] * (2 * ws.MAX_LEAVES + 3))
+    assert [len(ln.leaves) for ln in many] == [ws.MAX_LEAVES] * 2 + [3]
+    assert many[1].leaves[0] == ws.MAX_LEAVES
+    assert all(ln.first_blocks == tuple(range(len(ln.leaves)))
+               for ln in many)
+    assert ws.plan_launches([]) == []
+
+
+@pytest.mark.parametrize("elt,d,ptrs,vector", [
+    (4, 1024, (0, 0, 0, 0), True),
+    (2, 1024, (16, 32, 48, 8), True),
+    (4, 1020, (0, 0, 0, 4), True),
+    (4, 1022, (0, 0, 0, 0), False),   # rows off 16 bytes after the first
+    (2, 1028, (0, 0, 0, 0), False),   # 1028 bf16 words: not whole vectors
+    (4, 1024, (0, 4, 0, 0), False),   # x off 16 bytes
+    (4, 1024, (0, 0, 0, 2), False),   # the mask's word off 4 bytes
+    (2, 1024, (0, 0, 0, 4), False),   # the mask's word off 8 bytes
+    (4, 1024, (0, 0, 4, 0), False)])  # perm off 16 bytes
+def test_vector_path_needs_rows_on_16_bytes(elt, d, ptrs, vector):
+    assert ws.takes_vector_path(elt, d, *ptrs) is vector
+
+
+def test_grouped_cpu_route_never_reaches_the_kernel(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU route reached the CUDA kernel")
+
+    for name in ("build", "wash_shuffle_many_cuda_"):
+        monkeypatch.setattr(ws, name, refuse)
+    counts = (ws.wash_launches, ws.wash_leaves)
+    x, perm, mask = _dense_inputs(3, jnp.float32, seed=4)
+    tx = torch.from_numpy(np.array(x))
+    want = ref.wash_shuffle_ref(tx, torch.from_numpy(perm),
+                                torch.from_numpy(mask))
+    ops.wash_shuffle_many_([tx], [torch.from_numpy(perm)],
+                           [torch.from_numpy(mask)])
+    assert torch.equal(tx, want)
+    assert (ws.wash_launches, ws.wash_leaves) == counts and ws._lib is None
+    assert ops.wash_shuffle_many_([], [], []) == []
+
+
+def test_grouped_meta_route_reports_the_sum_of_its_leaves():
+    from repro_torch.kernels import work
+
+    seen = []
+    ops.work_counters.append(lambda *a: seen.append(a))
+    try:
+        xs = [torch.empty(3, d, dtype=dt, device="meta")
+              for d, dt in ((50, torch.bfloat16), (7, torch.float32))]
+        out = ops.wash_shuffle_many_(
+            xs, [torch.empty(x.shape, dtype=torch.int32, device="meta")
+                 for x in xs],
+            [torch.empty(x.shape[1], dtype=torch.bool, device="meta")
+             for x in xs])
+    finally:
+        ops.work_counters.pop()
+    assert out is xs
+    nbytes = (work.shuffle_bytes_dense(3, 50, 2, 50, in_place=True)
+              + work.shuffle_bytes_dense(3, 7, 4, 7, in_place=True))
+    assert seen == [("wash_shuffle", nbytes, 0)]
+    # every column masked: in place moves what out of place does
+    assert work.shuffle_bytes_dense(3, 50, 2, 50, in_place=True) == \
+        work.shuffle_bytes_dense(3, 50, 2, 50)
+    assert work.shuffle_bytes_dense(3, 50, 2, 5, in_place=True) == \
+        50 + 3 * 5 * (2 * 2 + 4)

@@ -10,7 +10,10 @@ hence ``--noconftest``):
 Without a card every test here skips.  Tolerance: none.  Both kernels are
 pure data movement, so their results are compared bit for bit with the
 plain versions (float32, bfloat16, float16), including a leaf of more
-than 2**31 elements, where 32-bit offsets would wrap.
+than 2**31 elements, where 32-bit offsets would wrap.  The dense kernel
+is also held grouped and in place: leaves of mixed widths and word sizes
+in one call (vector path, scalar path), a leaf off 16 bytes, more leaves
+than one launch takes.
 """
 
 import subprocess
@@ -137,11 +140,13 @@ def test_apply_plan_stacked_on_the_card_matches_the_cpu(cuda_device, mode):
                          else v.cpu()) for kk, v in d.items()}
                 for k, d in plan.items()}
     cpu_tree = {k: {kk: v.cpu() for kk, v in d.items()} for k, d in tree.items()}
-    counts = (ws.wash_launches, ws.bucketed_launches)
+    counts = (ws.wash_launches, ws.bucketed_launches, ws.wash_leaves)
     shf.apply_plan_stacked(plan, tree, mode)
     shf.apply_plan_stacked(cpu_plan, cpu_tree, mode)
     launched = (ws.wash_launches - counts[0], ws.bucketed_launches - counts[1])
-    assert launched == ((2, 0) if mode == "dense" else (0, 2))
+    # dense: both bf16 leaves in one launch, in place
+    assert launched == ((1, 0) if mode == "dense" else (0, 2))
+    assert ws.wash_leaves - counts[2] == (2 if mode == "dense" else 0)
     for k in tree:
         for kk in tree[k]:
             assert torch.equal(tree[k][kk].cpu(), cpu_tree[k][kk])
@@ -194,3 +199,110 @@ def test_a_plan_entry_out_of_range_fails_the_launch(cuda_device, bucketed):
     assert proc.returncode != 0, proc.stdout
     assert "no error" not in proc.stdout
     assert "CUDA error" in proc.stderr, proc.stderr[-2000:]
+
+
+def _grouped(device, dtypes, widths, n, seed):
+    """Leaves of every (dtype, width), their dense plans, and the plain
+    version's result for each (computed before the in-place call)."""
+    xs, perms, masks, wants = [], [], [], []
+    for i, (dtype, d) in enumerate((dt, d) for dt in dtypes for d in widths):
+        x = _leaf(n, d, dtype, device, seed=seed + i)
+        perm, mask = shf.dense_plan(seed + i, (d,), n, 0.3, device)
+        xs.append(x)
+        perms.append(perm)
+        masks.append(mask)
+        wants.append(ref.wash_shuffle_ref(x, perm, mask))
+    return xs, perms, masks, wants
+
+
+def _bitwise(a, b) -> bool:
+    bits = torch.int32 if a.element_size() == 4 else torch.int16
+    return torch.equal(a.view(bits), b.view(bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 3, 16])
+def test_grouped_in_place_is_bitwise_the_plain_version(cuda_device, n):
+    """One call, leaves of 1 .. 100,003 columns in f32, bf16 and f16: the
+    vector path (whole 16-byte rows) and the scalar path (7, 4099, D) in
+    one launch a word size (f16 and bf16 are both 2-byte words), each leaf
+    shuffled where it lies."""
+    widths = (1, 7, 64, 1000, 4099, 4096, D)
+    xs, perms, masks, wants = _grouped(cuda_device, DTYPES, widths, n, 10)
+    ptrs = [x.data_ptr() for x in xs]
+    n0 = (ws.wash_launches, ws.wash_leaves)
+    ops.wash_shuffle_many_(xs, perms, masks)
+    torch.cuda.synchronize()
+    assert (ws.wash_launches - n0[0], ws.wash_leaves - n0[1]) == \
+        (2, len(xs))
+    assert [x.data_ptr() for x in xs] == ptrs
+    for x, want in zip(xs, wants):
+        assert _bitwise(x, want), (x.dtype, x.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_a_leaf_off_16_bytes_takes_the_scalar_path(cuda_device, dtype):
+    """A contiguous (N, D) view one element into its storage (x, and the
+    plan's perm and mask likewise): every row off 16 bytes."""
+    n, d = 3, 4096
+    base = _leaf(1, n * d + 1, dtype, cuda_device, seed=5)[0]
+    x = base[1:].view(n, d)
+    perm0, mask0 = shf.dense_plan(6, (d,), n, 0.3, cuda_device)
+    perm = torch.empty(n * d + 1, dtype=torch.int32,
+                       device=cuda_device)[1:].view(n, d)
+    perm.copy_(perm0)
+    mask = torch.empty(d + 1, dtype=torch.bool, device=cuda_device)[1:]
+    mask.copy_(mask0)
+    assert not ws.takes_vector_path(x.element_size(), d, x.data_ptr(),
+                                    x.data_ptr(), perm.data_ptr(),
+                                    mask.data_ptr())
+    want = ref.wash_shuffle_ref(x, perm, mask)
+    out = ws.wash_shuffle_cuda(x, perm, mask)
+    ws.wash_shuffle_many_cuda_([x], [perm], [mask])
+    torch.cuda.synchronize()
+    assert _bitwise(out, want) and _bitwise(x, want)
+
+
+@pytest.mark.gpu
+def test_more_leaves_than_a_launch_takes(cuda_device):
+    """2 x MAX_LEAVES + 5 f32 leaves: three launches, every leaf bitwise."""
+    count = 2 * ws.MAX_LEAVES + 5
+    widths = [64 * (1 + i % 5) + (i % 3) for i in range(count)]
+    xs, perms, masks, wants = [], [], [], []
+    for i, d in enumerate(widths):
+        got = _grouped(cuda_device, [torch.float32], [d], 4, 100 + i)
+        for acc, item in zip((xs, perms, masks, wants), got):
+            acc.extend(item)
+    n0 = (ws.wash_launches, ws.wash_leaves)
+    ws.wash_shuffle_many_cuda_(xs, perms, masks)
+    torch.cuda.synchronize()
+    assert (ws.wash_launches - n0[0], ws.wash_leaves - n0[1]) == (3, count)
+    assert all(_bitwise(x, w) for x, w in zip(xs, wants))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_in_place_equals_out_of_place(cuda_device, dtype):
+    """The same leaf shuffled into a new tensor and where it lies (out is
+    x): the same bits, and in place the unmasked columns are untouched."""
+    x = _leaf(8, D, dtype, cuda_device, seed=7)
+    perm, mask = _dense_plan(8, D, cuda_device, seed=8)
+    before = x.clone()
+    out = ws.wash_shuffle_cuda(x, perm, mask)
+    torch.cuda.synchronize()
+    assert _bitwise(x, before)  # out of place leaves x
+    ws.wash_shuffle_many_cuda_([x], [perm], [mask])
+    torch.cuda.synchronize()
+    assert _bitwise(x, out)
+    assert _bitwise(x[:, ~mask].contiguous(), before[:, ~mask].contiguous())
+
+
+@pytest.mark.gpu
+def test_dense_kernel_attributes_report_no_spill(cuda_device):
+    for elt in (2, 4):
+        for rows in (2, 4, 8, 16):
+            attrs = ws.kernel_attributes(elt, rows)
+            assert attrs["registers"] > 0 and attrs["local_bytes"] == 0, \
+                (elt, rows)
+            assert attrs["param_bytes"] <= 4096
